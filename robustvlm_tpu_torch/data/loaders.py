@@ -1,8 +1,11 @@
-"""Host-side evaluation data: synthetic images and CIFAR-10.
+"""Host-side evaluation data: the image transform, synthetic images and
+CIFAR-10.
 
-Counterpart of `SyntheticClassificationDataset` and `load_cifar10` in
-`robustvlm_tpu/data/loaders.py`. Images are float32 NCHW in [0,1], without
-CLIP normalization (normalization happens inside the model).
+Counterpart of `default_image_transform` (its PIL path; the native C++
+pipeline comes with training, ROADMAP A7), `SyntheticClassificationDataset`
+and `load_cifar10` in `robustvlm_tpu/data/loaders.py`. Images are float32
+NCHW in [0,1], without CLIP normalization (normalization happens inside the
+model).
 """
 
 from __future__ import annotations
@@ -12,6 +15,25 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+
+def default_image_transform(size: int = 224):
+    """Resize(size, bicubic) + CenterCrop(size) + [0,1] float CHW: the
+    reference preprocessing minus Normalize, through PIL."""
+    from PIL import Image
+
+    def tf(img) -> np.ndarray:
+        if img.mode != "RGB":
+            img = img.convert("RGB")
+        w, h = img.size
+        short = min(w, h)
+        nw, nh = round(w * size / short), round(h * size / short)
+        img = img.resize((nw, nh), Image.BICUBIC)
+        left, top = (nw - size) // 2, (nh - size) // 2
+        img = img.crop((left, top, left + size, top + size))
+        return (np.asarray(img, np.float32) / 255.0).transpose(2, 0, 1)
+
+    return tf
 
 
 class SyntheticClassificationDataset:

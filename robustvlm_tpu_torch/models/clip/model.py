@@ -9,8 +9,9 @@ the JAX package's parameter names and layouts (linear weights stored
 - LayerNorm keeps float32 statistics whatever the activation dtype.
 - The patch embedding is a reshape plus one matmul, not a convolution (a
   convolution would go through cuDNN).
-- Non-causal vision attention goes through the port's `vit_attention`
-  (CUDA kernels on the card).
+- Non-causal vision attention goes through the port's `vit_attention`,
+  causal text attention through its `flash_attention` (CUDA kernels on the
+  card for both), as the JAX `flash=True` branch routes them.
 - The weights are frozen (`requires_grad_(False)`): the attacks
   differentiate with respect to pixels only, so autograd computes no
   weight gradients.
@@ -20,12 +21,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from robustvlm_tpu_torch.ops.kernels.vit_attention import vit_attention
 
 
@@ -138,32 +140,19 @@ class Attention(nn.Module):
         self.out_w = nn.Parameter(torch.zeros(width, width))
         self.out_b = nn.Parameter(torch.zeros(width))
 
-    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
         b, n, w = x.shape
         hd = w // self.heads
         cd = x.dtype
         qkv = x @ self.qkv_w.to(cd) + self.qkv_b.to(cd)
-        q, k, v = qkv.split(w, dim=-1)
-        if attn_mask is None:
-            # non-causal vision attention: the port's kernel on the card
-            def heads_split(t):
-                return t.reshape(b, n, self.heads, hd).transpose(1, 2)
 
-            out = vit_attention(heads_split(q), heads_split(k), heads_split(v))
-            out = out.transpose(1, 2).reshape(b, n, w)
-        else:
-            # Causal text attention stays plain torch: it is the JAX default
-            # einsum path (model.py:221-228), it runs once per class set,
-            # and no kernel serves it in this slice (the flash_attention
-            # kernel is still to be ported).
-            q = q.reshape(b, n, self.heads, hd)
-            k = k.reshape(b, n, self.heads, hd)
-            v = v.reshape(b, n, self.heads, hd)
-            scale = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(cd)
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / scale
-            scores = scores + attn_mask
-            probs = torch.softmax(scores.float(), dim=-1).to(cd)
-            out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, n, w)
+        def heads_split(t):
+            return t.reshape(b, n, self.heads, hd).transpose(1, 2)
+
+        q, k, v = (heads_split(t) for t in qkv.split(w, dim=-1))
+        # the CLIP text mask only ever encodes causality (JAX model.py:190-207)
+        out = flash_attention(q, k, v, causal=True) if causal else vit_attention(q, k, v)
+        out = out.transpose(1, 2).reshape(b, n, w)
         return out @ self.out_w.to(cd) + self.out_b.to(cd)
 
 
@@ -185,8 +174,8 @@ class Block(nn.Module):
         self.mlp = MLP(tcfg.width, int(tcfg.width * tcfg.mlp_ratio))
         self.act = quick_gelu if quick else F.gelu  # F.gelu is the exact (erf) GELU
 
-    def forward(self, x, attn_mask=None):
-        x = x + self.attn(self.ln_1(x), attn_mask)
+    def forward(self, x, causal: bool = False):
+        x = x + self.attn(self.ln_1(x), causal)
         cd = x.dtype
         m = self.mlp
         h = self.act(self.ln_2(x) @ m.fc_w.to(cd) + m.fc_b.to(cd))
@@ -243,9 +232,8 @@ class TextTower(nn.Module):
         x = self.token_embedding[tokens].to(cd)
         t = x.shape[1]
         x = x + self.positional_embedding[:t].to(cd)
-        causal = torch.triu(torch.full((t, t), -math.inf, dtype=cd, device=x.device), diagonal=1)
         for blk in self.blocks:
-            x = blk(x, causal)
+            x = blk(x, causal=True)
         x = self.ln_final(x)
         eot = tokens.argmax(dim=-1)
         x = x[torch.arange(x.shape[0], device=x.device), eot]

@@ -2,8 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
 `build/kernels/<name>-<hash>.so` at the repository root, at first use. The
-hash covers the source and the flags, so an edited kernel is rebuilt and a
-built one is reused. `build_all` starts one nvcc per source, all at once.
+hash covers the source, the headers of `csrc/` it may include and the
+flags, so an edited kernel or header is rebuilt and a built one is reused.
+`build_all` starts one nvcc per source, all at once; `build_variants` does
+the same for edited copies of a source (the tuning sweeps).
 
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU has no nvcc.
@@ -24,7 +26,7 @@ from typing import Dict, Sequence
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-KERNELS = ("attack_step", "vit_attention")
+KERNELS = ("attack_step", "vit_attention", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -48,8 +50,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -83,6 +88,28 @@ def build_all(names: Sequence[str] = KERNELS) -> Dict[str, float]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return secs
+
+
+def build_variants(sources: Dict[object, str], out_dir: Path, prefix: str) -> Dict[object, tuple]:
+    """Compile edited copies of a `csrc/` source, one nvcc process each, all
+    started together, into `out_dir/<prefix>_<i>.so`; `csrc/` is on the
+    include path, so the copies find its headers. Returns {key: (loaded
+    library, nvcc's output)}. Raises with nvcc's output on failure."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (key, src) in enumerate(sources.items()):
+        cu, so = out_dir / f"{prefix}_{i}.cu", out_dir / f"{prefix}_{i}.so"
+        cu.write_text(src)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(so), str(cu)]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), so)
+    built = {}
+    for key, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {key}:\n{log}")
+        built[key] = (ctypes.CDLL(str(so)), log)
+    return built
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -15,10 +15,8 @@ compiler's spill report. Then the card's name and power limit. Needs a GPU.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -33,29 +31,20 @@ def build(variants):
     from robustvlm_tpu_torch.ops.kernels import _build, vit_attention
 
     src = (_build.CSRC / "vit_attention.cu").read_text()
-    out = ROOT / "build" / "sweep"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    sources = {}
     for tpr, chunk in variants:
         s = re.sub(r"constexpr int kTpr = \d+;", f"constexpr int kTpr = {tpr};", src)
-        s = re.sub(r"constexpr int kChunk = \d+;", f"constexpr int kChunk = {chunk};", s)
-        cu, so = out / f"va_{tpr}_{chunk}.cu", out / f"va_{tpr}_{chunk}.so"
-        cu.write_text(s)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)]
-        procs[(tpr, chunk)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True), so)
+        sources[(tpr, chunk)] = re.sub(r"constexpr int kChunk = \d+;",
+                                       f"constexpr int kChunk = {chunk};", s)
     libs = {}
-    for key, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for kTpr, kChunk = {key}:\n{log}")
+    for key, (lib, log) in _build.build_variants(sources, ROOT / "build" / "sweep", "va").items():
         lines = log.splitlines()
         spills = {}
         for i, ln in enumerate(lines):
             m = re.search(r"(fwd|bwd_dq|bwd_dkv)_fma_kernelILi64", ln)
             if m and "Compiling entry" in ln:
                 spills[m.group(1)] = next(x.strip() for x in lines[i + 1:] if "spill" in x)
-        libs[key] = (vit_attention.bind(ctypes.CDLL(str(so))), spills)
+        libs[key] = (vit_attention.bind(lib), spills)
     return libs
 
 

@@ -88,6 +88,26 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         vit_attention._check_cuda(q, torch.zeros(q.numel() + 1)[1:].view(q.shape), q)
     vit_attention._check_cuda(q, q, q)
 
+    from robustvlm_tpu_torch.ops.kernels import flash_attention
+
+    kv = torch.zeros(4, 30, 128)
+    qf = torch.zeros(4, 10, 128)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention._check_cuda(torch.zeros(4, 10, 80), torch.zeros(4, 30, 80), torch.zeros(4, 30, 80))
+    with pytest.raises(TypeError):
+        flash_attention._check_cuda(qf.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="disagree"):
+        flash_attention._check_cuda(qf, torch.zeros(3, 30, 128), torch.zeros(3, 30, 128))
+    with pytest.raises(ValueError, match="one shape"):
+        flash_attention._check_cuda(qf, kv, torch.zeros(4, 31, 128))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention._check_cuda(qf, kv, kv.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="slopes"):
+        flash_attention._check_cuda(qf, kv, kv, slopes=torch.zeros(4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="empty"):
+        flash_attention._check_cuda(torch.zeros(4, 0, 128), kv, kv)
+    flash_attention._check_cuda(qf, kv, kv, qf, qf, slopes=torch.zeros(4))
+
 
 def test_chip_smoke_fails_without_cuda_or_package(tmp_path):
     """chip_smoke.py exits non-zero and prints no result without a GPU, and
