@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. build    - nvcc builds every kernel of csrc/, one process per source;
   2. kernels  - each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes, with times and bounds; planted
-                faults show that the attention checks can fail;
+                faults show that the attention and q4_matmul checks can fail;
   3. reference - ViT-B/32 logits and pixel gradient through the kernels
                 on the card against the plain path on the CPU;
   4. main     - `robustbench.main` (the CLI entry point) at CLIP ViT-L/14
@@ -26,7 +26,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   8. llava_ensemble - the CLI's ensemble schedule at LLaVA-1.5-7B full width
                 with both precisions' models held together, every stage
                 run (its last in float32), with peak memory, the float32
-                stage's launches and the ms of one float32 loss and gradient.
+                stage's launches and the ms of one float32 loss and gradient;
+  9. serve    - the model worker (`build_worker`, its CLI's path) at
+                LLaVA-1.5-7B full width with int4 LM weights behind the
+                port's controller on local ports: captions, VQA, a stream,
+                the shift body and a batch-4 micro-batch over HTTP, with ms
+                per decode step, tokens/s, held and peak memory, launches,
+                and one decode step's logits through the kernel against the
+                kernel's plain version.
 Then the `kernels` JSON line, the card's name and power limit as nvidia-smi
 reports them, and last the device line. Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -88,6 +95,34 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(fn, iters: int = 24, replays: int = 5) -> float:
+    """Mean device time of fn() from a CUDA graph of `iters` calls, replayed:
+    no host time between launches, which `time_ms` would measure instead for
+    a kernel shorter than the Python call that launches it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def peaks_for(name: str) -> dict:
@@ -451,34 +486,136 @@ def check_flash(peaks: dict) -> list:
     return results
 
 
-def q4_matmul_bound(peaks: dict) -> dict:
-    """The bound of the still-to-port `q4_matmul` (ops/pallas/q4_matmul.py:168)
-    at a LLaVA-7B decode step's MLP up-projection: x (8, 4096) bf16 times a
-    half-split packed int4 weight, uint8 (2048, 11008), float32 group-128
-    scales (32, 1, 11008); output (8, 11008) bf16; bf16 tensor-core peak."""
-    b, k, n, group = 8, 4096, 11008, 128
-    n_bytes = b * k * 2 + (k // 2) * n + (k // group) * n * 4 + b * n * 2
-    bnd, by = bound_ms(n_bytes, 2 * b * k * n, "bfloat16", peaks)
-    return {"phase": "bounds", "kernel": "q4_matmul", "status": "to port",
-            "replaces": "robustvlm_tpu/ops/pallas/q4_matmul.py:168",
-            "shape": {"x": [b, k], "packed": [k // 2, n], "scales": [k // group, 1, n]},
-            "bytes": n_bytes, "flops": 2 * b * k * n, "bound_ms": bnd, "bound_by": by}
+# q4_matmul at the LLaVA-1.5-7B decode step's weights: (K, N) and the number
+# of launches of each in one step (32 layers x wq/wk/wv/wo, w_gate/w_up,
+# w_down; the LM head), batches 1, 4 (the batcher's) and 32 (the most the
+# kernel takes). Limits as tests/test_torch_q4_matmul.py: bf16 x within
+# 2^-7 |ref| + 1e-5 max|ref| per element, float32 x within 1e-5 max|ref|.
+Q4_SHAPES = ((4096, 4096, 128), (4096, 11008, 64), (11008, 4096, 32), (4096, 32000, 1))
+Q4_BATCHES = (1, 4, 32)
+Q4_GROUP = 128
+L2_BYTES = 50 * 2**20  # H100 L2: timing cycles through more weight copies than this
+
+
+def _q4_within(got, ref, dname: str):
+    import torch
+
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    top = float(r.abs().max())
+    if dname == "float32":
+        return float(diff.max()), bool(diff.max() <= 1e-5 * top)
+    return float(diff.max()), bool((diff <= 2.0 ** -7 * r.abs() + 1e-5 * top).all())
+
+
+def _rotating(make, n_bytes: int) -> list:
+    """Enough copies of a weight that cycling through them reads each from
+    device memory, as a decode step does (every weight once per step)."""
+    return [make() for _ in range(max(2, -(-2 * L2_BYTES // n_bytes)))]
+
+
+def check_q4_matmul(peaks: dict) -> list:
+    """Both bodies of the q4_matmul kernel against their plain version at
+    every 7B decode shape and batch (and one float32-x case), bitwise
+    repeatable, with two planted faults at the MLP up-projection; times
+    against bound, plain version and a bf16 torch.matmul of the same x
+    against the weight held in bf16 (a yardstick of a different function:
+    the unquantized decode's read). The kernel and the yardstick are timed
+    by CUDA-graph replay (device time), each launch reading its weight from
+    device memory; `ms_eager_back_to_back` is the same launch from Python in
+    a loop, which the host paces. One row per body: a batch-1 decode step,
+    each term summed over its 225 launches."""
+    import torch
+
+    from robustvlm_tpu_torch.ops.kernels import q4_matmul as Q
+    from robustvlm_tpu_torch.ops.quant import quantize_q4
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for body in ("group", "shift"):
+        group = body == "group"
+        step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "yardstick_bf16_matmul_ms": 0.0}
+        worst = 0.0
+        for k, n, count in Q4_SHAPES:
+            w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+            qw = quantize_q4(w, group_size=Q4_GROUP)
+            p, s = qw.p, qw.s
+            w16 = w.to(torch.bfloat16)
+            del w, qw
+            copies = _rotating(lambda: (p.clone(), s.clone()), p.numel() + s.numel() * 4)
+            w16s = _rotating(w16.clone, w16.numel() * 2)
+            cases = [(b, torch.bfloat16) for b in Q4_BATCHES]
+            if (k, n) == (4096, 11008):
+                cases.append((4, torch.float32))
+            for b, dtype in cases:
+                dname = str(dtype).split(".")[-1]
+                x = (torch.randn(b, k, generator=gen, device=dev) * 0.5).to(dtype)
+                got = Q.q4_matmul_cuda(x, p, s, group=group)
+                again = Q.q4_matmul_cuda(x, p, s, group=group)
+                ref = Q.q4_matmul_reference(x, p, s, group=group)
+                torch.cuda.synchronize()
+                err, ok = _q4_within(got, ref, dname)
+                repeatable = torch.equal(got, again)
+                line = {"phase": "kernels", "kernel": "q4_matmul", "body": body, "dtype": dname,
+                        "shape": {"x": [b, k], "packed": [k // 2, n], "scales": list(s.shape)},
+                        "max_abs_err": err, "within": ok, "bitwise_repeatable": repeatable}
+                if (k, n, b, dtype) == (4096, 11008, 4, torch.bfloat16):
+                    swapped = Q.q4_matmul_reference(x, (p >> 4) | (p << 4), s, group=group)
+                    shifted = s.clone()
+                    shifted[1] = s[2]
+                    faults = {"nibbles_swapped": swapped,
+                              "group_1_takes_group_2_scales": Q.q4_matmul_reference(x, p, shifted, group=group)}
+                    line["controls_caught"] = {f: not _q4_within(got, r, dname)[1] for f, r in faults.items()}
+                    ok = ok and all(line["controls_caught"].values())
+                it = iter(range(10**9))
+                ms = time_graph_ms(lambda: Q.q4_matmul_cuda(x, *copies[next(it) % len(copies)],
+                                                            group=group))
+                plain_ms = time_ms(lambda: Q.q4_matmul_reference(x, p, s, group=group), iters=3, warmup=1)
+                xb = x.to(torch.bfloat16)
+                yard = time_graph_ms(lambda: torch.matmul(xb, w16s[next(it) % len(w16s)]))
+                host_ms = time_ms(lambda: Q.q4_matmul_cuda(x, p, s, group=group), iters=60)
+                n_bytes = b * k * x.element_size() + p.numel() + s.numel() * 4 + b * n * x.element_size()
+                bnd, by = bound_ms(n_bytes, 2 * b * k * n, "bfloat16", peaks)
+                line.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                             "yardstick_bf16_matmul_ms": yard, "ms_eager_back_to_back": host_ms,
+                             "launches_per_7b_step": count, "ok": ok and repeatable})
+                emit(line)
+                if not (ok and repeatable):
+                    raise AssertionError(f"q4_matmul {body} {dname} x {b}x{k}, W {k}x{n}: disagrees, "
+                                         "is not repeatable, or a planted fault passed the check")
+                worst = max(worst, err)
+                if b == 1:
+                    for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bnd),
+                                   ("yardstick_bf16_matmul_ms", yard)):
+                        step[key] += count * v
+            del copies, w16s, p, s, w16
+            torch.cuda.empty_cache()
+        rows.append({"name": f"q4_matmul[{body}]", "route": "cuda",
+                     "source": "robustvlm_tpu_torch/csrc/q4_matmul.cu",
+                     "replaces": "robustvlm_tpu/ops/pallas/q4_matmul.py:168 ("
+                                 + ("_kernel_group :103" if group else "_kernel :66, Q4_KERNEL=shift") + ")",
+                     "dtype": "bfloat16", "counter": f"q4_matmul_{body}",
+                     "shape": "LLaVA-1.5-7B decode step at batch 1: 225 launches, 32 x (4 x 4096x4096, "
+                              "2 x 4096x11008, 11008x4096) + 4096x32000, group 128; each time summed",
+                     "max_abs_err": worst, **step, "bound_by": "bytes", "library_ms": None})
+    return rows
 
 
 def phase_kernels(peaks: dict) -> list:
-    emit(q4_matmul_bound(peaks))
     rows = [check_linf_step(peaks)]
     emit({"phase": "kernels", "kernel": "linf_step", "ok": True,
           "bitwise_equal": True, "shape": list(LINF_SHAPE)})
     rows += check_attention(peaks)
     rows += check_flash(peaks)
+    rows += check_q4_matmul(peaks)
     return rows
 
 
 def _counters() -> list:
-    from robustvlm_tpu_torch.ops.kernels import attack_step, flash_attention, vit_attention
+    from robustvlm_tpu_torch.ops.kernels import attack_step, flash_attention, q4_matmul, vit_attention
 
-    return [attack_step.LAUNCHES, vit_attention.LAUNCHES, flash_attention.LAUNCHES]
+    return [attack_step.LAUNCHES, vit_attention.LAUNCHES, flash_attention.LAUNCHES, q4_matmul.LAUNCHES]
 
 
 def _reset_launches() -> None:
@@ -932,6 +1069,284 @@ def phase_llava_ensemble() -> dict:
     return full
 
 
+# ------------------------------------------------------------------ phase 9
+SERVE_ARGV = ["--device", "cuda", "--model", "llava", "--model_size", "7b", "--quantize-decode",
+              "--quantize-bits", "4", "--host", "127.0.0.1", "--port", "0", "--controller-address", ""]
+SERVE_NEW_TOKENS = 32
+SERVE_BATCH = 4
+LAUNCHES_PER_STEP = 225  # 32 layers x 7 LM matrices + the LM head
+LOGIT_TOL = 2e-2  # of the largest |logit|: one step through 32 bf16 layers
+
+
+class _StepTimer:
+    """Wraps `make_llava_decode_fns` so every generation records CUDA events:
+    before the decode fns are made (the vision tower runs there), after the
+    prefill and after each decode step. Events do not synchronize."""
+
+    def __init__(self, make):
+        self.make, self.runs = make, []
+
+    def _event(self):
+        import torch
+
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def __call__(self, *a, **kw):
+        run = {"start": self._event(), "prefill": None, "steps": [], "batch": a[1].shape[0]}
+        self.runs.append(run)
+        pf, df = self.make(*a, **kw)
+
+        def prefill(*b, **k):
+            out = pf(*b, **k)
+            run["prefill"] = self._event()
+            return out
+
+        def decode(*b, **k):
+            out = df(*b, **k)
+            run["steps"].append(self._event())
+            return out
+
+        return prefill, decode
+
+    @staticmethod
+    def summary(run) -> dict:
+        steps = run["steps"]
+        return {"batch": run["batch"], "decode_steps": len(steps),
+                "prefill_ms": run["start"].elapsed_time(run["prefill"]),
+                "ms_per_decode_step": run["prefill"].elapsed_time(steps[-1]) / len(steps)}
+
+
+def _png_b64(arr) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _stream(url: str, payload: dict) -> list:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return [json.loads(line) for line in r]
+
+
+def _held_bytes(model) -> int:
+    return sum({t.data_ptr(): t.numel() * t.element_size() for t in model.state_dict().values()}.values())
+
+
+def _bf16_model_bytes(cfg) -> int:
+    """What the bf16 LLaVA model (`half_state`) holds: matrices in bf16, the
+    projector and 1-D parameters in float32."""
+    import torch
+
+    from robustvlm_tpu_torch.models.llava.model import Llava, half_state
+
+    with torch.device("meta"):
+        state = half_state(Llava(cfg).state_dict())
+    return sum(t.numel() * t.element_size() for t in state.values())
+
+
+def _decode_logits_check(adapter, x, prompt) -> dict:
+    """One decode step's logits at full width through the kernel, and the
+    same step with the kernel's plain version patched in (here only)."""
+    import torch
+
+    from robustvlm_tpu_torch.models.generation import _start
+    from robustvlm_tpu_torch.ops.kernels import q4_matmul as Q
+
+    with torch.no_grad():
+        pf, df, toks, n_pad = adapter._decode_fns(x, [prompt], 1)
+        logits0, cache, mask = _start(pf, toks, n_pad, 1)
+        t = toks.shape[1]
+        mask[:, t] = True
+        args = (torch.argmax(logits0, -1)[:, None], cache, t, mask, (t - n_pad)[:, None])
+        kernel = df(*args)[0][:, -1].float()
+        true_cuda = Q.q4_matmul_cuda
+        Q.q4_matmul_cuda = lambda xx, pp, ss: Q.q4_matmul_reference(xx, pp, ss)
+        try:
+            plain = df(*args)[0][:, -1].float()
+        finally:
+            Q.q4_matmul_cuda = true_cuda
+    err = float((kernel - plain).abs().max())
+    top = float(plain.abs().max())
+    return {"max_abs_err": err, "max_abs_logit": top, "tol_rel_to_max": LOGIT_TOL,
+            "within": err <= LOGIT_TOL * top,
+            "same_argmax": bool(torch.equal(kernel.argmax(-1), plain.argmax(-1)))}
+
+
+def phase_serve() -> dict:
+    """The model worker at LLaVA-1.5-7B full width (32 LM layers, the 336 px
+    tower), random weights from seed 0, built as its CLI builds it
+    (`build_worker`): float32 draws quantized in place to int4 (group 128),
+    the rest held in the bf16 layout. The port's controller and the worker
+    on ephemeral 127.0.0.1 ports; one caption to warm up, a timed caption
+    (32 new tokens, batch 1), a VQA, a streamed caption, a caption through
+    the shift body, and 4 concurrent captions to a second worker around the
+    same model with a 20 ms window (one batch-4 decode); then, outside the
+    counted requests, the timed caption straight from `get_outputs`. Returns
+    the requests' launches."""
+    import gc
+    import os
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.ops.quant import QUANTIZED
+    from robustvlm_tpu_torch.serve import controller as C
+    from robustvlm_tpu_torch.serve import model_worker as MW
+    from robustvlm_tpu_torch.vlm_eval import eval_models
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    worker = MW.build_worker(MW.build_parser().parse_args(SERVE_ARGV))
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    adapter = worker.model
+    model = adapter.model
+    peak_startup = torch.cuda.max_memory_allocated() / 2**30
+    held = _held_bytes(model)
+    allocated = torch.cuda.memory_allocated() - before
+    lm = [m for name, m in model.llama.named_modules() if name.endswith((".attn", ".mlp"))]
+    lm_quantized = (all(isinstance(getattr(m, leaf), QUANTIZED) for m in lm
+                        for leaf in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+                        if hasattr(m, leaf))
+                    and isinstance(model.llama.lm_head, QUANTIZED)
+                    and not any(p.dtype == torch.bfloat16 for p in model.llama.blocks.parameters()
+                                if p.dim() == 2))
+
+    ctrl = C.serve("127.0.0.1", 0)
+    wsrv = MW.serve_worker(worker, "127.0.0.1", 0)
+    batch_worker = MW.ModelWorker(adapter, "llava-7b-batched", worker_address="",
+                                  image_size=worker.image_size, batch_window_ms=20,
+                                  max_batch=SERVE_BATCH)
+    bsrv = MW.serve_worker(batch_worker, "127.0.0.1", 0)
+    for srv in (ctrl, wsrv, bsrv):
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    ctrl_addr = f"http://127.0.0.1:{ctrl.server_address[1]}"
+    worker.worker_address = f"http://127.0.0.1:{wsrv.server_address[1]}"
+    batch_addr = f"http://127.0.0.1:{bsrv.server_address[1]}"
+
+    def post(url, payload):
+        req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
+    rng = np.random.RandomState(0)
+    images = [_png_b64(rng.randint(0, 255, (360, 400, 3), np.uint8)) for _ in range(SERVE_BATCH)]
+    cap = {"model": worker.model_name, "image_b64": images[0], "task": "caption",
+           "max_new_tokens": SERVE_NEW_TOKENS}
+    timer = _StepTimer(eval_models.make_llava_decode_fns)
+    eval_models.make_llava_decode_fns = timer
+    responses = {}
+    try:
+        registered = post(ctrl_addr + "/register_worker",
+                           {"worker_name": worker.worker_address, "check_heart_beat": False})["exist"]
+        responses["warmup"] = post(ctrl_addr + "/worker_generate", {**cap, "max_new_tokens": 4})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        n_runs = len(timer.runs)
+        t1 = time.perf_counter()
+        responses["caption"] = post(ctrl_addr + "/worker_generate", cap)
+        torch.cuda.synchronize()
+        caption_s = time.perf_counter() - t1
+        timed = timer.runs[n_runs]
+        responses["vqa"] = post(ctrl_addr + "/worker_generate",
+                                {**cap, "task": "vqa", "question": "What is in the image?"})
+        chunks = _stream(ctrl_addr + "/worker_generate_stream", cap)
+        os.environ["Q4_KERNEL"] = "shift"
+        try:
+            responses["caption_shift_body"] = post(ctrl_addr + "/worker_generate", cap)
+        finally:
+            del os.environ["Q4_KERNEL"]
+        n_runs = len(timer.runs)
+        results = [None] * SERVE_BATCH
+        go = threading.Barrier(SERVE_BATCH)
+
+        def send(i):
+            go.wait()
+            results[i] = post(batch_addr + "/worker_generate", {**cap, "image_b64": images[i]})
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(SERVE_BATCH)]
+        t2 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t2
+        batch_runs = timer.runs[n_runs:]
+        launches = _launches()
+        peak_serving = torch.cuda.max_memory_allocated() / 2**30
+        # the same caption straight from the adapter, outside the counted requests
+        x = torch.from_numpy(worker.decode_image(cap))[None].cuda()
+        direct = adapter.get_outputs(x, [adapter.get_caption_prompt()],
+                                     max_new_tokens=SERVE_NEW_TOKENS)[0]
+    finally:
+        eval_models.make_llava_decode_fns = timer.make
+        for srv in (ctrl, wsrv, bsrv):
+            srv.shutdown()
+            srv.server_close()
+    logits = _decode_logits_check(adapter, x, adapter.get_caption_prompt())
+
+    one = _StepTimer.summary(timed)
+    four = [_StepTimer.summary(r) for r in batch_runs]
+    every = [responses[k] for k in responses] + chunks + results
+    checks = {
+        "registered": registered,
+        "error_code_0": all(r is not None and r.get("error_code") == 0 for r in every),
+        "served_equals_get_outputs": responses["caption"]["text"] == direct,
+        "stream_last_equals_text": bool(chunks) and chunks[-1]["text"] == responses["caption"]["text"],
+        "batch_4_decode": bool(four) and all(r["batch"] == SERVE_BATCH for r in four),
+        "q4_group_launches": (launches["q4_matmul_group"] > 0
+                              and launches["q4_matmul_group"] % LAUNCHES_PER_STEP == 0),
+        "q4_shift_launches": (launches["q4_matmul_shift"] > 0
+                              and launches["q4_matmul_shift"] % LAUNCHES_PER_STEP == 0),
+        "vit_attention_launched": launches["vit_attention_fwd"] > 0,
+        "no_lm_matrix_in_bf16": lm_quantized,
+        "decode_logits_within": logits["within"],
+        "decode_logits_same_argmax": logits["same_argmax"],
+    }
+    cfg = model.cfg
+    del worker, batch_worker, adapter, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "entry": "robustvlm_tpu_torch.serve.model_worker.build_worker",
+          "argv": SERVE_ARGV, "model": "llava-1.5-7b", "compute_dtype": "bfloat16",
+          "weights": "int4 LM (group 128), fp vision tower, projector and embedding",
+          "startup_s": startup_s, "held_gib": held / 2**30, "allocated_by_startup_gib": allocated / 2**30,
+          "bf16_model_gib": _bf16_model_bytes(cfg) / 2**30, "peak_startup_gib": peak_startup,
+          "peak_serving_gib": peak_serving, "new_tokens": SERVE_NEW_TOKENS,
+          "batch_1": {**one, "request_s": caption_s,
+                      "decode_tok_per_s": 1e3 / one["ms_per_decode_step"],
+                      "request_new_tok_per_s": SERVE_NEW_TOKENS / caption_s},
+          "batch_4": {"calls": four, "requests_s": batch_s,
+                      "decode_tok_per_s": [SERVE_BATCH * 1e3 / r["ms_per_decode_step"] for r in four],
+                      "request_new_tok_per_s": SERVE_BATCH * SERVE_NEW_TOKENS / batch_s},
+          "texts": {"caption": responses["caption"]["text"],
+                    "caption_shift_body": responses["caption_shift_body"]["text"],
+                    "vqa": responses["vqa"]["text"], "stream_chunks": len(chunks)},
+          "decode_logits_kernel_vs_plain": logits, "launches": launches, "card": card_line(),
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"serve checks failed: {checks}")
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -976,12 +1391,15 @@ def main() -> int:
     runs["llava_reference"] = phase_llava_reference()
     runs["llava"] = phase_llava()
     runs["llava_ensemble[float32 stage]"] = phase_llava_ensemble()
+    runs["serve"] = phase_serve()
     # Each row takes the launches of the run of its path and dtype: the CLIP
     # kernels from the CLI's CLIP runs; flash in bf16 from the LLaVA eval,
-    # in float32 from the ensemble's float32 stage.
+    # in float32 from the ensemble's float32 stage; q4_matmul from serving.
     for r in rows:
-        kernel = r["name"].split("[")[0]
-        if kernel.startswith("flash"):
+        kernel = r.pop("counter", r["name"].split("[")[0])
+        if kernel.startswith("q4_matmul"):
+            src = "serve"
+        elif kernel.startswith("flash"):
             src = "llava" if r["dtype"] == "bfloat16" else "llava_ensemble[float32 stage]"
         else:
             src = f"main[{r['dtype']}]"

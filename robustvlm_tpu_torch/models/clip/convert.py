@@ -3,7 +3,11 @@
 Counterpart of `robustvlm_tpu/models/clip/import_torch.py`:
 
 - `params_from_jax` flattens a JAX parameter tree (numpy leaves; stacked
-  per-layer block tensors) into the port's state dict, by name;
+  per-layer block tensors) into the port's state dict, by name; the JAX
+  package's weight-only quantized leaves (the `QuantizedWeight` (q, s) and
+  `PackedQ4Weight` (p, s) named tuples of the LLaMA serving layout) become
+  the port's quantized modules (`ops/quant.py`) with their codes as they
+  are, which `ops/quant.install_quantized` puts into a model;
 - `load_clip_checkpoint` reads the published checkpoint families: full
   openai/open_clip CLIP state dicts (`visual.conv1.weight`, ...),
   visual-only fine-tunes (FARE: `conv1.weight`, ...) overlaid on a base
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from robustvlm_tpu_torch.models.clip.model import CLIPConfig
+from robustvlm_tpu_torch.ops.quant import PackedQ4Weight, QuantizedWeight
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -36,11 +41,22 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(_to_np(a), dtype=np.float32, copy=True))
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> StateDict:
-    """A JAX CLIP parameter tree (nested dicts of numpy arrays) -> the
-    port's state dict. `blocks` subtrees carry a leading layer axis, which
-    becomes the `blocks.<i>.` index."""
-    out: StateDict = {}
+def _leaf(v):
+    fields = getattr(v, "_fields", None)
+    if fields is None:
+        return _t(v)
+    if fields == ("q", "s"):
+        return QuantizedWeight(torch.from_numpy(np.array(v.q, np.int8)), _t(v.s))
+    if fields == ("p", "s"):
+        return PackedQ4Weight(torch.from_numpy(np.array(v.p, np.uint8)), _t(v.s))
+    raise ValueError(f"unknown quantized leaf with fields {fields}")
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX parameter tree (nested dicts of numpy arrays) -> the port's
+    state dict. `blocks` subtrees carry a leading layer axis, which becomes
+    the `blocks.<i>.` index."""
+    out: Dict[str, Any] = {}
 
     def walk(node: Mapping[str, Any], prefix: str) -> None:
         for key, val in node.items():
@@ -52,7 +68,7 @@ def params_from_jax(tree: Mapping[str, Any]) -> StateDict:
             elif isinstance(val, Mapping):
                 walk(val, name + ".")
             else:
-                out[name] = _t(val)
+                out[name] = _leaf(val)
 
     walk(tree, "")
     return out
@@ -61,12 +77,16 @@ def params_from_jax(tree: Mapping[str, Any]) -> StateDict:
 def _first_leaf(node):
     while isinstance(node, Mapping):
         node = next(iter(node.values()))
+    if hasattr(node, "_fields"):  # a quantized leaf: its first array
+        node = node[0]
     return np.asarray(node)
 
 
 def _index(node, i: int):
     if isinstance(node, Mapping):
         return {k: _index(v, i) for k, v in node.items()}
+    if hasattr(node, "_fields"):
+        return type(node)(*(np.asarray(a)[i] for a in node))
     return np.asarray(node)[i]
 
 

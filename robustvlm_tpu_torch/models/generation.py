@@ -124,6 +124,30 @@ def beam_generate(prefill_fn: Callable, decode_fn: Callable, prompt_tokens: torc
     return GenerateResult(tokens=out_toks[sel], scores=score[sel])
 
 
+@torch.no_grad()
+def greedy_generate_stream(prefill_fn: Callable, decode_fn: Callable, prompt_tokens: torch.Tensor,
+                           n_pad: torch.Tensor, *, max_new_tokens: int, eos_id: int,
+                           pad_id: int = 0):
+    """Greedy decode yielding one (B,) numpy token-id array per step as it is
+    made (the serving stream path); the argmax of `greedy_generate`. Stops
+    once every row has emitted EOS."""
+    b, t = prompt_tokens.shape
+    logits, cache, kv_mask = _start(prefill_fn, prompt_tokens, n_pad, max_new_tokens)
+    done = np.zeros((b,), bool)
+    for i in range(max_new_tokens):
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
+        nxt = np.where(done, pad_id, nxt)
+        done = done | (nxt == eos_id)
+        yield nxt.copy()
+        if done.all():
+            return
+        kv_mask[:, t + i] = True
+        qpos = (t + i - n_pad)[:, None]
+        tok = torch.from_numpy(nxt).long().to(prompt_tokens.device)[:, None]
+        logits, cache = decode_fn(tok, cache, t + i, kv_mask, qpos)
+        logits = logits[:, -1]
+
+
 def strip_after_eos(tokens, eos_id: int, pad_id: int = 0):
     """Token lists truncated at the first EOS (or pad)."""
     out = []

@@ -13,9 +13,11 @@ for `x @ w`), so a JAX tree carries across by name (`convert.py`).
 - Layers are an `nn.ModuleList` walked by a Python loop (JAX scans stacked
   blocks). The KV cache is one (L, B, Hkv, N, hd) buffer per k and v,
   written in place.
-- Weights are cast to the compute dtype at each matmul (the JAX
-  `qmatmul` convention for plain leaves); a model already held in that
-  dtype casts nothing.
+- Every block matmul and the LM head go through `ops/quant.qmatmul`: a
+  plain weight is cast to the compute dtype (a model already held in that
+  dtype casts nothing); a quantized leaf (serving) takes its int8 or packed
+  int4 path, the latter the `q4_matmul` kernel on decode-shaped CUDA
+  operands.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
+from robustvlm_tpu_torch.ops.quant import qmatmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,9 +174,9 @@ class Block(nn.Module):
             return y.reshape(b, t, n, cfg.head_dim).transpose(1, 2)
 
         h = rms_norm(x, self.attn_norm, cfg.norm_eps)
-        q = apply_rope(heads(h @ a.wq.to(cd), cfg.n_heads), cos, sin)
-        k = apply_rope(heads(h @ a.wk.to(cd), cfg.n_kv_heads), cos, sin)
-        v = heads(h @ a.wv.to(cd), cfg.n_kv_heads)
+        q = apply_rope(heads(qmatmul(h, a.wq), cfg.n_heads), cos, sin)
+        k = apply_rope(heads(qmatmul(h, a.wk), cfg.n_kv_heads), cos, sin)
+        v = heads(qmatmul(h, a.wv), cfg.n_kv_heads)
         if cache is not None:
             qpos = (pos[:, None] if torch.is_tensor(pos) and pos.dim() == 1 else pos) + \
                 torch.arange(t, device=x.device)
@@ -183,12 +186,12 @@ class Block(nn.Module):
         else:
             att = _attn(q, k, v, kv_mask=kv_mask)
         att = att.transpose(1, 2).reshape(b, t, cfg.dim)
-        x = x + att.to(cd) @ a.wo.to(cd)
+        x = x + qmatmul(att.to(cd), a.wo)
 
         m = self.mlp
         h = rms_norm(x, self.ffn_norm, cfg.norm_eps)
-        gate = F.silu(h @ m.w_gate.to(cd))
-        return x + (gate * (h @ m.w_up.to(cd))) @ m.w_down.to(cd)
+        gate = F.silu(qmatmul(h, m.w_gate))
+        return x + qmatmul(gate * qmatmul(h, m.w_up), m.w_down)
 
 
 class Llama(nn.Module):
@@ -252,14 +255,14 @@ def llama_forward(
             x = blk(x, cos, sin, cache=(cache["k"][i], cache["v"][i]), pos=cache_pos,
                     kv_mask=kv_mask)
         h = rms_norm(x, model.norm, cfg.norm_eps)
-        return (h @ model.lm_head.to(h.dtype)).float(), cache
+        return qmatmul(h, model.lm_head).float(), cache
 
     for blk in model.blocks:
         x = blk(x, cos, sin, kv_mask=kv_mask)
     x = rms_norm(x, model.norm, cfg.norm_eps)
     if return_hidden:
         return x
-    return (x @ model.lm_head.to(x.dtype)).float()
+    return qmatmul(x, model.lm_head).float()
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,

@@ -2,7 +2,10 @@
 
 - `params_from_jax`: the JAX LLaVA tree ({"vision", "projector", "llama"},
   numpy leaves, blocks stacked on a leading layer axis) -> the `Llava` state
-  dict, by name; the vision tower through the CLIP converter.
+  dict, by name. Weight-only quantized LM leaves carry across as the port's
+  quantized modules; the per-layer serving layout (a `layers` tuple of
+  block trees, one per layer) maps onto the same `llama.blocks.<i>.` names,
+  since the port's layers are separate modules anyway.
 - `init_random_state`: scaled-normal random weights drawn on the device from
   a seed (the scheme of the JAX `init_llava_params`, not its numbers). Each
   tensor is drawn in float32 in a fixed order, so the bfloat16 state made
@@ -15,24 +18,25 @@ for a checkpoint in the repository to test it against (ROADMAP A10).
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import torch
 
 from robustvlm_tpu_torch.models.clip.convert import StateDict
 from robustvlm_tpu_torch.models.clip.convert import params_from_jax as _tree_to_state
-from robustvlm_tpu_torch.models.llama.convert import reject_quantized
 from robustvlm_tpu_torch.models.llava.model import Llava, LlavaConfig, half_state
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> StateDict:
+def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
     """A JAX LLaVA parameter tree -> the port's `Llava` state dict."""
     if "mpt" in tree:
         raise NotImplementedError("LLaVA-MPT is not ported (ROADMAP A11, OpenFlamingo/MPT)")
-    if "layers" in tree:
-        raise NotImplementedError("the per-layer serving layout is not ported (ROADMAP A13, serving)")
-    reject_quantized(tree)
-    return _tree_to_state(tree)
+    tree = dict(tree)
+    layers = tree.pop("layers", None)
+    out = _tree_to_state(tree)
+    for i, bp in enumerate(layers or ()):  # the per-layer layout: one block tree a layer
+        out.update({f"llama.blocks.{i}.{k}": v for k, v in _tree_to_state(bp).items()})
+    return out
 
 
 def _std(name: str, shape, cfg: LlavaConfig) -> float:

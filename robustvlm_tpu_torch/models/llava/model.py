@@ -13,6 +13,9 @@ input, the tower's tokens, is float32 and its weights are too). A model held
 in bfloat16 (`half_state`) keeps the projector and every 1-D parameter in
 float32, so it computes what the JAX package computes with float32 weights
 cast at each matmul.
+
+A serving model may hold weight-only quantized LM leaves (`ops/quant.py`):
+generation runs on them, the loss path refuses them.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from robustvlm_tpu_torch.models.llama.model import (
     llama_forward,
 )
 from robustvlm_tpu_torch.ops.image import normalize_clip, resize_bicubic
+from robustvlm_tpu_torch.ops.quant import has_quantized, install_quantized
 
 @dataclasses.dataclass(frozen=True)
 class LlavaConfig:
@@ -92,12 +96,13 @@ class Llava(nn.Module):
         self.requires_grad_(False)
 
     @classmethod
-    def from_state(cls, cfg: LlavaConfig, state: Dict[str, torch.Tensor]) -> "Llava":
+    def from_state(cls, cfg: LlavaConfig, state: Dict[str, object]) -> "Llava":
         """A model that holds `state`'s tensors themselves (no copy): built on
-        the meta device, then assigned."""
+        the meta device, then assigned. Quantized leaves (`ops/quant.py`
+        modules) take the place of their parameters."""
         with torch.device("meta"):
             model = cls(cfg)
-        model.load_state_dict(state, assign=True, strict=True)
+        model.load_state_dict(install_quantized(model, state), assign=True, strict=True)
         return model.requires_grad_(False)
 
     @property
@@ -105,11 +110,26 @@ class Llava(nn.Module):
         return self.llama.norm.device
 
 
+def _keeps_float32(name: str, t: torch.Tensor) -> bool:
+    return t.dim() < 2 or name.startswith("projector.")
+
+
 def half_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The bfloat16 model's state: matrices in bf16 (one copy, made once),
     the projector and 1-D parameters shared with `state` in float32."""
-    return {k: v if v.dim() < 2 or k.startswith("projector.") else v.to(torch.bfloat16)
-            for k, v in state.items()}
+    return {k: v if _keeps_float32(k, v) else v.to(torch.bfloat16) for k, v in state.items()}
+
+
+@torch.no_grad()
+def to_half_layout_(model: Llava) -> Llava:
+    """Hold the model's fp parameters as `half_state` holds them, in place,
+    one parameter at a time (quantized leaves are buffers: untouched)."""
+    for mod_name, mod in model.named_modules():
+        for name, prm in list(mod._parameters.items()):
+            full = f"{mod_name}.{name}" if mod_name else name
+            if prm is not None and not _keeps_float32(full, prm) and prm.dtype != torch.bfloat16:
+                mod._parameters[name] = nn.Parameter(prm.to(torch.bfloat16), requires_grad=False)
+    return model
 
 
 def encode_images(model: Llava, pixels01: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -143,7 +163,11 @@ def llava_per_sample_loss(model: Llava, pixels01, pre_tokens, post_tokens, label
                           compute_dtype=torch.bfloat16, reduction_per_token: str = "mean") -> torch.Tensor:
     """Teacher-forced per-sample CE over the answer span, (B,). labels and
     label_mask are (B, T_post): only post tokens carry loss. 'mean' is HF's
-    CE (mean over unmasked tokens), 'sum' the summed CE."""
+    CE (mean over unmasked tokens), 'sum' the summed CE. Refuses a model with
+    quantized leaves: the threat model is defined on the fp weights."""
+    if has_quantized(model):
+        raise ValueError("llava_per_sample_loss: the model holds quantized weights (serving-only); "
+                         "the loss path needs the fp model")
     logits = llava_forward(model, pixels01, pre_tokens, post_tokens, compute_dtype=compute_dtype)
     t_post = post_tokens.shape[1]
     pred = logits[:, -t_post - 1:-1]  # logits predicting post_tokens[t]
@@ -158,8 +182,10 @@ def llava_per_sample_loss(model: Llava, pixels01, pre_tokens, post_tokens, label
 def make_llava_decode_fns(model: Llava, pixels01, pre_tokens, *, max_total_len: int,
                           compute_dtype=torch.bfloat16, kv_bits: int = 0):
     """(prefill_fn, decode_fn) for models/generation.py: prefill runs the
-    vision tower and the splice once, decode steps run the LM only. The
-    stacked cache layout; the per-layer serving layout comes with serving."""
+    vision tower and the splice once, decode steps run the LM only, on fp or
+    quantized LM weights alike. The cache is the stacked (L, B, ...) layout
+    in both of the JAX package's param layouts (the module's layers are
+    separate either way)."""
     if kv_bits:
         raise NotImplementedError("the int8 KV cache is not ported (ROADMAP A13, serving)")
     cfg = model.cfg

@@ -11,9 +11,12 @@ Tokenizer protocol (duck-typed): encode(str) -> List[int], decode(ids) ->
 str, eos_token_id / pad_token_id / bos_token_id. `WordTokenizer` is the
 stand-in used without a HF tokenizer.
 
-Not ported here: the streaming and continuous-batching cores and the
-weight-quantized decode (serving, ROADMAP A13); the OpenFlamingo and BLIP-2
-adapters (ROADMAP A11, A12).
+Serving: generation can run on weight-only quantized LM weights, built
+lazily beside the fp model (`quantize_decode`) or in place for a
+serving-only process (`quantize_for_serving`), and `stream_tokens` /
+`stream_outputs` yield tokens as they are made. Not ported here: the
+continuous-batching cores and speculative decoding (ROADMAP A13); the
+OpenFlamingo and BLIP-2 adapters (ROADMAP A11, A12).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from robustvlm_tpu_torch.models.generation import (
     beam_generate,
     greedy_generate,
+    greedy_generate_stream,
     left_pad,
     strip_after_eos,
 )
@@ -41,6 +45,11 @@ from robustvlm_tpu_torch.models.llava.model import (
     Llava,
     llava_per_sample_loss,
     make_llava_decode_fns,
+    to_half_layout_,
+)
+from robustvlm_tpu_torch.ops.quant import (
+    quantize_decode_params_inplace,
+    quantize_llama_decode_params,
 )
 
 
@@ -110,7 +119,13 @@ class LlavaEvalModel:
     """`__call__(x)` returns the per-sample HF-style mean CE over the answer
     span. `model` holds its weights in the compute dtype's layout
     (`models/llava/model.half_state` for bfloat16), so nothing is cast per
-    forward beyond what the JAX package casts."""
+    forward beyond what the JAX package casts.
+
+    `quantize_decode` (True or 8: int8; 4: packed int4 with group-128
+    scales) makes generation run on a weight-only quantized copy of the LM,
+    built at the first generation and kept beside the fp model, which the
+    loss path goes on using. A serving-only process calls
+    `quantize_for_serving` instead: in place, the fp LM weights dropped."""
 
     DEFAULT_STOPS = ("</s>", "USER:")
 
@@ -118,15 +133,15 @@ class LlavaEvalModel:
                  max_post_len: int = 64, remat: bool = False, quantize_decode=False):
         if remat:
             raise NotImplementedError("LlavaEvalModel: remat is not ported (ROADMAP A7, training)")
-        if quantize_decode:
-            raise NotImplementedError(
-                "LlavaEvalModel: quantized decode is not ported (ROADMAP A13, serving)")
         self.model = model
         self.cfg = model.cfg
         self.tok = tokenizer
         self.compute_dtype = compute_dtype
         self.max_post_len = max_post_len
         self._cached: Optional[_CachedInputs] = None
+        self.quantize_decode = quantize_decode
+        self._decode_model = None  # (bits, Llava) once built
+        self._fp_dropped = False
 
     @property
     def device(self) -> torch.device:
@@ -165,12 +180,53 @@ class LlavaEvalModel:
             label_mask=torch.from_numpy(mask_arr).to(dev),
         )
 
+    def quantize_for_serving(self, bits: int = 8) -> None:
+        """SERVING-ONLY: quantize the LM decode weights in place, leaf by leaf
+        (`ops/quant.quantize_decode_params_inplace`), so the device never
+        holds the fp and the quantized LM together; then hold the leaves that
+        stay fp as the compute dtype's model holds them (`half_state` for
+        bfloat16). The fp weights are gone afterwards, so the loss path is
+        disabled: the threat model is defined on the fp model."""
+        bits = 8 if int(bits) == 1 else int(bits)
+        quantize_decode_params_inplace(self.model, bits=bits)
+        if self.compute_dtype == torch.bfloat16:
+            to_half_layout_(self.model)
+        self.quantize_decode = bits
+        self._decode_model = (bits, self.model)
+        self._fp_dropped = True
+
+    def _require_fp(self) -> None:
+        if self._fp_dropped:
+            raise RuntimeError(
+                "loss/attack path disabled: quantize_for_serving() dropped the fp weights "
+                "(serving-only mode); build a fresh model for attacks")
+
     def __call__(self, x01: torch.Tensor) -> torch.Tensor:
+        self._require_fp()
         c = self._cached
         if c is None:
             raise RuntimeError("LlavaEvalModel: call set_inputs first")
         return llava_per_sample_loss(self.model, x01, c.pre, c.post, c.labels, c.label_mask,
                                      compute_dtype=self.compute_dtype)
+
+    def _gen_params(self) -> Llava:
+        """The model generation runs on: the fp one, or the (cached) weight-only
+        quantized one when quantize_decode is set."""
+        if not self.quantize_decode:
+            return self.model
+        bits = int(self.quantize_decode)
+        bits = 8 if bits == 1 else bits  # True -> int8
+        # keyed on the resolved bits: a change of width after a generation
+        # rebuilds instead of serving the stale one
+        if self._decode_model is None or self._decode_model[0] != bits:
+            if self._fp_dropped:
+                raise RuntimeError("cannot requantize to a different width after "
+                                   "quantize_for_serving(): the fp weights are gone")
+            with torch.no_grad():
+                state = quantize_llama_decode_params(self.model.state_dict(), bits=bits)
+            # shares every fp tensor with self.model; only the LM leaves are new
+            self._decode_model = (bits, Llava.from_state(self.cfg, state))
+        return self._decode_model[1]
 
     def _tokenize_gen(self, prompts):
         """(pre_ids, left-padded post tokens, n_pad). All prompts share the
@@ -182,18 +238,32 @@ class LlavaEvalModel:
         toks, n_pad = left_pad(post_seqs, self.tok.pad_token_id)
         return pre_ids, toks, n_pad
 
-    @torch.no_grad()
-    def get_outputs(self, x01: torch.Tensor, prompts: Sequence[str], *, max_new_tokens: int = 32,
-                    num_beams: int = 1, length_penalty: float = 0.0,
-                    stop_strings: Sequence[str] = DEFAULT_STOPS) -> List[str]:
+    def _decode_fns(self, x01, prompts, max_new_tokens):
+        """(prefill_fn, decode_fn, post tokens, n_pad) of a generation."""
         pre_ids, toks, n_pad = self._tokenize_gen(prompts)
         dev = self.device
         toks = torch.from_numpy(toks).long().to(dev)
         n_pad = torch.from_numpy(n_pad).long().to(dev)
         pre = torch.tensor([pre_ids] * x01.shape[0], dtype=torch.long, device=dev)
-        pf, df = make_llava_decode_fns(self.model, x01, pre,
+        pf, df = make_llava_decode_fns(self._gen_params(), x01, pre,
                                        max_total_len=toks.shape[1] + max_new_tokens,
                                        compute_dtype=self.compute_dtype)
+        return pf, df, toks, n_pad
+
+    @torch.no_grad()
+    def stream_tokens(self, x01: torch.Tensor, prompts: Sequence[str], max_new_tokens: int):
+        """Greedy decode yielding one (B,) numpy token-id array per step
+        (`generation.greedy_generate_stream`)."""
+        pf, df, toks, n_pad = self._decode_fns(x01, prompts, max_new_tokens)
+        yield from greedy_generate_stream(pf, df, toks, n_pad, max_new_tokens=max_new_tokens,
+                                          eos_id=self.tok.eos_token_id,
+                                          pad_id=self.tok.pad_token_id)
+
+    @torch.no_grad()
+    def get_outputs(self, x01: torch.Tensor, prompts: Sequence[str], *, max_new_tokens: int = 32,
+                    num_beams: int = 1, length_penalty: float = 0.0,
+                    stop_strings: Sequence[str] = DEFAULT_STOPS) -> List[str]:
+        pf, df, toks, n_pad = self._decode_fns(x01, prompts, max_new_tokens)
         kw = dict(max_new_tokens=max_new_tokens, eos_id=self.tok.eos_token_id,
                   pad_id=self.tok.pad_token_id)
         if num_beams == 1:
@@ -205,8 +275,22 @@ class LlavaEvalModel:
                 for ids in strip_after_eos(res.tokens, self.tok.eos_token_id,
                                            self.tok.pad_token_id)]
 
-    def stream_tokens(self, x01, prompts, max_new_tokens):
-        raise NotImplementedError("stream_tokens: streaming is not ported (ROADMAP A13, serving)")
 
-    def quantize_for_serving(self, bits: int = 8) -> None:
-        raise NotImplementedError("quantize_for_serving is not ported (ROADMAP A13, serving)")
+def stream_outputs(model, x01: torch.Tensor, prompt: str, *, max_new_tokens: int = 32,
+                   stop_strings: Optional[Sequence[str]] = None, speculate: int = 0):
+    """Yield the cumulative decoded text of ONE example as greedy tokens
+    arrive (the serving stream path), through the adapter's `stream_tokens`."""
+    if speculate:
+        raise NotImplementedError("speculative decoding is not ported (ROADMAP A13, serving)")
+    stops = tuple(stop_strings) if stop_strings is not None else model.DEFAULT_STOPS
+    ids: List[int] = []
+    for step in model.stream_tokens(x01, [prompt], max_new_tokens):
+        t_id = int(step[0])
+        if t_id in (model.tok.eos_token_id, model.tok.pad_token_id):
+            break
+        ids.append(t_id)
+        raw = model.tok.decode(ids)
+        if any(st in raw for st in stops):
+            yield truncate_at_stops(raw, stops)
+            return
+        yield raw.strip()

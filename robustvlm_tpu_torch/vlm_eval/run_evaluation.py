@@ -149,11 +149,23 @@ def build_llava_models(args, precisions, device) -> Dict[str, object]:
     return models
 
 
-def build_eval_model(args, precision: str, models: Dict[str, object]):
+def build_eval_model(args, precision: str, models: Optional[Dict[str, object]] = None):
+    """The adapter of one precision ('half' bf16, 'full' float32) over
+    `models` (`build_llava_models`' result). Without `models` (the serving
+    worker) the weights are drawn here, random from seed 0 as the eval CLI
+    draws them: in float32 under --quantize-decode, so that
+    `quantize_for_serving` quantizes the float32 draws (the JAX worker
+    quantizes its float32 tree) and then holds the rest in the precision's
+    layout; else in the precision's layout directly."""
     from robustvlm_tpu_torch.vlm_eval.eval_models import LlavaEvalModel
 
     dtype = torch.bfloat16 if precision == "half" else torch.float32
-    return LlavaEvalModel(models[precision], _tokenizer(args), compute_dtype=dtype)
+    if models is None:
+        drawn = "full" if getattr(args, "quantize_decode", False) else precision
+        model = build_llava_models(args, {drawn}, resolve_device(args.device))[drawn]
+    else:
+        model = models[precision]
+    return LlavaEvalModel(model, _tokenizer(args), compute_dtype=dtype)
 
 
 def _image_size(args) -> int:

@@ -95,8 +95,3 @@ def test_unported_options_raise():
         llama_forward(model, tok, remat=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_cache(model.cfg, 1, kv_bits=8)
-    tree = JL.init_llama_params(jax.random.PRNGKey(0), JL.LLAMA_CONFIGS["test-tiny"])
-    from robustvlm_tpu.ops.quant import quantize_llama_decode_params
-
-    with pytest.raises(NotImplementedError, match="quantized"):
-        params_from_jax(quantize_llama_decode_params({"llama": tree}, min_size=1)["llama"])
