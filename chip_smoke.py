@@ -338,7 +338,13 @@ def check_attention(peaks: dict) -> list:
 # (32 heads, the `llava` phase's teacher-forced sequence at batch 1, head
 # dim 128) and the CLIP text tower (96 = 8 prompts x 12 heads, 77 tokens,
 # 64), plus ALiBi, key padding, causal with Nq < Nk and the extreme-score
-# case. Limits as ATTN_TOL/LSE_TOL.
+# case, and the edges of the kernels' tiling: one query over fewer keys than
+# a tile (the cached-decode shape), causal with Nq > Nk (the first rows see
+# no key: O = 0, lse = -1e30), one row past a tile boundary at each head
+# dim, ALiBi with key padding at head dim 64. Limits as ATTN_TOL/LSE_TOL.
+CLIP_TEXT_SHAPE = (96, 77, 64)  # (B*H, N, D) of the text tower on 8 prompts
+
+
 def _flash_llava_shape() -> tuple:
     from robustvlm_tpu_torch.models.llava.model import LLAVA_CONFIGS
 
@@ -348,13 +354,20 @@ def _flash_llava_shape() -> tuple:
 
 def _flash_cases() -> list:  # (label, bh, nq, nk, d, causal, alibi, extreme)
     bh, n, _, d = _flash_llava_shape()
+    tbh, tn, td = CLIP_TEXT_SHAPE
     return [
         ("llava_lm", bh, n, n, d, True, False, False),
-        ("clip_text", 96, 77, 77, 64, True, False, False),
+        ("clip_text", tbh, tn, tn, td, True, False, False),
         ("alibi_causal", 32, 300, 300, 128, True, True, False),
         ("keypad_noncausal", 96, 50, 50, 64, False, False, False),
         ("causal_nq_lt_nk", 32, 100, n, 128, True, False, False),
         ("extreme", bh, n, n, d, True, False, True),
+        ("one_query_noncausal", 8, 1, 5, 128, False, False, False),
+        ("one_query_causal", 8, 1, 5, 128, True, False, False),
+        ("causal_nq_gt_nk", 8, 100, 40, 64, True, False, False),
+        ("past_tile_d128", 8, 65, 65, 128, True, False, False),
+        ("past_tile_d64", 8, 129, 129, 64, True, False, False),
+        ("alibi_keypad_noncausal_d64", 8, 50, 50, 64, False, True, False),
     ]
 
 
@@ -483,7 +496,34 @@ def check_flash(peaks: dict) -> list:
                         "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:273 (dQ), :295 (dK/dV)",
                         "max_abs_err": worst["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
                         "bound_ms": bb, "bound_by": bby, "library_ms": lib_bwd})
+        if dtype == torch.float32:
+            results.append(_flash_clip_text_row(worst["fwd"], peaks))
     return results
+
+
+def _flash_clip_text_row(max_abs_err: float, peaks: dict) -> dict:
+    """The float32 forward at the CLIP text tower's shape (head dim 64,
+    causal), as `main[float32]` launches it. The kernel and the library call
+    are timed by CUDA-graph replay: a launch this short is paced by the
+    host otherwise."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from robustvlm_tpu_torch.ops.kernels import flash_attention as F
+
+    bh, n, d = CLIP_TEXT_SHAPE
+    (q, k, v, _), _ = _flash_inputs(bh, n, n, d, torch.float32, seed=2)
+    q4, k4, v4 = (t.view(8, bh // 8, n, d) for t in (q, k, v))
+    ms = time_graph_ms(lambda: F.flash_fwd_cuda(q, k, v, causal=True))
+    lib = time_graph_ms(lambda: Fn.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+    plain = time_ms(lambda: F.flash_fwd_plain(q, k, v, causal=True), iters=5)
+    bnd, by = bound_ms(4 * bh * n * d * 4 + bh * n * 4, 4 * bh * n * (n + 1) / 2 * d, "float32", peaks)
+    return {"name": "flash_attention_fwd[float32, head dim 64]", "route": "cuda",
+            "source": "robustvlm_tpu_torch/csrc/flash_attention.cu", "dtype": "float32",
+            "shape": [bh, n, d], "causal": True, "launches_from": "main[float32]",
+            "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib}
 
 
 # q4_matmul at the LLaVA-1.5-7B decode step's weights: (K, N) and the number
@@ -1394,10 +1434,13 @@ def main() -> int:
     runs["serve"] = phase_serve()
     # Each row takes the launches of the run of its path and dtype: the CLIP
     # kernels from the CLI's CLIP runs; flash in bf16 from the LLaVA eval,
-    # in float32 from the ensemble's float32 stage; q4_matmul from serving.
+    # in float32 from the ensemble's float32 stage (at head dim 64 from the
+    # float32 CLIP run's text tower); q4_matmul from serving.
     for r in rows:
         kernel = r.pop("counter", r["name"].split("[")[0])
-        if kernel.startswith("q4_matmul"):
+        if "launches_from" in r:
+            src = r["launches_from"]
+        elif kernel.startswith("q4_matmul"):
             src = "serve"
         elif kernel.startswith("flash"):
             src = "llava" if r["dtype"] == "bfloat16" else "llava_ensemble[float32 stage]"

@@ -9,10 +9,10 @@
 // dims 64 (CLIP text tower) and 128 (LLaMA-7B).
 //
 // The function is the Pallas kernels', not their tiling: the TPU keeps a
-// whole K/V row in VMEM and walks 128-key blocks; here each block owns 64
-// query rows (or 64 keys in dK/dV; 32 for float32 at D = 128) and streams
-// the other side through shared memory in 64-row tiles (32 for float32 at
-// D = 128).
+// whole K/V row in VMEM and walks 128-key blocks; here each block owns a
+// tile of query rows (of keys in dK/dV) and streams the other side through
+// shared memory in tiles: 64 rows by 64 in bfloat16, the shapes of F32Tile
+// in float32.
 //
 // Semantics, as the Pallas kernels and the public function compute them:
 // - forward: q scaled in its own dtype before Q K^T; ALiBi subtracts
@@ -38,11 +38,27 @@
 //   after it on the same stream.
 //
 // Two implementations:
-// - float32 (no TF32, so no tensor cores): CUDA-core FMA loops, a row's
-//   dot products split over 2 threads (4 in the backward at D = 128, where
-//   2 spill; F32Shape). Bound: operations, 4*nq*nk*D (forward) and
+// - float32 (no TF32, so no tensor cores): register-tiled FMA kernels on the
+//   CUDA cores (fma_tile.cuh). Bound: operations, 4*nq*nk*D (forward) and
 //   10*nq*nk*D (backward) per head, halved when causal, at the card's
-//   float32 FMA rate.
+//   float32 FMA rate; the two-kernel backward recomputes S and dP in each
+//   kernel, 14*nq*nk*D in all. Once every FMA takes an operand from shared
+//   memory, the shared-memory pipe is the nearer limit: a warp's 16-byte
+//   load costs 2 cycles of it at best. What the design does about it: every
+//   product of a tile is a small matrix product in registers (a thread
+//   holds a micro-tile of S or dP and one of the accumulator: 8 to 13 FMAs
+//   for each 16-byte load, and a lane layout that keeps every load at 2
+//   cycles, fma_tile.cuh), with no shuffle per dot product: row max, row
+//   sum and delta are reduced once a tile over the 8 lanes of a row. P and
+//   dS pass between a tile's two products through a padded shared tile,
+//   within one warp. The streamed tiles come in by 16-byte cp.async while
+//   the tile before them is computed (two buffers; in the forward at
+//   D = 128 one buffer each for K and V, which take turns, so that two
+//   blocks fit an SM); ragged tails are zero-filled. One online-softmax
+//   update per tile; tiles wholly below the diagonal skip the mask; the
+//   longest causal blocks are launched first. Shared rows are padded, not
+//   swizzled (D + 4 floats, tile + 8 for P and dS): fma_tile.cuh says why
+//   no warp load has a bank conflict.
 // - bfloat16: tensor cores through mma.sync m16n8k16 (mma_bf16.cuh), four
 //   warps of 16 rows. Scores, P and dS stay in registers. The backward
 //   kernels keep their block's own operands (Q and dO for dQ, K and V for
@@ -55,50 +71,13 @@
 
 #include <math.h>
 
+#include "fma_tile.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-// ====================================================== float32: FMA kernels
-constexpr int kChunk = 16;  // keys per online-softmax update
-
-// Per head dim, forward (Fwd) or backward: rows (queries or keys) per block,
-// threads per row, rows per shared-memory tile (16 KB of K, V, Q or dO).
-// At D = 128 the forward shares a row between 2 threads, the backward
-// between 4 (at 2 its accumulators spill): scripts/sweep_flash_fp32_torch.py.
-template <int D, bool Fwd>
-struct F32Shape;
-template <bool Fwd>
-struct F32Shape<64, Fwd> { static constexpr int kRows = 64, kTpr = 2, kTile = 64; };
-template <>
-struct F32Shape<128, true> { static constexpr int kRows = 32, kTpr = 2, kTile = 32; };
-template <>
-struct F32Shape<128, false> { static constexpr int kRows = 32, kTpr = 4, kTile = 32; };
-
-template <int D, bool Fwd>
-struct F32 : F32Shape<D, Fwd> {
-  static constexpr int kThreads = F32Shape<D, Fwd>::kRows * F32Shape<D, Fwd>::kTpr;
-  static constexpr int kD = D / F32Shape<D, Fwd>::kTpr;  // columns per thread
-};
-
-// Sum over the kTpr consecutive lanes that share a row; every lane gets the
-// same bits.
-template <class P>
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = P::kTpr / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Stage `valid` rows of a (rows, D) slab into a shared tile; the rest is zero.
-template <class P, int D>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src, int valid) {
-  for (int e = threadIdx.x; e < P::kTile * D; e += P::kThreads) {
-    dst[e] = (e / D) < valid ? src[e] : 0.f;
-  }
-}
-
-// the masks, shared by every kernel: key col visible from query row
+// ============================================= float32: register-tiled FMA
+// The masks, shared by every kernel: key col visible from query row.
 __device__ __forceinline__ bool visible(int row, int col, int nq, int nk, bool causal,
                                         int q_off) {
   return row < nq && col < nk && (!causal || col <= row + q_off);
@@ -118,219 +97,429 @@ __device__ __forceinline__ int query_start(int k0, int tile, bool causal, int q_
   return causal ? (max(0, k0 - q_off) / tile) * tile : 0;
 }
 
+// Block shape per head dim and kernel: kRows rows of the block's own side
+// (queries; keys in dK/dV), kTile rows of the streamed side per
+// shared-memory tile, kThreads threads, kBufs buffers for the streamed tiles
+// (2: tile t + 1 is copied while tile t is computed; 1: the copy waits for
+// the tile's last product, except in the forward, where K and V take turns
+// in a buffer each). Chosen on the card by
+// scripts/sweep_flash_fp32_torch.py, which rewrites these lines.
+enum { kFwd = 0, kDq = 1, kDkv = 2 };
+template <int D, int Kind>
+struct F32Tile;
+template <>
+struct F32Tile<64, kFwd> { static constexpr int kRows = 32, kTile = 32, kThreads = 64, kBufs = 2; };
+template <>
+struct F32Tile<64, kDq> { static constexpr int kRows = 32, kTile = 32, kThreads = 64, kBufs = 2; };
+template <>
+struct F32Tile<64, kDkv> { static constexpr int kRows = 64, kTile = 32, kThreads = 256, kBufs = 2; };
+template <>
+struct F32Tile<128, kFwd> { static constexpr int kRows = 64, kTile = 48, kThreads = 128, kBufs = 1; };
+template <>
+struct F32Tile<128, kDq> { static constexpr int kRows = 64, kTile = 64, kThreads = 256, kBufs = 2; };
+template <>
+struct F32Tile<128, kDkv> { static constexpr int kRows = 32, kTile = 32, kThreads = 128, kBufs = 2; };
+
+// What follows from a shape (thread layout of fma_tile.cuh) and the block's
+// shared memory: the own tiles staged once (Q; Q and dO; K and V), kBufs
+// stages of two streamed tiles (and, in dK/dV, their lse and delta rows),
+// and the P / dS tile (P^T and dS^T in dK/dV) between a tile's products.
+template <int D, int Kind>
+struct F32 : F32Tile<D, Kind> {
+  using S = F32Tile<D, Kind>;
+  static constexpr int kG = S::kThreads / 8;  // row groups
+  static constexpr int kR = S::kRows / kG;    // rows per thread
+  static constexpr int kSN = S::kTile / 8;    // score columns per thread
+  static constexpr int kNC = D / 32;          // 4-column chunks of an accumulator row per thread
+  static constexpr int kLd = D + kPadF;
+  static constexpr int kLdP = S::kTile + kPadP;
+  static constexpr int kStage = 2 * S::kTile * kLd + (Kind == kDkv ? 2 * S::kTile : 0);
+  static constexpr int kSmem = 4 * ((Kind == kFwd ? 1 : 2) * S::kRows * kLd + S::kBufs * kStage +
+                                    (Kind == kDkv ? 2 : 1) * S::kRows * kLdP);
+  // blocks an SM that the registers are kept free for: what the SM's 228 KB
+  // (1 KB reserved a block) hold, up to 256 threads (255 registers each)
+  static constexpr int kFit = 228 * 1024 / (kSmem + 1024), kCap = 256 / S::kThreads;
+  static constexpr int kBlocks = kFit < kCap ? kFit : (kCap < 1 ? 1 : kCap);
+  static_assert(S::kThreads % 32 == 0 && S::kRows % kG == 0 && S::kTile % 8 == 0 && D % 32 == 0,
+                "the thread layout needs whole micro-tiles");
+  static_assert(S::kBufs == 1 || S::kBufs == 2, "one or two stages");
+  static_assert(kSmem <= 227 * 1024, "a block may take 227 KB of shared memory");
+};
+
+// Forward: a block owns kRows query rows and walks the key tiles up to its
+// diagonal. Per tile: S = (Q scale) K^T in micro-tiles, one online-softmax
+// update (row max over the 8 lanes of a row, alpha rescales the accumulator
+// once), P through shared memory, O += P V.
 template <int D>
-__global__ void __launch_bounds__(F32<D, true>::kThreads)
-flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                     const float* __restrict__ slopes, int nq, int nk, int causal, int q_off,
-                     float scale) {
-  using P = F32<D, true>;
-  constexpr int kD = P::kD;
-  __shared__ float ks[P::kTile * D];
-  __shared__ float vs[P::kTile * D];
+__global__ void __launch_bounds__(F32<D, kFwd>::kThreads, F32<D, kFwd>::kBlocks)
+flash_fwd_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                      const float* __restrict__ slopes, int nq, int nk, int causal, int q_off,
+                      float scale) {
+  using P = F32<D, kFwd>;
+  constexpr int BM = P::kRows, BN = P::kTile, T = P::kThreads, G = P::kG, R = P::kR;
+  constexpr int SN = P::kSN, NC = P::kNC, LD = P::kLd, LDP = P::kLdP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* bufs = qs + BM * LD;
+  float* ps = bufs + P::kBufs * P::kStage;
+  const int gy = row_group(), lx = col_group();
   const int bh = blockIdx.x;
-  const int r0 = blockIdx.y * P::kRows;
-  const int row = r0 + threadIdx.x / P::kTpr;
-  const int c0 = (threadIdx.x % P::kTpr) * kD;
-  const bool live = row < nq;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * BM;  // the longest blocks start first
   const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
   const float slope = slopes ? slopes[bh] : 0.f;
+  const int hi = key_end(r0, BM, nk, causal, q_off);
+  const int n_tiles = (hi + BN - 1) / BN;
 
-  float qr[kD], acc[kD];
-#pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    qr[d] = live ? __fmul_rn(q[qb + (size_t)row * D + c0 + d], scale) : 0.f;
-    acc[d] = 0.f;
+  // With two buffers, K and V of tile t + 1 are copied while tile t is
+  // computed. With one, K and V have a buffer each and take turns: V of
+  // tile t is copied during S = Q K^T, K of tile t + 1 during O += P V.
+  auto stage_k = [&](int t) {
+    const int kv0 = t * BN;
+    stage_tile_async<D, BN, T>(bufs + (t % P::kBufs) * P::kStage, k + kb + (size_t)kv0 * D,
+                               min(BN, nk - kv0));
+  };
+  auto stage_v = [&](int t) {
+    const int kv0 = t * BN;
+    stage_tile_async<D, BN, T>(bufs + (t % P::kBufs) * P::kStage + BN * LD,
+                               v + kb + (size_t)kv0 * D, min(BN, nk - kv0));
+  };
+
+  if (n_tiles > 0) {
+    stage_tile_async<D, BM, T>(qs, q + qb + (size_t)r0 * D, min(BM, nq - r0));
+    cp_async_commit();
+    stage_k(0);
+    if (P::kBufs == 2) stage_v(0);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's part of Q is here: scale it in float32
+    scale_own_chunks<D, BM, T>(qs, scale);
   }
-  float m = kNegBig, l = 0.f;
-  const int hi = key_end(r0, P::kRows, nk, causal, q_off);
 
-  for (int kv0 = 0; kv0 < hi; kv0 += P::kTile) {
-    __syncthreads();
-    stage_f32<P, D>(ks, k + kb + (size_t)kv0 * D, min(P::kTile, nk - kv0));
-    stage_f32<P, D>(vs, v + kb + (size_t)kv0 * D, min(P::kTile, nk - kv0));
-    __syncthreads();
-    const int cols = min(P::kTile, hi - kv0);
-    for (int j0 = 0; j0 < cols; j0 += kChunk) {
-      float s[kChunk];
-      uint32_t ok = 0u;
-      float cmax = kNegBig;
+  float acc[R][4 * NC];
+  float m[R], l[R];  // l: this thread's part of the row sum, reduced at the end
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float* kr = ks + (j0 + j) * D + c0;
-        float part = 0.f;
+  for (int i = 0; i < R; ++i) {
+    m[i] = kNegBig;
+    l[i] = 0.f;
 #pragma unroll
-        for (int d = 0; d < kD; ++d) part = fmaf(qr[d], kr[d], part);
-        float sj = row_sum<P>(part);  // every lane of the warp shuffles
-        const int col = kv0 + j0 + j;
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // K of tile t is here; everyone is done with tile t - 1
+    if (P::kBufs == 1) {
+      stage_v(t);
+      cp_async_commit();
+    } else if (t + 1 < n_tiles) {
+      stage_k(t + 1);
+      stage_v(t + 1);
+      cp_async_commit();
+    }
+    const float* ks = bufs + (t % P::kBufs) * P::kStage;
+    const float* vs = ks + BN * LD;
+    const int kv0 = t * BN;
+
+    float s[R][SN];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < SN; ++j) s[i][j] = 0.f;
+    }
+    tile_abt<R, SN, G, D, LD, LD>(s, qs + gy * LD, ks + lx * LD);
+
+    // a tile wholly below the diagonal and inside nk needs no mask
+    const bool full = kv0 + BN <= nk && (!causal || kv0 + BN - 1 <= r0 + q_off);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = r0 + gy + i * G;
+      uint32_t ok = full ? 0xffffffffu : 0u;
+      float mx = kNegBig;
+#pragma unroll
+      for (int j = 0; j < SN; ++j) {
+        const int col = kv0 + lx + 8 * j;
+        float sj = s[i][j];
         if (slopes) sj = alibi(sj, slope, row, col);
-        const bool vis = visible(row, col, nq, nk, causal, q_off);
-        ok |= (vis ? 1u : 0u) << j;
-        s[j] = vis ? sj : kNegBig;
-        cmax = fmaxf(cmax, s[j]);
+        if (!full) {
+          const bool vis = visible(row, col, nq, nk, causal, q_off);
+          ok |= (vis ? 1u : 0u) << j;
+          sj = vis ? sj : kNegBig;  // before the max
+        }
+        s[i][j] = sj;
+        mx = fmaxf(mx, sj);
       }
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
+      const float m_new = fmaxf(m[i], oct_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha;
 #pragma unroll
-      for (int d = 0; d < kD; ++d) acc[d] *= alpha;
+      for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha;
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = (ok >> j) & 1u ? expf(s[j] - m_new) : 0.f;
-        l += p;
-        const float* vr = vs + (j0 + j) * D + c0;
-#pragma unroll
-        for (int d = 0; d < kD; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
+      for (int j = 0; j < SN; ++j) {
+        const float p = (ok >> j) & 1u ? expf(s[i][j] - m_new) : 0.f;
+        l[i] += p;
+        ps[(gy + i * G) * LDP + lx + 8 * j] = p;
       }
-      m = m_new;
     }
+    // A row of P is written and read by the 8 lanes of one warp, so P alone
+    // needs no block barrier: with two buffers the warps of a block drift
+    // apart here, one in its softmax while another multiplies.
+    if (P::kBufs == 1) {
+      cp_async_wait<0>();  // V of tile t
+      __syncthreads();     // and everyone is done with K of tile t
+      if (t + 1 < n_tiles) {
+        stage_k(t + 1);
+        cp_async_commit();
+      }
+    } else {
+      __syncwarp();
+    }
+    tile_ab<R, NC, G, BN, LDP, LD>(acc, ps + gy * LDP, vs + 4 * lx);
   }
-  if (live) {
-    const float l_safe = l == 0.f ? 1.f : l;
+
 #pragma unroll
-    for (int d = 0; d < kD; ++d) o[qb + (size_t)row * D + c0 + d] = acc[d] / l_safe;
-    if (c0 == 0) lse[(size_t)bh * nq + row] = m + logf(l_safe);
+  for (int i = 0; i < R; ++i) {
+    const int row = r0 + gy + i * G;
+    const float lt = oct_sum(l[i]);
+    const float l_safe = lt == 0.f ? 1.f : lt;
+    if (row < nq) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        *reinterpret_cast<float4*>(o + qb + (size_t)row * D + 4 * lx + 32 * c) =
+            make_float4(acc[i][4 * c] / l_safe, acc[i][4 * c + 1] / l_safe,
+                        acc[i][4 * c + 2] / l_safe, acc[i][4 * c + 3] / l_safe);
+      }
+      if (lx == 0) lse[(size_t)bh * nq + row] = m[i] + logf(l_safe);
+    }
   }
 }
 
-// dQ over query tiles; also writes delta = rowsum(dO * O) for the dK/dV kernel.
+// dQ over query tiles; also writes delta = rowsum(dO * O) for the dK/dV
+// kernel. Q and dO of the block are staged once; per key tile S = Q K^T and
+// dP = dO V^T in micro-tiles, dS through shared memory, dQ += dS K.
 template <int D>
-__global__ void __launch_bounds__(F32<D, false>::kThreads)
-flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ o,
-                        const float* __restrict__ lse, const float* __restrict__ dout,
-                        const float* __restrict__ slopes, float* __restrict__ dq,
-                        float* __restrict__ delta, int nq, int nk, int causal, int q_off,
-                        float scale) {
-  using P = F32<D, false>;
-  constexpr int kD = P::kD;
-  __shared__ float ks[P::kTile * D];
-  __shared__ float vs[P::kTile * D];
-  const int bh = blockIdx.x;
-  const int r0 = blockIdx.y * P::kRows;
-  const int row = r0 + threadIdx.x / P::kTpr;
-  const int c0 = (threadIdx.x % P::kTpr) * kD;
-  const bool live = row < nq;
-  const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
-  const float slope = slopes ? slopes[bh] : 0.f;
-
-  float qr[kD], dor[kD], acc[kD];
-  float dpart = 0.f;
-#pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    const size_t at = qb + (size_t)row * D + c0 + d;
-    qr[d] = live ? q[at] : 0.f;
-    dor[d] = live ? dout[at] : 0.f;
-    dpart = fmaf(dor[d], live ? o[at] : 0.f, dpart);
-    acc[d] = 0.f;
-  }
-  const float dl = row_sum<P>(dpart);
-  const float lse_r = live ? lse[(size_t)bh * nq + row] : 0.f;
-  if (live && c0 == 0) delta[(size_t)bh * nq + row] = dl;
-  const int hi = key_end(r0, P::kRows, nk, causal, q_off);
-
-  for (int kv0 = 0; kv0 < hi; kv0 += P::kTile) {
-    __syncthreads();
-    stage_f32<P, D>(ks, k + kb + (size_t)kv0 * D, min(P::kTile, nk - kv0));
-    stage_f32<P, D>(vs, v + kb + (size_t)kv0 * D, min(P::kTile, nk - kv0));
-    __syncthreads();
-    const int cols = min(P::kTile, hi - kv0);
-    for (int j = 0; j < cols; ++j) {
-      const float* kr = ks + j * D + c0;
-      const float* vr = vs + j * D + c0;
-      float sp = 0.f, dpp = 0.f;
-#pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        sp = fmaf(qr[d], kr[d], sp);
-        dpp = fmaf(dor[d], vr[d], dpp);
-      }
-      const int col = kv0 + j;
-      float s = __fmul_rn(row_sum<P>(sp), scale);
-      if (slopes) s = alibi(s, slope, row, col);
-      const float p = visible(row, col, nq, nk, causal, q_off) ? expf(s - lse_r) : 0.f;
-      const float dp = row_sum<P>(dpp);
-      const float ds = __fmul_rn(__fmul_rn(p, dp - dl), scale);
-#pragma unroll
-      for (int d = 0; d < kD; ++d) acc[d] = fmaf(ds, kr[d], acc[d]);
-    }
-  }
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < kD; ++d) dq[qb + (size_t)row * D + c0 + d] = acc[d];
-  }
-}
-
-// dK and dV over key tiles.
-template <int D>
-__global__ void __launch_bounds__(F32<D, false>::kThreads)
-flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ lse,
-                         const float* __restrict__ delta, const float* __restrict__ dout,
-                         const float* __restrict__ slopes, float* __restrict__ dk,
-                         float* __restrict__ dv, int nq, int nk, int causal, int q_off,
+__global__ void __launch_bounds__(F32<D, kDq>::kThreads, F32<D, kDq>::kBlocks)
+flash_bwd_dq_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ o,
+                         const float* __restrict__ lse, const float* __restrict__ dout,
+                         const float* __restrict__ slopes, float* __restrict__ dq,
+                         float* __restrict__ delta, int nq, int nk, int causal, int q_off,
                          float scale) {
-  using P = F32<D, false>;
-  constexpr int kD = P::kD;
-  __shared__ float qs[P::kTile * D];
-  __shared__ float dos[P::kTile * D];
-  __shared__ float lses[P::kTile];
-  __shared__ float dls[P::kTile];
+  using P = F32<D, kDq>;
+  constexpr int BM = P::kRows, BN = P::kTile, T = P::kThreads, G = P::kG, R = P::kR;
+  constexpr int SN = P::kSN, NC = P::kNC, LD = P::kLd, LDP = P::kLdP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* dos = qs + BM * LD;
+  float* bufs = dos + BM * LD;
+  float* dss = bufs + P::kBufs * P::kStage;
+  const int gy = row_group(), lx = col_group();
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * P::kRows;
-  const int key = k0 + threadIdx.x / P::kTpr;
-  const int c0 = (threadIdx.x % P::kTpr) * kD;
-  const bool live = key < nk;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * BM;  // the longest blocks start first
   const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
   const float slope = slopes ? slopes[bh] : 0.f;
+  const int hi = key_end(r0, BM, nk, causal, q_off);
+  const int n_tiles = (hi + BN - 1) / BN;
 
-  float kr[kD], vr[kD], dka[kD], dva[kD];
-#pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    const size_t at = kb + (size_t)key * D + c0 + d;
-    kr[d] = live ? k[at] : 0.f;
-    vr[d] = live ? v[at] : 0.f;
-    dka[d] = 0.f;
-    dva[d] = 0.f;
+  auto stage = [&](int t) {
+    float* ks = bufs + (t % P::kBufs) * P::kStage;
+    const int kv0 = t * BN, valid = min(BN, nk - kv0);
+    stage_tile_async<D, BN, T>(ks, k + kb + (size_t)kv0 * D, valid);
+    stage_tile_async<D, BN, T>(ks + BN * LD, v + kb + (size_t)kv0 * D, valid);
+    cp_async_commit();
+  };
+
+  if (n_tiles > 0) {
+    stage_tile_async<D, BM, T>(qs, q + qb + (size_t)r0 * D, min(BM, nq - r0));
+    stage_tile_async<D, BM, T>(dos, dout + qb + (size_t)r0 * D, min(BM, nq - r0));
+    stage(0);
   }
 
-  for (int q0 = query_start(k0, P::kTile, causal, q_off); q0 < nq; q0 += P::kTile) {
-    const int valid = min(P::kTile, nq - q0);
-    __syncthreads();
-    stage_f32<P, D>(qs, q + qb + (size_t)q0 * D, valid);
-    stage_f32<P, D>(dos, dout + qb + (size_t)q0 * D, valid);
-    for (int i = threadIdx.x; i < P::kTile; i += P::kThreads) {
-      lses[i] = i < valid ? lse[(size_t)bh * nq + q0 + i] : 0.f;
-      dls[i] = i < valid ? delta[(size_t)bh * nq + q0 + i] : 0.f;
+  // delta and lse of this thread's rows, from device memory while the
+  // copies fly: each of a row's 8 lanes sums its own columns
+  float dl[R], lse_r[R], acc[R][4 * NC];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = r0 + gy + i * G;
+    const bool live = row < nq;
+    float part = 0.f;
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const size_t at = qb + (size_t)row * D + 4 * lx + 32 * c;
+        const float4 a = *reinterpret_cast<const float4*>(dout + at);
+        const float4 b = *reinterpret_cast<const float4*>(o + at);
+        part = fmaf(a.x, b.x, part);
+        part = fmaf(a.y, b.y, part);
+        part = fmaf(a.z, b.z, part);
+        part = fmaf(a.w, b.w, part);
+      }
     }
-    __syncthreads();
-    for (int i = 0; i < valid; ++i) {
-      const float* qi = qs + i * D + c0;
-      const float* di = dos + i * D + c0;
-      float sp = 0.f, dpp = 0.f;
+    dl[i] = oct_sum(part);
+    lse_r[i] = live ? lse[(size_t)bh * nq + row] : 0.f;
+    if (live && lx == 0) delta[(size_t)bh * nq + row] = dl[i];
 #pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        sp = fmaf(qi[d], kr[d], sp);
-        dpp = fmaf(di[d], vr[d], dpp);
-      }
-      const int row = q0 + i;
-      float s = __fmul_rn(row_sum<P>(sp), scale);
-      if (slopes) s = alibi(s, slope, row, key);
-      const float p = visible(row, key, nq, nk, causal, q_off) ? expf(s - lses[i]) : 0.f;
-      const float dp = row_sum<P>(dpp);
-      const float ds = __fmul_rn(__fmul_rn(p, dp - dls[i]), scale);
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is here; everyone is done with tile t - 1
+    if (P::kBufs == 2 && t + 1 < n_tiles) stage(t + 1);
+    const float* ks = bufs + (t % P::kBufs) * P::kStage;
+    const float* vs = ks + BN * LD;
+    const int kv0 = t * BN;
+
+    float s[R][SN], dp[R][SN];
 #pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        dva[d] = fmaf(p, di[d], dva[d]);
-        dka[d] = fmaf(ds, qi[d], dka[d]);
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < SN; ++j) s[i][j] = dp[i][j] = 0.f;
+    }
+    tile_abt<R, SN, G, D, LD, LD>(s, qs + gy * LD, ks + lx * LD);     // S = Q K^T
+    tile_abt<R, SN, G, D, LD, LD>(dp, dos + gy * LD, vs + lx * LD);  // dP = dO V^T
+
+    const bool full = kv0 + BN <= nk && (!causal || kv0 + BN - 1 <= r0 + q_off);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = r0 + gy + i * G;
+#pragma unroll
+      for (int j = 0; j < SN; ++j) {
+        const int col = kv0 + lx + 8 * j;
+        float sc = __fmul_rn(s[i][j], scale);
+        if (slopes) sc = alibi(sc, slope, row, col);
+        const float p =
+            (full || visible(row, col, nq, nk, causal, q_off)) ? expf(sc - lse_r[i]) : 0.f;
+        dss[(gy + i * G) * LDP + lx + 8 * j] = __fmul_rn(__fmul_rn(p, dp[i][j] - dl[i]), scale);
       }
+    }
+    __syncwarp();  // a row of dS stays within one warp
+    tile_ab<R, NC, G, BN, LDP, LD>(acc, dss + gy * LDP, ks + 4 * lx);  // dQ += dS K
+    if (P::kBufs == 1 && t + 1 < n_tiles) {
+      __syncthreads();
+      stage(t + 1);
     }
   }
-  if (live) {
+
 #pragma unroll
-    for (int d = 0; d < kD; ++d) {
-      const size_t at = kb + (size_t)key * D + c0 + d;
-      dk[at] = dka[d];
-      dv[at] = dva[d];
+  for (int i = 0; i < R; ++i) {
+    const int row = r0 + gy + i * G;
+    if (row >= nq) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      *reinterpret_cast<float4*>(dq + qb + (size_t)row * D + 4 * lx + 32 * c) =
+          make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2], acc[i][4 * c + 3]);
+    }
+  }
+}
+
+// dK and dV over key tiles: K and V of the block's kRows keys are staged
+// once; per query tile (with its lse and delta rows) S^T = K Q^T and dP^T =
+// V dO^T in micro-tiles whose rows are keys, P^T and dS^T through shared
+// memory, dV += P^T dO and dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(F32<D, kDkv>::kThreads, F32<D, kDkv>::kBlocks)
+flash_bwd_dkv_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ lse,
+                          const float* __restrict__ delta, const float* __restrict__ dout,
+                          const float* __restrict__ slopes, float* __restrict__ dk,
+                          float* __restrict__ dv, int nq, int nk, int causal, int q_off,
+                          float scale) {
+  using P = F32<D, kDkv>;
+  constexpr int BK = P::kRows, BQ = P::kTile, T = P::kThreads, G = P::kG, R = P::kR;
+  constexpr int SN = P::kSN, NC = P::kNC, LD = P::kLd, LDP = P::kLdP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + BK * LD;
+  float* bufs = vs + BK * LD;
+  float* pts = bufs + P::kBufs * P::kStage;
+  float* dsts = pts + BK * LDP;
+  const int gy = row_group(), lx = col_group();
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;  // the first key tiles see the most queries
+  const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
+  const float slope = slopes ? slopes[bh] : 0.f;
+  const int q_begin = query_start(k0, BQ, causal, q_off);
+  const int n_tiles = q_begin < nq ? (nq - q_begin + BQ - 1) / BQ : 0;
+
+  auto stage = [&](int t) {
+    float* qsb = bufs + (t % P::kBufs) * P::kStage;
+    const int q0 = q_begin + t * BQ, valid = min(BQ, nq - q0);
+    stage_tile_async<D, BQ, T>(qsb, q + qb + (size_t)q0 * D, valid);
+    stage_tile_async<D, BQ, T>(qsb + BQ * LD, dout + qb + (size_t)q0 * D, valid);
+    stage_row_async<T>(qsb + 2 * BQ * LD, lse + (size_t)bh * nq + q0, BQ, valid);
+    stage_row_async<T>(qsb + 2 * BQ * LD + BQ, delta + (size_t)bh * nq + q0, BQ, valid);
+    cp_async_commit();
+  };
+
+  if (n_tiles > 0) {
+    stage_tile_async<D, BK, T>(ks, k + kb + (size_t)k0 * D, min(BK, nk - k0));
+    stage_tile_async<D, BK, T>(vs, v + kb + (size_t)k0 * D, min(BK, nk - k0));
+    stage(0);
+  }
+
+  float dka[R][4 * NC], dva[R][4 * NC];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) dka[i][c] = dva[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is here; everyone is done with tile t - 1
+    if (P::kBufs == 2 && t + 1 < n_tiles) stage(t + 1);
+    const float* qsb = bufs + (t % P::kBufs) * P::kStage;
+    const float* dosb = qsb + BQ * LD;
+    const float* lses = dosb + BQ * LD;
+    const float* dls = lses + BQ;
+    const int q0 = q_begin + t * BQ;
+
+    float st[R][SN], dpt[R][SN];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < SN; ++j) st[i][j] = dpt[i][j] = 0.f;
+    }
+    tile_abt<R, SN, G, D, LD, LD>(st, ks + gy * LD, qsb + lx * LD);     // S^T = K Q^T
+    tile_abt<R, SN, G, D, LD, LD>(dpt, vs + gy * LD, dosb + lx * LD);  // dP^T = V dO^T
+
+    const bool full =
+        q0 + BQ <= nq && k0 + BK <= nk && (!causal || k0 + BK - 1 <= q0 + q_off);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int key = k0 + gy + i * G;
+#pragma unroll
+      for (int j = 0; j < SN; ++j) {
+        const int qi = lx + 8 * j, row = q0 + qi;
+        float sc = __fmul_rn(st[i][j], scale);
+        if (slopes) sc = alibi(sc, slope, row, key);
+        const float p =
+            (full || visible(row, key, nq, nk, causal, q_off)) ? expf(sc - lses[qi]) : 0.f;
+        pts[(gy + i * G) * LDP + qi] = p;
+        dsts[(gy + i * G) * LDP + qi] = __fmul_rn(__fmul_rn(p, dpt[i][j] - dls[qi]), scale);
+      }
+    }
+    __syncwarp();  // a row (a key) of P^T and dS^T stays within one warp
+    tile_ab<R, NC, G, BQ, LDP, LD>(dva, pts + gy * LDP, dosb + 4 * lx);  // dV += P^T dO
+    tile_ab<R, NC, G, BQ, LDP, LD>(dka, dsts + gy * LDP, qsb + 4 * lx);  // dK += dS^T Q
+    if (P::kBufs == 1 && t + 1 < n_tiles) {
+      __syncthreads();
+      stage(t + 1);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int key = k0 + gy + i * G;
+    if (key >= nk) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const size_t at = kb + (size_t)key * D + 4 * lx + 32 * c;
+      *reinterpret_cast<float4*>(dk + at) =
+          make_float4(dka[i][4 * c], dka[i][4 * c + 1], dka[i][4 * c + 2], dka[i][4 * c + 3]);
+      *reinterpret_cast<float4*>(dv + at) =
+          make_float4(dva[i][4 * c], dva[i][4 * c + 1], dva[i][4 * c + 2], dva[i][4 * c + 3]);
     }
   }
 }
@@ -624,6 +813,14 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ================================================================= launches
+// Above 48 KB of dynamic shared memory a kernel must opt in; cheap, and
+// idempotent.
+template <class Kernel>
+bool allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) ==
+         cudaSuccess;
+}
+
 template <int D>
 void launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
                 const float* slopes, int bh, int nq, int nk, int causal, int q_off,
@@ -631,10 +828,12 @@ void launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
   float* l = static_cast<float*>(lse);
   if (dtype == 0) {
     using T = float;
-    constexpr int kRows = F32<D, true>::kRows;
-    flash_fwd_fma_kernel<D><<<dim3(bh, (nq + kRows - 1) / kRows), F32<D, true>::kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), l, slopes, nq, nk, causal, q_off, scale);
+    using P = F32<D, kFwd>;
+    if (!allow_smem(flash_fwd_tile_kernel<D>, P::kSmem)) return;
+    flash_fwd_tile_kernel<D>
+        <<<dim3(bh, (nq + P::kRows - 1) / P::kRows), P::kThreads, P::kSmem, s>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+            static_cast<T*>(o), l, slopes, nq, nk, causal, q_off, scale);
   } else {
     using T = bf16;
     flash_fwd_mma_kernel<D><<<dim3(bh, (nq + kMmaRows - 1) / kMmaRows), kMmaThreads, 0, s>>>(
@@ -652,24 +851,28 @@ void launch_bwd(int dtype, const void* q, const void* k, const void* v, const vo
   float* dl = static_cast<float*>(delta);
   if (dtype == 0) {
     using T = float;
-    constexpr int kThreads = F32<D, false>::kThreads, kRows = F32<D, false>::kRows;
-    flash_bwd_dq_fma_kernel<D><<<dim3(bh, (nq + kRows - 1) / kRows), kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(o), l, static_cast<const T*>(dout), slopes,
-        static_cast<T*>(dq), dl, nq, nk, causal, q_off, scale);
+    using PQ = F32<D, kDq>;
+    using PK = F32<D, kDkv>;
+    if (!allow_smem(flash_bwd_dq_tile_kernel<D>, PQ::kSmem) ||
+        !allow_smem(flash_bwd_dkv_tile_kernel<D>, PK::kSmem)) {
+      return;
+    }
+    flash_bwd_dq_tile_kernel<D>
+        <<<dim3(bh, (nq + PQ::kRows - 1) / PQ::kRows), PQ::kThreads, PQ::kSmem, s>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+            static_cast<const T*>(o), l, static_cast<const T*>(dout), slopes,
+            static_cast<T*>(dq), dl, nq, nk, causal, q_off, scale);
     if (cudaPeekAtLastError() != cudaSuccess) return;
-    flash_bwd_dkv_fma_kernel<D><<<dim3(bh, (nk + kRows - 1) / kRows), kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), l, dl,
-        static_cast<const T*>(dout), slopes, static_cast<T*>(dk), static_cast<T*>(dv), nq,
-        nk, causal, q_off, scale);
+    flash_bwd_dkv_tile_kernel<D>
+        <<<dim3(bh, (nk + PK::kRows - 1) / PK::kRows), PK::kThreads, PK::kSmem, s>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), l, dl,
+            static_cast<const T*>(dout), slopes, static_cast<T*>(dk), static_cast<T*>(dv), nq,
+            nk, causal, q_off, scale);
   } else {
     using T = bf16;
     constexpr int kSmem = bwd_smem_bytes<D>();
-    // above 48 KB a kernel must opt in; cheap, and idempotent
-    if (cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem) != cudaSuccess ||
-        cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem) != cudaSuccess) {
+    if (!allow_smem(flash_bwd_dq_mma_kernel<D>, kSmem) ||
+        !allow_smem(flash_bwd_dkv_mma_kernel<D>, kSmem)) {
       return;
     }
     flash_bwd_dq_mma_kernel<D><<<dim3(bh, (nq + kMmaRows - 1) / kMmaRows), kMmaThreads, kSmem, s>>>(

@@ -72,10 +72,13 @@ def test_forward_and_grads_match_pallas_interpret(case):
 
 
 @pytest.mark.parametrize("causal,alibi", [(False, False), (True, False), (True, True)])
-@pytest.mark.parametrize("nq,nk", [(40, 40), (17, 45)])
+@pytest.mark.parametrize("nq,nk", [(40, 40), (17, 45), (1, 5), (65, 65)])
 def test_matches_attention_reference(nq, nk, causal, alibi):
     """Including causal with Nq < Nk, where the kernels take the diagonal
-    offset Nk - Nq and the JAX function takes its reference."""
+    offset Nk - Nq and the JAX function takes its reference; one query over
+    five keys (the cached-decode shape) and a length one past a 64-row tile
+    are edges of the CUDA kernels' tiling, so the plain version they are
+    held to on the card is held to JAX here."""
     q, k, v, g = _inputs(1, 1, 2, nq, nk, 64)
     slopes = jnp.asarray(SLOPES) if alibi else None
     ref = _jax_vjp(lambda q, k, v: attention_reference(q, k, v, causal=causal, alibi_slopes=slopes),
@@ -120,6 +123,24 @@ def test_lse_and_fully_masked_rows():
         assert torch.isfinite(t.grad).all()
 
 
+@pytest.mark.parametrize("nq,nk,d", [(24, 10, 64), (100, 40, 64), (70, 33, 128)])
+def test_causal_nq_gt_nk_matches_reference_on_seeing_rows(nq, nk, d):
+    """Causal with Nq > Nk: rows i < Nq - Nk see no key. There the port gives
+    O = 0 and no gradient, the JAX reference a uniform softmax, so the two
+    are compared on the rows that see a key, with dO zero on the others
+    (their share of dK and dV is then zero on both sides)."""
+    q, k, v, g = _inputs(4, 1, 2, nq, nk, d)
+    blind = nq - nk
+    g[:, :, :blind] = 0.0
+    ref = _jax_vjp(lambda q, k, v: attention_reference(q, k, v, causal=True), q, k, v, g)
+    got = _torch_fwd_bwd(q, k, v, g, causal=True, alibi=False)
+    assert np.all(got[0][:, :, :blind] == 0) and np.all(got[1][:, :, :blind] == 0)
+    for name, a, r in zip(("o", "dq"), got[:2], ref[:2]):
+        np.testing.assert_allclose(a[:, :, blind:], r[:, :, blind:], atol=1e-5, rtol=1e-5, err_msg=name)
+    for name, a, r in zip(("dk", "dv"), got[2:], ref[2:]):
+        np.testing.assert_allclose(a, r, atol=1e-5, rtol=1e-5, err_msg=name)
+
+
 def test_cpu_counts_no_launch():
     q, k, v, _ = (torch.from_numpy(t).requires_grad_(True) for t in _inputs(5, 1, 2, 16, 16, 64))
     before = dict(F.LAUNCHES)
@@ -144,6 +165,12 @@ def _card_inputs(bh, nq, nk, d, dtype, seed):
     (8, 200, 200, 128, True, True),     # ALiBi + causal (MPT)
     (8, 50, 50, 64, False, False),      # key padding
     (8, 70, 300, 128, True, False),     # causal with Nq < Nk
+    (8, 1, 5, 128, False, False),       # one query, fewer keys than a tile (cached decode)
+    (8, 1, 5, 128, True, False),
+    (8, 100, 40, 64, True, False),      # causal with Nq > Nk: the first rows see no key
+    (8, 65, 65, 128, True, False),      # one row past a tile boundary
+    (8, 129, 129, 64, True, False),
+    (8, 50, 50, 64, False, True),       # ALiBi with key padding, not causal
 ])
 def test_cuda_kernels_match_plain(dtype, bh, nq, nk, d, causal, alibi):
     if not torch.cuda.is_available():
