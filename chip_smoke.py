@@ -6,8 +6,9 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. build    - nvcc builds every kernel of csrc/, one process per source;
   2. kernels  - each kernel against its plain PyTorch version on the card,
-                at the main paths' shapes, with times and bounds; planted
-                faults show that the attention and q4_matmul checks can fail;
+                at the main paths' shapes, with times (kernels by CUDA-graph
+                replay) and bounds; planted faults show that the attention
+                and q4_matmul checks can fail;
   3. reference - ViT-B/32 logits and pixel gradient through the kernels
                 on the card against the plain path on the CPU;
   4. main     - `robustbench.main` (the CLI entry point) at CLIP ViT-L/14
@@ -63,12 +64,27 @@ LINF_SHAPE = (8, 3 * 224 * 224)       # APGD batch 8 at 224 px
 ATTN_BH = 8 * 16                      # batch 8 x 16 heads (ViT-L/14)
 ATTN_NS = (50, 257, 577)              # ViT-B/32, ViT-L/14, ViT-L/14-336
 ATTN_D = 64
+# (n, head dim, extreme scores): the three towers' lengths, every scaled
+# score far below exp's underflow point, a ragged length (one key past a
+# 64-row tile), and head dim 80 (ViT-H/14), whose shared rows are padded
+ATTN_CASES = ([(n, ATTN_D, False) for n in ATTN_NS] + [(257, ATTN_D, True), (129, ATTN_D, False)]
+              + [(129, 80, False), (257, 80, False)])
 # Attention against its plain version, per output tensor: float32 within
 # 1e-5 abs; bf16 within 2e-2 of the reference's largest magnitude; lse is
 # float32 in both dtypes and held to 1e-5 abs + 1e-6 of its value.
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 LSE_TOL = (1e-5, 1e-6)  # (atol, rtol)
 ATTN_OUTPUTS = ("o", "lse", "dq", "dk", "dv")
+# How the attention rows are timed. The kernels and the library forward are
+# captured in a CUDA graph and replayed (time_graph_ms): no host time between
+# launches. The library backward cannot be captured (autograd runs it on the
+# stream its forward ran on, outside the capture), so it is timed by events
+# around a Python loop (time_ms); plain versions likewise.
+TIMED_BY = {
+    "fwd": {"ms": "graph", "library_ms": "graph", "plain_ms": "events"},
+    "bwd": {"ms": "graph", "library_ms": "events: autograd's backward is not capturable",
+            "plain_ms": "events"},
+}
 
 
 def emit(obj) -> None:
@@ -203,12 +219,12 @@ def check_linf_step(peaks: dict) -> dict:
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
-def _qkv(n: int, dtype, seed: int, extreme: bool = False):
+def _qkv(n: int, dtype, seed: int, extreme: bool = False, d: int = ATTN_D):
     import torch
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shape = (ATTN_BH, n, ATTN_D)
+    shape = (ATTN_BH, n, d)
     if extreme:  # every scaled score is -800: far below exp's underflow point
         q = torch.full(shape, 10.0, device=dev)
         k = torch.full(shape, -10.0, device=dev)
@@ -276,9 +292,8 @@ def check_attention(peaks: dict) -> list:
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         worst = {"fwd": 0.0, "bwd": 0.0}
-        cases = [(n, False) for n in ATTN_NS] + [(257, True)]
-        for n, extreme in cases:
-            q, k, v, do = _qkv(n, dtype, seed=n, extreme=extreme)
+        for n, d, extreme in ATTN_CASES:
+            q, k, v, do = _qkv(n, dtype, seed=n + d, extreme=extreme, d=d)
             o, lse = A.attention_fwd_cuda(q, k, v)
             got = (o, lse, *A.attention_bwd_cuda(q, k, v, o, lse, do))
             # the plain backward takes the plain forward's residuals, so a
@@ -288,31 +303,32 @@ def check_attention(peaks: dict) -> list:
             res = _attn_check(dname, got, ref, extreme)
             ok = all(r[1] for r in res.values())
             line = {"phase": "kernels", "kernel": "vit_attention", "dtype": dname,
-                    "n": n, "extreme": extreme,
+                    "n": n, "d": d, "extreme": extreme,
                     "max_abs_err": {name: e for name, (e, _) in res.items()},
                     "within": {name: w for name, (_, w) in res.items()},
                     "tol": {"outputs": ATTN_TOL[dname], "relative_to_max_ref": dname != "float32",
                             "lse": LSE_TOL}, "ok": ok}
-            if n == 257 and not extreme:
+            if (n, d, extreme) == (257, ATTN_D, False):
                 line["controls_caught"] = _attn_controls(dname, q, k, v, do, got, ref)
                 ok = ok and all(line["controls_caught"].values())
             emit(line)
             if not ok:
-                raise AssertionError(f"vit_attention {dname} n={n} extreme={extreme}: "
+                raise AssertionError(f"vit_attention {dname} n={n} d={d} extreme={extreme}: "
                                      "disagrees, or a planted fault passed the check")
             worst["fwd"] = max(worst["fwd"], res["o"][0])
             worst["bwd"] = max(worst["bwd"], res["dq"][0], res["dk"][0], res["dv"][0])
 
-        # times at the main path's shape: ViT-L/14, batch 8
+        # times at the main path's shape: ViT-L/14, batch 8; kernels and the
+        # library forward by CUDA-graph replay (TIMED_BY)
         n = 257
         q, k, v, do = _qkv(n, dtype, seed=1)
         o, lse = A.attention_fwd_cuda(q, k, v)
-        fwd_ms = time_ms(lambda: A.attention_fwd_cuda(q, k, v))
+        fwd_ms = time_graph_ms(lambda: A.attention_fwd_cuda(q, k, v))
         fwd_plain = time_ms(lambda: A.attention_fwd_plain(q, k, v))
-        bwd_ms = time_ms(lambda: A.attention_bwd_cuda(q, k, v, o, lse, do))
+        bwd_ms = time_graph_ms(lambda: A.attention_bwd_cuda(q, k, v, o, lse, do))
         bwd_plain = time_ms(lambda: A.attention_bwd_plain(q, k, v, o, lse, do))
         q4, k4, v4 = (t.view(8, 16, n, ATTN_D) for t in (q, k, v))
-        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        lib_fwd = time_graph_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
         out = F.scaled_dot_product_attention(ql, kl, vl)
         do4 = do.view(8, 16, n, ATTN_D)
@@ -326,11 +342,13 @@ def check_attention(peaks: dict) -> list:
         results.append({"name": f"vit_attention_fwd[{dname}]", **common,
                         "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:157",
                         "max_abs_err": worst["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
-                        "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd})
+                        "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
+                        "timed_by": TIMED_BY["fwd"]})
         results.append({"name": f"vit_attention_bwd[{dname}]", **common,
                         "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:181",
                         "max_abs_err": worst["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
-                        "bound_ms": bb, "bound_by": bby, "library_ms": lib_bwd})
+                        "bound_ms": bb, "bound_by": bby, "library_ms": lib_bwd,
+                        "timed_by": TIMED_BY["bwd"]})
     return results
 
 
@@ -341,7 +359,9 @@ def check_attention(peaks: dict) -> list:
 # case, and the edges of the kernels' tiling: one query over fewer keys than
 # a tile (the cached-decode shape), causal with Nq > Nk (the first rows see
 # no key: O = 0, lse = -1e30), one row past a tile boundary at each head
-# dim, ALiBi with key padding at head dim 64. Limits as ATTN_TOL/LSE_TOL.
+# dim, ALiBi with key padding at head dim 64, and the one-query, Nq > Nk,
+# key-padding and past-a-tile edges at the other head dim. Limits as
+# ATTN_TOL/LSE_TOL.
 CLIP_TEXT_SHAPE = (96, 77, 64)  # (B*H, N, D) of the text tower on 8 prompts
 
 
@@ -368,6 +388,10 @@ def _flash_cases() -> list:  # (label, bh, nq, nk, d, causal, alibi, extreme)
         ("past_tile_d128", 8, 65, 65, 128, True, False, False),
         ("past_tile_d64", 8, 129, 129, 64, True, False, False),
         ("alibi_keypad_noncausal_d64", 8, 50, 50, 64, False, True, False),
+        ("one_query_causal_d64", 8, 1, 5, 64, True, False, False),
+        ("causal_nq_gt_nk_d128", 8, 100, 40, 128, True, False, False),
+        ("keypad_noncausal_d128", 8, 50, 50, 128, False, False, False),
+        ("past_tile_one_row_d64", 8, 65, 65, 64, True, False, False),
     ]
 
 
@@ -472,12 +496,12 @@ def check_flash(peaks: dict) -> list:
         bh, n, _, d = _flash_llava_shape()
         (q, k, v, do), _ = _flash_inputs(bh, n, n, d, dtype, seed=1)
         o, lse = F.flash_fwd_cuda(q, k, v, causal=True)
-        fwd_ms = time_ms(lambda: F.flash_fwd_cuda(q, k, v, causal=True))
+        fwd_ms = time_graph_ms(lambda: F.flash_fwd_cuda(q, k, v, causal=True))
         fwd_plain = time_ms(lambda: F.flash_fwd_plain(q, k, v, causal=True), iters=5)
-        bwd_ms = time_ms(lambda: F.flash_bwd_cuda(q, k, v, o, lse, do, causal=True))
+        bwd_ms = time_graph_ms(lambda: F.flash_bwd_cuda(q, k, v, o, lse, do, causal=True))
         bwd_plain = time_ms(lambda: F.flash_bwd_plain(q, k, v, o, lse, do, causal=True), iters=5)
         q4, k4, v4, do4 = (t.view(1, bh, n, d) for t in (q, k, v, do))
-        lib_fwd = time_ms(lambda: Fn.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+        lib_fwd = time_graph_ms(lambda: Fn.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
         out = Fn.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
         lib_bwd = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do4, retain_graph=True))
@@ -491,11 +515,13 @@ def check_flash(peaks: dict) -> list:
         results.append({"name": f"flash_attention_fwd[{dname}]", **common,
                         "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
                         "max_abs_err": worst["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
-                        "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd})
+                        "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
+                        "timed_by": TIMED_BY["fwd"]})
         results.append({"name": f"flash_attention_bwd[{dname}]", **common,
                         "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:273 (dQ), :295 (dK/dV)",
                         "max_abs_err": worst["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
-                        "bound_ms": bb, "bound_by": bby, "library_ms": lib_bwd})
+                        "bound_ms": bb, "bound_by": bby, "library_ms": lib_bwd,
+                        "timed_by": TIMED_BY["bwd"]})
         if dtype == torch.float32:
             results.append(_flash_clip_text_row(worst["fwd"], peaks))
     return results
@@ -754,7 +780,7 @@ def phase_main(attacks: str, n_iter: int, compute_dtype: str) -> dict:
         "attacked": attacks.split(",")[0] in result["cascade"],
     }
     emit({"phase": "main", "entry": "robustvlm_tpu_torch.eval.robustbench.main",
-          "argv": argv, "wall_s": wall, "clean_acc": result["clean_acc"],
+          "argv": argv, "wall_s": wall, "attack_s": result["wall_s"], "clean_acc": result["clean_acc"],
           "robust_acc": result["robust_acc"], "cascade": result["cascade"],
           "linf_max": linf, "eps": MAIN_EPS / 255.0, "launches": launches,
           "checks": checks, "ok": all(checks.values())})

@@ -11,8 +11,7 @@
 // The function is the Pallas kernels', not their tiling: the TPU keeps a
 // whole K/V row in VMEM and walks 128-key blocks; here each block owns a
 // tile of query rows (of keys in dK/dV) and streams the other side through
-// shared memory in tiles: 64 rows by 64 in bfloat16, the shapes of F32Tile
-// in float32.
+// shared memory in tiles, of the shapes of Bf16Fwd, F32Tile and mma_bf16.cuh.
 //
 // Semantics, as the Pallas kernels and the public function compute them:
 // - forward: q scaled in its own dtype before Q K^T; ALiBi subtracts
@@ -39,64 +38,68 @@
 //
 // Two implementations:
 // - float32 (no TF32, so no tensor cores): register-tiled FMA kernels on the
-//   CUDA cores (fma_tile.cuh). Bound: operations, 4*nq*nk*D (forward) and
-//   10*nq*nk*D (backward) per head, halved when causal, at the card's
-//   float32 FMA rate; the two-kernel backward recomputes S and dP in each
-//   kernel, 14*nq*nk*D in all. Once every FMA takes an operand from shared
-//   memory, the shared-memory pipe is the nearer limit: a warp's 16-byte
-//   load costs 2 cycles of it at best. What the design does about it: every
-//   product of a tile is a small matrix product in registers (a thread
-//   holds a micro-tile of S or dP and one of the accumulator: 8 to 13 FMAs
-//   for each 16-byte load, and a lane layout that keeps every load at 2
-//   cycles, fma_tile.cuh), with no shuffle per dot product: row max, row
-//   sum and delta are reduced once a tile over the 8 lanes of a row. P and
-//   dS pass between a tile's two products through a padded shared tile,
-//   within one warp. The streamed tiles come in by 16-byte cp.async while
-//   the tile before them is computed (two buffers; in the forward at
-//   D = 128 one buffer each for K and V, which take turns, so that two
-//   blocks fit an SM); ragged tails are zero-filled. One online-softmax
-//   update per tile; tiles wholly below the diagonal skip the mask; the
-//   longest causal blocks are launched first. Shared rows are padded, not
-//   swizzled (D + 4 floats, tile + 8 for P and dS): fma_tile.cuh says why
-//   no warp load has a bank conflict.
-// - bfloat16: tensor cores through mma.sync m16n8k16 (mma_bf16.cuh), four
-//   warps of 16 rows. Scores, P and dS stay in registers. The backward
-//   kernels keep their block's own operands (Q and dO for dQ, K and V for
-//   dK/dV) in shared memory and read A fragments from there one k-step at a
-//   time: at D = 128 the dK and dV accumulators alone take 128 registers a
-//   thread. Bound: bytes at these sequence lengths (q, k, v, o read or
-//   written once); chip_smoke.py computes it as bound_ms. Loads are
-//   synchronous (no cp.async/TMA pipeline) and the products are not wgmma:
-//   later work.
+//   CUDA cores (fma_tile.cuh; the forward in attn_f32_tile.cuh, which the
+//   float32 ViT forward launches too). Bound: operations, 4*nq*nk*D
+//   (forward) and 10*nq*nk*D (backward) per head, halved when causal, at
+//   the card's float32 FMA rate; the two-kernel backward recomputes S and
+//   dP in each kernel, 14*nq*nk*D in all. Once every FMA takes an operand
+//   from shared memory, the shared-memory pipe is the nearer limit: a
+//   warp's 16-byte load costs 2 cycles of it at best. What the design does
+//   about it: every product of a tile is a small matrix product in
+//   registers (a thread holds a micro-tile of S or dP and one of the
+//   accumulator: 8 to 13 FMAs for each 16-byte load, and a lane layout that
+//   keeps every load at 2 cycles, fma_tile.cuh), with no shuffle per dot
+//   product: row max, row sum and delta are reduced once a tile over the 8
+//   lanes of a row. P and dS pass between a tile's two products through a
+//   padded shared tile, within one warp. The streamed tiles come in by
+//   16-byte cp.async while the tile before them is computed (two buffers;
+//   in the forward at D = 128 one buffer each for K and V, which take
+//   turns, so that two blocks fit an SM); ragged tails are zero-filled. One
+//   online-softmax update per tile; tiles wholly below the diagonal skip
+//   the mask; the longest causal blocks are launched first. Shared rows are
+//   padded, not swizzled (D + 4 floats, tile + 8 for P and dS): fma_tile.cuh
+//   says why no warp load has a bank conflict.
+// - bfloat16 forward: wgmma and TMA (wgmma_bf16.cuh). Bound: bytes at these
+//   sequence lengths (q, k, v, o read or written once; chip_smoke.py
+//   computes it as bound_ms). A block is one warpgroup of 128 threads that
+//   owns 64 query rows, the longest causal blocks first. One thread issues
+//   every copy: Q once, then K and V tiles of kN keys into a ring of
+//   kStages stages, each completing on its mbarrier, so the next tiles
+//   land while this one is computed; 3-D tensor maps over (D, n, bh) let
+//   the hardware zero-fill rows past n, and 128-byte boxes with the
+//   128-byte swizzle feed wgmma without bank conflicts (D = 128 is two
+//   boxes a tile). Per tile: S = (Q scale) K^T with Q and K from shared
+//   memory (q scaled in bf16 in place once); one online-softmax update on
+//   the accumulator in registers (two rows a thread, quad shuffles; the
+//   mask only on tiles that cross the diagonal or the key end, masked
+//   scores -inf so that P = 0 exactly; exp2 with log2(e) folded in); P
+//   rounded to bf16 and re-packed in registers as the A operand of O += P V
+//   (V read MN-major with the transpose bit); a stage is refilled only
+//   after every warp's products on it are done. The tensor maps are
+//   encoded on the host for each call (cuTensorMapEncodeTiled through the
+//   runtime, no -lcuda). No warp specialisation: the softmax does not
+//   overlap the products of the same block.
+// - bfloat16 backward: tensor cores through mma.sync m16n8k16 (mma_bf16.cuh),
+//   four warps of 16 rows. Scores, P and dS stay in registers. The kernels
+//   keep their block's own operands (Q and dO for dQ, K and V for dK/dV) in
+//   shared memory and read A fragments from there one k-step at a time: at
+//   D = 128 the dK and dV accumulators alone take 128 registers a thread.
+//   Bound: bytes. Loads are synchronous (no cp.async/TMA pipeline) and the
+//   products are not wgmma: later work.
 
 #include <math.h>
 
+#include "attn_f32_tile.cuh"
 #include "fma_tile.cuh"
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 // ============================================= float32: register-tiled FMA
-// The masks, shared by every kernel: key col visible from query row.
-__device__ __forceinline__ bool visible(int row, int col, int nq, int nk, bool causal,
-                                        int q_off) {
-  return row < nq && col < nk && (!causal || col <= row + q_off);
-}
-
-__device__ __forceinline__ float alibi(float s, float slope, int row, int col) {
-  return __fsub_rn(s, __fmul_rn(slope, static_cast<float>(row - col)));
-}
-
-// Keys [0, hi) can be visible from query rows [r0, r0 + rows).
-__device__ __forceinline__ int key_end(int r0, int rows, int nk, bool causal, int q_off) {
-  return causal ? max(0, min(nk, r0 + rows + q_off)) : nk;
-}
-
-// The first query row (rounded down to a tile) that sees key k0.
-__device__ __forceinline__ int query_start(int k0, int tile, bool causal, int q_off) {
-  return causal ? (max(0, k0 - q_off) / tile) * tile : 0;
-}
-
+// The forward kernel, the masks and the shape arithmetic F32<D, S, Kind>:
+// attn_f32_tile.cuh (shared with vit_attention.cu).
+//
 // Block shape per head dim and kernel: kRows rows of the block's own side
 // (queries; keys in dK/dV), kTile rows of the streamed side per
 // shared-memory tile, kThreads threads, kBufs buffers for the streamed tiles
@@ -104,7 +107,6 @@ __device__ __forceinline__ int query_start(int k0, int tile, bool causal, int q_
 // the tile's last product, except in the forward, where K and V take turns
 // in a buffer each). Chosen on the card by
 // scripts/sweep_flash_fp32_torch.py, which rewrites these lines.
-enum { kFwd = 0, kDq = 1, kDkv = 2 };
 template <int D, int Kind>
 struct F32Tile;
 template <>
@@ -120,192 +122,21 @@ struct F32Tile<128, kDq> { static constexpr int kRows = 64, kTile = 64, kThreads
 template <>
 struct F32Tile<128, kDkv> { static constexpr int kRows = 32, kTile = 32, kThreads = 128, kBufs = 2; };
 
-// What follows from a shape (thread layout of fma_tile.cuh) and the block's
-// shared memory: the own tiles staged once (Q; Q and dO; K and V), kBufs
-// stages of two streamed tiles (and, in dK/dV, their lse and delta rows),
-// and the P / dS tile (P^T and dS^T in dK/dV) between a tile's products.
 template <int D, int Kind>
-struct F32 : F32Tile<D, Kind> {
-  using S = F32Tile<D, Kind>;
-  static constexpr int kG = S::kThreads / 8;  // row groups
-  static constexpr int kR = S::kRows / kG;    // rows per thread
-  static constexpr int kSN = S::kTile / 8;    // score columns per thread
-  static constexpr int kNC = D / 32;          // 4-column chunks of an accumulator row per thread
-  static constexpr int kLd = D + kPadF;
-  static constexpr int kLdP = S::kTile + kPadP;
-  static constexpr int kStage = 2 * S::kTile * kLd + (Kind == kDkv ? 2 * S::kTile : 0);
-  static constexpr int kSmem = 4 * ((Kind == kFwd ? 1 : 2) * S::kRows * kLd + S::kBufs * kStage +
-                                    (Kind == kDkv ? 2 : 1) * S::kRows * kLdP);
-  // blocks an SM that the registers are kept free for: what the SM's 228 KB
-  // (1 KB reserved a block) hold, up to 256 threads (255 registers each)
-  static constexpr int kFit = 228 * 1024 / (kSmem + 1024), kCap = 256 / S::kThreads;
-  static constexpr int kBlocks = kFit < kCap ? kFit : (kCap < 1 ? 1 : kCap);
-  static_assert(S::kThreads % 32 == 0 && S::kRows % kG == 0 && S::kTile % 8 == 0 && D % 32 == 0,
-                "the thread layout needs whole micro-tiles");
-  static_assert(S::kBufs == 1 || S::kBufs == 2, "one or two stages");
-  static_assert(kSmem <= 227 * 1024, "a block may take 227 KB of shared memory");
-};
-
-// Forward: a block owns kRows query rows and walks the key tiles up to its
-// diagonal. Per tile: S = (Q scale) K^T in micro-tiles, one online-softmax
-// update (row max over the 8 lanes of a row, alpha rescales the accumulator
-// once), P through shared memory, O += P V.
-template <int D>
-__global__ void __launch_bounds__(F32<D, kFwd>::kThreads, F32<D, kFwd>::kBlocks)
-flash_fwd_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                      const float* __restrict__ slopes, int nq, int nk, int causal, int q_off,
-                      float scale) {
-  using P = F32<D, kFwd>;
-  constexpr int BM = P::kRows, BN = P::kTile, T = P::kThreads, G = P::kG, R = P::kR;
-  constexpr int SN = P::kSN, NC = P::kNC, LD = P::kLd, LDP = P::kLdP;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float* bufs = qs + BM * LD;
-  float* ps = bufs + P::kBufs * P::kStage;
-  const int gy = row_group(), lx = col_group();
-  const int bh = blockIdx.x;
-  const int r0 = (gridDim.y - 1 - blockIdx.y) * BM;  // the longest blocks start first
-  const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
-  const float slope = slopes ? slopes[bh] : 0.f;
-  const int hi = key_end(r0, BM, nk, causal, q_off);
-  const int n_tiles = (hi + BN - 1) / BN;
-
-  // With two buffers, K and V of tile t + 1 are copied while tile t is
-  // computed. With one, K and V have a buffer each and take turns: V of
-  // tile t is copied during S = Q K^T, K of tile t + 1 during O += P V.
-  auto stage_k = [&](int t) {
-    const int kv0 = t * BN;
-    stage_tile_async<D, BN, T>(bufs + (t % P::kBufs) * P::kStage, k + kb + (size_t)kv0 * D,
-                               min(BN, nk - kv0));
-  };
-  auto stage_v = [&](int t) {
-    const int kv0 = t * BN;
-    stage_tile_async<D, BN, T>(bufs + (t % P::kBufs) * P::kStage + BN * LD,
-                               v + kb + (size_t)kv0 * D, min(BN, nk - kv0));
-  };
-
-  if (n_tiles > 0) {
-    stage_tile_async<D, BM, T>(qs, q + qb + (size_t)r0 * D, min(BM, nq - r0));
-    cp_async_commit();
-    stage_k(0);
-    if (P::kBufs == 2) stage_v(0);
-    cp_async_commit();
-    cp_async_wait<1>();  // this thread's part of Q is here: scale it in float32
-    scale_own_chunks<D, BM, T>(qs, scale);
-  }
-
-  float acc[R][4 * NC];
-  float m[R], l[R];  // l: this thread's part of the row sum, reduced at the end
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = kNegBig;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<0>();
-    __syncthreads();  // K of tile t is here; everyone is done with tile t - 1
-    if (P::kBufs == 1) {
-      stage_v(t);
-      cp_async_commit();
-    } else if (t + 1 < n_tiles) {
-      stage_k(t + 1);
-      stage_v(t + 1);
-      cp_async_commit();
-    }
-    const float* ks = bufs + (t % P::kBufs) * P::kStage;
-    const float* vs = ks + BN * LD;
-    const int kv0 = t * BN;
-
-    float s[R][SN];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = 0; j < SN; ++j) s[i][j] = 0.f;
-    }
-    tile_abt<R, SN, G, D, LD, LD>(s, qs + gy * LD, ks + lx * LD);
-
-    // a tile wholly below the diagonal and inside nk needs no mask
-    const bool full = kv0 + BN <= nk && (!causal || kv0 + BN - 1 <= r0 + q_off);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = r0 + gy + i * G;
-      uint32_t ok = full ? 0xffffffffu : 0u;
-      float mx = kNegBig;
-#pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        const int col = kv0 + lx + 8 * j;
-        float sj = s[i][j];
-        if (slopes) sj = alibi(sj, slope, row, col);
-        if (!full) {
-          const bool vis = visible(row, col, nq, nk, causal, q_off);
-          ok |= (vis ? 1u : 0u) << j;
-          sj = vis ? sj : kNegBig;  // before the max
-        }
-        s[i][j] = sj;
-        mx = fmaxf(mx, sj);
-      }
-      const float m_new = fmaxf(m[i], oct_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        const float p = (ok >> j) & 1u ? expf(s[i][j] - m_new) : 0.f;
-        l[i] += p;
-        ps[(gy + i * G) * LDP + lx + 8 * j] = p;
-      }
-    }
-    // A row of P is written and read by the 8 lanes of one warp, so P alone
-    // needs no block barrier: with two buffers the warps of a block drift
-    // apart here, one in its softmax while another multiplies.
-    if (P::kBufs == 1) {
-      cp_async_wait<0>();  // V of tile t
-      __syncthreads();     // and everyone is done with K of tile t
-      if (t + 1 < n_tiles) {
-        stage_k(t + 1);
-        cp_async_commit();
-      }
-    } else {
-      __syncwarp();
-    }
-    tile_ab<R, NC, G, BN, LDP, LD>(acc, ps + gy * LDP, vs + 4 * lx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = r0 + gy + i * G;
-    const float lt = oct_sum(l[i]);
-    const float l_safe = lt == 0.f ? 1.f : lt;
-    if (row < nq) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        *reinterpret_cast<float4*>(o + qb + (size_t)row * D + 4 * lx + 32 * c) =
-            make_float4(acc[i][4 * c] / l_safe, acc[i][4 * c + 1] / l_safe,
-                        acc[i][4 * c + 2] / l_safe, acc[i][4 * c + 3] / l_safe);
-      }
-      if (lx == 0) lse[(size_t)bh * nq + row] = m[i] + logf(l_safe);
-    }
-  }
-}
+using F32F = F32<D, F32Tile<D, Kind>, Kind>;
 
 // dQ over query tiles; also writes delta = rowsum(dO * O) for the dK/dV
 // kernel. Q and dO of the block are staged once; per key tile S = Q K^T and
 // dP = dO V^T in micro-tiles, dS through shared memory, dQ += dS K.
 template <int D>
-__global__ void __launch_bounds__(F32<D, kDq>::kThreads, F32<D, kDq>::kBlocks)
+__global__ void __launch_bounds__(F32F<D, kDq>::kThreads, F32F<D, kDq>::kBlocks)
 flash_bwd_dq_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ o,
                          const float* __restrict__ lse, const float* __restrict__ dout,
                          const float* __restrict__ slopes, float* __restrict__ dq,
                          float* __restrict__ delta, int nq, int nk, int causal, int q_off,
                          float scale) {
-  using P = F32<D, kDq>;
+  using P = F32F<D, kDq>;
   constexpr int BM = P::kRows, BN = P::kTile, T = P::kThreads, G = P::kG, R = P::kR;
   constexpr int SN = P::kSN, NC = P::kNC, LD = P::kLd, LDP = P::kLdP;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -418,14 +249,14 @@ flash_bwd_dq_tile_kernel(const float* __restrict__ q, const float* __restrict__ 
 // V dO^T in micro-tiles whose rows are keys, P^T and dS^T through shared
 // memory, dV += P^T dO and dK += dS^T Q.
 template <int D>
-__global__ void __launch_bounds__(F32<D, kDkv>::kThreads, F32<D, kDkv>::kBlocks)
+__global__ void __launch_bounds__(F32F<D, kDkv>::kThreads, F32F<D, kDkv>::kBlocks)
 flash_bwd_dkv_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ lse,
                           const float* __restrict__ delta, const float* __restrict__ dout,
                           const float* __restrict__ slopes, float* __restrict__ dk,
                           float* __restrict__ dv, int nq, int nk, int causal, int q_off,
                           float scale) {
-  using P = F32<D, kDkv>;
+  using P = F32F<D, kDkv>;
   constexpr int BK = P::kRows, BQ = P::kTile, T = P::kThreads, G = P::kG, R = P::kR;
   constexpr int SN = P::kSN, NC = P::kNC, LD = P::kLd, LDP = P::kLdP;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -525,106 +356,205 @@ flash_bwd_dkv_tile_kernel(const float* __restrict__ q, const float* __restrict__
 }
 
 // ============================================ bfloat16: tensor-core kernels
+// Forward: wgmma + TMA (wgmma_bf16.cuh). One warpgroup (4 warps, 128
+// threads) owns 64 query rows; K and V tiles of kN keys stream through a
+// ring of kStages stages. Tile shape per head dim, chosen on the card by
+// scripts/sweep_flash_bf16_torch.py, which rewrites these lines.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                     const float* __restrict__ slopes, int nq, int nk, int causal, int q_off,
-                     float scale) {
-  __shared__ __align__(16) bf16 ks[kKv * (D + kPad)];
-  __shared__ __align__(16) bf16 vs[kKv * (D + kPad)];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+struct Bf16Fwd;
+template <>
+struct Bf16Fwd<64> { static constexpr int kN = 64, kStages = 2; };
+template <>
+struct Bf16Fwd<128> { static constexpr int kN = 64, kStages = 2; };
+
+template <int D>
+struct WgFwd : Bf16Fwd<D> {
+  using S = Bf16Fwd<D>;
+  static constexpr int kRows = 64;                  // query rows of a block
+  static constexpr int kThreads = 128;              // one warpgroup
+  static constexpr int kBoxes = D / 64;             // 64-column (128-byte) boxes of a row
+  static constexpr int kQBytes = kRows * D * 2;
+  static constexpr int kTileBytes = S::kN * D * 2;  // K or V of a tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  // 1 KB of slack to put the tiles on a 1024-byte boundary, then Q, the
+  // stages and their mbarriers (one a stage, one for Q)
+  static constexpr int kSmem = 1024 + kQBytes + S::kStages * kStageBytes + 8 * (S::kStages + 1);
+  static_assert(D % 64 == 0 && (S::kN == 64 || S::kN == 128), "tiles of whole boxes, N 64 or 128");
+  static_assert(S::kStages >= 1 && kSmem <= 227 * 1024, "a block may take 227 KB of shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(WgFwd<D>::kThreads)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
+                       float* __restrict__ lse, const float* __restrict__ slopes, int nq, int nk,
+                       int causal, int q_off, float scale) {
+  using P = WgFwd<D>;
+  constexpr int BN = P::kN, NS = P::kStages;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* stages = qs + P::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + NS * P::kStageBytes);  // a stage's K, V
+  uint64_t* qbar = full + NS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int bh = blockIdx.x;
-  const int r0 = blockIdx.y * kMmaRows;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * P::kRows;  // the longest blocks start first
   const int row0 = r0 + warp * 16;
-  const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
   const float slope = slopes ? slopes[bh] : 0.f;
+  const int n_tiles = (key_end(r0, P::kRows, nk, causal, q_off) + BN - 1) / BN;
 
-  // q scaled in bf16 before the product: the exact product rounded once
-  const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
-  uint32_t qa[D / 16][4];
-  load_a<D>(qa, q + qb, row0, nq, g, t);
+  float acc[D / 2];  // O: d[4 j + c] = (row g or g + 8, column 8 j + 2 t + (c & 1))
 #pragma unroll
-  for (int s = 0; s < D / 16; ++s) {
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};  // rows g, g + 8
+
+  if (n_tiles > 0) {  // else no key is visible: O = 0, lse = -1e30
+    // Thread 0 issues every copy: tile t goes to stage t % NS, its barrier's
+    // (t / NS)-th phase completes when both tiles have landed.
+    auto load_tile = [&](int tile) {
+      unsigned char* ks = stages + (tile % NS) * P::kStageBytes;
+      uint64_t* bar = &full[tile % NS];
+      mbar_arrive_expect_tx(bar, P::kStageBytes);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[s][i] = pack_bf16(bf16_lo(qa[s][i]) * scale_t, bf16_hi(qa[s][i]) * scale_t);
+      for (int b = 0; b < P::kBoxes; ++b) {
+        tma_load_3d(ks + b * BN * 128, &kmap, bar, 64 * b, tile * BN, bh);
+        tma_load_3d(ks + P::kTileBytes + b * BN * 128, &vmap, bar, 64 * b, tile * BN, bh);
+      }
+    };
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < NS; ++s) mbar_init(&full[s], 1);
+      mbar_init(qbar, 1);
+      mbar_init_fence();
+      mbar_arrive_expect_tx(qbar, P::kQBytes);
+#pragma unroll
+      for (int b = 0; b < P::kBoxes; ++b) tma_load_3d(qs + b * 64 * 128, &qmap, qbar, 64 * b, r0, bh);
+      for (int s = 0; s < NS && s < n_tiles; ++s) load_tile(s);
+    }
+    __syncthreads();  // the barriers are initialised
+
+    // q scaled in bf16 before the product (the exact product rounded once),
+    // in place, 16 bytes a thread at a time; then handed to the async proxy
+    // that wgmma reads shared memory through
+    const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
+    mbar_wait(qbar, 0);
+    for (int c = threadIdx.x; c < P::kQBytes / 16; c += P::kThreads) {
+      uint4* p = reinterpret_cast<uint4*>(qs + 16 * c);
+      uint4 x = *p;
+      x.x = pack_bf16(bf16_lo(x.x) * scale_t, bf16_hi(x.x) * scale_t);
+      x.y = pack_bf16(bf16_lo(x.y) * scale_t, bf16_hi(x.y) * scale_t);
+      x.z = pack_bf16(bf16_lo(x.z) * scale_t, bf16_hi(x.z) * scale_t);
+      x.w = pack_bf16(bf16_lo(x.w) * scale_t, bf16_hi(x.w) * scale_t);
+      *p = x;
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t qaddr = smem_u32(qs);
+
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int kv0 = tile * BN;
+      const uint32_t ks = smem_u32(stages + (tile % NS) * P::kStageBytes);
+      const uint32_t vs = ks + P::kTileBytes;
+      mbar_wait(&full[tile % NS], (tile / NS) & 1);
+
+      // S = (Q scale) K^T, both from shared memory, both K-major: D / 16
+      // k-steps, 4 per 128-byte box
+      float s[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<BN>(s, wgmma_desc(qaddr + (kk / 4) * P::kRows * 128 + (kk % 4) * 32, 16, 1024),
+                     wgmma_desc(ks + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // One online-softmax update. Masked scores become -inf: they never
+      // raise the max (which starts at -1e30) and give P = 0 exactly.
+      const bool whole = kv0 + BN <= nk && (!causal || kv0 + BN - 1 <= r0 + q_off);
+      float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int row = row0 + g + (c >> 1) * 8, col = kv0 + 8 * j + 2 * t + (c & 1);
+          float x = s[4 * j + c];
+          if (slopes) x = alibi(x, slope, row, col);
+          if (!whole && !visible(row, col, nq, nk, causal, q_off)) x = -INFINITY;
+          s[4 * j + c] = x;
+          mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        }
+      }
+      float alpha[2], ml[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], quad_max(mx[h]));
+        alpha[h] = exp2f((m[h] - m_new) * kLog2e);
+        m[h] = m_new;
+        ml[h] = m_new * kLog2e;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+      uint32_t pa[BN / 16][4];  // P rounded to bf16: the A fragments of O += P V
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        float p[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) p[c] = exp2f(fmaf(s[4 * j + c], kLog2e, -ml[c >> 1]));
+        l[0] += p[0] + p[1];
+        l[1] += p[2] + p[3];
+        pa[j / 2][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+        pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+
+      // O += P V: P from registers, V MN-major (the transpose bit), BN / 16
+      // k-steps of 16 keys
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        wgmma_rs<D, 1>(acc, pa[kk], wgmma_desc(vs + kk * 16 * 128, BN * 128, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+
+      __syncthreads();  // every warp's products of this stage are done: refill it
+      if (threadIdx.x == 0 && tile + NS < n_tiles) load_tile(tile + NS);
     }
   }
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};  // rows g, g+8
-  const int hi = key_end(r0, kMmaRows, nk, causal, q_off);
-
-  for (int kv0 = 0; kv0 < hi; kv0 += kKv) {
-    __syncthreads();
-    stage_bf16<D>(ks, k + kb + (size_t)kv0 * D, min(kKv, nk - kv0));
-    stage_bf16<D>(vs, v + kb + (size_t)kv0 * D, min(kKv, nk - kv0));
-    __syncthreads();
-
-    float s[8][4];
-    mma_abt<D>(s, qa, ks, g, t);
-    uint32_t ok = 0u;  // bit 4j + c: score s[j][c] is visible
-    float mx[2] = {kNegBig, kNegBig};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = row0 + g + (c >> 1) * 8;
-        const int col = kv0 + j * 8 + 2 * t + (c & 1);
-        float sc = s[j][c];
-        if (slopes) sc = alibi(sc, slope, row, col);
-        const bool vis = visible(row, col, nq, nk, causal, q_off);
-        ok |= (vis ? 1u : 0u) << (4 * j + c);
-        s[j][c] = vis ? sc : kNegBig;  // before the max
-        mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], quad_max(mx[h]));
-      alpha[h] = expf(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        p[c] = (ok >> (4 * j + c)) & 1u ? expf(s[j][c] - m[c >> 1]) : 0.f;
-      }
-      l[0] += p[0] + p[1];
-      l[1] += p[2] + p[3];
-      pack_a(pa, j, p[0], p[1], p[2], p[3]);
-    }
-    mma_ab<D>(acc, pa, vs, lane);
-  }
-
-  float ls[2];
+  float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float lh = quad_sum(l[h]);
-    ls[h] = lh == 0.f ? 1.f : lh;
+    const float ls = lh == 0.f ? 1.f : lh;
+    inv[h] = 1.f / ls;
+    const int row = row0 + g + h * 8;
+    if (row < nq && t == 0) lse[(size_t)bh * nq + row] = m[h] + logf(ls);
   }
-  store_rows<D>(o + qb, acc, row0, nq, g, t, 1.f / ls[0], 1.f / ls[1]);
-  if (t == 0) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + g + h * 8;
-      if (row < nq) lse[(size_t)bh * nq + row] = m[h] + logf(ls[h]);
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + h * 8;
+    if (row >= nq) continue;
+    bf16* dst = o + ((size_t)bh * nq + row) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * h] * inv[h], acc[4 * j + 2 * h + 1] * inv[h]);
     }
   }
 }
@@ -821,25 +751,33 @@ bool allow_smem(Kernel kernel, int bytes) {
          cudaSuccess;
 }
 
+// cudaGetLastError() after the launch; cudaErrorInvalidValue, with no
+// launch tried, if a tensor map could not be encoded.
 template <int D>
-void launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
-                const float* slopes, int bh, int nq, int nk, int causal, int q_off,
-                float scale, cudaStream_t s) {
+int launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
+               const float* slopes, int bh, int nq, int nk, int causal, int q_off, float scale,
+               cudaStream_t s) {
   float* l = static_cast<float*>(lse);
   if (dtype == 0) {
     using T = float;
-    using P = F32<D, kFwd>;
-    if (!allow_smem(flash_fwd_tile_kernel<D>, P::kSmem)) return;
-    flash_fwd_tile_kernel<D>
-        <<<dim3(bh, (nq + P::kRows - 1) / P::kRows), P::kThreads, P::kSmem, s>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-            static_cast<T*>(o), l, slopes, nq, nk, causal, q_off, scale);
-  } else {
-    using T = bf16;
-    flash_fwd_mma_kernel<D><<<dim3(bh, (nq + kMmaRows - 1) / kMmaRows), kMmaThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), l, slopes, nq, nk, causal, q_off, scale);
+    launch_fwd_tile<D, F32Tile<D, kFwd>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                         static_cast<const T*>(v), static_cast<T*>(o), l, slopes,
+                                         bh, nq, nk, causal, q_off, scale, s);
+    return static_cast<int>(cudaGetLastError());
   }
+  // The tensor maps are encoded on the host for every call (under a us;
+  // scripts/probe_wgmma_torch.py times it) and passed by value.
+  using P = WgFwd<D>;
+  CUtensorMap qm, km, vm;
+  if (!make_map_3d(&qm, q, D, nq, bh, P::kRows) || !make_map_3d(&km, k, D, nk, bh, P::kN) ||
+      !make_map_3d(&vm, v, D, nk, bh, P::kN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (allow_smem(flash_fwd_wgmma_kernel<D>, P::kSmem)) {
+    flash_fwd_wgmma_kernel<D><<<dim3(bh, (nq + P::kRows - 1) / P::kRows), P::kThreads, P::kSmem, s>>>(
+        qm, km, vm, static_cast<bf16*>(o), l, slopes, nq, nk, causal, q_off, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -851,8 +789,8 @@ void launch_bwd(int dtype, const void* q, const void* k, const void* v, const vo
   float* dl = static_cast<float*>(delta);
   if (dtype == 0) {
     using T = float;
-    using PQ = F32<D, kDq>;
-    using PK = F32<D, kDkv>;
+    using PQ = F32F<D, kDq>;
+    using PK = F32F<D, kDkv>;
     if (!allow_smem(flash_bwd_dq_tile_kernel<D>, PQ::kSmem) ||
         !allow_smem(flash_bwd_dkv_tile_kernel<D>, PK::kSmem)) {
       return;
@@ -894,7 +832,8 @@ void launch_bwd(int dtype, const void* q, const void* k, const void* v, const vo
 // d); lse (bh, nq) float32; slopes (bh,) float32 or null (no ALiBi).
 // causal: 0 or 1, with the diagonal at col = row + q_off. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unsupported dtype or head dim).
+// unsupported dtype or head dim, or a bf16 tensor map that could not be
+// encoded).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                               void* lse, const void* slopes, int bh, int nq, int nk, int d,
                               int dtype, int causal, int q_off, float scale, void* stream) {
@@ -902,11 +841,10 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   const float* sl = static_cast<const float*>(slopes);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 64: launch_fwd<64>(dtype, q, k, v, o, lse, sl, bh, nq, nk, causal, q_off, scale, s); break;
-    case 128: launch_fwd<128>(dtype, q, k, v, o, lse, sl, bh, nq, nk, causal, q_off, scale, s); break;
+    case 64: return launch_fwd<64>(dtype, q, k, v, o, lse, sl, bh, nq, nk, causal, q_off, scale, s);
+    case 128: return launch_fwd<128>(dtype, q, k, v, o, lse, sl, bh, nq, nk, causal, q_off, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // delta is (bh, nq) float32 scratch; dq as q, dk and dv as k.

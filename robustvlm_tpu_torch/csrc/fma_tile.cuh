@@ -82,27 +82,28 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Start the copy of a (kRows, D) slab (row stride D) into a padded shared
-// tile (row stride D + kPadF); rows from `valid` on are zero-filled. Chunk c
-// of 16 bytes belongs to thread c % kThreads: scale_own_chunks visits the
-// same ones.
-template <int D, int kRows, int kThreads>
+// tile of DP-float rows (row stride DP + kPadF, DP >= D a multiple of 4);
+// rows from `valid` on, and columns from D on, are zero-filled. Chunk c of
+// 16 bytes belongs to thread c % kThreads: scale_own_chunks visits the same
+// ones.
+template <int D, int kRows, int kThreads, int DP = D>
 __device__ __forceinline__ void stage_tile_async(float* dst, const float* src, int valid) {
-  constexpr int kChunks = D / 4;
+  constexpr int kChunks = DP / 4;
   for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
     const int r = c / kChunks, col = (c % kChunks) * 4;
-    const bool ok = r < valid;
-    cp_async16(dst + r * (D + kPadF) + col, src + (ok ? (size_t)r * D + col : 0), ok);
+    const bool ok = r < valid && col < D;
+    cp_async16(dst + r * (DP + kPadF) + col, src + (ok ? (size_t)r * D + col : 0), ok);
   }
 }
 
 // Multiply by `mul` (round to nearest) the chunks this thread itself staged
 // with stage_tile_async: after its own cp_async_wait they are visible to it,
 // so no barrier is needed before, only one before another thread reads them.
-template <int D, int kRows, int kThreads>
+template <int DP, int kRows, int kThreads>
 __device__ __forceinline__ void scale_own_chunks(float* tile, float mul) {
-  constexpr int kChunks = D / 4;
+  constexpr int kChunks = DP / 4;
   for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-    float4* p = reinterpret_cast<float4*>(tile + (c / kChunks) * (D + kPadF) + (c % kChunks) * 4);
+    float4* p = reinterpret_cast<float4*>(tile + (c / kChunks) * (DP + kPadF) + (c % kChunks) * 4);
     float4 x = *p;
     x.x = __fmul_rn(x.x, mul);
     x.y = __fmul_rn(x.y, mul);

@@ -8,9 +8,9 @@
 // What it computes is the Pallas kernels' function, not their tiling. The
 // TPU kernel holds the whole (N, N) float32 score tile of several heads in
 // VMEM; at N = 257 or 577 that is far beyond the 227 KB a block may use
-// here. So the forward is flash-style: one block per (head, 64-row query
-// tile), looping over 64-key K/V tiles staged in shared memory, with a
-// float32 running max and sum per row. It keeps the same residuals
+// here. So the forward is flash-style: one block per (head, query-row
+// tile), looping over K/V tiles staged in shared memory, with a float32
+// running max and sum per row. It keeps the same residuals
 // (O and lse = m + log l). The backward recomputes P = exp(S - lse) and is
 // deterministic without atomics: dQ in one kernel over query tiles, dK and
 // dV in another over key tiles; delta = rowsum(dO * O) is written by the dQ
@@ -25,13 +25,20 @@
 // - P (and dS) are rounded to the operand dtype before their products.
 //
 // Two implementations of that function:
-// - float32 (the CLI's default dtype; no TF32, so no tensor cores): CUDA-core
-//   FMA loops. Two threads share a row (D/2 columns each, one warp shuffle
-//   per dot product); rows of K, V, Q or dO are broadcast from shared
-//   memory. Two beat four (fewer shuffles) and one (dK/dV spills registers):
-//   scripts/sweep_vit_attention_fp32_torch.py.
-//   Bound: operations, 4*B*H*N^2*D forward and 10*B*H*N^2*D backward at the
-//   card's float32 FMA rate.
+// - float32 (the CLI's default dtype; no TF32, so no tensor cores), on the
+//   CUDA cores. Bound: operations, 4*B*H*N^2*D forward and 10*B*H*N^2*D
+//   backward at the card's float32 FMA rate.
+//   - forward: the register-tiled kernel of attn_f32_tile.cuh, the flash
+//     forward's own, launched non-causal with no slopes (the two functions
+//     agree bit for bit in their plain versions). Every product is a small
+//     matrix product in registers fed by 16-byte shared-memory loads, K and
+//     V come in by cp.async while the tile before them is computed, one
+//     softmax update a tile. Head dim 80 is staged into 96-float shared
+//     rows, zero-filled past 80. Block shape (VitF32Tile below) from
+//     scripts/sweep_vit_attention_fp32_torch.py at the ViT-L/14 shape.
+//   - backward: CUDA-core FMA loops. Two threads share a row (D/2 columns
+//     each, one warp shuffle per dot product); rows of Q, dO, K or V are
+//     broadcast from shared memory, staged synchronously.
 // - bfloat16: tensor cores through mma.sync m16n8k16 (bf16 operands, float32
 //   accumulators), four warps of 16 rows each. Scores, P and dS stay in
 //   registers: a score accumulator fragment is re-packed as the A operand of
@@ -39,21 +46,34 @@
 //   device memory. Operands that a product needs transposed are read with
 //   ldmatrix.trans. Bound: bytes (q, k, v, o read or written once: about
 //   16.8 MB forward at B*H = 128, N = 257, D = 64; chip_smoke.py computes
-//   it as bound_ms). Loads are synchronous
-//   (no cp.async/TMA pipeline) and the products are not wgmma: later work.
+//   it as bound_ms). Loads are synchronous (no cp.async/TMA pipeline) and
+//   the products are not wgmma (wgmma_bf16.cuh has the building blocks).
 
 #include <math.h>
 
+#include "attn_f32_tile.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-// ====================================================== float32: FMA kernels
+// ============================================== float32: forward
+// The register-tiled forward of attn_f32_tile.cuh, non-causal, with its own
+// block shape per head dim (kRows query rows, kTile keys per shared-memory
+// tile, kThreads threads, kBufs buffers; the same meaning as F32Tile in
+// flash_attention.cu). Chosen on the card at the ViT-L/14 shape by
+// scripts/sweep_vit_attention_fp32_torch.py, which rewrites these lines.
+template <int D>
+struct VitF32Tile;
+template <>
+struct VitF32Tile<64> { static constexpr int kRows = 48, kTile = 48, kThreads = 128, kBufs = 2; };
+template <>
+struct VitF32Tile<80> { static constexpr int kRows = 48, kTile = 48, kThreads = 128, kBufs = 2; };
+
+// ============================================= float32: backward
 constexpr int kTpr = 2;               // threads per row
 constexpr int kRows = 64;             // rows (queries or keys) per block
 constexpr int kTile = 64;             // rows per shared-memory tile
 constexpr int kThreads = kRows * kTpr;
-constexpr int kChunk = 16;            // keys per online-softmax update
 
 // Sum over the kTpr consecutive lanes that share a row; every lane gets the
 // same bits (a + b == b + a in floating point).
@@ -69,71 +89,6 @@ template <int D>
 __device__ __forceinline__ void stage_f32(float* dst, const float* src, int valid) {
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     dst[e] = (e / D) < valid ? src[e] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o,
-               float* __restrict__ lse, int n, float scale) {
-  constexpr int kD = D / kTpr;
-  __shared__ float ks[kTile * D];
-  __shared__ float vs[kTile * D];
-  const int bh = blockIdx.x;
-  const int row = blockIdx.y * kRows + threadIdx.x / kTpr;
-  const int c0 = (threadIdx.x % kTpr) * kD;
-  const bool live = row < n;
-  const size_t base = (size_t)bh * n * D;
-
-  float qr[kD], acc[kD];
-#pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    qr[d] = live ? __fmul_rn(q[base + (size_t)row * D + c0 + d], scale) : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int kv0 = 0; kv0 < n; kv0 += kTile) {
-    const int valid = min(kTile, n - kv0);
-    __syncthreads();
-    stage_f32<D>(ks, k + base + (size_t)kv0 * D, valid);
-    stage_f32<D>(vs, v + base + (size_t)kv0 * D, valid);
-    __syncthreads();
-    for (int j0 = 0; j0 < valid; j0 += kChunk) {
-      float s[kChunk];
-      float cmax = kNegBig;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float* kr = ks + (j0 + j) * D + c0;
-        float part = 0.f;
-#pragma unroll
-        for (int d = 0; d < kD; ++d) part = fmaf(qr[d], kr[d], part);
-        const float full = row_sum(part);  // every lane of the warp shuffles
-        const float sj = j0 + j < valid ? full : kNegBig;
-        s[j] = sj;
-        cmax = fmaxf(cmax, sj);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(m - m_new);  // 0 on the first chunk (m = -inf)
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < kD; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = expf(s[j] - m_new);  // exactly 0 for masked columns
-        l += p;
-        const float* vr = vs + (j0 + j) * D + c0;
-#pragma unroll
-        for (int d = 0; d < kD; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
-      }
-      m = m_new;
-    }
-  }
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < kD; ++d) o[base + (size_t)row * D + c0 + d] = acc[d] / l;
-    if (c0 == 0) lse[(size_t)bh * n + row] = m + logf(l);
   }
 }
 
@@ -485,10 +440,9 @@ template <int D>
 void launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
                 int bh, int n, float scale, cudaStream_t s) {
   if (dtype == 0) {
-    fwd_fma_kernel<D><<<dim3(bh, (n + kRows - 1) / kRows), kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
-        n, scale);
+    launch_fwd_tile<D, VitF32Tile<D>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                      static_cast<const float*>(v), static_cast<float*>(o),
+                                      static_cast<float*>(lse), nullptr, bh, n, n, 0, 0, scale, s);
   } else {
     fwd_mma_kernel<D><<<dim3(bh, (n + kMmaRows - 1) / kMmaRows), kMmaThreads, 0, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),

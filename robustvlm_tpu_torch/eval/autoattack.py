@@ -6,7 +6,8 @@ while it is still classified correctly), per-attack robust accuracy,
 resumable `EvaluationState`, and the pre-run sanity checks.
 
 The data stays on the host; each attack batch is moved to the model's
-device. PyTorch runs eagerly, so batches are not padded to one static
+device: `cuda` unless the caller passes `device="cpu"` (without a GPU the
+constructor raises, as every entry point of the port does). PyTorch runs eagerly, so batches are not padded to one static
 shape. Seeds follow the JAX package's integers: the attack's base seed is
 `seed + crc32(attack) % 2**16`, folded with the batch start, the target
 class (APGD-T) and the restart (`attacks.apgd.fold_in`).
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from robustvlm_tpu_torch.attacks.apgd import apgd_restarts, fold_in
+from robustvlm_tpu_torch.device import resolve_device
 from robustvlm_tpu_torch.eval import checks
 from robustvlm_tpu_torch.eval.state import EvaluationState
 from robustvlm_tpu_torch.ops.losses import ce_loss, dlr_loss, dlr_loss_targeted
@@ -85,7 +87,7 @@ class AutoAttack:
         self.alpha = alpha
         self.use_rs = use_rs
         self.verbose = verbose
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)
         if version != "custom":
             if attacks_to_run:
                 raise ValueError("attacks_to_run requires version='custom'")

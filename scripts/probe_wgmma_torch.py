@@ -1,0 +1,343 @@
+#!/usr/bin/env python3
+"""Hold the wgmma and TMA building blocks of `csrc/wgmma_bf16.cuh` against
+torch.matmul on one GPU, one product at a time, before any kernel uses them.
+
+    python3 scripts/probe_wgmma_torch.py
+
+The bf16 flash forward (`flash_fwd_wgmma_kernel`) runs two products a tile:
+S = Q K^T with Q and K from shared memory, both K-major, and O += P V with
+P from registers and V read MN-major (the transpose bit), through
+128-byte-swizzled shared-memory descriptors, every tile copied by TMA. This
+builds one small kernel per product, shape (head dim D 64 and 128, key tile
+N 64 and 128, one warpgroup, one 64-row block) and mode under
+`build/probe/`, with the descriptor's leading and stride byte offsets as
+arguments, and prints one JSON line per case: the max abs error against the
+float32 product of the same bf16 inputs, relative to the reference's
+largest value. The offsets the kernel uses must pass, the swapped ones fail.
+A ragged case (1 query row, 5 keys: the boxes' other rows are the
+hardware's zero fill) checks the fill and the transaction bytes of a
+partial box. S is also run with A from registers, alone and, where D = N,
+right after a product of its own shape with the transpose bit: the fault
+that made the forward take A from shared memory. Then the host cost of
+encoding the forward's three tensor maps, as every call does, and the
+card's name and power limit. Exits 1 if a case the kernel relies on fails.
+Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+SOURCE = r'''
+#include <chrono>
+
+#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
+
+namespace {
+
+// S = Q K^T for one 64-row block, A from shared memory (kSS, as the
+// forward runs it) or from registers. With kAfter, a product of S's own
+// shape with the transpose bit (as O += P V is) runs first, into other
+// registers, and is waited for.
+template <int D, int BN, bool kSS, bool kAfter>
+__global__ void __launch_bounds__(128) probe_s_kernel(const __grid_constant__ CUtensorMap qmap,
+                                                      const __grid_constant__ CUtensorMap kmap,
+                                                      float* out, float* sink, int lbo, int sbo) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* qs = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  unsigned char* ks = qs + 64 * D * 2;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ks + BN * D * 2);
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(bar, (64 + BN) * D * 2);
+    for (int b = 0; b < D / 64; ++b) {
+      tma_load_3d(qs + b * 64 * 128, &qmap, bar, 64 * b, 0, 0);
+      tma_load_3d(ks + b * BN * 128, &kmap, bar, 64 * b, 0, 0);
+    }
+  }
+  __syncthreads();
+  mbar_wait(bar, 0);
+  // this warp's 16 rows of Q as A fragments, from the swizzled box
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int s = 0; s < D / 16; ++s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp * 16 + g + (i & 1) * 8, c = s * 16 + (i >> 1) * 8 + 2 * t;
+      const int at = (c / 64) * 64 * 128 + r * 128 + ((((c % 64) >> 3) ^ r) & 7) * 16 + (c & 7) * 2;
+      qa[s][i] = *reinterpret_cast<const uint32_t*>(qs + at);
+    }
+  }
+  fence_regs(qa);
+  if constexpr (kAfter) {
+    static_assert(D == BN, "the product before has S's shape");
+    float o[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) o[i] = 0.f;
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      wgmma_rs<BN, 1>(o, qa[kk], wgmma_desc(smem_u32(ks) + kk * 16 * 128, BN * 128, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sink[threadIdx.x * (BN / 2) + i] = o[i];
+  }
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t b = wgmma_desc(smem_u32(ks) + (kk / 4) * BN * 128 + (kk % 4) * 32, lbo, sbo);
+    if constexpr (kSS) {
+      wgmma_ss<BN>(acc, wgmma_desc(smem_u32(qs) + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024), b,
+                   kk > 0);
+    } else {
+      wgmma_rs<BN, 0>(acc, qa[kk], b, kk > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      out[(warp * 16 + g + (c >> 1) * 8) * BN + 8 * j + 2 * t + (c & 1)] = acc[4 * j + c];
+    }
+  }
+}
+
+template <int D, int BN>
+__global__ void __launch_bounds__(128) probe_pv_kernel(const bf16* p,
+                                                       const __grid_constant__ CUtensorMap vmap,
+                                                       float* out, int lbo, int sbo) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* vs = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(vs + BN * D * 2);
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(bar, BN * D * 2);
+    for (int b = 0; b < D / 64; ++b) tma_load_3d(vs + b * BN * 128, &vmap, bar, 64 * b, 0, 0);
+  }
+  __syncthreads();
+  uint32_t pa[BN / 16][4];
+#pragma unroll
+  for (int s = 0; s < BN / 16; ++s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp * 16 + g + (i & 1) * 8, c = s * 16 + (i >> 1) * 8 + 2 * t;
+      pa[s][i] = ld32(p + r * BN + c);
+    }
+  }
+  mbar_wait(bar, 0);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  fence_regs(pa);
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    wgmma_rs<D, 1>(acc, pa[kk], wgmma_desc(smem_u32(vs) + kk * 16 * 128, lbo, sbo), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      out[(warp * 16 + g + (c >> 1) * 8) * D + 8 * j + 2 * t + (c & 1)] = acc[4 * j + c];
+    }
+  }
+}
+
+// Shared memory past the tiles, so that a wrong descriptor reads garbage
+// inside the block's allocation instead of faulting.
+constexpr int kSlack = 64 * 1024;
+
+template <class Kernel>
+int launch(Kernel kernel, int smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess;
+}
+
+template <int D, int BN, bool kSS, bool kAfter>
+int run_s(const void* q, const void* k, float* out, float* sink, int nq, int nk, int lbo, int sbo,
+          cudaStream_t s) {
+  CUtensorMap qm, km;
+  if (!make_map_3d(&qm, q, D, nq, 1, 64) || !make_map_3d(&km, k, D, nk, 1, BN)) return -1;
+  const int smem = 1024 + (64 + BN) * D * 2 + 8 + kSlack;
+  if (launch(probe_s_kernel<D, BN, kSS, kAfter>, smem)) return (int)cudaGetLastError();
+  probe_s_kernel<D, BN, kSS, kAfter><<<1, 128, smem, s>>>(qm, km, out, sink, lbo, sbo);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int BN>
+int run_s_mode(const void* q, const void* k, float* out, float* sink, int nq, int nk, int lbo,
+               int sbo, int mode, cudaStream_t s) {
+  switch (mode) {
+    case 0: return run_s<D, BN, false, false>(q, k, out, sink, nq, nk, lbo, sbo, s);
+    case 1: return run_s<D, BN, true, false>(q, k, out, sink, nq, nk, lbo, sbo, s);
+    default:
+      if constexpr (D == BN) {
+        if (mode == 2) return run_s<D, BN, false, true>(q, k, out, sink, nq, nk, lbo, sbo, s);
+        if (mode == 3) return run_s<D, BN, true, true>(q, k, out, sink, nq, nk, lbo, sbo, s);
+      }
+      return -2;
+  }
+}
+
+template <int D, int BN>
+int run_pv(const void* p, const void* v, float* out, int nk, int lbo, int sbo, cudaStream_t s) {
+  CUtensorMap vm;
+  if (!make_map_3d(&vm, v, D, nk, 1, BN)) return -1;
+  const int smem = 1024 + BN * D * 2 + 8 + kSlack;
+  if (launch(probe_pv_kernel<D, BN>, smem)) return (int)cudaGetLastError();
+  probe_pv_kernel<D, BN><<<1, 128, smem, s>>>(static_cast<const bf16*>(p), vm, out, lbo, sbo);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// mode: bit 0 = A from shared memory (else registers), bit 1 = after a
+// product of the same shape with the transpose bit (D == BN only).
+extern "C" int probe_s(const void* q, const void* k, void* out, void* sink, int d, int bn, int nq,
+                       int nk, int lbo, int sbo, int mode, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  float* z = static_cast<float*>(sink);
+  if (d == 64 && bn == 64) return run_s_mode<64, 64>(q, k, o, z, nq, nk, lbo, sbo, mode, s);
+  if (d == 64 && bn == 128) return run_s_mode<64, 128>(q, k, o, z, nq, nk, lbo, sbo, mode, s);
+  if (d == 128 && bn == 64) return run_s_mode<128, 64>(q, k, o, z, nq, nk, lbo, sbo, mode, s);
+  if (d == 128 && bn == 128) return run_s_mode<128, 128>(q, k, o, z, nq, nk, lbo, sbo, mode, s);
+  return -2;
+}
+
+extern "C" int probe_pv(const void* p, const void* v, void* out, int d, int bn, int nk, int lbo,
+                        int sbo, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (d == 64 && bn == 64) return run_pv<64, 64>(p, v, o, nk, lbo, sbo, s);
+  if (d == 64 && bn == 128) return run_pv<64, 128>(p, v, o, nk, lbo, sbo, s);
+  if (d == 128 && bn == 64) return run_pv<128, 64>(p, v, o, nk, lbo, sbo, s);
+  if (d == 128 && bn == 128) return run_pv<128, 128>(p, v, o, nk, lbo, sbo, s);
+  return -2;
+}
+
+// Host microseconds to encode the forward's three maps (q, k, v), per call.
+extern "C" double encode_us(const void* q, const void* k, const void* v, int d, int nq, int nk,
+                            int bh, int iters) {
+  CUtensorMap m[3];
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i) {
+    if (!make_map_3d(&m[0], q, d, nq, bh, 64) || !make_map_3d(&m[1], k, d, nk, bh, 64) ||
+        !make_map_3d(&m[2], v, d, nk, bh, 64)) {
+      return -1.0;
+    }
+  }
+  const auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::micro>(t1 - t0).count() / iters;
+}
+'''
+
+# (lbo, sbo) in bytes: what flash_fwd_wgmma_kernel passes first, then the swap
+K_OFFSETS = [(16, 1024), (1024, 16)]  # K-major: LBO unused
+
+
+def v_offsets(n: int) -> list:
+    """MN-major V of an n-key tile: the next 64 head-dim columns (box) n * 128
+    bytes on, 8-key groups 1024 apart; then the swap."""
+    return [(n * 128, 1024), (1024, n * 128)]
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke as C
+    from robustvlm_tpu_torch.ops.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    (lib, log), = _build.build_variants({"probe": SOURCE}, ROOT / "build" / "probe", "wg").values()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.probe_s.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.probe_pv.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.encode_us.argtypes = [p, p, p, i, i, i, i, i]
+    lib.encode_us.restype = ctypes.c_double
+    print(json.dumps({"ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]}))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    failed = []
+    for d in (64, 128):
+        for n in (64, 128):
+            for nq, nk in ((64, n), (1, 5)):
+                q = torch.randn(nq, d, generator=g, device="cuda").bfloat16()
+                k = torch.randn(nk, d, generator=g, device="cuda").bfloat16()
+                ref = torch.zeros(64, n, device="cuda")
+                ref[:nq, :nk] = q.float() @ k.float().T
+                sink = torch.empty(128 * n // 2, device="cuda")
+                # (A from shared memory, after a same-shape product, lbo, sbo)
+                runs = [(True, False, *o) for o in K_OFFSETS] + [(False, False, *K_OFFSETS[0])]
+                if d == n:
+                    runs += [(True, True, *K_OFFSETS[0]), (False, True, *K_OFFSETS[0])]
+                for ss, after, lbo, sbo in runs:
+                    out = torch.full((64, n), float("nan"), device="cuda")
+                    err = lib.probe_s(q.data_ptr(), k.data_ptr(), out.data_ptr(), sink.data_ptr(), d, n,
+                                      nq, nk, lbo, sbo, int(ss) + 2 * int(after), stream)
+                    torch.cuda.synchronize()
+                    rel = float((out - ref).abs().max() / ref.abs().max())
+                    ok = err == 0 and rel <= 1e-3
+                    used = ss and (lbo, sbo) == K_OFFSETS[0]
+                    print(json.dumps({"product": "S = Q K^T (K-major)", "A": "shared" if ss else "registers",
+                                      "after_same_shape_transposed_product": after, "D": d, "N": n,
+                                      "nq": nq, "nk": nk, "lbo": lbo, "sbo": sbo, "kernel_uses": used,
+                                      "launch_err": err, "max_abs_err_rel": rel, "ok": ok}), flush=True)
+                    if used and not ok:
+                        failed.append(("S", d, n, nq, nk, after))
+            for nk in (n, 5):
+                pm = (torch.rand(64, n, generator=g, device="cuda")).bfloat16()
+                v = torch.randn(nk, d, generator=g, device="cuda").bfloat16()
+                vpad = torch.zeros(n, d, device="cuda")
+                vpad[:nk] = v.float()
+                ref = pm.float() @ vpad
+                for lbo, sbo in v_offsets(n):
+                    out = torch.full((64, d), float("nan"), device="cuda")
+                    err = lib.probe_pv(pm.data_ptr(), v.data_ptr(), out.data_ptr(), d, n, nk, lbo, sbo, stream)
+                    torch.cuda.synchronize()
+                    rel = float((out - ref).abs().max() / ref.abs().max())
+                    ok = err == 0 and rel <= 1e-3
+                    used = (lbo, sbo) == v_offsets(n)[0]
+                    print(json.dumps({"product": "O = P V (V MN-major)", "D": d, "N": n, "nk": nk,
+                                      "lbo": lbo, "sbo": sbo, "kernel_uses": used, "launch_err": err,
+                                      "max_abs_err_rel": rel, "ok": ok}), flush=True)
+                    if used and not ok:
+                        failed.append(("PV", d, n, nk))
+    bh, n, d = 32, 665, 128
+    q = torch.zeros(bh, n, d, device="cuda", dtype=torch.bfloat16)
+    us = lib.encode_us(q.data_ptr(), q.data_ptr(), q.data_ptr(), d, n, n, bh, 10000)
+    print(json.dumps({"host_us_to_encode_three_tensor_maps": us, "shape": [bh, n, d]}), flush=True)
+    print(json.dumps({"failed": failed}))
+    print(C.card_line())
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,7 +22,8 @@ memory per kernel. Then the library call's (SDPA's) kernels by name with
 their device us, and the card's name and power limit. Needs a GPU.
 
 `--ablate` asks where the forward's time goes instead: it builds copies of
-the source with one part of `flash_fwd_tile_kernel` taken out (ABLATIONS;
+the source with one part of `flash_fwd_tile_kernel` (`csrc/attn_f32_tile.cuh`,
+shared with the ViT forward, edited here for this source only) taken out (ABLATIONS;
 their outputs are wrong, only their times are read) and prints the forward
 ms of each at the LLaVA shape, then the unedited forward's ms and TFLOP/s at
 longer sequences, causal and not.
@@ -58,7 +59,7 @@ VARIANTS = [
 # {what is taken out of the forward kernel: [(text, replacement)]}
 _PV = ("tile_ab<R, NC, G, BN, LDP, LD>(acc, ps + gy * LDP, vs + 4 * lx);",
        "acc[0][0] += ps[gy * LDP + lx] + vs[4 * lx];")
-_S = ("tile_abt<R, SN, G, D, LD, LD>(s, qs + gy * LD, ks + lx * LD);",
+_S = ("tile_abt<R, SN, G, DP, LD, LD>(s, qs + gy * LD, ks + lx * LD);",
       "s[0][0] = qs[gy * LD] + ks[lx * LD];")
 ABLATIONS = {
     "nothing": [],
@@ -67,7 +68,8 @@ ABLATIONS = {
     "both products": [_S, _PV],
     "expf (a subtraction instead)": [("expf(s[i][j] - m_new)", "(s[i][j] - m_new)"),
                                      ("expf(m[i] - m_new)", "(m[i] - m_new + 1.f)")],
-    "the K and V copies": [("stage_tile_async<D, BN, T>(bufs +", "if (nq < 0) stage_tile_async<D, BN, T>(bufs +")],
+    "the K and V copies": [("stage_tile_async<D, BN, T, DP>(bufs +",
+                            "if (nq < 0) stage_tile_async<D, BN, T, DP>(bufs +")],
     "the block barriers": [("__syncthreads();", "")],
 }
 ABLATE_LENGTHS = (640, 1280, 2560)
@@ -239,7 +241,10 @@ def ablate() -> None:
     import chip_smoke as C
     from robustvlm_tpu_torch.ops.kernels import _build, flash_attention
 
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+    # the forward lives in attn_f32_tile.cuh: put the header's text in place
+    # of its include, so that an edit of the forward reaches this source only
+    header = (_build.CSRC / "attn_f32_tile.cuh").read_text().replace("#pragma once\n", "")
+    src = (_build.CSRC / "flash_attention.cu").read_text().replace('#include "attn_f32_tile.cuh"\n', header)
     a, b = src.index("flash_fwd_tile_kernel(const float*"), src.index("flash_bwd_dq_tile_kernel(const float*")
     sources = {}
     for name, edits in ABLATIONS.items():

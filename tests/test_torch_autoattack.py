@@ -92,7 +92,7 @@ def test_apgd_on_tiny_clip_matches_jax_outcomes(pair, loss):
 def test_state_resume_skips_finished_attack(pair, tmp_path):
     _, tfn, x, y = pair
     sp = tmp_path / "state.json"
-    kw = dict(eps=1.5 / 255, attacks_to_run=["apgd-ce"], n_iter=3, verbose=False)
+    kw = dict(eps=1.5 / 255, attacks_to_run=["apgd-ce"], n_iter=3, verbose=False, device="cpu")
     AutoAttack(tfn, **kw).run_standard_evaluation(x, y, bs=8, state_path=sp)
     st = EvaluationState.from_disk(sp)
     assert st.run_attacks == {"apgd-ce"}
@@ -107,11 +107,21 @@ def test_state_resume_skips_finished_attack(pair, tmp_path):
 @pytest.mark.parametrize("attack", ["square", "fab", "fab-t"])
 def test_not_ported_attacks_raise_with_queue_item(pair, attack):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AutoAttack(pair[1], eps=0.01, attacks_to_run=["apgd-ce", attack])
+        AutoAttack(pair[1], eps=0.01, attacks_to_run=["apgd-ce", attack], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AutoAttack(pair[1], eps=0.01, version="standard")
+        AutoAttack(pair[1], eps=0.01, version="standard", device="cpu")
     with pytest.raises(ValueError):
-        AutoAttack(pair[1], eps=0.01, attacks_to_run=["pgd"])
+        AutoAttack(pair[1], eps=0.01, attacks_to_run=["pgd"], device="cpu")
+
+
+def test_default_device_is_cuda_and_raises_without_a_gpu(pair):
+    """Like every entry point of the port, AutoAttack runs on the card
+    unless asked for the CPU: with no device and no GPU it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default resolves to cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AutoAttack(pair[1], eps=0.01, attacks_to_run=["apgd-ce"])
+    assert AutoAttack(pair[1], eps=0.01, attacks_to_run=["apgd-ce"], device="cpu").device.type == "cpu"
 
 
 def test_check_dynamic_static_port_model_does_not_warn(pair, caplog):

@@ -171,6 +171,10 @@ def _card_inputs(bh, nq, nk, d, dtype, seed):
     (8, 65, 65, 128, True, False),      # one row past a tile boundary
     (8, 129, 129, 64, True, False),
     (8, 50, 50, 64, False, True),       # ALiBi with key padding, not causal
+    (8, 1, 5, 64, True, False),         # the edges above at the other head dim
+    (8, 100, 40, 128, True, False),
+    (8, 50, 50, 128, False, False),
+    (8, 65, 65, 64, True, False),
 ])
 def test_cuda_kernels_match_plain(dtype, bh, nq, nk, d, causal, alibi):
     if not torch.cuda.is_available():

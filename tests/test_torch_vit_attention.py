@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from robustvlm_tpu.ops.pallas.vit_attention import vit_attention as jax_vit_attention
+from robustvlm_tpu_torch.ops.kernels import flash_attention as F
 from robustvlm_tpu_torch.ops.kernels import vit_attention as A
 
 torch.set_num_threads(1)
@@ -83,6 +84,22 @@ def test_bf16_matches_jax():
                                atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("n", [50, 57])
+@pytest.mark.parametrize("d", [64, 80])
+def test_plain_forward_is_the_flash_plain_forward_noncausal(n, d):
+    """On the card the float32 ViT forward is the flash forward kernel
+    launched non-causal (csrc/attn_f32_tile.cuh). That rests on the two
+    plain versions being one function: bit for bit here, and both within
+    the float32 tolerance of the JAX kernel in interpret mode."""
+    q, k, v = _qkv(np.random.RandomState(6), 1, 2, n, d)
+    ref = np.asarray(jax_vit_attention(*map(jnp.asarray, (q, k, v)), interpret=True)).reshape(2, n, d)
+    tq, tk, tv = (torch.from_numpy(t).reshape(2, n, d) for t in (q, k, v))
+    o_vit, lse_vit = A.attention_fwd_plain(tq, tk, tv)
+    o_flash, lse_flash = F.flash_fwd_plain(tq, tk, tv, causal=False)
+    assert torch.equal(o_vit, o_flash) and torch.equal(lse_vit, lse_flash)
+    np.testing.assert_allclose(o_vit.numpy(), ref, atol=2e-6, rtol=2e-5)
+
+
 def test_cpu_counts_no_launch():
     q, k, v = (torch.from_numpy(t).requires_grad_(True) for t in _qkv(np.random.RandomState(5), 1, 2, 16, 32))
     before = dict(A.LAUNCHES)
@@ -92,12 +109,13 @@ def test_cpu_counts_no_launch():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 2e-2, 2e-2)])
+@pytest.mark.parametrize("d", [64, 80])
 @pytest.mark.parametrize("n", [50, 257, 577])
-def test_cuda_kernels_match_plain(dtype, atol, rtol, n):
+def test_cuda_kernels_match_plain(dtype, atol, rtol, n, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    g = torch.Generator(device="cuda").manual_seed(n)
-    q, k, v, do = (torch.randn(16, n, 64, generator=g, device="cuda").to(dtype) for _ in range(4))
+    g = torch.Generator(device="cuda").manual_seed(n + d)
+    q, k, v, do = (torch.randn(16, n, d, generator=g, device="cuda").to(dtype) for _ in range(4))
     before = dict(A.LAUNCHES)
     o, lse = A.attention_fwd(q, k, v)
     grads = A.attention_bwd(q, k, v, o, lse, do)
