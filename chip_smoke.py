@@ -77,12 +77,16 @@ LSE_TOL = (1e-5, 1e-6)  # (atol, rtol)
 ATTN_OUTPUTS = ("o", "lse", "dq", "dk", "dv")
 # How the attention rows are timed. The kernels and the library forward are
 # captured in a CUDA graph and replayed (time_graph_ms): no host time between
-# launches. The library backward cannot be captured (autograd runs it on the
-# stream its forward ran on, outside the capture), so it is timed by events
-# around a Python loop (time_ms); plain versions likewise.
+# launches. The library backward is captured too, as PyTorch's whole-network
+# capture does it: SDPA's forward and `torch.autograd.grad` together in one
+# graph (the backward of a forward captured on a stream runs on that
+# stream), less the same forward alone with inputs that require grad, which
+# may save more than a no-grad forward (time_graph_fwd_bwd_ms; both terms
+# are in the row). Plain versions by events around a Python loop (time_ms).
 TIMED_BY = {
     "fwd": {"ms": "graph", "library_ms": "graph", "plain_ms": "events"},
-    "bwd": {"ms": "graph", "library_ms": "events: autograd's backward is not capturable",
+    "bwd": {"ms": "graph",
+            "library_ms": "graph: forward + autograd.grad less the forward with grad inputs",
             "plain_ms": "events"},
 }
 
@@ -139,6 +143,48 @@ def time_graph_ms(fn, iters: int = 24, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * iters)
+
+
+def time_graph_fwd_bwd_ms(fwd, inputs, grad_out, iters: int = 12) -> dict:
+    """The library backward by CUDA-graph replay: `fwd(*inputs)` and
+    `torch.autograd.grad` of its output into `inputs` captured together,
+    and the same forward alone (inputs that require grad, so it saves what
+    the backward needs); the backward is the difference."""
+    import torch
+
+    def both():
+        torch.autograd.grad(fwd(*inputs), inputs, grad_out)
+
+    def forward():
+        fwd(*inputs)
+
+    fb = time_graph_ms(both, iters=iters)
+    f = time_graph_ms(forward, iters=iters)
+    return {"library_ms": fb - f, "library_fwd_bwd_ms": fb, "library_fwd_ms": f}
+
+
+# kernel-name markers of SDPA's backends, in the order they are tested
+# (cuDNN's kernel names also hold "flash")
+SDPA_BACKENDS = (("cudnn", "cuDNN"), ("flash", "flash"), ("fmha_cutlass", "memory-efficient"),
+                 ("efficient", "memory-efficient"))
+
+
+def sdpa_backend(fn) -> dict:
+    """Which of SDPA's backends ran in fn(), from the names of the CUDA
+    kernels of one torch.profiler pass; "math" when none of theirs ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA})
+    hits = [n for n in names if any(m in n for m, _ in SDPA_BACKENDS)]
+    backend = next((b for m, b in SDPA_BACKENDS if any(m in n for n in hits)), "math")
+    return {"library_backend": backend, "library_kernels": [n[:120] for n in hits[:4]],
+            "profiled_kernels": len(names)}
 
 
 def peaks_for(name: str) -> dict:
@@ -236,13 +282,14 @@ def _qkv(n: int, dtype, seed: int, extreme: bool = False, d: int = ATTN_D):
     return [t.to(dtype).contiguous() for t in (q, k, v, do)]
 
 
-def _attn_check(dname: str, got, ref, extreme: bool) -> dict:
-    """(o, lse, dq, dk, dv) of the kernels against the plain version's:
-    {output: (max abs error, within its limit)}."""
+def _attn_check(dname: str, got, ref, extreme: bool, names=ATTN_OUTPUTS) -> dict:
+    """The kernels' outputs (o, lse, dq, dk, dv, or those `names` say)
+    against the plain version's: {output: (max abs error, within its
+    limit)}."""
     import torch
 
     res = {}
-    for name, g, r in zip(ATTN_OUTPUTS, got, ref):
+    for name, g, r in zip(names, got, ref):
         g, r = g.float(), r.float()
         if not bool(torch.isfinite(g).all()):
             res[name] = (math.inf, False)
@@ -257,7 +304,7 @@ def _attn_check(dname: str, got, ref, extreme: bool) -> dict:
             # In the extreme case K is constant, so the exact dQ is 0 (each row
             # of dS sums to 0) and both dQs are bf16 rounding noise; dQ takes
             # the limit of dK, the same dS against Q, an operand of K's size.
-            scale = ref[3] if (extreme and name == "dq") else r
+            scale = ref[names.index("dk")] if (extreme and name == "dq") else r
             ok = err <= ATTN_TOL[dname] * float(scale.float().abs().max())
         res[name] = (err, ok)
     return res
@@ -282,6 +329,18 @@ def _attn_controls(dname: str, q, k, v, do, got, ref) -> dict:
             for name, f in faults.items()}
 
 
+# Where each attention kernel's code is: the kernels that both attention
+# sources launch live in headers of csrc/ (float32 forward and backward;
+# the bf16 backward); the others in the source that launches them.
+CSRC = "robustvlm_tpu_torch/csrc/"
+SHARED_ATTN_KERNELS = {("fwd", "float32"): "attn_f32_tile.cuh", ("bwd", "float32"): "attn_f32_tile.cuh",
+                       ("bwd", "bfloat16"): "attn_bf16_bwd.cuh"}
+
+
+def _attn_source(pass_: str, dname: str, launcher: str) -> dict:
+    return {"source": CSRC + SHARED_ATTN_KERNELS.get((pass_, dname), launcher)}
+
+
 def check_attention(peaks: dict) -> list:
     import torch
     import torch.nn.functional as F
@@ -295,17 +354,21 @@ def check_attention(peaks: dict) -> list:
         for n, d, extreme in ATTN_CASES:
             q, k, v, do = _qkv(n, dtype, seed=n + d, extreme=extreme, d=d)
             o, lse = A.attention_fwd_cuda(q, k, v)
-            got = (o, lse, *A.attention_bwd_cuda(q, k, v, o, lse, do))
+            grads = A.attention_bwd_cuda(q, k, v, o, lse, do)
+            again = A.attention_bwd_cuda(q, k, v, o, lse, do)
+            got = (o, lse, *grads)
             # the plain backward takes the plain forward's residuals, so a
             # wrong O or lse from the kernel shows in the gradients too
             o_ref, lse_ref = A.attention_fwd_plain(q, k, v)
             ref = (o_ref, lse_ref, *A.attention_bwd_plain(q, k, v, o_ref, lse_ref, do))
             res = _attn_check(dname, got, ref, extreme)
-            ok = all(r[1] for r in res.values())
+            repeatable = all(torch.equal(a, b) for a, b in zip(grads, again))
+            ok = all(r[1] for r in res.values()) and repeatable
             line = {"phase": "kernels", "kernel": "vit_attention", "dtype": dname,
                     "n": n, "d": d, "extreme": extreme,
                     "max_abs_err": {name: e for name, (e, _) in res.items()},
                     "within": {name: w for name, (_, w) in res.items()},
+                    "bwd_bitwise_repeatable": repeatable,
                     "tol": {"outputs": ATTN_TOL[dname], "relative_to_max_ref": dname != "float32",
                             "lse": LSE_TOL}, "ok": ok}
             if (n, d, extreme) == (257, ATTN_D, False):
@@ -314,7 +377,8 @@ def check_attention(peaks: dict) -> list:
             emit(line)
             if not ok:
                 raise AssertionError(f"vit_attention {dname} n={n} d={d} extreme={extreme}: "
-                                     "disagrees, or a planted fault passed the check")
+                                     "disagrees, is not repeatable, or a planted fault passed "
+                                     "the check")
             worst["fwd"] = max(worst["fwd"], res["o"][0])
             worst["bwd"] = max(worst["bwd"], res["dq"][0], res["dk"][0], res["dv"][0])
 
@@ -330,24 +394,26 @@ def check_attention(peaks: dict) -> list:
         q4, k4, v4 = (t.view(8, 16, n, ATTN_D) for t in (q, k, v))
         lib_fwd = time_graph_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
-        out = F.scaled_dot_product_attention(ql, kl, vl)
         do4 = do.view(8, 16, n, ATTN_D)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do4, retain_graph=True))
+        lib_bwd = time_graph_fwd_bwd_ms(F.scaled_dot_product_attention, (ql, kl, vl), do4)
+        lib_bwd.update(sdpa_backend(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(ql, kl, vl), (ql, kl, vl), do4)))
         itm = q.element_size()
         elems = ATTN_BH * n * ATTN_D
         fb, fby = bound_ms(4 * elems * itm + ATTN_BH * n * 4, 4 * ATTN_BH * n * n * ATTN_D, dname, peaks)
         bb, bby = bound_ms(8 * elems * itm + ATTN_BH * n * 4, 10 * ATTN_BH * n * n * ATTN_D, dname, peaks)
-        common = {"route": "cuda", "source": "robustvlm_tpu_torch/csrc/vit_attention.cu",
-                  "dtype": dname, "shape": [ATTN_BH, n, ATTN_D]}
+        common = {"route": "cuda", "dtype": dname, "shape": [ATTN_BH, n, ATTN_D]}
         results.append({"name": f"vit_attention_fwd[{dname}]", **common,
+                        **_attn_source("fwd", dname, "vit_attention.cu"),
                         "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:157",
                         "max_abs_err": worst["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
                         "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
                         "timed_by": TIMED_BY["fwd"]})
         results.append({"name": f"vit_attention_bwd[{dname}]", **common,
+                        **_attn_source("bwd", dname, "vit_attention.cu"),
                         "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:181",
                         "max_abs_err": worst["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
-                        "bound_ms": bb, "bound_by": bby, "library_ms": lib_bwd,
+                        "bound_ms": bb, "bound_by": bby, **lib_bwd,
                         "timed_by": TIMED_BY["bwd"]})
     return results
 
@@ -503,24 +569,30 @@ def check_flash(peaks: dict) -> list:
         q4, k4, v4, do4 = (t.view(1, bh, n, d) for t in (q, k, v, do))
         lib_fwd = time_graph_ms(lambda: Fn.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
-        out = Fn.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do4, retain_graph=True))
+
+        def sdpa_causal(q_, k_, v_):
+            return Fn.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+
+        lib_bwd = time_graph_fwd_bwd_ms(sdpa_causal, (ql, kl, vl), do4)
+        lib_bwd.update(sdpa_backend(lambda: torch.autograd.grad(
+            sdpa_causal(ql, kl, vl), (ql, kl, vl), do4)))
         itm = q.element_size()
         elems = bh * n * d
         causal_pairs = bh * n * (n + 1) / 2  # (query, key) pairs the causal mask keeps
         fb, fby = bound_ms(4 * elems * itm + bh * n * 4, 4 * causal_pairs * d, dname, peaks)
         bb, bby = bound_ms(8 * elems * itm + bh * n * 4, 10 * causal_pairs * d, dname, peaks)
-        common = {"route": "cuda", "source": "robustvlm_tpu_torch/csrc/flash_attention.cu",
-                  "dtype": dname, "shape": [bh, n, d], "causal": True}
+        common = {"route": "cuda", "dtype": dname, "shape": [bh, n, d], "causal": True}
         results.append({"name": f"flash_attention_fwd[{dname}]", **common,
+                        **_attn_source("fwd", dname, "flash_attention.cu"),
                         "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
                         "max_abs_err": worst["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
                         "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
                         "timed_by": TIMED_BY["fwd"]})
         results.append({"name": f"flash_attention_bwd[{dname}]", **common,
+                        **_attn_source("bwd", dname, "flash_attention.cu"),
                         "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:273 (dQ), :295 (dK/dV)",
                         "max_abs_err": worst["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
-                        "bound_ms": bb, "bound_by": bby, "library_ms": lib_bwd,
+                        "bound_ms": bb, "bound_by": bby, **lib_bwd,
                         "timed_by": TIMED_BY["bwd"]})
         if dtype == torch.float32:
             results.append(_flash_clip_text_row(worst["fwd"], peaks))
@@ -545,7 +617,7 @@ def _flash_clip_text_row(max_abs_err: float, peaks: dict) -> dict:
     plain = time_ms(lambda: F.flash_fwd_plain(q, k, v, causal=True), iters=5)
     bnd, by = bound_ms(4 * bh * n * d * 4 + bh * n * 4, 4 * bh * n * (n + 1) / 2 * d, "float32", peaks)
     return {"name": "flash_attention_fwd[float32, head dim 64]", "route": "cuda",
-            "source": "robustvlm_tpu_torch/csrc/flash_attention.cu", "dtype": "float32",
+            **_attn_source("fwd", "float32", "flash_attention.cu"), "dtype": "float32",
             "shape": [bh, n, d], "causal": True, "launches_from": "main[float32]",
             "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,

@@ -1,22 +1,30 @@
-// The float32 attention forward on the CUDA cores, shared by flash_attention.cu
-// (causal or not, ALiBi, any nq and nk) and vit_attention.cu (non-causal,
-// nq = nk, no slopes): the same function (flash_attention.cu's header says
-// which), each launch with its own block shape. Also the masks that every
-// float32 and bfloat16 attention kernel of those two files applies.
+// The float32 attention kernels on the CUDA cores, shared by
+// flash_attention.cu (causal or not, ALiBi, any nq and nk) and
+// vit_attention.cu (non-causal, nq = nk, no slopes): the forward, and the
+// backward's dQ and dK/dV kernels. Both files compute the same function
+// (flash_attention.cu's header says which), each launch with its own block
+// shapes. Also the masks that every float32 and bfloat16 attention kernel of
+// those two files applies.
 //
-// The design (fma_tile.cuh has the products): a block owns kRows query rows
-// and walks the key tiles up to its diagonal. Per tile: S = (Q scale) K^T
-// in register micro-tiles, one online-softmax update (row max over the 8
+// The design (fma_tile.cuh has the products): a block owns kRows rows of
+// its own side (queries; keys in dK/dV) and walks the tiles of the other
+// side that its mask can reach. Forward, per key tile: S = (Q scale) K^T in
+// register micro-tiles, one online-softmax update (row max over the 8
 // lanes of a row, alpha rescales the accumulator once), P through shared
-// memory, O += P V. K and V come in by 16-byte cp.async while the tile
-// before them is computed; tiles wholly inside the mask skip it; the
-// longest causal blocks are launched first.
+// memory, O += P V. dQ, per key tile: S = Q K^T and dP = dO V^T, dS through
+// shared memory, dQ += dS K; it also writes delta = rowsum(dO * O). dK/dV,
+// per query tile (with its lse and delta rows): S^T = K Q^T and dP^T = V
+// dO^T, P^T and dS^T through shared memory, dV += P^T dO and dK += dS^T Q.
+// The streamed tiles come in by 16-byte cp.async while the tile before
+// them is computed; tiles wholly inside the mask skip it; the longest
+// causal blocks are launched first.
 //
 // Head dims that are not a multiple of 32 (ViT-H's 80) are staged into
 // shared rows of DP = D rounded up to 32 floats, zero-filled past D: the
-// zero columns add nothing to Q K^T, give zero columns of O, and are not
-// stored. Rows of D floats in device memory stay 16-byte aligned for any D
-// that is a multiple of 4.
+// products over the head dim (S, dP and their transposes) stop at D; the
+// zero columns give zero columns of O, dQ, dK and dV, which are not stored,
+// and delta sums the D real columns only. Rows of D floats in device memory
+// stay 16-byte aligned for any D that is a multiple of 4.
 
 #pragma once
 
@@ -237,6 +245,265 @@ void launch_fwd_tile(const float* q, const float* k, const float* v, float* o, f
   }
   flash_fwd_tile_kernel<D, S><<<dim3(bh, (nq + P::kRows - 1) / P::kRows), P::kThreads, P::kSmem, s>>>(
       q, k, v, o, lse, slopes, nq, nk, causal, q_off, scale);
+}
+
+
+// dQ over query tiles; also writes delta = rowsum(dO * O) for the dK/dV
+// kernel. Q and dO of the block are staged once; per key tile S = Q K^T and
+// dP = dO V^T in micro-tiles, dS through shared memory, dQ += dS K. Grid
+// (bh, row blocks), arguments as the forward's.
+template <int D, class S>
+__global__ void __launch_bounds__(S::kThreads, F32<D, S, kDq>::kBlocks)
+flash_bwd_dq_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ o,
+                         const float* __restrict__ lse, const float* __restrict__ dout,
+                         const float* __restrict__ slopes, float* __restrict__ dq,
+                         float* __restrict__ delta, int nq, int nk, int causal, int q_off,
+                         float scale) {
+  using P = F32<D, S, kDq>;
+  constexpr int BM = P::kRows, BN = P::kTile, T = P::kThreads, G = P::kG, R = P::kR;
+  constexpr int DP = P::kDp, SN = P::kSN, NC = P::kNC, LD = P::kLd, LDP = P::kLdP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* dos = qs + BM * LD;
+  float* bufs = dos + BM * LD;
+  float* dss = bufs + P::kBufs * P::kStage;
+  const int gy = row_group(), lx = col_group();
+  const int bh = blockIdx.x;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * BM;  // the longest blocks start first
+  const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
+  const float slope = slopes ? slopes[bh] : 0.f;
+  const int hi = key_end(r0, BM, nk, causal, q_off);
+  const int n_tiles = (hi + BN - 1) / BN;
+
+  auto stage = [&](int t) {
+    float* ks = bufs + (t % P::kBufs) * P::kStage;
+    const int kv0 = t * BN, valid = min(BN, nk - kv0);
+    stage_tile_async<D, BN, T, DP>(ks, k + kb + (size_t)kv0 * D, valid);
+    stage_tile_async<D, BN, T, DP>(ks + BN * LD, v + kb + (size_t)kv0 * D, valid);
+    cp_async_commit();
+  };
+
+  if (n_tiles > 0) {
+    stage_tile_async<D, BM, T, DP>(qs, q + qb + (size_t)r0 * D, min(BM, nq - r0));
+    stage_tile_async<D, BM, T, DP>(dos, dout + qb + (size_t)r0 * D, min(BM, nq - r0));
+    stage(0);
+  }
+
+  // delta and lse of this thread's rows, from device memory while the
+  // copies fly: each of a row's 8 lanes sums its own columns
+  float dl[R], lse_r[R], acc[R][4 * NC];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = r0 + gy + i * G;
+    const bool live = row < nq;
+    float part = 0.f;
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (DP != D && 4 * lx + 32 * c >= D) continue;  // past the row
+        const size_t at = qb + (size_t)row * D + 4 * lx + 32 * c;
+        const float4 a = *reinterpret_cast<const float4*>(dout + at);
+        const float4 b = *reinterpret_cast<const float4*>(o + at);
+        part = fmaf(a.x, b.x, part);
+        part = fmaf(a.y, b.y, part);
+        part = fmaf(a.z, b.z, part);
+        part = fmaf(a.w, b.w, part);
+      }
+    }
+    dl[i] = oct_sum(part);
+    lse_r[i] = live ? lse[(size_t)bh * nq + row] : 0.f;
+    if (live && lx == 0) delta[(size_t)bh * nq + row] = dl[i];
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is here; everyone is done with tile t - 1
+    if (P::kBufs == 2 && t + 1 < n_tiles) stage(t + 1);
+    const float* ks = bufs + (t % P::kBufs) * P::kStage;
+    const float* vs = ks + BN * LD;
+    const int kv0 = t * BN;
+
+    float s[R][SN], dp[R][SN];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < SN; ++j) s[i][j] = dp[i][j] = 0.f;
+    }
+    tile_abt<R, SN, G, D, LD, LD>(s, qs + gy * LD, ks + lx * LD);     // S = Q K^T
+    tile_abt<R, SN, G, D, LD, LD>(dp, dos + gy * LD, vs + lx * LD);  // dP = dO V^T
+
+    const bool full = kv0 + BN <= nk && (!causal || kv0 + BN - 1 <= r0 + q_off);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = r0 + gy + i * G;
+#pragma unroll
+      for (int j = 0; j < SN; ++j) {
+        const int col = kv0 + lx + 8 * j;
+        float sc = __fmul_rn(s[i][j], scale);
+        if (slopes) sc = alibi(sc, slope, row, col);
+        const float p =
+            (full || visible(row, col, nq, nk, causal, q_off)) ? expf(sc - lse_r[i]) : 0.f;
+        dss[(gy + i * G) * LDP + lx + 8 * j] = __fmul_rn(__fmul_rn(p, dp[i][j] - dl[i]), scale);
+      }
+    }
+    __syncwarp();  // a row of dS stays within one warp
+    tile_ab<R, NC, G, BN, LDP, LD>(acc, dss + gy * LDP, ks + 4 * lx);  // dQ += dS K
+    if (P::kBufs == 1 && t + 1 < n_tiles) {
+      __syncthreads();
+      stage(t + 1);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = r0 + gy + i * G;
+    if (row >= nq) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (DP != D && 4 * lx + 32 * c >= D) continue;  // a zero-filled column of the padding
+      *reinterpret_cast<float4*>(dq + qb + (size_t)row * D + 4 * lx + 32 * c) =
+          make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2], acc[i][4 * c + 3]);
+    }
+  }
+}
+
+// dK and dV over key tiles: K and V of the block's kRows keys are staged
+// once; per query tile (with its lse and delta rows) S^T = K Q^T and dP^T =
+// V dO^T in micro-tiles whose rows are keys, P^T and dS^T through shared
+// memory, dV += P^T dO and dK += dS^T Q. Grid (bh, key blocks).
+template <int D, class S>
+__global__ void __launch_bounds__(S::kThreads, F32<D, S, kDkv>::kBlocks)
+flash_bwd_dkv_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ lse,
+                          const float* __restrict__ delta, const float* __restrict__ dout,
+                          const float* __restrict__ slopes, float* __restrict__ dk,
+                          float* __restrict__ dv, int nq, int nk, int causal, int q_off,
+                          float scale) {
+  using P = F32<D, S, kDkv>;
+  constexpr int BK = P::kRows, BQ = P::kTile, T = P::kThreads, G = P::kG, R = P::kR;
+  constexpr int DP = P::kDp, SN = P::kSN, NC = P::kNC, LD = P::kLd, LDP = P::kLdP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + BK * LD;
+  float* bufs = vs + BK * LD;
+  float* pts = bufs + P::kBufs * P::kStage;
+  float* dsts = pts + BK * LDP;
+  const int gy = row_group(), lx = col_group();
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;  // the first key tiles see the most queries
+  const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
+  const float slope = slopes ? slopes[bh] : 0.f;
+  const int q_begin = query_start(k0, BQ, causal, q_off);
+  const int n_tiles = q_begin < nq ? (nq - q_begin + BQ - 1) / BQ : 0;
+
+  auto stage = [&](int t) {
+    float* qsb = bufs + (t % P::kBufs) * P::kStage;
+    const int q0 = q_begin + t * BQ, valid = min(BQ, nq - q0);
+    stage_tile_async<D, BQ, T, DP>(qsb, q + qb + (size_t)q0 * D, valid);
+    stage_tile_async<D, BQ, T, DP>(qsb + BQ * LD, dout + qb + (size_t)q0 * D, valid);
+    stage_row_async<T>(qsb + 2 * BQ * LD, lse + (size_t)bh * nq + q0, BQ, valid);
+    stage_row_async<T>(qsb + 2 * BQ * LD + BQ, delta + (size_t)bh * nq + q0, BQ, valid);
+    cp_async_commit();
+  };
+
+  if (n_tiles > 0) {
+    stage_tile_async<D, BK, T, DP>(ks, k + kb + (size_t)k0 * D, min(BK, nk - k0));
+    stage_tile_async<D, BK, T, DP>(vs, v + kb + (size_t)k0 * D, min(BK, nk - k0));
+    stage(0);
+  }
+
+  float dka[R][4 * NC], dva[R][4 * NC];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) dka[i][c] = dva[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is here; everyone is done with tile t - 1
+    if (P::kBufs == 2 && t + 1 < n_tiles) stage(t + 1);
+    const float* qsb = bufs + (t % P::kBufs) * P::kStage;
+    const float* dosb = qsb + BQ * LD;
+    const float* lses = dosb + BQ * LD;
+    const float* dls = lses + BQ;
+    const int q0 = q_begin + t * BQ;
+
+    float st[R][SN], dpt[R][SN];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < SN; ++j) st[i][j] = dpt[i][j] = 0.f;
+    }
+    tile_abt<R, SN, G, D, LD, LD>(st, ks + gy * LD, qsb + lx * LD);     // S^T = K Q^T
+    tile_abt<R, SN, G, D, LD, LD>(dpt, vs + gy * LD, dosb + lx * LD);  // dP^T = V dO^T
+
+    const bool full =
+        q0 + BQ <= nq && k0 + BK <= nk && (!causal || k0 + BK - 1 <= q0 + q_off);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int key = k0 + gy + i * G;
+#pragma unroll
+      for (int j = 0; j < SN; ++j) {
+        const int qi = lx + 8 * j, row = q0 + qi;
+        float sc = __fmul_rn(st[i][j], scale);
+        if (slopes) sc = alibi(sc, slope, row, key);
+        const float p =
+            (full || visible(row, key, nq, nk, causal, q_off)) ? expf(sc - lses[qi]) : 0.f;
+        pts[(gy + i * G) * LDP + qi] = p;
+        dsts[(gy + i * G) * LDP + qi] = __fmul_rn(__fmul_rn(p, dpt[i][j] - dls[qi]), scale);
+      }
+    }
+    __syncwarp();  // a row (a key) of P^T and dS^T stays within one warp
+    tile_ab<R, NC, G, BQ, LDP, LD>(dva, pts + gy * LDP, dosb + 4 * lx);  // dV += P^T dO
+    tile_ab<R, NC, G, BQ, LDP, LD>(dka, dsts + gy * LDP, qsb + 4 * lx);  // dK += dS^T Q
+    if (P::kBufs == 1 && t + 1 < n_tiles) {
+      __syncthreads();
+      stage(t + 1);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int key = k0 + gy + i * G;
+    if (key >= nk) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (DP != D && 4 * lx + 32 * c >= D) continue;  // a zero-filled column of the padding
+      const size_t at = kb + (size_t)key * D + 4 * lx + 32 * c;
+      *reinterpret_cast<float4*>(dk + at) =
+          make_float4(dka[i][4 * c], dka[i][4 * c + 1], dka[i][4 * c + 2], dka[i][4 * c + 3]);
+      *reinterpret_cast<float4*>(dv + at) =
+          make_float4(dva[i][4 * c], dva[i][4 * c + 1], dva[i][4 * c + 2], dva[i][4 * c + 3]);
+    }
+  }
+}
+
+// Launch the backward, dQ then dK/dV on stream s (the dK/dV kernel reads
+// the delta that the dQ kernel writes), with block shapes SQ and SK.
+template <int D, class SQ, class SK>
+void launch_bwd_tile(const float* q, const float* k, const float* v, const float* o,
+                     const float* lse, const float* dout, const float* slopes, float* dq, float* dk,
+                     float* dv, float* delta, int bh, int nq, int nk, int causal, int q_off,
+                     float scale, cudaStream_t s) {
+  using PQ = F32<D, SQ, kDq>;
+  using PK = F32<D, SK, kDkv>;
+  if (cudaFuncSetAttribute(flash_bwd_dq_tile_kernel<D, SQ>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, PQ::kSmem) != cudaSuccess ||
+      cudaFuncSetAttribute(flash_bwd_dkv_tile_kernel<D, SK>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, PK::kSmem) != cudaSuccess) {
+    return;
+  }
+  flash_bwd_dq_tile_kernel<D, SQ><<<dim3(bh, (nq + PQ::kRows - 1) / PQ::kRows), PQ::kThreads,
+                                    PQ::kSmem, s>>>(q, k, v, o, lse, dout, slopes, dq, delta, nq,
+                                                    nk, causal, q_off, scale);
+  if (cudaPeekAtLastError() != cudaSuccess) return;
+  flash_bwd_dkv_tile_kernel<D, SK><<<dim3(bh, (nk + PK::kRows - 1) / PK::kRows), PK::kThreads,
+                                     PK::kSmem, s>>>(q, k, v, lse, delta, dout, slopes, dk, dv, nq,
+                                                     nk, causal, q_off, scale);
 }
 
 }  // namespace

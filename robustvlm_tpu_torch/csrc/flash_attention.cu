@@ -11,7 +11,7 @@
 // The function is the Pallas kernels', not their tiling: the TPU keeps a
 // whole K/V row in VMEM and walks 128-key blocks; here each block owns a
 // tile of query rows (of keys in dK/dV) and streams the other side through
-// shared memory in tiles, of the shapes of Bf16Fwd, F32Tile and mma_bf16.cuh.
+// shared memory in tiles, of the shapes of Bf16Fwd, Bf16Bwd and F32Tile.
 //
 // Semantics, as the Pallas kernels and the public function compute them:
 // - forward: q scaled in its own dtype before Q K^T; ALiBi subtracts
@@ -38,8 +38,8 @@
 //
 // Two implementations:
 // - float32 (no TF32, so no tensor cores): register-tiled FMA kernels on the
-//   CUDA cores (fma_tile.cuh; the forward in attn_f32_tile.cuh, which the
-//   float32 ViT forward launches too). Bound: operations, 4*nq*nk*D
+//   CUDA cores (fma_tile.cuh; the kernels in attn_f32_tile.cuh, which the
+//   float32 ViT attention launches too). Bound: operations, 4*nq*nk*D
 //   (forward) and 10*nq*nk*D (backward) per head, halved when causal, at
 //   the card's float32 FMA rate; the two-kernel backward recomputes S and
 //   dP in each kernel, 14*nq*nk*D in all. Once every FMA takes an operand
@@ -79,26 +79,24 @@
 //   encoded on the host for each call (cuTensorMapEncodeTiled through the
 //   runtime, no -lcuda). No warp specialisation: the softmax does not
 //   overlap the products of the same block.
-// - bfloat16 backward: tensor cores through mma.sync m16n8k16 (mma_bf16.cuh),
-//   four warps of 16 rows. Scores, P and dS stay in registers. The kernels
-//   keep their block's own operands (Q and dO for dQ, K and V for dK/dV) in
-//   shared memory and read A fragments from there one k-step at a time: at
-//   D = 128 the dK and dV accumulators alone take 128 registers a thread.
-//   Bound: bytes. Loads are synchronous (no cp.async/TMA pipeline) and the
-//   products are not wgmma: later work.
+// - bfloat16 backward: wgmma and TMA, in attn_bf16_bwd.cuh (which the bf16
+//   ViT backward launches too; its header has the design). Bound: bytes.
+//   dQ streams K and V tiles past a block's Q and dO, dK/dV streams Q and
+//   dO tiles past a block's K and V, each through a TMA ring; S and dP (S^T
+//   and dP^T) take both operands from shared memory, dS and P are re-packed
+//   in registers as the A operand of dQ += dS K, dV += P^T dO, dK += dS^T Q.
 
 #include <math.h>
 
+#include "attn_bf16_bwd.cuh"
 #include "attn_f32_tile.cuh"
-#include "fma_tile.cuh"
-#include "mma_bf16.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
 // ============================================= float32: register-tiled FMA
-// The forward kernel, the masks and the shape arithmetic F32<D, S, Kind>:
-// attn_f32_tile.cuh (shared with vit_attention.cu).
+// The kernels (forward, dQ, dK/dV), the masks and the shape arithmetic
+// F32<D, S, Kind>: attn_f32_tile.cuh (shared with vit_attention.cu).
 //
 // Block shape per head dim and kernel: kRows rows of the block's own side
 // (queries; keys in dK/dV), kTile rows of the streamed side per
@@ -121,239 +119,6 @@ template <>
 struct F32Tile<128, kDq> { static constexpr int kRows = 64, kTile = 64, kThreads = 256, kBufs = 2; };
 template <>
 struct F32Tile<128, kDkv> { static constexpr int kRows = 32, kTile = 32, kThreads = 128, kBufs = 2; };
-
-template <int D, int Kind>
-using F32F = F32<D, F32Tile<D, Kind>, Kind>;
-
-// dQ over query tiles; also writes delta = rowsum(dO * O) for the dK/dV
-// kernel. Q and dO of the block are staged once; per key tile S = Q K^T and
-// dP = dO V^T in micro-tiles, dS through shared memory, dQ += dS K.
-template <int D>
-__global__ void __launch_bounds__(F32F<D, kDq>::kThreads, F32F<D, kDq>::kBlocks)
-flash_bwd_dq_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ o,
-                         const float* __restrict__ lse, const float* __restrict__ dout,
-                         const float* __restrict__ slopes, float* __restrict__ dq,
-                         float* __restrict__ delta, int nq, int nk, int causal, int q_off,
-                         float scale) {
-  using P = F32F<D, kDq>;
-  constexpr int BM = P::kRows, BN = P::kTile, T = P::kThreads, G = P::kG, R = P::kR;
-  constexpr int SN = P::kSN, NC = P::kNC, LD = P::kLd, LDP = P::kLdP;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float* dos = qs + BM * LD;
-  float* bufs = dos + BM * LD;
-  float* dss = bufs + P::kBufs * P::kStage;
-  const int gy = row_group(), lx = col_group();
-  const int bh = blockIdx.x;
-  const int r0 = (gridDim.y - 1 - blockIdx.y) * BM;  // the longest blocks start first
-  const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
-  const float slope = slopes ? slopes[bh] : 0.f;
-  const int hi = key_end(r0, BM, nk, causal, q_off);
-  const int n_tiles = (hi + BN - 1) / BN;
-
-  auto stage = [&](int t) {
-    float* ks = bufs + (t % P::kBufs) * P::kStage;
-    const int kv0 = t * BN, valid = min(BN, nk - kv0);
-    stage_tile_async<D, BN, T>(ks, k + kb + (size_t)kv0 * D, valid);
-    stage_tile_async<D, BN, T>(ks + BN * LD, v + kb + (size_t)kv0 * D, valid);
-    cp_async_commit();
-  };
-
-  if (n_tiles > 0) {
-    stage_tile_async<D, BM, T>(qs, q + qb + (size_t)r0 * D, min(BM, nq - r0));
-    stage_tile_async<D, BM, T>(dos, dout + qb + (size_t)r0 * D, min(BM, nq - r0));
-    stage(0);
-  }
-
-  // delta and lse of this thread's rows, from device memory while the
-  // copies fly: each of a row's 8 lanes sums its own columns
-  float dl[R], lse_r[R], acc[R][4 * NC];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = r0 + gy + i * G;
-    const bool live = row < nq;
-    float part = 0.f;
-    if (live) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const size_t at = qb + (size_t)row * D + 4 * lx + 32 * c;
-        const float4 a = *reinterpret_cast<const float4*>(dout + at);
-        const float4 b = *reinterpret_cast<const float4*>(o + at);
-        part = fmaf(a.x, b.x, part);
-        part = fmaf(a.y, b.y, part);
-        part = fmaf(a.z, b.z, part);
-        part = fmaf(a.w, b.w, part);
-      }
-    }
-    dl[i] = oct_sum(part);
-    lse_r[i] = live ? lse[(size_t)bh * nq + row] : 0.f;
-    if (live && lx == 0) delta[(size_t)bh * nq + row] = dl[i];
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile t is here; everyone is done with tile t - 1
-    if (P::kBufs == 2 && t + 1 < n_tiles) stage(t + 1);
-    const float* ks = bufs + (t % P::kBufs) * P::kStage;
-    const float* vs = ks + BN * LD;
-    const int kv0 = t * BN;
-
-    float s[R][SN], dp[R][SN];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = 0; j < SN; ++j) s[i][j] = dp[i][j] = 0.f;
-    }
-    tile_abt<R, SN, G, D, LD, LD>(s, qs + gy * LD, ks + lx * LD);     // S = Q K^T
-    tile_abt<R, SN, G, D, LD, LD>(dp, dos + gy * LD, vs + lx * LD);  // dP = dO V^T
-
-    const bool full = kv0 + BN <= nk && (!causal || kv0 + BN - 1 <= r0 + q_off);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = r0 + gy + i * G;
-#pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        const int col = kv0 + lx + 8 * j;
-        float sc = __fmul_rn(s[i][j], scale);
-        if (slopes) sc = alibi(sc, slope, row, col);
-        const float p =
-            (full || visible(row, col, nq, nk, causal, q_off)) ? expf(sc - lse_r[i]) : 0.f;
-        dss[(gy + i * G) * LDP + lx + 8 * j] = __fmul_rn(__fmul_rn(p, dp[i][j] - dl[i]), scale);
-      }
-    }
-    __syncwarp();  // a row of dS stays within one warp
-    tile_ab<R, NC, G, BN, LDP, LD>(acc, dss + gy * LDP, ks + 4 * lx);  // dQ += dS K
-    if (P::kBufs == 1 && t + 1 < n_tiles) {
-      __syncthreads();
-      stage(t + 1);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = r0 + gy + i * G;
-    if (row >= nq) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      *reinterpret_cast<float4*>(dq + qb + (size_t)row * D + 4 * lx + 32 * c) =
-          make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2], acc[i][4 * c + 3]);
-    }
-  }
-}
-
-// dK and dV over key tiles: K and V of the block's kRows keys are staged
-// once; per query tile (with its lse and delta rows) S^T = K Q^T and dP^T =
-// V dO^T in micro-tiles whose rows are keys, P^T and dS^T through shared
-// memory, dV += P^T dO and dK += dS^T Q.
-template <int D>
-__global__ void __launch_bounds__(F32F<D, kDkv>::kThreads, F32F<D, kDkv>::kBlocks)
-flash_bwd_dkv_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ lse,
-                          const float* __restrict__ delta, const float* __restrict__ dout,
-                          const float* __restrict__ slopes, float* __restrict__ dk,
-                          float* __restrict__ dv, int nq, int nk, int causal, int q_off,
-                          float scale) {
-  using P = F32F<D, kDkv>;
-  constexpr int BK = P::kRows, BQ = P::kTile, T = P::kThreads, G = P::kG, R = P::kR;
-  constexpr int SN = P::kSN, NC = P::kNC, LD = P::kLd, LDP = P::kLdP;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ks = reinterpret_cast<float*>(smem);
-  float* vs = ks + BK * LD;
-  float* bufs = vs + BK * LD;
-  float* pts = bufs + P::kBufs * P::kStage;
-  float* dsts = pts + BK * LDP;
-  const int gy = row_group(), lx = col_group();
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * BK;  // the first key tiles see the most queries
-  const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
-  const float slope = slopes ? slopes[bh] : 0.f;
-  const int q_begin = query_start(k0, BQ, causal, q_off);
-  const int n_tiles = q_begin < nq ? (nq - q_begin + BQ - 1) / BQ : 0;
-
-  auto stage = [&](int t) {
-    float* qsb = bufs + (t % P::kBufs) * P::kStage;
-    const int q0 = q_begin + t * BQ, valid = min(BQ, nq - q0);
-    stage_tile_async<D, BQ, T>(qsb, q + qb + (size_t)q0 * D, valid);
-    stage_tile_async<D, BQ, T>(qsb + BQ * LD, dout + qb + (size_t)q0 * D, valid);
-    stage_row_async<T>(qsb + 2 * BQ * LD, lse + (size_t)bh * nq + q0, BQ, valid);
-    stage_row_async<T>(qsb + 2 * BQ * LD + BQ, delta + (size_t)bh * nq + q0, BQ, valid);
-    cp_async_commit();
-  };
-
-  if (n_tiles > 0) {
-    stage_tile_async<D, BK, T>(ks, k + kb + (size_t)k0 * D, min(BK, nk - k0));
-    stage_tile_async<D, BK, T>(vs, v + kb + (size_t)k0 * D, min(BK, nk - k0));
-    stage(0);
-  }
-
-  float dka[R][4 * NC], dva[R][4 * NC];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) dka[i][c] = dva[i][c] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile t is here; everyone is done with tile t - 1
-    if (P::kBufs == 2 && t + 1 < n_tiles) stage(t + 1);
-    const float* qsb = bufs + (t % P::kBufs) * P::kStage;
-    const float* dosb = qsb + BQ * LD;
-    const float* lses = dosb + BQ * LD;
-    const float* dls = lses + BQ;
-    const int q0 = q_begin + t * BQ;
-
-    float st[R][SN], dpt[R][SN];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = 0; j < SN; ++j) st[i][j] = dpt[i][j] = 0.f;
-    }
-    tile_abt<R, SN, G, D, LD, LD>(st, ks + gy * LD, qsb + lx * LD);     // S^T = K Q^T
-    tile_abt<R, SN, G, D, LD, LD>(dpt, vs + gy * LD, dosb + lx * LD);  // dP^T = V dO^T
-
-    const bool full =
-        q0 + BQ <= nq && k0 + BK <= nk && (!causal || k0 + BK - 1 <= q0 + q_off);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int key = k0 + gy + i * G;
-#pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        const int qi = lx + 8 * j, row = q0 + qi;
-        float sc = __fmul_rn(st[i][j], scale);
-        if (slopes) sc = alibi(sc, slope, row, key);
-        const float p =
-            (full || visible(row, key, nq, nk, causal, q_off)) ? expf(sc - lses[qi]) : 0.f;
-        pts[(gy + i * G) * LDP + qi] = p;
-        dsts[(gy + i * G) * LDP + qi] = __fmul_rn(__fmul_rn(p, dpt[i][j] - dls[qi]), scale);
-      }
-    }
-    __syncwarp();  // a row (a key) of P^T and dS^T stays within one warp
-    tile_ab<R, NC, G, BQ, LDP, LD>(dva, pts + gy * LDP, dosb + 4 * lx);  // dV += P^T dO
-    tile_ab<R, NC, G, BQ, LDP, LD>(dka, dsts + gy * LDP, qsb + 4 * lx);  // dK += dS^T Q
-    if (P::kBufs == 1 && t + 1 < n_tiles) {
-      __syncthreads();
-      stage(t + 1);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int key = k0 + gy + i * G;
-    if (key >= nk) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const size_t at = kb + (size_t)key * D + 4 * lx + 32 * c;
-      *reinterpret_cast<float4*>(dk + at) =
-          make_float4(dka[i][4 * c], dka[i][4 * c + 1], dka[i][4 * c + 2], dka[i][4 * c + 3]);
-      *reinterpret_cast<float4*>(dv + at) =
-          make_float4(dva[i][4 * c], dva[i][4 * c + 1], dva[i][4 * c + 2], dva[i][4 * c + 3]);
-    }
-  }
-}
 
 // ============================================ bfloat16: tensor-core kernels
 // Forward: wgmma + TMA (wgmma_bf16.cuh). One warpgroup (4 warps, 128
@@ -383,6 +148,17 @@ struct WgFwd : Bf16Fwd<D> {
   static_assert(S::kStages >= 1 && kSmem <= 227 * 1024, "a block may take 227 KB of shared memory");
 };
 
+// Backward: wgmma + TMA (attn_bf16_bwd.cuh, shared with vit_attention.cu).
+// Tile shape per head dim: kN keys a tile in dQ, kM queries a tile in
+// dK/dV, kStages ring stages. Chosen on the card by
+// scripts/sweep_attention_bf16_bwd_torch.py, which rewrites these lines.
+template <int D>
+struct Bf16Bwd;
+template <>
+struct Bf16Bwd<64> { static constexpr int kN = 32, kM = 64, kStages = 2; };
+template <>
+struct Bf16Bwd<128> { static constexpr int kN = 64, kM = 64, kStages = 2; };
+
 template <int D>
 __global__ void __launch_bounds__(WgFwd<D>::kThreads)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -392,7 +168,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        int causal, int q_off, float scale) {
   using P = WgFwd<D>;
   constexpr int BN = P::kN, NS = P::kStages;
-  constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* stages = qs + P::kQBytes;
@@ -468,8 +243,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        wgmma_ss<BN>(s, wgmma_desc(qaddr + (kk / 4) * P::kRows * 128 + (kk % 4) * 32, 16, 1024),
-                     wgmma_desc(ks + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024), kk > 0);
+        wgmma_ss<BN>(s, kmajor_desc(qaddr, P::kRows, kk), kmajor_desc(ks, BN, kk), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -526,7 +300,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
-        wgmma_rs<D, 1>(acc, pa[kk], wgmma_desc(vs + kk * 16 * 128, BN * 128, 1024), 1);
+        wgmma_rs<D, 1>(acc, pa[kk], mnmajor_desc(vs, BN, kk), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -559,198 +333,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// Shared memory of the backward kernels: four padded 64-row tiles and two
-// float rows (above 48 KB at D = 128, so dynamic).
-template <int D>
-constexpr int bwd_smem_bytes() {
-  return 4 * kKv * (D + kPad) * (int)sizeof(bf16) + 2 * kKv * (int)sizeof(float);
-}
-
-// dQ over query tiles; also writes delta = rowsum(dO * O) for the dK/dV
-// kernel. Q and dO of the block stay in shared memory.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const float* __restrict__ lse, const bf16* __restrict__ dout,
-                        const float* __restrict__ slopes, bf16* __restrict__ dq,
-                        float* __restrict__ delta, int nq, int nk, int causal, int q_off,
-                        float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kT = kKv * (D + kPad);
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kT;
-  bf16* ks = dos + kT;
-  bf16* vs = ks + kT;
-  float* dls = reinterpret_cast<float*>(vs + kT);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x;
-  const int r0 = blockIdx.y * kMmaRows;
-  const int row0 = r0 + warp * 16;
-  const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
-  const float slope = slopes ? slopes[bh] : 0.f;
-  const int valid = min(kMmaRows, nq - r0);
-
-  stage_bf16<D>(qs, q + qb + (size_t)r0 * D, valid);
-  stage_bf16<D>(dos, dout + qb + (size_t)r0 * D, valid);
-  __syncthreads();
-  {  // delta: two threads a row, D/2 columns each, float32
-    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-    const bf16* dor = dos + r * (D + kPad) + half * (D / 2);
-    const bf16* orow = o + qb + (size_t)(r0 + r) * D + half * (D / 2);
-    float part = 0.f;
-    if (r < valid) {
-#pragma unroll 8
-      for (int c = 0; c < D / 2; ++c) {
-        part = fmaf(__bfloat162float(dor[c]), __bfloat162float(orow[c]), part);
-      }
-    }
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    dls[r] = part;
-    if (half == 0 && r < valid) delta[(size_t)bh * nq + r0 + r] = part;
-  }
-  __syncthreads();
-  float dl[2], lse_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + h * 8;
-    dl[h] = dls[warp * 16 + g + h * 8];
-    lse_r[h] = row < nq ? lse[(size_t)bh * nq + row] : 0.f;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  const bf16* q_rows = qs + warp * 16 * (D + kPad);
-  const bf16* do_rows = dos + warp * 16 * (D + kPad);
-  const int hi = key_end(r0, kMmaRows, nk, causal, q_off);
-
-  for (int kv0 = 0; kv0 < hi; kv0 += kKv) {
-    __syncthreads();
-    stage_bf16<D>(ks, k + kb + (size_t)kv0 * D, min(kKv, nk - kv0));
-    stage_bf16<D>(vs, v + kb + (size_t)kv0 * D, min(kKv, nk - kv0));
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_abt_smem<D>(s, q_rows, ks, g, t);    // S = Q K^T
-    mma_abt_smem<D>(dp, do_rows, vs, g, t);  // dP = dO V^T
-    uint32_t dsa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = row0 + g + (c >> 1) * 8;
-        const int col = kv0 + j * 8 + 2 * t + (c & 1);
-        float sc = __fmul_rn(s[j][c], scale);
-        if (slopes) sc = alibi(sc, slope, row, col);
-        const float p =
-            visible(row, col, nq, nk, causal, q_off) ? expf(sc - lse_r[c >> 1]) : 0.f;
-        ds[c] = __fmul_rn(__fmul_rn(p, dp[j][c] - dl[c >> 1]), scale);
-      }
-      pack_a(dsa, j, ds[0], ds[1], ds[2], ds[3]);
-    }
-    mma_ab<D>(acc, dsa, ks, lane);  // dQ += dS K
-  }
-  store_rows<D>(dq + qb, acc, row0, nq, g, t, 1.f, 1.f);
-}
-
-// dK and dV over key tiles: S^T = K Q^T and dP^T = V dO^T, so this warp's
-// 16 keys are the rows of every product. K and V of the block stay in
-// shared memory.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const float* __restrict__ lse,
-                         const float* __restrict__ delta, const bf16* __restrict__ dout,
-                         const float* __restrict__ slopes, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int nq, int nk, int causal, int q_off,
-                         float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kT = kKv * (D + kPad);
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kT;
-  bf16* qs = vs + kT;
-  bf16* dos = qs + kT;
-  float* lses = reinterpret_cast<float*>(dos + kT);
-  float* dls = lses + kKv;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kMmaRows;
-  const int key0 = k0 + warp * 16;  // this warp's first key
-  const size_t qb = (size_t)bh * nq * D, kb = (size_t)bh * nk * D;
-  const float slope = slopes ? slopes[bh] : 0.f;
-
-  stage_bf16<D>(ks, k + kb + (size_t)k0 * D, min(kMmaRows, nk - k0));
-  stage_bf16<D>(vs, v + kb + (size_t)k0 * D, min(kMmaRows, nk - k0));
-  const bf16* k_rows = ks + warp * 16 * (D + kPad);
-  const bf16* v_rows = vs + warp * 16 * (D + kPad);
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dka[nt][c] = dva[nt][c] = 0.f;
-  }
-
-  for (int q0 = query_start(k0, kKv, causal, q_off); q0 < nq; q0 += kKv) {
-    const int valid = min(kKv, nq - q0);
-    __syncthreads();
-    stage_bf16<D>(qs, q + qb + (size_t)q0 * D, valid);
-    stage_bf16<D>(dos, dout + qb + (size_t)q0 * D, valid);
-    for (int i = threadIdx.x; i < kKv; i += kMmaThreads) {
-      lses[i] = i < valid ? lse[(size_t)bh * nq + q0 + i] : 0.f;
-      dls[i] = i < valid ? delta[(size_t)bh * nq + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    float st[8][4];
-    mma_abt_smem<D>(st, k_rows, qs, g, t);  // S^T = K Q^T
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = key0 + g + (c >> 1) * 8;
-        const int qi = j * 8 + 2 * t + (c & 1);
-        float sc = __fmul_rn(st[j][c], scale);
-        if (slopes) sc = alibi(sc, slope, q0 + qi, key);
-        st[j][c] = visible(q0 + qi, key, nq, nk, causal, q_off) ? expf(sc - lses[qi]) : 0.f;
-      }
-      pack_a(pa, j, st[j][0], st[j][1], st[j][2], st[j][3]);
-    }
-    mma_ab<D>(dva, pa, dos, lane);  // dV += P^T dO
-
-    float dpt[8][4];
-    mma_abt_smem<D>(dpt, v_rows, dos, g, t);  // dP^T = V dO^T
-    uint32_t dsa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qi = j * 8 + 2 * t + (c & 1);
-        ds[c] = __fmul_rn(__fmul_rn(st[j][c], dpt[j][c] - dls[qi]), scale);
-      }
-      pack_a(dsa, j, ds[0], ds[1], ds[2], ds[3]);
-    }
-    mma_ab<D>(dka, dsa, qs, lane);  // dK += dS^T Q
-  }
-  store_rows<D>(dk + kb, dka, key0, nk, g, t, 1.f, 1.f);
-  store_rows<D>(dv + kb, dva, key0, nk, g, t, 1.f, 1.f);
-}
-
 // ================================================================= launches
-// Above 48 KB of dynamic shared memory a kernel must opt in; cheap, and
-// idempotent.
-template <class Kernel>
-bool allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) ==
-         cudaSuccess;
-}
-
 // cudaGetLastError() after the launch; cudaErrorInvalidValue, with no
 // launch tried, if a tensor map could not be encoded.
 template <int D>
@@ -780,49 +363,28 @@ int launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// cudaGetLastError() after the launches; cudaErrorInvalidValue, with no
+// launch tried, if a bf16 tensor map could not be encoded.
 template <int D>
-void launch_bwd(int dtype, const void* q, const void* k, const void* v, const void* o,
-                const void* lse, const void* dout, const float* slopes, void* dq, void* dk,
-                void* dv, void* delta, int bh, int nq, int nk, int causal, int q_off,
-                float scale, cudaStream_t s) {
+int launch_bwd(int dtype, const void* q, const void* k, const void* v, const void* o,
+               const void* lse, const void* dout, const float* slopes, void* dq, void* dk,
+               void* dv, void* delta, int bh, int nq, int nk, int causal, int q_off, float scale,
+               cudaStream_t s) {
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == 0) {
     using T = float;
-    using PQ = F32F<D, kDq>;
-    using PK = F32F<D, kDkv>;
-    if (!allow_smem(flash_bwd_dq_tile_kernel<D>, PQ::kSmem) ||
-        !allow_smem(flash_bwd_dkv_tile_kernel<D>, PK::kSmem)) {
-      return;
-    }
-    flash_bwd_dq_tile_kernel<D>
-        <<<dim3(bh, (nq + PQ::kRows - 1) / PQ::kRows), PQ::kThreads, PQ::kSmem, s>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-            static_cast<const T*>(o), l, static_cast<const T*>(dout), slopes,
-            static_cast<T*>(dq), dl, nq, nk, causal, q_off, scale);
-    if (cudaPeekAtLastError() != cudaSuccess) return;
-    flash_bwd_dkv_tile_kernel<D>
-        <<<dim3(bh, (nk + PK::kRows - 1) / PK::kRows), PK::kThreads, PK::kSmem, s>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), l, dl,
-            static_cast<const T*>(dout), slopes, static_cast<T*>(dk), static_cast<T*>(dv), nq,
-            nk, causal, q_off, scale);
-  } else {
-    using T = bf16;
-    constexpr int kSmem = bwd_smem_bytes<D>();
-    if (!allow_smem(flash_bwd_dq_mma_kernel<D>, kSmem) ||
-        !allow_smem(flash_bwd_dkv_mma_kernel<D>, kSmem)) {
-      return;
-    }
-    flash_bwd_dq_mma_kernel<D><<<dim3(bh, (nq + kMmaRows - 1) / kMmaRows), kMmaThreads, kSmem, s>>>(
+    launch_bwd_tile<D, F32Tile<D, kDq>, F32Tile<D, kDkv>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(o), l, static_cast<const T*>(dout), slopes,
-        static_cast<T*>(dq), dl, nq, nk, causal, q_off, scale);
-    if (cudaPeekAtLastError() != cudaSuccess) return;
-    flash_bwd_dkv_mma_kernel<D><<<dim3(bh, (nk + kMmaRows - 1) / kMmaRows), kMmaThreads, kSmem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), l, dl,
-        static_cast<const T*>(dout), slopes, static_cast<T*>(dk), static_cast<T*>(dv), nq,
-        nk, causal, q_off, scale);
+        static_cast<const T*>(o), l, static_cast<const T*>(dout), slopes, static_cast<T*>(dq),
+        static_cast<T*>(dk), static_cast<T*>(dv), dl, bh, nq, nk, causal, q_off, scale, s);
+    return static_cast<int>(cudaGetLastError());
   }
+  using T = bf16;
+  return launch_bwd_wgmma<D, Bf16Bwd<D>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), l, static_cast<const T*>(dout), slopes, static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), dl, bh, nq, nk, causal, q_off, scale, s);
 }
 
 }  // namespace
@@ -857,14 +419,11 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 64:
-      launch_bwd<64>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, bh, nq, nk, causal,
-                     q_off, scale, s);
-      break;
+      return launch_bwd<64>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, bh, nq, nk,
+                            causal, q_off, scale, s);
     case 128:
-      launch_bwd<128>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, bh, nq, nk, causal,
-                      q_off, scale, s);
-      break;
+      return launch_bwd<128>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, bh, nq, nk,
+                             causal, q_off, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
-// bfloat16 tensor-core building blocks shared by the attention kernels
-// (vit_attention.cu, flash_attention.cu): mma.sync m16n8k16 with bf16
-// operands and float32 accumulators, four warps of 16 rows per block, K/V
-// (or Q/dO) tiles of 64 rows staged in padded shared memory.
+// bfloat16 tensor-core building blocks: mma.sync m16n8k16 with bf16
+// operands and float32 accumulators (vit_attention.cu's bf16 forward, four
+// warps of 16 rows per block, K/V tiles of 64 rows staged in padded shared
+// memory; q4_matmul.cu), and the bf16 packing and quad reductions that the
+// wgmma kernels share.
 //
 // mma.sync m16n8k16 fragments (PTX ISA), lane = 4 * g + t:
 //   A (16 x 16, row-major): a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..),
@@ -101,30 +102,6 @@ __device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[D 
     for (int s = 0; s < D / 16; ++s) {
       const bf16* b = tile + (j * 8 + g) * (D + kPad) + s * 16 + 2 * t;
       mma16816(c[j], a[s], ld32(b), ld32(b + 8));
-    }
-  }
-}
-
-// The same product with A read from shared memory (the warp's 16 rows of a
-// padded tile, a_rows = their first row), one k-step at a time: four
-// registers for A instead of D / 4, for kernels whose accumulators leave no
-// room to hold A.
-template <int D>
-__device__ __forceinline__ void mma_abt_smem(float (&c)[8][4], const bf16* a_rows,
-                                             const bf16* tile, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-#pragma unroll
-  for (int s = 0; s < D / 16; ++s) {
-    uint32_t a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = ld32(a_rows + (g + (i & 1) * 8) * (D + kPad) + s * 16 + (i >> 1) * 8 + 2 * t);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* b = tile + (j * 8 + g) * (D + kPad) + s * 16 + 2 * t;
-      mma16816(c[j], a, ld32(b), ld32(b + 8));
     }
   }
 }

@@ -7,8 +7,9 @@
 // head dim, rows = sequence, planes = heads) as boxes of 64 inner elements
 // (128 bytes) by `box_rows` rows, with the 128-byte swizzle: row r of a box
 // lands at byte 128 r of it, its 16-byte chunk c at chunk c ^ (r % 8). Rows
-// past the array's `rows` are zero-filled by the hardware, which still
-// counts the whole box towards the mbarrier's transaction bytes. Every box
+// past the array's `rows`, and columns past `inner` (a head dim of 80 read
+// as two boxes), are zero-filled by the hardware, which still counts the
+// whole box towards the mbarrier's transaction bytes. Every box
 // starts on a 1024-byte boundary of shared memory, so the swizzle is that
 // of the address and wgmma's descriptors below read it with layout mode
 // "128-byte swizzle".
@@ -162,6 +163,17 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
 }
 
+// The descriptors of k-step kk of a tile of `rows` rows copied as above
+// (boxes of `rows` 128-byte rows, the next box rows * 128 bytes on):
+// K-major, 4 k-steps of 16 in each box row; MN-major (read with the
+// transpose bit), 16 rows a k-step, the tile's columns the product's N.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int kk) {
+  return wgmma_desc(tile + (kk / 4) * rows * 128 + (kk % 4) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows, int kk) {
+  return wgmma_desc(tile + kk * 16 * 128, rows * 128, 1024);
+}
+
 // Make this thread's ordinary shared-memory writes visible to the async
 // proxy (wgmma's and TMA's reads); a block barrier must follow.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -235,6 +247,20 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
 }
 
+// D (64 x 32, float32) += A (64 x 16 bf16, shared memory, descriptor a) * B
+// (16 x 32 bf16, shared memory, descriptor b); both K-major.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // D (64 x 64, float32) += A (64 x 16 bf16, shared memory, descriptor a) * B
 // (16 x 64 bf16, shared memory, descriptor b); both K-major.
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b,
@@ -275,7 +301,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, 
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// The products for N = 64 or 128.
+// The products for N = 64 or 128 (and 32 with A from shared memory).
 template <int N, int TransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
@@ -288,8 +314,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 }
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma wrappers exist for N = 64 and 128");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss wrappers exist for N = 32, 64 and 128");
+  if constexpr (N == 32) {
+    wgmma_m64n32k16_ss(d, a, b, scale_d);
+  } else if constexpr (N == 64) {
     wgmma_m64n64k16_ss(d, a, b, scale_d);
   } else {
     wgmma_m64n128k16_ss(d, a, b, scale_d);

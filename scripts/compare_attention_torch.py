@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Time the attention kernels of this checkout against another checkout's
+(an older commit unpacked by `git archive`), on one GPU, in one process.
+
+    python3 scripts/compare_attention_torch.py OTHER_ROOT
+
+Each checkout's `vit_attention.cu` and `flash_attention.cu` are compiled
+with that checkout's own headers (copied beside the sources, which quoted
+includes find first) under `build/compare/<side>/`. Every row below is held
+against this checkout's plain version (the limits of `chip_smoke.py`; a
+backward against the plain backward of the same O and lse) and timed by
+CUDA-graph replay in turns: other, this, this, other. Rows: the ViT
+attention forward and backward at ViT-L/14 (B*H = 128, N = 257, D = 64),
+the forward in float32, the backward in float32 and bf16; the flash
+forward (bf16) and backward (float32 and bf16) at the LLaVA-1.5-7B LM
+layer (32, 665, 128, causal). One JSON line per side and row, then the
+card's name and power limit. Exits 1 if either side disagrees. Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+SOURCES = ("vit_attention", "flash_attention")
+
+
+def build(side: str, root: Path) -> dict:
+    """{source name: bound library} built from `root`'s csrc/."""
+    from robustvlm_tpu_torch.ops.kernels import _build, flash_attention, vit_attention
+
+    csrc = root / "robustvlm_tpu_torch" / "csrc"
+    out = ROOT / "build" / "compare" / side
+    out.mkdir(parents=True, exist_ok=True)
+    for header in csrc.glob("*.cuh"):
+        shutil.copy(header, out / header.name)
+    built = _build.build_variants({name: (csrc / f"{name}.cu").read_text() for name in SOURCES}, out, "k")
+    binders = {"vit_attention": vit_attention.bind, "flash_attention": flash_attention.bind}
+    return {name: binders[name](lib) for name, (lib, _) in built.items()}
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke as C
+    from robustvlm_tpu_torch.device import use_full_fp32
+    from robustvlm_tpu_torch.ops.kernels import flash_attention as F
+    from robustvlm_tpu_torch.ops.kernels import vit_attention as A
+
+    if len(sys.argv) != 2 or not torch.cuda.is_available():
+        print(__doc__.split("\n\n")[1], file=sys.stderr)
+        return 2
+    use_full_fp32()
+    libs = {"other": build("other", Path(sys.argv[1]).resolve()), "this": build("this", ROOT)}
+
+    def stream():  # read at each launch: a graph capture runs on a stream of its own
+        return torch.cuda.current_stream().cuda_stream
+
+    def ptrs(*ts):
+        return [t.data_ptr() for t in ts]
+
+    # inputs, residuals from this checkout's plain forward, and references
+    vit, flash = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = C._qkv(257, dtype, seed=1)
+        o, lse = A.attention_fwd_plain(q, k, v)
+        vit[dtype] = (q, k, v, do, o, lse, (o, lse), A.attention_bwd_plain(q, k, v, o, lse, do))
+        (fq, fk, fv, fdo), _ = C._flash_inputs(*C._flash_llava_shape(), dtype, seed=1)
+        fo, flse = F.flash_fwd_plain(fq, fk, fv, causal=True)
+        flash[dtype] = (fq, fk, fv, fdo, fo, flse, (fo, flse),
+                        F.flash_bwd_plain(fq, fk, fv, fo, flse, fdo, causal=True))
+
+    def vit_rows(lib):
+        rows = {}
+        for dtype, (q, k, v, do, o, lse, fwd_ref, bwd_ref) in vit.items():
+            dname = str(dtype).split(".")[-1]
+            bh, n, d = q.shape
+            code, scale = A._DTYPES[dtype], 1.0 / d ** 0.5
+            if dtype == torch.float32:
+                out = (torch.empty_like(q), torch.empty(bh, n, device="cuda"))
+                rows[f"vit_attention_fwd[{dname}]"] = (
+                    lambda q=q, k=k, v=v, out=out, bh=bh, n=n, d=d, code=code, scale=scale:
+                    lib.vit_attn_fwd(*ptrs(q, k, v, *out), bh, n, d, code, scale, stream()),
+                    out, fwd_ref, dname)
+            grads = tuple(torch.empty_like(t) for t in (q, k, v))
+            delta = torch.empty(bh, n, device="cuda")
+            rows[f"vit_attention_bwd[{dname}]"] = (
+                lambda q=q, k=k, v=v, o=o, lse=lse, do=do, grads=grads, delta=delta, bh=bh, n=n,
+                d=d, code=code, scale=scale:
+                lib.vit_attn_bwd(*ptrs(q, k, v, o, lse, do, *grads, delta), bh, n, d, code, scale,
+                                 stream()),
+                grads, bwd_ref, dname)
+        return rows
+
+    def flash_rows(lib):
+        rows = {}
+        for dtype, (q, k, v, do, o, lse, fwd_ref, bwd_ref) in flash.items():
+            dname = str(dtype).split(".")[-1]
+            dims = F._dims(q, k, True)
+            if dtype == torch.bfloat16:
+                out = (torch.empty_like(q), torch.empty(q.shape[:2], device="cuda"))
+                rows[f"flash_attention_fwd[{dname}]"] = (
+                    lambda q=q, k=k, v=v, out=out, dims=dims:
+                    lib.flash_attn_fwd(*ptrs(q, k, v, *out), None, *dims, stream()),
+                    out, fwd_ref, dname)
+            grads = tuple(torch.empty_like(t) for t in (q, k, v))
+            delta = torch.empty(q.shape[:2], device="cuda")
+            rows[f"flash_attention_bwd[{dname}]"] = (
+                lambda q=q, k=k, v=v, o=o, lse=lse, do=do, grads=grads, delta=delta, dims=dims:
+                lib.flash_attn_bwd(*ptrs(q, k, v, o, lse, do), None, *ptrs(*grads, delta), *dims,
+                                   stream()),
+                grads, bwd_ref, dname)
+        return rows
+
+    runs = {side: {**vit_rows(libs[side]["vit_attention"]), **flash_rows(libs[side]["flash_attention"])}
+            for side in libs}
+    rows, ok = {}, True
+    for side, kernels in runs.items():
+        for name, (fn, out, ref, dname) in kernels.items():
+            if fn():
+                raise RuntimeError(f"{side} {name}: launch failed")
+            torch.cuda.synchronize()
+            names = C.ATTN_OUTPUTS[:2] if len(out) == 2 else C.ATTN_OUTPUTS[2:]
+            res = C._attn_check(dname, out, ref, False, names)
+            within = all(w for _, w in res.values())
+            ok &= within
+            rows[(side, name)] = {"side": side, "kernel": name, "within": within, "ms": [],
+                                  "max_abs_err": {o: e for o, (e, _) in res.items()}}
+    for side in ("other", "this", "this", "other"):
+        for name, (fn, _, _, _) in runs[side].items():
+            rows[(side, name)]["ms"].append(C.time_graph_ms(fn))
+    for row in rows.values():
+        print(json.dumps(row), flush=True)
+    print(C.card_line())
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

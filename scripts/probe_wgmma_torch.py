@@ -4,19 +4,23 @@ torch.matmul on one GPU, one product at a time, before any kernel uses them.
 
     python3 scripts/probe_wgmma_torch.py
 
-The bf16 flash forward (`flash_fwd_wgmma_kernel`) runs two products a tile:
-S = Q K^T with Q and K from shared memory, both K-major, and O += P V with
-P from registers and V read MN-major (the transpose bit), through
-128-byte-swizzled shared-memory descriptors, every tile copied by TMA. This
-builds one small kernel per product, shape (head dim D 64 and 128, key tile
-N 64 and 128, one warpgroup, one 64-row block) and mode under
-`build/probe/`, with the descriptor's leading and stride byte offsets as
-arguments, and prints one JSON line per case: the max abs error against the
-float32 product of the same bf16 inputs, relative to the reference's
-largest value. The offsets the kernel uses must pass, the swapped ones fail.
-A ragged case (1 query row, 5 keys: the boxes' other rows are the
-hardware's zero fill) checks the fill and the transaction bytes of a
-partial box. S is also run with A from registers, alone and, where D = N,
+The bf16 flash forward (`flash_fwd_wgmma_kernel`) and the bf16 backward
+(`csrc/attn_bf16_bwd.cuh`) run two kinds of product: S = Q K^T (and dP,
+S^T, dP^T) with both operands from shared memory, both K-major, and O +=
+P V (and dQ += dS K, dV += P^T dO, dK += dS^T Q) with A from registers and
+B read MN-major (the transpose bit), through 128-byte-swizzled
+shared-memory descriptors, every tile copied by TMA. This builds one small
+kernel per product, shape (tile head dim D 64 and 128, tile N 32, 64 and
+128, one warpgroup, one 64-row block) and mode under `build/probe/`, with
+the descriptor's leading and stride byte offsets as arguments, and prints
+one JSON line per case: the max abs error against the float32 product of
+the same bf16 inputs, relative to the reference's largest value. The
+offsets the kernels use must pass, the swapped ones fail. A ragged case (1
+query row, 5 keys: the boxes' other rows are the hardware's zero fill)
+checks the fill and the transaction bytes of a partial box; head dim 80 in
+a 128-wide tile (arrays mapped as 80 columns, read as two boxes, the
+second zero-filled past column 80; S in 5 k-steps) checks the fill of
+columns. S is also run with A from registers, alone and, where D = N,
 right after a product of its own shape with the transpose bit: the fault
 that made the forward take A from shared memory. Then the host cost of
 encoding the forward's three tensor maps, as every call does, and the
@@ -49,7 +53,8 @@ namespace {
 template <int D, int BN, bool kSS, bool kAfter>
 __global__ void __launch_bounds__(128) probe_s_kernel(const __grid_constant__ CUtensorMap qmap,
                                                       const __grid_constant__ CUtensorMap kmap,
-                                                      float* out, float* sink, int lbo, int sbo) {
+                                                      float* out, float* sink, int lbo, int sbo,
+                                                      int ksteps) {
   extern __shared__ unsigned char raw[];
   unsigned char* qs = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
   unsigned char* ks = qs + 64 * D * 2;
@@ -102,6 +107,7 @@ __global__ void __launch_bounds__(128) probe_s_kernel(const __grid_constant__ CU
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
+    if (kk >= ksteps) break;  // a head dim of 80 in a 128-wide tile: 5 k-steps
     const uint64_t b = wgmma_desc(smem_u32(ks) + (kk / 4) * BN * 128 + (kk % 4) * 32, lbo, sbo);
     if constexpr (kSS) {
       wgmma_ss<BN>(acc, wgmma_desc(smem_u32(qs) + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024), b,
@@ -178,36 +184,38 @@ int launch(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess;
 }
 
+// `inner` is the arrays' head dim: D, or 80 in a 128-wide tile (TMA
+// zero-fills columns 80-127 of the second box)
 template <int D, int BN, bool kSS, bool kAfter>
-int run_s(const void* q, const void* k, float* out, float* sink, int nq, int nk, int lbo, int sbo,
-          cudaStream_t s) {
+int run_s(const void* q, const void* k, float* out, float* sink, int inner, int nq, int nk,
+          int lbo, int sbo, cudaStream_t s) {
   CUtensorMap qm, km;
-  if (!make_map_3d(&qm, q, D, nq, 1, 64) || !make_map_3d(&km, k, D, nk, 1, BN)) return -1;
+  if (!make_map_3d(&qm, q, inner, nq, 1, 64) || !make_map_3d(&km, k, inner, nk, 1, BN)) return -1;
   const int smem = 1024 + (64 + BN) * D * 2 + 8 + kSlack;
   if (launch(probe_s_kernel<D, BN, kSS, kAfter>, smem)) return (int)cudaGetLastError();
-  probe_s_kernel<D, BN, kSS, kAfter><<<1, 128, smem, s>>>(qm, km, out, sink, lbo, sbo);
+  probe_s_kernel<D, BN, kSS, kAfter><<<1, 128, smem, s>>>(qm, km, out, sink, lbo, sbo, (inner + 15) / 16);
   return (int)cudaGetLastError();
 }
 
 template <int D, int BN>
-int run_s_mode(const void* q, const void* k, float* out, float* sink, int nq, int nk, int lbo,
-               int sbo, int mode, cudaStream_t s) {
-  switch (mode) {
-    case 0: return run_s<D, BN, false, false>(q, k, out, sink, nq, nk, lbo, sbo, s);
-    case 1: return run_s<D, BN, true, false>(q, k, out, sink, nq, nk, lbo, sbo, s);
-    default:
-      if constexpr (D == BN) {
-        if (mode == 2) return run_s<D, BN, false, true>(q, k, out, sink, nq, nk, lbo, sbo, s);
-        if (mode == 3) return run_s<D, BN, true, true>(q, k, out, sink, nq, nk, lbo, sbo, s);
-      }
-      return -2;
+int run_s_mode(const void* q, const void* k, float* out, float* sink, int inner, int nq, int nk,
+               int lbo, int sbo, int mode, cudaStream_t s) {
+  if (mode == 1) return run_s<D, BN, true, false>(q, k, out, sink, inner, nq, nk, lbo, sbo, s);
+  if constexpr (BN != 32) {  // no wgmma_rs wrapper at N = 32
+    if (mode == 0) return run_s<D, BN, false, false>(q, k, out, sink, inner, nq, nk, lbo, sbo, s);
+    if constexpr (D == BN) {
+      if (mode == 2) return run_s<D, BN, false, true>(q, k, out, sink, inner, nq, nk, lbo, sbo, s);
+      if (mode == 3) return run_s<D, BN, true, true>(q, k, out, sink, inner, nq, nk, lbo, sbo, s);
+    }
   }
+  return -2;
 }
 
 template <int D, int BN>
-int run_pv(const void* p, const void* v, float* out, int nk, int lbo, int sbo, cudaStream_t s) {
+int run_pv(const void* p, const void* v, float* out, int inner, int nk, int lbo, int sbo,
+           cudaStream_t s) {
   CUtensorMap vm;
-  if (!make_map_3d(&vm, v, D, nk, 1, BN)) return -1;
+  if (!make_map_3d(&vm, v, inner, nk, 1, BN)) return -1;
   const int smem = 1024 + BN * D * 2 + 8 + kSlack;
   if (launch(probe_pv_kernel<D, BN>, smem)) return (int)cudaGetLastError();
   probe_pv_kernel<D, BN><<<1, 128, smem, s>>>(static_cast<const bf16*>(p), vm, out, lbo, sbo);
@@ -217,27 +225,32 @@ int run_pv(const void* p, const void* v, float* out, int nk, int lbo, int sbo, c
 }  // namespace
 
 // mode: bit 0 = A from shared memory (else registers), bit 1 = after a
-// product of the same shape with the transpose bit (D == BN only).
-extern "C" int probe_s(const void* q, const void* k, void* out, void* sink, int d, int bn, int nq,
-                       int nk, int lbo, int sbo, int mode, void* stream) {
+// product of the same shape with the transpose bit (D == BN only). d is the
+// tile's head dim (64 or 128), inner the arrays' (d, or 80 with d = 128).
+extern "C" int probe_s(const void* q, const void* k, void* out, void* sink, int d, int inner,
+                       int bn, int nq, int nk, int lbo, int sbo, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   float* z = static_cast<float*>(sink);
-  if (d == 64 && bn == 64) return run_s_mode<64, 64>(q, k, o, z, nq, nk, lbo, sbo, mode, s);
-  if (d == 64 && bn == 128) return run_s_mode<64, 128>(q, k, o, z, nq, nk, lbo, sbo, mode, s);
-  if (d == 128 && bn == 64) return run_s_mode<128, 64>(q, k, o, z, nq, nk, lbo, sbo, mode, s);
-  if (d == 128 && bn == 128) return run_s_mode<128, 128>(q, k, o, z, nq, nk, lbo, sbo, mode, s);
+  if (d == 64 && bn == 32) return run_s_mode<64, 32>(q, k, o, z, inner, nq, nk, lbo, sbo, mode, s);
+  if (d == 64 && bn == 64) return run_s_mode<64, 64>(q, k, o, z, inner, nq, nk, lbo, sbo, mode, s);
+  if (d == 64 && bn == 128) return run_s_mode<64, 128>(q, k, o, z, inner, nq, nk, lbo, sbo, mode, s);
+  if (d == 128 && bn == 32) return run_s_mode<128, 32>(q, k, o, z, inner, nq, nk, lbo, sbo, mode, s);
+  if (d == 128 && bn == 64) return run_s_mode<128, 64>(q, k, o, z, inner, nq, nk, lbo, sbo, mode, s);
+  if (d == 128 && bn == 128) return run_s_mode<128, 128>(q, k, o, z, inner, nq, nk, lbo, sbo, mode, s);
   return -2;
 }
 
-extern "C" int probe_pv(const void* p, const void* v, void* out, int d, int bn, int nk, int lbo,
-                        int sbo, void* stream) {
+extern "C" int probe_pv(const void* p, const void* v, void* out, int d, int inner, int bn, int nk,
+                        int lbo, int sbo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  if (d == 64 && bn == 64) return run_pv<64, 64>(p, v, o, nk, lbo, sbo, s);
-  if (d == 64 && bn == 128) return run_pv<64, 128>(p, v, o, nk, lbo, sbo, s);
-  if (d == 128 && bn == 64) return run_pv<128, 64>(p, v, o, nk, lbo, sbo, s);
-  if (d == 128 && bn == 128) return run_pv<128, 128>(p, v, o, nk, lbo, sbo, s);
+  if (d == 64 && bn == 32) return run_pv<64, 32>(p, v, o, inner, nk, lbo, sbo, s);
+  if (d == 64 && bn == 64) return run_pv<64, 64>(p, v, o, inner, nk, lbo, sbo, s);
+  if (d == 64 && bn == 128) return run_pv<64, 128>(p, v, o, inner, nk, lbo, sbo, s);
+  if (d == 128 && bn == 32) return run_pv<128, 32>(p, v, o, inner, nk, lbo, sbo, s);
+  if (d == 128 && bn == 64) return run_pv<128, 64>(p, v, o, inner, nk, lbo, sbo, s);
+  if (d == 128 && bn == 128) return run_pv<128, 128>(p, v, o, inner, nk, lbo, sbo, s);
   return -2;
 }
 
@@ -278,58 +291,63 @@ def main() -> int:
         return 2
     (lib, log), = _build.build_variants({"probe": SOURCE}, ROOT / "build" / "probe", "wg").values()
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.probe_s.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
-    lib.probe_pv.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.probe_s.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.probe_pv.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.encode_us.argtypes = [p, p, p, i, i, i, i, i]
     lib.encode_us.restype = ctypes.c_double
     print(json.dumps({"ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]}))
     g = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     failed = []
-    for d in (64, 128):
-        for n in (64, 128):
+    # (tile head dim, arrays' head dim): 80 is two boxes a row, zero-filled past 80
+    for d, inner in ((64, 64), (128, 128), (128, 80)):
+        for n in (32, 64, 128):
             for nq, nk in ((64, n), (1, 5)):
-                q = torch.randn(nq, d, generator=g, device="cuda").bfloat16()
-                k = torch.randn(nk, d, generator=g, device="cuda").bfloat16()
+                q = torch.randn(nq, inner, generator=g, device="cuda").bfloat16()
+                k = torch.randn(nk, inner, generator=g, device="cuda").bfloat16()
                 ref = torch.zeros(64, n, device="cuda")
                 ref[:nq, :nk] = q.float() @ k.float().T
                 sink = torch.empty(128 * n // 2, device="cuda")
                 # (A from shared memory, after a same-shape product, lbo, sbo)
-                runs = [(True, False, *o) for o in K_OFFSETS] + [(False, False, *K_OFFSETS[0])]
-                if d == n:
+                runs = [(True, False, *o) for o in K_OFFSETS]
+                if n != 32:  # A from registers: no wrapper at N = 32
+                    runs += [(False, False, *K_OFFSETS[0])]
+                if d == n and d == inner:
                     runs += [(True, True, *K_OFFSETS[0]), (False, True, *K_OFFSETS[0])]
                 for ss, after, lbo, sbo in runs:
                     out = torch.full((64, n), float("nan"), device="cuda")
-                    err = lib.probe_s(q.data_ptr(), k.data_ptr(), out.data_ptr(), sink.data_ptr(), d, n,
-                                      nq, nk, lbo, sbo, int(ss) + 2 * int(after), stream)
+                    err = lib.probe_s(q.data_ptr(), k.data_ptr(), out.data_ptr(), sink.data_ptr(), d,
+                                      inner, n, nq, nk, lbo, sbo, int(ss) + 2 * int(after), stream)
                     torch.cuda.synchronize()
                     rel = float((out - ref).abs().max() / ref.abs().max())
                     ok = err == 0 and rel <= 1e-3
                     used = ss and (lbo, sbo) == K_OFFSETS[0]
                     print(json.dumps({"product": "S = Q K^T (K-major)", "A": "shared" if ss else "registers",
-                                      "after_same_shape_transposed_product": after, "D": d, "N": n,
-                                      "nq": nq, "nk": nk, "lbo": lbo, "sbo": sbo, "kernel_uses": used,
-                                      "launch_err": err, "max_abs_err_rel": rel, "ok": ok}), flush=True)
+                                      "after_same_shape_transposed_product": after, "D": d,
+                                      "head_dim": inner, "N": n, "nq": nq, "nk": nk, "lbo": lbo,
+                                      "sbo": sbo, "kernel_uses": used, "launch_err": err,
+                                      "max_abs_err_rel": rel, "ok": ok}), flush=True)
                     if used and not ok:
-                        failed.append(("S", d, n, nq, nk, after))
+                        failed.append(("S", d, inner, n, nq, nk, after))
             for nk in (n, 5):
                 pm = (torch.rand(64, n, generator=g, device="cuda")).bfloat16()
-                v = torch.randn(nk, d, generator=g, device="cuda").bfloat16()
+                v = torch.randn(nk, inner, generator=g, device="cuda").bfloat16()
                 vpad = torch.zeros(n, d, device="cuda")
-                vpad[:nk] = v.float()
+                vpad[:nk, :inner] = v.float()
                 ref = pm.float() @ vpad
                 for lbo, sbo in v_offsets(n):
                     out = torch.full((64, d), float("nan"), device="cuda")
-                    err = lib.probe_pv(pm.data_ptr(), v.data_ptr(), out.data_ptr(), d, n, nk, lbo, sbo, stream)
+                    err = lib.probe_pv(pm.data_ptr(), v.data_ptr(), out.data_ptr(), d, inner, n, nk,
+                                       lbo, sbo, stream)
                     torch.cuda.synchronize()
                     rel = float((out - ref).abs().max() / ref.abs().max())
                     ok = err == 0 and rel <= 1e-3
                     used = (lbo, sbo) == v_offsets(n)[0]
-                    print(json.dumps({"product": "O = P V (V MN-major)", "D": d, "N": n, "nk": nk,
-                                      "lbo": lbo, "sbo": sbo, "kernel_uses": used, "launch_err": err,
-                                      "max_abs_err_rel": rel, "ok": ok}), flush=True)
+                    print(json.dumps({"product": "O = P V (V MN-major)", "D": d, "head_dim": inner,
+                                      "N": n, "nk": nk, "lbo": lbo, "sbo": sbo, "kernel_uses": used,
+                                      "launch_err": err, "max_abs_err_rel": rel, "ok": ok}), flush=True)
                     if used and not ok:
-                        failed.append(("PV", d, n, nk))
+                        failed.append(("PV", d, inner, n, nk))
     bh, n, d = 32, 665, 128
     q = torch.zeros(bh, n, d, device="cuda", dtype=torch.bfloat16)
     us = lib.encode_us(q.data_ptr(), q.data_ptr(), q.data_ptr(), d, n, n, bh, 10000)

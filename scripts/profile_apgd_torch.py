@@ -22,8 +22,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-OURS = ("fwd_fma_kernel", "bwd_dq_fma_kernel", "bwd_dkv_fma_kernel",
-        "fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkv_mma_kernel", "linf_step")
+# the port's kernels that a CLIP attack launches: the attention kernels of
+# vit_attention.cu (and the text tower's flash forward) and the l-inf step
+OURS = ("flash_fwd_tile_kernel", "flash_bwd_dq_tile_kernel", "flash_bwd_dkv_tile_kernel",
+        "fwd_mma_kernel", "attn_bwd_dq_wgmma_kernel", "attn_bwd_dkv_wgmma_kernel", "linf_step")
 MATMUL = ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")
 
 

@@ -30,11 +30,14 @@ MATMUL = ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")
 
 
 def group(name: str) -> str:
+    """A kernel's group by its demangled name. Both attention sources launch
+    the shared kernels of attn_f32_tile.cuh and attn_bf16_bwd.cuh: their
+    template arguments (VitF32Tile, VitBf16Bwd) tell the ViT launches apart."""
     low = name.lower()
-    if "flash_" in name and "_kernel" in name:
-        return "flash_kernels"
-    if any(k in name for k in ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkv_mma_kernel")):
+    if any(k in name for k in ("VitF32Tile", "VitBf16Bwd", "fwd_mma_kernel")):
         return "vit_kernels"
+    if ("flash_" in name and "_kernel" in name) or "attn_bwd_" in name:
+        return "flash_kernels"
     if "linf_step" in name:
         return "linf_step"
     if any(k in low for k in MATMUL):

@@ -100,6 +100,33 @@ def test_plain_forward_is_the_flash_plain_forward_noncausal(n, d):
     np.testing.assert_allclose(o_vit.numpy(), ref, atol=2e-6, rtol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [50, 57])
+@pytest.mark.parametrize("d", [64, 80])
+def test_plain_backward_is_the_flash_plain_backward_noncausal(d, n, dtype):
+    """On the card the float32 ViT backward is the flash dQ and dK/dV
+    kernels launched non-causal (csrc/attn_f32_tile.cuh). That rests on the
+    two plain backwards being one function: bit for bit here, in both
+    dtypes, and both within the file's tolerance of the JAX kernel's vjp in
+    interpret mode (fp32 atol 2e-6, rtol 2e-5; bf16 2e-2)."""
+    rng = np.random.RandomState(7)
+    q, k, v = _qkv(rng, 1, 2, n, d)
+    g = rng.randn(1, 2, n, d).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    _, vjp = jax.vjp(lambda q, k, v: jax_vit_attention(q, k, v, interpret=True),
+                     *(jnp.asarray(t).astype(jdt) for t in (q, k, v)))
+    ref = [np.asarray(t.astype(jnp.float32)).reshape(2, n, d) for t in vjp(jnp.asarray(g).astype(jdt))]
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tg = (torch.from_numpy(t).reshape(2, n, d).to(tdt) for t in (q, k, v, g))
+    o, lse = A.attention_fwd_plain(tq, tk, tv)
+    vit = A.attention_bwd_plain(tq, tk, tv, o, lse, tg)
+    flash = F.flash_bwd_plain(tq, tk, tv, o, lse, tg, causal=False)
+    tol = dict(atol=2e-6, rtol=2e-5) if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
+    for name, a, b, r in zip(("dq", "dk", "dv"), vit, flash, ref):
+        assert a.dtype == tdt and torch.equal(a, b), name
+        np.testing.assert_allclose(a.float().numpy(), r, err_msg=name, **tol)
+
+
 def test_cpu_counts_no_launch():
     q, k, v = (torch.from_numpy(t).requires_grad_(True) for t in _qkv(np.random.RandomState(5), 1, 2, 16, 32))
     before = dict(A.LAUNCHES)
@@ -129,3 +156,21 @@ def test_cuda_kernels_match_plain(dtype, atol, rtol, n, d):
     again = A.attention_bwd(q, k, v, o, lse, do)
     for a, b in zip(grads, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bh,n,d", [(128, 257, 64), (16, 577, 80)])
+def test_cuda_backward_bitwise_repeatable(dtype, bh, n, d):
+    """The backward at the ViT-L/14 main path's shape (batch 8 x 16 heads)
+    and at ViT-H/14-like head dim 80 and the longest sequence: no atomics,
+    so two launches on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(bh + n + d)
+    q, k, v, do = (torch.randn(bh, n, d, generator=g, device="cuda").to(dtype) for _ in range(4))
+    o, lse = A.attention_fwd(q, k, v)
+    first = A.attention_bwd(q, k, v, o, lse, do)
+    for _ in range(2):
+        for a, b in zip(first, A.attention_bwd(q, k, v, o, lse, do)):
+            assert torch.equal(a, b)
