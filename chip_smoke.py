@@ -7,8 +7,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. build    - nvcc builds every kernel of csrc/, one process per source;
   2. kernels  - each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes, with times (kernels by CUDA-graph
-                replay) and bounds; planted faults show that the attention
-                and q4_matmul checks can fail;
+                replay), bounds and the library call of the same function
+                (SDPA; PyTorch's int4 weight-only matmul for q4_matmul);
+                planted faults show that the attention and q4_matmul checks
+                can fail;
   3. reference - ViT-B/32 logits and pixel gradient through the kernels
                 on the card against the plain path on the CPU;
   4. main     - `robustbench.main` (the CLI entry point) at CLIP ViT-L/14
@@ -329,12 +331,12 @@ def _attn_controls(dname: str, q, k, v, do, got, ref) -> dict:
             for name, f in faults.items()}
 
 
-# Where each attention kernel's code is: the kernels that both attention
-# sources launch live in headers of csrc/ (float32 forward and backward;
-# the bf16 backward); the others in the source that launches them.
+# Where each attention kernel's code is: every kernel that both attention
+# sources launch lives in a header of csrc/ (float32 forward and backward;
+# the bf16 forward; the bf16 backward).
 CSRC = "robustvlm_tpu_torch/csrc/"
 SHARED_ATTN_KERNELS = {("fwd", "float32"): "attn_f32_tile.cuh", ("bwd", "float32"): "attn_f32_tile.cuh",
-                       ("bwd", "bfloat16"): "attn_bf16_bwd.cuh"}
+                       ("fwd", "bfloat16"): "attn_bf16_fwd.cuh", ("bwd", "bfloat16"): "attn_bf16_bwd.cuh"}
 
 
 def _attn_source(pass_: str, dname: str, launcher: str) -> dict:
@@ -652,17 +654,98 @@ def _rotating(make, n_bytes: int) -> list:
     return [make() for _ in range(max(2, -(-2 * L2_BYTES // n_bytes)))]
 
 
+# PyTorch's int4 weight-only matmul (tinygemm) as the library yardstick of
+# both q4_matmul rows: with zeros 0 its dequant, w = (q - 8) * scale + zero in
+# bf16, is the shift body's w = bf16(bf16(q - 8) * bf16(s)); its float32 sums
+# run in another order. It takes the (N, K) codes packed by
+# torch._convert_weight_to_int4pack: on CUDA from uint8 (N, K/2), code k = 2i
+# in the high nibble of byte i and 2i + 1 in the low one (its meta function's
+# input, and the layout of PyTorch's own tests of the op); the CPU twin
+# (`_for_cpu`) takes the int32 codes themselves.
+Q4_INNER_K_TILES = 8  # K a multiple of 8 * 16 at every 7B shape (4096, 11008)
+
+
+def tinygemm_operands(p, s):
+    """The port's half-split packed weight (p (K/2, N) uint8: row r of W_lo in
+    the low nibble, row K/2 + r of W_hi in the high one; s (K/G, 1, N)
+    float32, the first K/(2G) groups for W_lo) as the (N, K) int32 codes of
+    W = [W_lo; W_hi] and tinygemm's scales_and_zeros (K/G, N, 2) bf16: s
+    rounded to bf16, zeros 0."""
+    import torch
+
+    codes = torch.cat([p & 0x0F, p >> 4], dim=0).t().to(torch.int32).contiguous()
+    sc = s.reshape(s.shape[0], p.shape[1]).to(torch.bfloat16)
+    return codes, torch.stack([sc, torch.zeros_like(sc)], dim=-1).contiguous()
+
+
+def tinygemm_pack(codes):
+    """The codes packed for the op on their device."""
+    import torch
+
+    if codes.device.type == "cpu":
+        return torch._convert_weight_to_int4pack_for_cpu(codes, Q4_INNER_K_TILES)
+    pairs = ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8)
+    return torch._convert_weight_to_int4pack(pairs, Q4_INNER_K_TILES)
+
+
+def tinygemm_mm(x, packed, group_size: int, sz):
+    """x (B, K) bf16 times the packed weight -> (B, N) bf16."""
+    import torch
+
+    if x.device.type == "cpu":
+        return torch._weight_int4pack_mm_for_cpu(x, packed, group_size, sz)
+    return torch._weight_int4pack_mm(x, packed, group_size, sz)
+
+
+def _q4_library(x, p, s) -> dict:
+    """torch._weight_int4pack_mm on the same weight and bf16 x: held first
+    against the shift body's plain version at the bf16 limit, then timed by
+    CUDA-graph replay over rotated copies; a call that raises or disagrees
+    has no time (library_ms None, with library_error)."""
+    import torch
+
+    from robustvlm_tpu_torch.ops.kernels import q4_matmul as Q
+
+    group_size = 2 * p.shape[0] // s.shape[0]
+    try:
+        codes, sz = tinygemm_operands(p, s)
+        packed = tinygemm_pack(codes)
+        del codes
+        got = tinygemm_mm(x, packed, group_size, sz)
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - the op's own error is the finding
+        return {"library_ms": None, "library_error": f"{type(e).__name__}: {e}"[:300]}
+    err, ok = _q4_within(got, Q.q4_matmul_reference(x, p, s, group=False), "bfloat16")
+    res = {"library_max_abs_err_vs_shift_plain": err, "library_within": ok}
+    if not ok:
+        return {**res, "library_ms": None,
+                "library_error": "disagrees with the shift body's plain version"}
+    copies = _rotating(lambda: (packed.clone(), sz.clone()), packed.numel() * 4 + sz.numel() * 2)
+    it = iter(range(10**9))
+
+    def call():
+        pk, z = copies[next(it) % len(copies)]
+        tinygemm_mm(x, pk, group_size, z)
+
+    ms = time_graph_ms(call)
+    del copies
+    return {**res, "library_ms": ms}
+
+
 def check_q4_matmul(peaks: dict) -> list:
     """Both bodies of the q4_matmul kernel against their plain version at
     every 7B decode shape and batch (and one float32-x case), bitwise
     repeatable, with two planted faults at the MLP up-projection; times
-    against bound, plain version and a bf16 torch.matmul of the same x
-    against the weight held in bf16 (a yardstick of a different function:
-    the unquantized decode's read). The kernel and the yardstick are timed
-    by CUDA-graph replay (device time), each launch reading its weight from
-    device memory; `ms_eager_back_to_back` is the same launch from Python in
-    a loop, which the host paces. One row per body: a batch-1 decode step,
-    each term summed over its 225 launches."""
+    against bound, plain version, PyTorch's int4 weight-only matmul
+    (torch._weight_int4pack_mm, the shift body's function: `library_ms`,
+    timed once per shape and bf16 batch and given to both bodies' rows) and
+    a bf16 torch.matmul of the same x against the weight held in bf16 (a
+    yardstick of a different function: the unquantized decode's read). The
+    kernel and both yardsticks are timed by CUDA-graph replay (device time),
+    each launch reading its weight from device memory;
+    `ms_eager_back_to_back` is the same launch from Python in a loop, which
+    the host paces. One row per body: a batch-1 decode step, each term
+    summed over its 225 launches (library_ms None if any shape has none)."""
     import torch
 
     from robustvlm_tpu_torch.ops.kernels import q4_matmul as Q
@@ -671,9 +754,12 @@ def check_q4_matmul(peaks: dict) -> list:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     rows = []
+    library = {}  # (k, n, b) -> the library's line fields, shared by both bodies
     for body in ("group", "shift"):
         group = body == "group"
-        step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "yardstick_bf16_matmul_ms": 0.0}
+        step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "yardstick_bf16_matmul_ms": 0.0,
+                "library_ms": 0.0}
+        library_errors = []
         worst = 0.0
         for k, n, count in Q4_SHAPES:
             w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
@@ -713,10 +799,15 @@ def check_q4_matmul(peaks: dict) -> list:
                 xb = x.to(torch.bfloat16)
                 yard = time_graph_ms(lambda: torch.matmul(xb, w16s[next(it) % len(w16s)]))
                 host_ms = time_ms(lambda: Q.q4_matmul_cuda(x, p, s, group=group), iters=60)
+                lib = {"library_ms": None, "library_error": "the op takes bf16 x only"}
+                if dtype == torch.bfloat16:
+                    if (k, n, b) not in library:
+                        library[k, n, b] = _q4_library(x, p, s)
+                    lib = library[k, n, b]
                 n_bytes = b * k * x.element_size() + p.numel() + s.numel() * 4 + b * n * x.element_size()
                 bnd, by = bound_ms(n_bytes, 2 * b * k * n, "bfloat16", peaks)
                 line.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-                             "yardstick_bf16_matmul_ms": yard, "ms_eager_back_to_back": host_ms,
+                             **lib, "yardstick_bf16_matmul_ms": yard, "ms_eager_back_to_back": host_ms,
                              "launches_per_7b_step": count, "ok": ok and repeatable})
                 emit(line)
                 if not (ok and repeatable):
@@ -725,8 +816,11 @@ def check_q4_matmul(peaks: dict) -> list:
                 worst = max(worst, err)
                 if b == 1:
                     for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bnd),
-                                   ("yardstick_bf16_matmul_ms", yard)):
+                                   ("yardstick_bf16_matmul_ms", yard),
+                                   ("library_ms", lib["library_ms"] or 0.0)):
                         step[key] += count * v
+                    if lib["library_ms"] is None:
+                        library_errors.append(f"{k}x{n}: {lib['library_error']}")
             del copies, w16s, p, s, w16
             torch.cuda.empty_cache()
         rows.append({"name": f"q4_matmul[{body}]", "route": "cuda",
@@ -736,7 +830,11 @@ def check_q4_matmul(peaks: dict) -> list:
                      "dtype": "bfloat16", "counter": f"q4_matmul_{body}",
                      "shape": "LLaVA-1.5-7B decode step at batch 1: 225 launches, 32 x (4 x 4096x4096, "
                               "2 x 4096x11008, 11008x4096) + 4096x32000, group 128; each time summed",
-                     "max_abs_err": worst, **step, "bound_by": "bytes", "library_ms": None})
+                     "max_abs_err": worst, **step, "bound_by": "bytes",
+                     "library": "torch._weight_int4pack_mm (zeros 0, bf16 scales; the shift "
+                                "body's function), CUDA-graph replay"})
+        if library_errors:
+            rows[-1].update({"library_ms": None, "library_error": "; ".join(library_errors)})
     return rows
 
 

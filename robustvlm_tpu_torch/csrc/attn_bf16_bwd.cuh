@@ -96,8 +96,6 @@ __device__ __forceinline__ void store_acc_bf16(bf16* __restrict__ dst, const flo
   }
 }
 
-constexpr float kLog2e = 1.4426950408889634f;
-
 // P = exp(S scale [- slope (row - col)] - lse) as one exp2 with log2(e)
 // folded in (lse_l2e = lse log2 e), 0 where the key is not visible.
 __device__ __forceinline__ float prob(float s, float scale, float lse_l2e, bool has_slopes,
@@ -424,14 +422,6 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   store_acc_bf16<D, DT>(dv + kb, dva, key0, nk, g, t);
 }
 
-// Above 48 KB of dynamic shared memory a kernel must opt in; cheap, and
-// idempotent.
-template <class Kernel>
-bool allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) ==
-         cudaSuccess;
-}
-
 // Launch the backward, dQ then dK/dV on stream s, with tile shape S. The
 // tensor maps are encoded on the host for every call and passed by value.
 // Returns cudaGetLastError() after the launches; cudaErrorInvalidValue,
@@ -458,8 +448,9 @@ int launch_bwd_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
     ok = ok && make_map_3d(&qm, q, D, nq, bh, S::kM) && make_map_3d(&dom, dout, D, nq, bh, S::kM);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  if (allow_smem(attn_bwd_dq_wgmma_kernel<D, S>, P::kSmemDq) &&
-      allow_smem(attn_bwd_dkv_wgmma_kernel<D, S>, P::kSmemDkv)) {
+  static const bool smem_ok = allow_smem(attn_bwd_dq_wgmma_kernel<D, S>, P::kSmemDq) &&
+                              allow_smem(attn_bwd_dkv_wgmma_kernel<D, S>, P::kSmemDkv);
+  if (smem_ok) {
     attn_bwd_dq_wgmma_kernel<D, S>
         <<<dim3(bh, (nq + P::kRows - 1) / P::kRows), P::kThreads, P::kSmemDq, s>>>(
             q64, do64, kn, vn, o, dout, lse, slopes, dq, delta, nq, nk, causal, q_off, scale);

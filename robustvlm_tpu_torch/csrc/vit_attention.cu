@@ -39,27 +39,28 @@
 //   96-float shared rows, zero-filled past 80. Block shapes (VitF32Tile
 //   below) from scripts/sweep_vit_attention_fp32_torch.py at the ViT-L/14
 //   shape.
-// - bfloat16, on the tensor cores. Bound: bytes (q, k, v, o read or written
-//   once: about 16.8 MB forward at B*H = 128, N = 257, D = 64; chip_smoke.py
-//   computes it as bound_ms).
-//   - forward: mma.sync m16n8k16 (bf16 operands, float32 accumulators),
-//     four warps of 16 rows each. Scores and P stay in registers: a score
-//     accumulator fragment is re-packed as the A operand of P V, so no N x N
-//     tile touches shared or device memory; V is read with ldmatrix.trans.
-//     Loads are synchronous and the products are not wgmma.
-//   - backward: the wgmma + TMA kernels of attn_bf16_bwd.cuh, the flash
-//     backward's own, launched non-causal with no slopes: K and V (Q and
-//     dO) tiles stream through a TMA ring past a block's Q and dO (K and
-//     V); both score products take their operands from shared memory; dS
-//     and P are re-packed in registers as the A operand of the gradient
-//     products. Head dim 80 is mapped as 80 columns and read as two
-//     64-column boxes, zero-filled past 80.
+// - bfloat16, on the tensor cores: the wgmma + TMA kernels that the flash
+//   attention's bf16 path launches too, non-causal with no slopes. Bound:
+//   bytes (q, k, v, o read or written once: about 16.8 MB forward at B*H =
+//   128, N = 257, D = 64; chip_smoke.py computes it as bound_ms).
+//   - forward: attn_bf16_fwd.cuh. A warpgroup owns 64 query rows; K and V
+//     tiles stream through a TMA ring past its Q; S = (Q scale) K^T takes
+//     both operands from shared memory; P is re-packed in registers as the
+//     A operand of O += P V, which runs at N = D (80 is a wgmma shape of
+//     its own); only the last key tile, the ragged one, is masked.
+//   - backward: attn_bf16_bwd.cuh. K and V (Q and dO) tiles stream through
+//     a TMA ring past a block's Q and dO (K and V); both score products
+//     take their operands from shared memory; dS and P are re-packed in
+//     registers as the A operand of the gradient products.
+//   Head dim 80 is mapped as 80 columns and read as two 64-column boxes,
+//   zero-filled past 80. At N = 257 the ragged tail decides the tile shape
+//   (VitBf16Fwd, VitBf16Bwd below).
 
 #include <math.h>
 
 #include "attn_bf16_bwd.cuh"
+#include "attn_bf16_fwd.cuh"
 #include "attn_f32_tile.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -86,11 +87,21 @@ template <>
 struct VitF32Tile<80, kDkv> { static constexpr int kRows = 48, kTile = 24, kThreads = 128, kBufs = 2; };
 
 // ============================================ bfloat16: tensor-core kernels
-// Forward: mma.sync (fragment layouts and the shared helpers: mma_bf16.cuh).
-// Backward: the wgmma + TMA kernels of attn_bf16_bwd.cuh, non-causal, with
-// their own tile shape per head dim (kN keys a tile in dQ, kM queries a tile
-// in dK/dV, kStages ring stages; head dim 80 runs in 128-wide tiles, zero
-// past 80). Chosen on the card by scripts/sweep_attention_bf16_bwd_torch.py,
+// The wgmma + TMA kernels of attn_bf16_fwd.cuh (forward) and
+// attn_bf16_bwd.cuh (backward), non-causal, with their own tile shape per
+// head dim; head dim 80 runs in 128-wide tiles, zero past 80. Forward: kN
+// keys a tile, kStages ring stages (a block is one warpgroup of 64 query
+// rows); chosen on the card at the ViT-L/14 shape by
+// scripts/sweep_flash_bf16_torch.py --vit, which rewrites these lines.
+template <int D>
+struct VitBf16Fwd;
+template <>
+struct VitBf16Fwd<64> { static constexpr int kN = 64, kStages = 2; };
+template <>
+struct VitBf16Fwd<80> { static constexpr int kN = 32, kStages = 2; };
+
+// Backward: kN keys a tile in dQ, kM queries a tile in dK/dV, kStages ring
+// stages. Chosen on the card by scripts/sweep_attention_bf16_bwd_torch.py,
 // which rewrites these lines.
 template <int D>
 struct VitBf16Bwd;
@@ -99,102 +110,22 @@ struct VitBf16Bwd<64> { static constexpr int kN = 32, kM = 64, kStages = 2; };
 template <>
 struct VitBf16Bwd<80> { static constexpr int kN = 64, kM = 64, kStages = 2; };
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o,
-               float* __restrict__ lse, int n, float scale) {
-  __shared__ __align__(16) bf16 ks[kKv * (D + kPad)];
-  __shared__ __align__(16) bf16 vs[kKv * (D + kPad)];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x;
-  const int row0 = blockIdx.y * kMmaRows + warp * 16;
-  const size_t base = (size_t)bh * n * D;
-
-  // q scaled in bf16 before the product: the exact product rounded once
-  const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
-  uint32_t qa[D / 16][4];
-  load_a<D>(qa, q + base, row0, n, g, t);
-#pragma unroll
-  for (int s = 0; s < D / 16; ++s) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[s][i] = pack_bf16(bf16_lo(qa[s][i]) * scale_t, bf16_hi(qa[s][i]) * scale_t);
-    }
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g+8
-
-  for (int kv0 = 0; kv0 < n; kv0 += kKv) {
-    const int valid = min(kKv, n - kv0);
-    __syncthreads();
-    stage_bf16<D>(ks, k + base + (size_t)kv0 * D, valid);
-    stage_bf16<D>(vs, v + base + (size_t)kv0 * D, valid);
-    __syncthreads();
-
-    float s[8][4];
-    mma_abt<D>(s, qa, ks, g, t);
-    float mx[2] = {kNegBig, kNegBig};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (j * 8 + 2 * t + (c & 1) >= valid) s[j][c] = kNegBig;  // before the max
-        mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], quad_max(mx[h]));
-      alpha[h] = expf(m[h] - m_new);  // 0 on the first tile (m = -inf)
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = expf(s[j][0] - m[0]), p1 = expf(s[j][1] - m[0]);  // 0 when masked
-      const float p2 = expf(s[j][2] - m[1]), p3 = expf(s[j][3] - m[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pack_a(pa, j, p0, p1, p2, p3);
-    }
-    mma_ab<D>(acc, pa, vs, lane);
-  }
-
-  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
-  store_rows<D>(o + base, acc, row0, n, g, t, 1.f / l0, 1.f / l1);
-  if (t == 0) {
-    if (row0 + g < n) lse[(size_t)bh * n + row0 + g] = m[0] + logf(l0);
-    if (row0 + g + 8 < n) lse[(size_t)bh * n + row0 + g + 8] = m[1] + logf(l1);
-  }
-}
-
 // ================================================================= launches
+// cudaGetLastError() after the launch; cudaErrorInvalidValue, with no
+// launch tried, if a bf16 tensor map could not be encoded.
 template <int D>
-void launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
-                int bh, int n, float scale, cudaStream_t s) {
+int launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
+               int bh, int n, float scale, cudaStream_t s) {
   if (dtype == 0) {
     launch_fwd_tile<D, VitF32Tile<D, kFwd>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                       static_cast<const float*>(v), static_cast<float*>(o),
                                       static_cast<float*>(lse), nullptr, bh, n, n, 0, 0, scale, s);
-  } else {
-    fwd_mma_kernel<D><<<dim3(bh, (n + kMmaRows - 1) / kMmaRows), kMmaThreads, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), static_cast<float*>(lse), n, scale);
+    return static_cast<int>(cudaGetLastError());
   }
+  return launch_fwd_wgmma<D, VitBf16Fwd<D>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                            static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                                            static_cast<float*>(lse), nullptr, bh, n, n, 0, 0,
+                                            scale, s);
 }
 
 // cudaGetLastError() after the launches; cudaErrorInvalidValue, with no
@@ -225,18 +156,18 @@ int launch_bwd(int dtype, const void* q, const void* k, const void* v, const voi
 // dtype: 0 = float32, 1 = bfloat16. Head dims 64 and 80. All arrays are
 // contiguous device arrays, 16-byte aligned: q, k, v, o (bh, n, d); lse
 // (bh, n) float32. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported dtype or head dim).
+// (cudaErrorInvalidValue for an unsupported dtype or head dim, or a bf16
+// tensor map that could not be encoded).
 extern "C" int vit_attn_fwd(const void* q, const void* k, const void* v, void* o,
                             void* lse, int bh, int n, int d, int dtype, float scale,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 64: launch_fwd<64>(dtype, q, k, v, o, lse, bh, n, scale, s); break;
-    case 80: launch_fwd<80>(dtype, q, k, v, o, lse, bh, n, scale, s); break;
+    case 64: return launch_fwd<64>(dtype, q, k, v, o, lse, bh, n, scale, s);
+    case 80: return launch_fwd<80>(dtype, q, k, v, o, lse, bh, n, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // delta is (bh, n) float32 scratch; dq, dk, dv as q.

@@ -23,7 +23,7 @@
 //   D (16 x N of the warp, N / 2 floats): d[4 j + c] is row g (c < 2) or
 //     g + 8 (c >= 2), column 8 j + 2 t + (c & 1).
 // So two neighbouring 8-column groups of a float32 D are, rounded to bf16,
-// the A fragment of one 16-wide k-step of the next product (pack_a).
+// the A fragment of one 16-wide k-step of the next product.
 //
 // Shared-memory matrix descriptors (128-byte swizzle):
 // - K-major (the k index contiguous: Q and K of S = Q K^T, rows = queries
@@ -57,6 +57,16 @@
 #include <stdint.h>
 
 namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Above 48 KB of dynamic shared memory a kernel must opt in; the launchers
+// call this once an instantiation (a static), not on every launch.
+template <class Kernel>
+bool allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) ==
+         cudaSuccess;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -223,6 +233,27 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
 }
 
+// D (64 x 80, float32, fragment d) += A (64 x 16 bf16, registers a) * B (16 x 80
+// bf16, shared memory, descriptor b): O += P V at head dim 80, whose B spans
+// one 64-column box and 16 columns of the next (LBO bytes on).
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
 // D (64 x 128, float32, fragment d) += A (64 x 16 bf16, registers a) * B (16 x 128
 // bf16, shared memory, descriptor b); scale_d = 0 drops D's old value.
 template <int TransB>
@@ -301,13 +332,15 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, 
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// The products for N = 64 or 128 (and 32 with A from shared memory).
+// The products for N = 64, 80 or 128 (32, 64 or 128 with A from shared memory).
 template <int N, int TransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma wrappers exist for N = 64 and 128");
+  static_assert(N == 64 || N == 80 || N == 128, "wgmma_rs wrappers exist for N = 64, 80 and 128");
   if constexpr (N == 64) {
     wgmma_m64n64k16_rs<TransB>(d, a, b, scale_d);
+  } else if constexpr (N == 80) {
+    wgmma_m64n80k16_rs<TransB>(d, a, b, scale_d);
   } else {
     wgmma_m64n128k16_rs<TransB>(d, a, b, scale_d);
   }

@@ -40,7 +40,7 @@ from robustvlm_tpu_torch.ops.kernels import _build
 LAUNCHES = {"q4_matmul_group": 0, "q4_matmul_shift": 0}
 
 MAX_ROWS = 32  # decode-sized activations; larger batches take the split dot
-KERNEL_COLS = 32  # output columns per block of the kernel
+KERNEL_COLS = 128  # N must be a multiple of this (every N that pick_strip admits is)
 
 # `_pick_bn`'s rule (the JAX kernel's strip widths and its VMEM budget for two
 # decoded bf16 halves). It sizes nothing here; it decides which shapes are

@@ -9,19 +9,23 @@ with that checkout's own headers (copied beside the sources, which quoted
 includes find first) under `build/compare/<side>/`. Every row below is held
 against this checkout's plain version (the limits of `chip_smoke.py`; a
 backward against the plain backward of the same O and lse) and timed by
-CUDA-graph replay in turns: other, this, this, other. Rows: the ViT
+CUDA-graph replay in turns: other, this, this, other; beside it, the host
+us of a launch from Python (the median of 5 bursts of 200 launches, short
+enough that the launch queue never fills). Rows: the ViT
 attention forward and backward at ViT-L/14 (B*H = 128, N = 257, D = 64),
-the forward in float32, the backward in float32 and bf16; the flash
-forward (bf16) and backward (float32 and bf16) at the LLaVA-1.5-7B LM
-layer (32, 665, 128, causal). One JSON line per side and row, then the
-card's name and power limit. Exits 1 if either side disagrees. Needs a GPU.
+in float32 and bf16; the flash forward (bf16) and backward (float32 and
+bf16) at the LLaVA-1.5-7B LM layer (32, 665, 128, causal). One JSON line
+per side and row, then the card's name and power limit. Exits 1 if either
+side disagrees. Needs a GPU.
 """
 
 from __future__ import annotations
 
 import json
 import shutil
+import statistics
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,6 +46,42 @@ def build(side: str, root: Path) -> dict:
     built = _build.build_variants({name: (csrc / f"{name}.cu").read_text() for name in SOURCES}, out, "k")
     binders = {"vit_attention": vit_attention.bind, "flash_attention": flash_attention.bind}
     return {name: binders[name](lib) for name, (lib, _) in built.items()}
+
+
+def libraries(other: Path) -> dict:
+    """{"other": ..., "this": ...}: each side's libraries, as `build` makes them."""
+    return {"other": build("other", other), "this": build("this", ROOT)}
+
+
+def bind(libs: dict, side: str) -> None:
+    """Point the attention wrappers at `side`'s libraries (their `_lib`
+    rebound: the package has no switch)."""
+    from robustvlm_tpu_torch.ops.kernels import flash_attention, vit_attention
+
+    vit_attention._lib = lambda lib=libs[side]["vit_attention"]: lib
+    flash_attention._lib = lambda lib=libs[side]["flash_attention"]: lib
+
+
+def in_turns(libs: dict, pairs: int, measure) -> dict:
+    """measure(side, label) -> a number, with either side's libraries bound:
+    once a side as a warm-up, then in pairs (other-this, this-other, ...).
+    The numbers per side, their means and the per-pair difference other -
+    this with its standard deviation."""
+    for side in ("other", "this"):
+        bind(libs, side)
+        measure(side, "warm-up")
+    values = {"other": [], "this": []}
+    diffs = []
+    for i in range(pairs):
+        pair = {}
+        for side in ("other", "this") if i % 2 == 0 else ("this", "other"):
+            bind(libs, side)
+            pair[side] = measure(side, f"pair {i}")
+            values[side].append(pair[side])
+        diffs.append(pair["other"] - pair["this"])
+    return {"values": values, "mean": {side: statistics.mean(v) for side, v in values.items()},
+            "other_minus_this": {"per_pair": diffs, "mean": statistics.mean(diffs),
+                                 "stdev": statistics.stdev(diffs) if len(diffs) > 1 else None}}
 
 
 def main() -> int:
@@ -81,12 +121,11 @@ def main() -> int:
             dname = str(dtype).split(".")[-1]
             bh, n, d = q.shape
             code, scale = A._DTYPES[dtype], 1.0 / d ** 0.5
-            if dtype == torch.float32:
-                out = (torch.empty_like(q), torch.empty(bh, n, device="cuda"))
-                rows[f"vit_attention_fwd[{dname}]"] = (
-                    lambda q=q, k=k, v=v, out=out, bh=bh, n=n, d=d, code=code, scale=scale:
-                    lib.vit_attn_fwd(*ptrs(q, k, v, *out), bh, n, d, code, scale, stream()),
-                    out, fwd_ref, dname)
+            out = (torch.empty_like(q), torch.empty(bh, n, device="cuda"))
+            rows[f"vit_attention_fwd[{dname}]"] = (
+                lambda q=q, k=k, v=v, out=out, bh=bh, n=n, d=d, code=code, scale=scale:
+                lib.vit_attn_fwd(*ptrs(q, k, v, *out), bh, n, d, code, scale, stream()),
+                out, fwd_ref, dname)
             grads = tuple(torch.empty_like(t) for t in (q, k, v))
             delta = torch.empty(bh, n, device="cuda")
             rows[f"vit_attention_bwd[{dname}]"] = (
@@ -131,9 +170,21 @@ def main() -> int:
             ok &= within
             rows[(side, name)] = {"side": side, "kernel": name, "within": within, "ms": [],
                                   "max_abs_err": {o: e for o, (e, _) in res.items()}}
+    def host_us(fn) -> float:
+        bursts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            bursts.append((time.perf_counter() - t0) * 1e6 / 200)
+        torch.cuda.synchronize()
+        return statistics.median(bursts)
+
     for side in ("other", "this", "this", "other"):
         for name, (fn, _, _, _) in runs[side].items():
             rows[(side, name)]["ms"].append(C.time_graph_ms(fn))
+            rows[(side, name)].setdefault("host_us_per_launch", []).append(host_us(fn))
     for row in rows.values():
         print(json.dumps(row), flush=True)
     print(C.card_line())

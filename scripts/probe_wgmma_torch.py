@@ -4,7 +4,7 @@ torch.matmul on one GPU, one product at a time, before any kernel uses them.
 
     python3 scripts/probe_wgmma_torch.py
 
-The bf16 flash forward (`flash_fwd_wgmma_kernel`) and the bf16 backward
+The bf16 forward (`csrc/attn_bf16_fwd.cuh`) and the bf16 backward
 (`csrc/attn_bf16_bwd.cuh`) run two kinds of product: S = Q K^T (and dP,
 S^T, dP^T) with both operands from shared memory, both K-major, and O +=
 P V (and dQ += dS K, dV += P^T dO, dK += dS^T Q) with A from registers and
@@ -19,7 +19,8 @@ offsets the kernels use must pass, the swapped ones fail. A ragged case (1
 query row, 5 keys: the boxes' other rows are the hardware's zero fill)
 checks the fill and the transaction bytes of a partial box; head dim 80 in
 a 128-wide tile (arrays mapped as 80 columns, read as two boxes, the
-second zero-filled past column 80; S in 5 k-steps) checks the fill of
+second zero-filled past column 80; S in 5 k-steps; O = P V at N = 128 and
+at wgmma's own n = 80, which the forward runs) checks the fill of
 columns. S is also run with A from registers, alone and, where D = N,
 right after a product of its own shape with the transpose bit: the fault
 that made the forward take A from shared memory. Then the host cost of
@@ -128,7 +129,9 @@ __global__ void __launch_bounds__(128) probe_s_kernel(const __grid_constant__ CU
   }
 }
 
-template <int D, int BN>
+// O = P V at N = NO: the tile's width D, or a head dim of 80 in a 128-wide
+// tile (wgmma n = 80: one box and 16 columns of the next)
+template <int D, int BN, int NO>
 __global__ void __launch_bounds__(128) probe_pv_kernel(const bf16* p,
                                                        const __grid_constant__ CUtensorMap vmap,
                                                        float* out, int lbo, int sbo) {
@@ -153,24 +156,24 @@ __global__ void __launch_bounds__(128) probe_pv_kernel(const bf16* p,
     }
   }
   mbar_wait(bar, 0);
-  float acc[D / 2];
+  float acc[NO / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NO / 2; ++i) acc[i] = 0.f;
   fence_regs(pa);
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
-    wgmma_rs<D, 1>(acc, pa[kk], wgmma_desc(smem_u32(vs) + kk * 16 * 128, lbo, sbo), 1);
+    wgmma_rs<NO, 1>(acc, pa[kk], wgmma_desc(smem_u32(vs) + kk * 16 * 128, lbo, sbo), 1);
   }
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < NO / 8; ++j) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      out[(warp * 16 + g + (c >> 1) * 8) * D + 8 * j + 2 * t + (c & 1)] = acc[4 * j + c];
+      out[(warp * 16 + g + (c >> 1) * 8) * NO + 8 * j + 2 * t + (c & 1)] = acc[4 * j + c];
     }
   }
 }
@@ -211,14 +214,14 @@ int run_s_mode(const void* q, const void* k, float* out, float* sink, int inner,
   return -2;
 }
 
-template <int D, int BN>
+template <int D, int BN, int NO = D>
 int run_pv(const void* p, const void* v, float* out, int inner, int nk, int lbo, int sbo,
            cudaStream_t s) {
   CUtensorMap vm;
   if (!make_map_3d(&vm, v, inner, nk, 1, BN)) return -1;
   const int smem = 1024 + BN * D * 2 + 8 + kSlack;
-  if (launch(probe_pv_kernel<D, BN>, smem)) return (int)cudaGetLastError();
-  probe_pv_kernel<D, BN><<<1, 128, smem, s>>>(static_cast<const bf16*>(p), vm, out, lbo, sbo);
+  if (launch(probe_pv_kernel<D, BN, NO>, smem)) return (int)cudaGetLastError();
+  probe_pv_kernel<D, BN, NO><<<1, 128, smem, s>>>(static_cast<const bf16*>(p), vm, out, lbo, sbo);
   return (int)cudaGetLastError();
 }
 
@@ -241,10 +244,18 @@ extern "C" int probe_s(const void* q, const void* k, void* out, void* sink, int 
   return -2;
 }
 
+// no: the product's N, d or (with d = 128, inner = 80) 80.
 extern "C" int probe_pv(const void* p, const void* v, void* out, int d, int inner, int bn, int nk,
-                        int lbo, int sbo, void* stream) {
+                        int lbo, int sbo, int no, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
+  if (no == 80 && d == 128) {
+    if (bn == 32) return run_pv<128, 32, 80>(p, v, o, inner, nk, lbo, sbo, s);
+    if (bn == 64) return run_pv<128, 64, 80>(p, v, o, inner, nk, lbo, sbo, s);
+    if (bn == 128) return run_pv<128, 128, 80>(p, v, o, inner, nk, lbo, sbo, s);
+    return -2;
+  }
+  if (no != d) return -2;
   if (d == 64 && bn == 32) return run_pv<64, 32>(p, v, o, inner, nk, lbo, sbo, s);
   if (d == 64 && bn == 64) return run_pv<64, 64>(p, v, o, inner, nk, lbo, sbo, s);
   if (d == 64 && bn == 128) return run_pv<64, 128>(p, v, o, inner, nk, lbo, sbo, s);
@@ -270,7 +281,7 @@ extern "C" double encode_us(const void* q, const void* k, const void* v, int d, 
 }
 '''
 
-# (lbo, sbo) in bytes: what flash_fwd_wgmma_kernel passes first, then the swap
+# (lbo, sbo) in bytes: what attn_fwd_wgmma_kernel passes first, then the swap
 K_OFFSETS = [(16, 1024), (1024, 16)]  # K-major: LBO unused
 
 
@@ -292,7 +303,7 @@ def main() -> int:
     (lib, log), = _build.build_variants({"probe": SOURCE}, ROOT / "build" / "probe", "wg").values()
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.probe_s.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
-    lib.probe_pv.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.probe_pv.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.encode_us.argtypes = [p, p, p, i, i, i, i, i]
     lib.encode_us.restype = ctypes.c_double
     print(json.dumps({"ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]}))
@@ -329,25 +340,28 @@ def main() -> int:
                                       "max_abs_err_rel": rel, "ok": ok}), flush=True)
                     if used and not ok:
                         failed.append(("S", d, inner, n, nq, nk, after))
-            for nk in (n, 5):
-                pm = (torch.rand(64, n, generator=g, device="cuda")).bfloat16()
-                v = torch.randn(nk, inner, generator=g, device="cuda").bfloat16()
-                vpad = torch.zeros(n, d, device="cuda")
-                vpad[:nk, :inner] = v.float()
-                ref = pm.float() @ vpad
-                for lbo, sbo in v_offsets(n):
-                    out = torch.full((64, d), float("nan"), device="cuda")
-                    err = lib.probe_pv(pm.data_ptr(), v.data_ptr(), out.data_ptr(), d, inner, n, nk,
-                                       lbo, sbo, stream)
-                    torch.cuda.synchronize()
-                    rel = float((out - ref).abs().max() / ref.abs().max())
-                    ok = err == 0 and rel <= 1e-3
-                    used = (lbo, sbo) == v_offsets(n)[0]
-                    print(json.dumps({"product": "O = P V (V MN-major)", "D": d, "head_dim": inner,
-                                      "N": n, "nk": nk, "lbo": lbo, "sbo": sbo, "kernel_uses": used,
-                                      "launch_err": err, "max_abs_err_rel": rel, "ok": ok}), flush=True)
-                    if used and not ok:
-                        failed.append(("PV", d, inner, n, nk))
+            # the product's N: the tile's width, and at head dim 80 also 80
+            for no in sorted({d, inner}):
+                for nk in (n, 5):
+                    pm = (torch.rand(64, n, generator=g, device="cuda")).bfloat16()
+                    v = torch.randn(nk, inner, generator=g, device="cuda").bfloat16()
+                    vpad = torch.zeros(n, d, device="cuda")
+                    vpad[:nk, :inner] = v.float()
+                    ref = pm.float() @ vpad[:, :no]
+                    for lbo, sbo in v_offsets(n):
+                        out = torch.full((64, no), float("nan"), device="cuda")
+                        err = lib.probe_pv(pm.data_ptr(), v.data_ptr(), out.data_ptr(), d, inner, n,
+                                           nk, lbo, sbo, no, stream)
+                        torch.cuda.synchronize()
+                        rel = float((out - ref).abs().max() / ref.abs().max())
+                        ok = err == 0 and rel <= 1e-3
+                        used = (lbo, sbo) == v_offsets(n)[0]
+                        print(json.dumps({"product": "O = P V (V MN-major)", "D": d, "head_dim": inner,
+                                          "product_N": no, "N": n, "nk": nk, "lbo": lbo, "sbo": sbo,
+                                          "kernel_uses": used, "launch_err": err,
+                                          "max_abs_err_rel": rel, "ok": ok}), flush=True)
+                        if used and not ok:
+                            failed.append(("PV", d, inner, no, n, nk))
     bh, n, d = 32, 665, 128
     q = torch.zeros(bh, n, d, device="cuda", dtype=torch.bfloat16)
     us = lib.encode_us(q.data_ptr(), q.data_ptr(), q.data_ptr(), d, n, n, bh, 10000)

@@ -2,6 +2,7 @@
 """Where the time of one LLaVA APGD iteration goes, for the PyTorch/CUDA port.
 
     python3 scripts/profile_llava_torch.py [--iters 5] [--layers 32]
+    python3 scripts/profile_llava_torch.py --other OTHER_ROOT [--pairs 10]
 
 Runs `apgd_attack` on the LLaVA-1.5-7B adapter (random weights from seed 0,
 bf16, batch 1, the captioning prompt teacher-forced at max_post_len 64, 336
@@ -12,6 +13,14 @@ share and the device time by group (flash kernels, ViT attention kernels,
 the l-inf step, matrix products, everything else) with the top kernels by
 name. The full table goes to chiprun_out/profile_llava_torch.json. Needs a
 GPU; raises without one.
+
+With --other, it profiles nothing: it builds another checkout's attention
+sources beside this one's (as `compare_attention_torch.py` does) and times
+the same attack with either side's libraries bound in turn, in pairs
+(other-this, this-other, ...) in this one process, so that both sides
+share the model, the allocator and the host's state. One JSON line: ms an
+iteration per side and run, the means, and the per-pair difference other -
+this with its standard deviation.
 """
 
 from __future__ import annotations
@@ -31,12 +40,13 @@ MATMUL = ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")
 
 def group(name: str) -> str:
     """A kernel's group by its demangled name. Both attention sources launch
-    the shared kernels of attn_f32_tile.cuh and attn_bf16_bwd.cuh: their
-    template arguments (VitF32Tile, VitBf16Bwd) tell the ViT launches apart."""
+    the shared kernels of attn_f32_tile.cuh, attn_bf16_fwd.cuh and
+    attn_bf16_bwd.cuh: their template arguments (VitF32Tile, VitBf16Fwd,
+    VitBf16Bwd) tell the ViT launches apart."""
     low = name.lower()
-    if any(k in name for k in ("VitF32Tile", "VitBf16Bwd", "fwd_mma_kernel")):
+    if any(k in name for k in ("VitF32Tile", "VitBf16Fwd", "VitBf16Bwd")):
         return "vit_kernels"
-    if ("flash_" in name and "_kernel" in name) or "attn_bwd_" in name:
+    if ("flash_" in name and "_kernel" in name) or "attn_fwd_" in name or "attn_bwd_" in name:
         return "flash_kernels"
     if "linf_step" in name:
         return "linf_step"
@@ -60,6 +70,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--layers", type=int, default=32, help="LM layers (32 = LLaVA-1.5-7B)")
+    p.add_argument("--other", help="another checkout whose attention kernels to time in turns")
+    p.add_argument("--pairs", type=int, default=10)
     args = p.parse_args(argv)
     dev = resolve_device("cuda")
     use_full_fp32()
@@ -78,6 +90,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
 
     attack(2)  # warm-up: kernel build, allocator, cuBLAS heuristics
+    if args.other:
+        return compare(Path(args.other).resolve(), args.pairs, args.iters, attack)
     t0 = time.perf_counter()
     attack(args.iters)
     ms_per_iter = (time.perf_counter() - t0) * 1e3 / args.iters
@@ -115,6 +129,24 @@ def main(argv=None) -> int:
     out.mkdir(exist_ok=True)
     (out / "profile_llava_torch.json").write_text(json.dumps({**summary, "all": rows}, indent=1))
     print(json.dumps(summary))
+    return 0
+
+
+def compare(other: Path, pairs: int, iters: int, attack) -> int:
+    """ms an iteration of `attack` with the other checkout's attention
+    libraries and this one's bound in turn (the wrappers' `_lib` rebound)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import compare_attention_torch as CA
+    from chip_smoke import card_line
+
+    def run(side: str, label: str) -> float:
+        t0 = time.perf_counter()
+        attack(iters)
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    turns = CA.in_turns(CA.libraries(other), pairs, run)
+    print(json.dumps({"script": "scripts/profile_llava_torch.py --other", "card": card_line(),
+                      "iters": iters, "ms_per_iter": turns.pop("values"), **turns}))
     return 0
 
 

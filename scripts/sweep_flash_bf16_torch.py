@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
-"""Sweep the bf16 flash forward's key tile and stage count on one GPU.
+"""Sweep the bf16 attention forward's tile shape on one GPU, for the flash
+attention or (with --vit) the ViT attention.
 
-    python3 scripts/sweep_flash_bf16_torch.py
+    python3 scripts/sweep_flash_bf16_torch.py [--vit]
 
-`flash_fwd_wgmma_kernel` in `robustvlm_tpu_torch/csrc/flash_attention.cu`
-takes its shape from two lines, `Bf16Fwd<head dim>`: kN keys per tile (the
-N of S = Q K^T) and kStages stages of the TMA ring. This builds one edited
-copy of the source per entry of VARIANTS (an entry names only the lines it
-changes), all nvcc processes at once, under `build/sweep/`, holds every
-variant's forward against the plain PyTorch version at every bf16 case of
-`chip_smoke.py` (O within 2e-2 of its largest value, lse 1e-5 abs + 1e-6
-rel; a case that misses names its first wrong rows), and times it by
-CUDA-graph replay at the LLaVA-1.5-7B LM layer (32, 665, 128, causal) and
-the CLIP text tower (96, 77, 64, causal), every variant twice in turns.
-One JSON line per variant: registers, spills (ptxas) and dynamic shared
-memory per head dim, max errors, ms. Then SDPA's forward at both shapes and
-the card's name and power limit. Exits 1 if the source as it stands
-(variant 0) misses a case. Needs a GPU.
+`attn_fwd_wgmma_kernel` (`robustvlm_tpu_torch/csrc/attn_bf16_fwd.cuh`) takes
+its shape from one line per head dim in the source that launches it:
+`Bf16Fwd<64|128>` in `flash_attention.cu`, `VitBf16Fwd<64|80>` in
+`vit_attention.cu` (--vit). A line holds kN keys per tile (the N of
+S = Q K^T) and kStages stages of the TMA ring (a block is one warpgroup
+of 64 query rows). This builds one edited copy of the source per entry of
+the target's variants (an entry names only the lines it changes), all nvcc
+processes at once, under `build/sweep/`, holds every variant's forward
+against the plain PyTorch version at every bf16 case of `chip_smoke.py`
+(flash: `_flash_cases`; ViT: `ATTN_CASES`; O within 2e-2 of its largest
+value, lse 1e-5 abs + 1e-6 rel; a case that misses names its first wrong
+rows), and times it by CUDA-graph replay, every variant twice in turns:
+flash at the LLaVA-1.5-7B LM layer (32, 665, 128, causal) and the CLIP text
+tower (96, 77, 64, causal); ViT at ViT-L/14 (128, 257, 64), the shape that
+chooses its lines, ViT-L/14-336 (128, 577, 64) and head dim 80 (128, 257,
+80). One JSON line per variant: registers, spills (ptxas) and dynamic
+shared memory per head dim, max errors, ms. Then SDPA's forward at every
+timed shape and the card's name and power limit. Exits 1 if the source as
+it stands (variant 0) misses a case. Needs a GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import sys
@@ -29,40 +36,60 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-SHAPE_LINE = r"struct Bf16Fwd<(64|128)> \{ static constexpr int kN = (\d+), kStages = (\d+); \};"
 # {head dim: (kN, kStages)}; {} is the source as it stands
-VARIANTS = [
-    {},
-    {64: (64, 3), 128: (64, 3)},
-    {64: (128, 2), 128: (128, 2)},
-    {64: (64, 4), 128: (64, 1)},
-    {64: (128, 3), 128: (128, 1)},
-    {64: (64, 1), 128: (64, 4)},
-]
-LLAVA = "llava_lm (32, 665, 128)"
-CLIP = "clip_text (96, 77, 64)"
+TARGETS = {
+    "flash": {
+        "source": "flash_attention.cu", "struct": "Bf16Fwd", "dims": (64, 128),
+        "variants": [
+            {},
+            {64: (64, 3), 128: (64, 3)},
+            {64: (128, 2), 128: (128, 2)},
+            {64: (64, 4), 128: (64, 1)},
+            {64: (128, 3), 128: (128, 1)},
+            {64: (64, 1), 128: (64, 4)},
+        ],
+    },
+    "vit": {
+        "source": "vit_attention.cu", "struct": "VitBf16Fwd", "dims": (64, 80),
+        "variants": [
+            {},
+            {64: (32, 2), 80: (32, 2)},
+            {64: (32, 3), 80: (32, 3)},
+            {64: (64, 3), 80: (64, 3)},
+            {64: (128, 2), 80: (128, 2)},
+        ],
+    },
+}
+
+
+def shape_line(struct: str) -> str:
+    return rf"struct {struct}<(\d+)> \{{ static constexpr int kN = (\d+), kStages = (\d+); \}};"
 
 
 def smem_bytes(d: int, n: int, stages: int) -> int:
-    """Dynamic shared memory of the kernel, as `WgFwd<D>::kSmem` computes it."""
-    return 1024 + 64 * d * 2 + stages * 2 * n * d * 2 + 8 * (stages + 1)
+    """Dynamic shared memory of the kernel, as `WgFwd<D, S>::kSmem` computes it."""
+    dt = 64 if d <= 64 else 128
+    return 1024 + 64 * dt * 2 + stages * 2 * n * dt * 2 + 8 * (stages + 1)
 
 
-def build(variants):
-    from robustvlm_tpu_torch.ops.kernels import _build, flash_attention
+def build(target: dict):
+    from robustvlm_tpu_torch.ops.kernels import _build, flash_attention, vit_attention
 
-    src = (_build.CSRC / "flash_attention.cu").read_text()
-    in_source = {int(m[0]): (int(m[1]), int(m[2])) for m in re.findall(SHAPE_LINE, src)}
-    if len(in_source) != 2:
-        raise RuntimeError("the two Bf16Fwd<...> lines were not found in flash_attention.cu")
+    src = (_build.CSRC / target["source"]).read_text()
+    pat = shape_line(target["struct"])
+    in_source = {int(m[0]): tuple(map(int, m[1:])) for m in re.findall(pat, src)}
+    if set(in_source) != set(target["dims"]):
+        raise RuntimeError(f"the {target['struct']}<...> lines were not found in {target['source']}")
 
     def edited(change):
         def line(m):
             n, stages = change.get(int(m.group(1)), (m.group(2), m.group(3)))
-            return (f"struct Bf16Fwd<{m.group(1)}> {{ static constexpr int kN = {n}, "
+            return (f"struct {target['struct']}<{m.group(1)}> {{ static constexpr int kN = {n}, "
                     f"kStages = {stages}; }};")
-        return re.sub(SHAPE_LINE, line, src)
+        return re.sub(pat, line, src)
 
+    variants = target["variants"]
+    bind = vit_attention.bind if target["struct"].startswith("Vit") else flash_attention.bind
     sources = {i: edited(change) for i, change in enumerate(variants)}
     libs = {}
     for i, (lib, log) in _build.build_variants(sources, ROOT / "build" / "sweep", "fb").items():
@@ -70,7 +97,7 @@ def build(variants):
         lines = log.splitlines()
         report = {}
         for k, ln in enumerate(lines):
-            m = re.search(r"flash_fwd_wgmma_kernelILi(64|128)E", ln)
+            m = re.search(r"attn_fwd_wgmma_kernelILi(\d+)E", ln)
             if m and "Compiling entry" in ln:
                 text = " ".join(lines[k + 1:k + 4])
                 d = int(m.group(1))
@@ -82,11 +109,11 @@ def build(variants):
                     "registers": int(regs.group(1)) if regs else None,
                     "spill_bytes": [int(spill.group(1)), int(spill.group(2))] if spill else None,
                     "smem_bytes": smem_bytes(d, n, stages)}
-        libs[i] = (flash_attention.bind(lib), report)
+        libs[i] = (bind(lib), report)
     return libs
 
 
-def forward(lib, q, k, v, causal, slopes=None):
+def forward(lib, q, k, v, causal, slopes=None, vit=False):
     """A closure that launches one variant's forward on these tensors, and
     its outputs."""
     import torch
@@ -95,34 +122,54 @@ def forward(lib, q, k, v, causal, slopes=None):
 
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], device="cuda")
-    dims = F._dims(q, k, causal)
-    sl = None if slopes is None else slopes.data_ptr()
+    if vit:
+        bh, n, d = q.shape
+        args = (bh, n, d, 1, 1.0 / d ** 0.5)
+        launch = lib.vit_attn_fwd
+    else:
+        sl = None if slopes is None else slopes.data_ptr()
+        args = (sl, *F._dims(q, k, causal))
+        launch = lib.flash_attn_fwd
 
     def fwd():
-        err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                 lse.data_ptr(), sl, *dims, torch.cuda.current_stream().cuda_stream)
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *args,
+                     torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"forward launch failed: cudaError {err}")
 
     return fwd, (o, lse)
 
 
-def check(lib) -> dict:
+def check(lib, vit: bool) -> dict:
     """Every bf16 case of chip_smoke.py: {case: max errors, within, first
     wrong (head, row) pairs}."""
     import torch
 
     import chip_smoke as C
     from robustvlm_tpu_torch.ops.kernels import flash_attention as F
+    from robustvlm_tpu_torch.ops.kernels import vit_attention as A
 
     out = {}
-    for label, bh, nq, nk, d, causal, alibi, extreme in C._flash_cases():
-        (q, k, v, _), slopes = C._flash_inputs(bh, nq, nk, d, torch.bfloat16, nq + nk, extreme, alibi)
-        fwd, (o, lse) = forward(lib, q, k, v, causal, slopes)
+    if vit:
+        cases = [(f"n{n}_d{d}" + ("_extreme" if ex else ""), n, d, ex) for n, d, ex in C.ATTN_CASES]
+    else:
+        cases = [(c[0], c) for c in C._flash_cases()]
+    for case in cases:
+        if vit:
+            label, n, d, extreme = case
+            q, k, v, _ = C._qkv(n, torch.bfloat16, seed=n + d, extreme=extreme, d=d)
+            fwd, (o, lse) = forward(lib, q, k, v, False, vit=True)
+            ref = A.attention_fwd_plain(q, k, v)
+        else:
+            label, (_, bh, nq, nk, d, causal, alibi, extreme) = case
+            (q, k, v, _), slopes = C._flash_inputs(bh, nq, nk, d, torch.bfloat16, nq + nk, extreme,
+                                                   alibi)
+            fwd, (o, lse) = forward(lib, q, k, v, causal, slopes)
+            ref = F.flash_fwd_plain(q, k, v, causal=causal, slopes=slopes)
         fwd()
         torch.cuda.synchronize()
-        o_ref, lse_ref = F.flash_fwd_plain(q, k, v, causal=causal, slopes=slopes)
-        res = C._attn_check("bfloat16", (o, lse), (o_ref, lse_ref), extreme)
+        o_ref, lse_ref = ref
+        res = C._attn_check("bfloat16", (o, lse), (o_ref, lse_ref), extreme, ("o", "lse"))
         row_err = torch.maximum((o.float() - o_ref.float()).abs().amax(-1) / o_ref.float().abs().max(),
                                 (lse - lse_ref).abs())
         bad = torch.nonzero(row_err > 2e-2)[:6].tolist()
@@ -131,37 +178,50 @@ def check(lib) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
     import torch.nn.functional as Fn
 
     import chip_smoke as C
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--vit", action="store_true", help="sweep the ViT forward's VitBf16Fwd lines")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    libs = build(VARIANTS)
-    bh, n, _, d = C._flash_llava_shape()
-    shapes = {LLAVA: (bh, n, d), CLIP: C.CLIP_TEXT_SHAPE}
-    data = {label: C._flash_inputs(b, m, m, e, torch.bfloat16, seed=1)[0][:3]
-            for label, (b, m, e) in shapes.items()}
-    results = {i: {"ptxas": report, "cases": check(lib), **{label: [] for label in shapes}}
+    target = TARGETS["vit" if args.vit else "flash"]
+    libs = build(target)
+    if args.vit:
+        shapes = {"vit_l14 (128, 257, 64)": (128, 257, 64), "vit_l14_336 (128, 577, 64)": (128, 577, 64),
+                  "d80 (128, 257, 80)": (128, 257, 80)}
+        data = {label: C._qkv(n, torch.bfloat16, seed=1, d=d)[:3] for label, (_, n, d) in shapes.items()}
+        causal = False
+    else:
+        bh, n, _, d = C._flash_llava_shape()
+        shapes = {f"llava_lm ({bh}, {n}, {d})": (bh, n, d), "clip_text (96, 77, 64)": C.CLIP_TEXT_SHAPE}
+        data = {label: C._flash_inputs(b, m, m, e, torch.bfloat16, seed=1)[0][:3]
+                for label, (b, m, e) in shapes.items()}
+        causal = True
+    results = {i: {"ptxas": report, "cases": check(lib, args.vit), **{label: [] for label in shapes}}
                for i, (lib, report) in libs.items()}
     for _ in range(2):  # every variant twice, in turns
         for i, (lib, _) in libs.items():
             for label, (q, k, v) in data.items():
-                results[i][label].append(C.time_graph_ms(forward(lib, q, k, v, True)[0]))
+                results[i][label].append(
+                    C.time_graph_ms(forward(lib, q, k, v, causal, vit=args.vit)[0]))
     for i, r in results.items():
         ok = all(c["within"] for c in r["cases"].values())
         wrong = {c: v for c, v in r["cases"].items() if not v["within"]}
-        print(json.dumps({"variant": i, "change": {str(k): v for k, v in VARIANTS[i].items()},
+        print(json.dumps({"target": target["struct"], "variant": i,
+                          "change": {str(k): v for k, v in target["variants"][i].items()},
                           "ptxas": r["ptxas"], "all_cases_within": ok, "wrong_cases": wrong,
                           "worst_o_err": max(c["max_abs_err"]["o"] for c in r["cases"].values()),
                           "fwd_ms": {label: r[label] for label in shapes}}), flush=True)
     for label, (q, k, v) in data.items():
         b, m, e = shapes[label]
         q4, k4, v4 = (t.view(1, b, m, e) for t in (q, k, v))
-        ms = C.time_graph_ms(lambda: Fn.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+        ms = C.time_graph_ms(lambda: Fn.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
         print(json.dumps({"library": "scaled_dot_product_attention", "shape": label, "fwd_ms": ms}))
     print(C.card_line())
     return 0 if all(c["within"] for c in results[0]["cases"].values()) else 1

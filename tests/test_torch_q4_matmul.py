@@ -11,6 +11,9 @@ Both bodies within 1e-2 of x.float() @ dequantize(w), the limit of
 tests/test_q4_kernel.py. The CUDA kernel against the plain version runs on
 the card only (`cuda` marker)."""
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,11 @@ from robustvlm_tpu_torch.ops import quant as PQ
 from robustvlm_tpu_torch.ops.kernels import q4_matmul as K
 
 torch.set_num_threads(1)
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+SMOKE = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(SMOKE)  # the chip check's helpers; it imports only the standard library
 
 # (b, k, n, g): the JAX package's shapes, plus K/2 = 3 groups
 CASES = [(1, 512, 512, 128), (8, 512, 384, 64), (3, 256, 128, 128), (5, 768, 256, 128)]
@@ -142,6 +150,37 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         K._check_cuda(x, p.t().contiguous().t(), s)
 
 
+@pytest.mark.parametrize("fault", [None, "nibbles_swapped"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
+def test_library_operands_give_the_shift_body(case, fault):
+    """chip_smoke.py times PyTorch's int4 weight-only matmul as both
+    q4_matmul rows' library call, on operands that `tinygemm_operands`
+    builds from the port's (p, s). Here the op's CPU twin
+    (`_convert_weight_to_int4pack_for_cpu`, `_weight_int4pack_mm_for_cpu`)
+    pins the unpacking and the scale layout: with x the identity, the
+    dequantized weight equals the shift body's bit for bit; on random x the
+    product is within one bf16 rounding of the shift body's largest output
+    (2^-7 max|ref|: the twin's sums run in its own order and land more than
+    one rounding off at some small outputs, so the per-element limit of the
+    card's check is not the twin's); with the nibbles swapped (a planted
+    fault) both fail."""
+    b, k, n, g = case
+    x, p, s = _inputs(*case)
+    p, s = torch.from_numpy(p), torch.from_numpy(s)
+    pk = (p >> 4) | (p << 4) if fault else p
+    codes, sz = SMOKE.tinygemm_operands(pk, s)
+    assert codes.shape == (n, k) and sz.shape == (k // g, n, 2) and sz.dtype == torch.bfloat16
+    packed = SMOKE.tinygemm_pack(codes)
+    eye = torch.eye(k, dtype=torch.bfloat16)
+    exact = torch.equal(SMOKE.tinygemm_mm(eye, packed, g, sz),
+                        K.q4_matmul_reference(eye, p, s, group=False))
+    xb = _torch_x(x, "bfloat16")
+    got = SMOKE.tinygemm_mm(xb, packed, g, sz).float()
+    ref = K.q4_matmul_reference(xb, p, s, group=False).float()
+    within = float((got - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
+    assert (exact, within) == ((False, False) if fault else (True, True))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("body", BODIES)
 def test_cuda_kernel_matches_plain(body):
@@ -162,3 +201,28 @@ def test_cuda_kernel_matches_plain(body):
             assert K.LAUNCHES[f"q4_matmul_{body}"] == before + 2
             assert got.dtype == x.dtype and torch.equal(got, again)
             assert _within(got.float().cpu().numpy(), ref.float().cpu().numpy(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", BODIES)
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 32])
+def test_cuda_kernel_edges(b, body):
+    """The kernel's edges at LLaVA-1.5-7B's w_down shape (K = 11008, N =
+    4096, G = 128): 43 groups a half split unevenly across a cluster's
+    blocks; batch sizes at a batch tile's ends (1, 7, 8, 9) and the most
+    rows (32); two calls bitwise equal (the splits are added in a fixed
+    order, no atomics); one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.RandomState(b)
+    w = PQ.quantize_q4(torch.from_numpy(rng.randn(11008, 4096).astype(np.float32) * 0.01).cuda(),
+                       group_size=128)
+    x = torch.from_numpy(rng.randn(b, 11008).astype(np.float32) * 0.5).cuda().bfloat16()
+    before = K.LAUNCHES[f"q4_matmul_{body}"]
+    got = K.q4_matmul_cuda(x, w.p, w.s, group=body == "group")
+    again = K.q4_matmul_cuda(x, w.p, w.s, group=body == "group")
+    ref = K.q4_matmul_reference(x, w.p, w.s, group=body == "group")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[f"q4_matmul_{body}"] == before + 2
+    assert got.shape == (b, 4096) and torch.equal(got, again)
+    assert _within(got.float().cpu().numpy(), ref.float().cpu().numpy(), "bfloat16")
