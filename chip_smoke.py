@@ -19,18 +19,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 (APGD-T), with each kernel's launch count read around each run;
   5. timed    - `apgd_attack` at ViT-L/14 in bfloat16, batch 8, 100
                 iterations: APGD example-steps/s;
-  6. llava_reference - LLaVA-1.5-7B widths cut to 2 LM and 2 vision layers,
+  6. train_reference - one TeCoA and one FARE outer loss and its weight
+                gradients at ViT-L/14 widths cut to 2 layers, float32
+                (and FARE in bf16), through the kernels on the card against
+                the plain path on the CPU in float32;
+  7. train    - `driver.main` (the training CLI) at ViT-L/14 full width, 3
+                steps of batch 32 in 4 chunks: FARE (eps 4, APGD-10, float32)
+                and TeCoA (eps 2, PGD-10, bf16, the text embedding and the
+                APGD-50 eval), with s per step, imgs/s, peak memory, losses,
+                exact linf_step launches, the inner attack's x_adv and the
+                exported visual tower checked;
+  8. llava_reference - LLaVA-1.5-7B widths cut to 2 LM and 2 vision layers,
                 float32: the per-sample loss and pixel gradient through the
                 kernels on the card against the plain path on the CPU;
-  7. llava    - `run_evaluation.main` (the VLM eval CLI) at LLaVA-1.5-7B full
+  9. llava    - `run_evaluation.main` (the VLM eval CLI) at LLaVA-1.5-7B full
                 width, bf16, 100 APGD iterations on 2 COCO-format images
                 written under chiprun_out/, captions and CIDEr, with each
                 kernel's launches, ms per APGD iteration and peak memory;
-  8. llava_ensemble - the CLI's ensemble schedule at LLaVA-1.5-7B full width
+ 10. llava_ensemble - the CLI's ensemble schedule at LLaVA-1.5-7B full width
                 with both precisions' models held together, every stage
                 run (its last in float32), with peak memory, the float32
                 stage's launches and the ms of one float32 loss and gradient;
-  9. serve    - the model worker (`build_worker`, its CLI's path) at
+ 11. serve    - the model worker (`build_worker`, its CLI's path) at
                 LLaVA-1.5-7B full width with int4 LM weights behind the
                 port's controller on local ports: captions, VQA, a stream,
                 the shift body and a batch-4 micro-batch over HTTP, with ms
@@ -225,7 +235,58 @@ def _bits_equal(a, b) -> bool:
     return torch.equal(a.view(torch.int32)[~na], b.view(torch.int32)[~nb])
 
 
+def linf_inputs(gen, b: int, f: int, eps: float) -> tuple:
+    """(x_adv, x_old, grad, x, step) of one APGD step at (b, f) on the card:
+    iterates inside the eps-ball, Gaussian gradients, halved steps on every
+    other row (as after a checkpoint)."""
+    import torch
+
+    dev = torch.device("cuda")
+    x = torch.rand(b, f, generator=gen, device=dev)
+    x_adv = (x + (torch.rand(b, f, generator=gen, device=dev) * 2 - 1) * eps).clamp(0, 1)
+    x_old = (x + (torch.rand(b, f, generator=gen, device=dev) * 2 - 1) * eps).clamp(0, 1)
+    grad = torch.randn(b, f, generator=gen, device=dev)
+    step = torch.full((b,), 2 * eps, device=dev)
+    step[1::2] = eps
+    return x_adv, x_old, grad, x, step
+
+
+def linf_edge_cases(gen, x_adv, x_old, grad, x, step, eps: float) -> list:
+    """Operand sets (x_adv, x_old, grad, x, step) of the step's edge cases,
+    from a full-size set: zero, -0.0 and NaN gradients and x at 0 and 1 in
+    an odd F (1001: the scalar tail); the full set in contiguous views one
+    float past 16-byte alignment; B = 1; and B = 33 at the full F."""
+    import torch
+
+    xe, xae, xoe, ge = (t[:, :1001].clone() for t in (x, x_adv, x_old, grad))
+    xe[:, :50], xe[:, 50:100] = 0.0, 1.0
+    ge[:, 100:150], ge[:, 150:200], ge[:, 200:250] = 0.0, -0.0, float("nan")
+    odd = (xae, xoe, ge, xe)
+    misaligned = tuple(torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+                       for t in (x_adv, x_old, grad, x))
+    one = tuple(t[:1] for t in (x_adv, x_old, grad, x, step))
+    return [(*odd, step), (*misaligned, step), one, linf_inputs(gen, 33, x.shape[1], eps)]
+
+
+def time_linf_graph_ms(step_fn, sets: list) -> float:
+    """`step_fn(x_adv, x_old, grad, x, step)` by CUDA-graph replay, each
+    launch taking the next of `sets` (enough that they pass the L2, so every
+    operand comes from device memory as in an attack) and writing an output
+    of its own."""
+    it = iter(range(10**9))
+    outs = []
+    ms = time_graph_ms(lambda: outs.append(step_fn(*sets[next(it) % len(sets)])))
+    outs.clear()
+    return ms
+
+
 def check_linf_step(peaks: dict) -> dict:
+    """The l-inf step kernel bitwise against its plain version (a = 1 and
+    0.75, at the main path's shape and its edge cases), then timed: kernel
+    and plain version by CUDA-graph replay over operand sets rotated past
+    the L2 (`ms`, `plain_ms`); `ms_events` is the old reading, CUDA events
+    around 200 launches from Python on one set, the host's launch pace that
+    an eager attack loop pays."""
     import torch
 
     from robustvlm_tpu_torch.ops.kernels import attack_step as K
@@ -234,37 +295,33 @@ def check_linf_step(peaks: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     b, f = LINF_SHAPE
     eps = 2.0 / 255.0
-    x = torch.rand(b, f, generator=gen, device=dev)
-    x_adv = (x + (torch.rand(b, f, generator=gen, device=dev) * 2 - 1) * eps).clamp(0, 1)
-    x_old = (x + (torch.rand(b, f, generator=gen, device=dev) * 2 - 1) * eps).clamp(0, 1)
-    grad = torch.randn(b, f, generator=gen, device=dev)
-    step = torch.full((b,), 2 * eps, device=dev)
-    step[1::2] = eps  # halved steps on some rows, as after a checkpoint
+    x_adv, x_old, grad, x, step = linf_inputs(gen, b, f, eps)
     ok, err = True, 0.0
-    # edge cases: zero, -0.0 and NaN gradients, x at 0 and 1, odd F (scalar path)
-    xe, xae, xoe, ge = (t[:, :1001].clone() for t in (x, x_adv, x_old, grad))
-    xe[:, :50], xe[:, 50:100] = 0.0, 1.0
-    ge[:, 100:150], ge[:, 150:200], ge[:, 200:250] = 0.0, -0.0, float("nan")
-    for args in ((x_adv, x_old, grad, x), (xae, xoe, ge, xe)):
+    for args in [(x_adv, x_old, grad, x, step)] + linf_edge_cases(gen, x_adv, x_old, grad, x, step, eps):
         for a in (1.0, 0.75):
-            got = K.linf_step_cuda(*args, step, eps, a)
-            ref = K.linf_step_plain(*args, step, eps, a)
+            got = K.linf_step_cuda(*args, eps, a)
+            ref = K.linf_step_plain(*args, eps, a)
             ok &= _bits_equal(got, ref)
             both = ~(torch.isnan(got) | torch.isnan(ref))
             err = max(err, float((got - ref)[both].abs().max()))
     torch.cuda.synchronize()
     if not ok:
         raise AssertionError("linf_step kernel is not bitwise equal to its plain version")
-    ms = time_ms(lambda: K.linf_step_cuda(x_adv, x_old, grad, x, step, eps, 0.75), iters=200)
-    plain_ms = time_ms(lambda: K.linf_step_plain(x_adv, x_old, grad, x, step, eps, 0.75), iters=50)
     n_bytes = 5 * b * f * 4 + b * 4
+    sets = _rotating(lambda: tuple(t.clone() for t in (x_adv, x_old, grad, x, step)), n_bytes)
+    ms = time_linf_graph_ms(lambda *s: K.linf_step_cuda(*s, eps, 0.75), sets)
+    plain_ms = time_linf_graph_ms(lambda *s: K.linf_step_plain(*s, eps, 0.75), sets)
+    ms_events = time_ms(lambda: K.linf_step_cuda(x_adv, x_old, grad, x, step, eps, 0.75), iters=200)
     bnd, by = bound_ms(n_bytes, 12 * b * f, "float32", peaks)
     return {"name": "linf_step", "route": "cuda",
             "source": "robustvlm_tpu_torch/csrc/attack_step.cu",
             "replaces": "robustvlm_tpu/ops/pallas/attack_step.py:71",
             "dtype": "float32", "shape": [b, f], "bitwise_equal": True,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "ms_events": ms_events,
+            "operand_sets": len(sets), "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "timed_by": {"ms": "graph, operands rotated past the L2",
+                         "plain_ms": "graph, operands rotated past the L2",
+                         "ms_events": "events around 200 launches from Python, one operand set"}}
 
 
 def _qkv(n: int, dtype, seed: int, extreme: bool = False, d: int = ATTN_D):
@@ -1016,7 +1073,203 @@ def phase_timed() -> None:
         raise AssertionError("timed attack left the eps-ball or launched no kernel")
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------------------ phases 6-7
+# TeCoA/FARE fine-tuning (BASELINE.json configs 3-4) through the training CLI
+# at ViT-L/14 full width. Cut: 3 steps of 20,000; batch 32 of the paper's 128,
+# in 4 chunks of 8 (--grad_accum); random weights from seed 0; synthetic
+# images. Each run's linf_step launches are exact: 10 APGD iterations x 4
+# chunks x 3 steps for fare4 (no text embedding, so no eval); none from PGD
+# and 50 from the APGD-50 eval after step 1 for tecoa2.
+TRAIN_COMMON = ["--device", "cuda", "--clip_model_name", "ViT-L-14", "--dataset", "synthetic",
+                "--batch_size", "32", "--grad_accum", "4", "--steps", "3", "--warmup", "1"]
+TRAIN_RUNS = {
+    "fare4": ["--loss", "l2", "--inner_loss", "l2", "--attack", "apgd", "--eps", "4",
+              "--iterations_adv", "10", "--compute_dtype", "float32"],
+    "tecoa2": ["--loss", "ce", "--inner_loss", "ce", "--attack", "pgd", "--eps", "2",
+               "--stepsize_adv", "1", "--iterations_adv", "10", "--compute_dtype", "bfloat16"],
+}
+TRAIN_LINF_LAUNCHES = {"fare4": 10 * 4 * 3, "tecoa2": 50}
+TRAIN_CUTS = ["3 steps of 20,000", "batch 32 of 128, in 4 chunks of 8", "random weights (seed 0)",
+              "synthetic images"]
+# train_reference's limits, relative, on the loss and in norm on each
+# gradient leaf, against the plain path on the CPU in float32. bf16 keeps 8
+# significant bits (2^-9 relative rounding) in every activation of the
+# forward and the backward; its limits leave room for that rounding and
+# none for a wrong kernel, whose error is of the order of the value itself.
+TRAIN_REF_TOL = {"float32": {"loss_rel": 1e-5, "grad_rel": 1e-4},
+                 "bfloat16": {"loss_rel": 1e-2, "grad_rel": 5e-2}}
+# (loss, dtype on the card). TeCoA's cross-entropy at logit scale 100 is not
+# compared in bf16: with random weights its softmax is near saturation, and
+# bf16's rounding of the embedding moves the margins between the top logits
+# by about their own size, so its gradients differ from float32's by more
+# than any kernel does. FARE's l2 loss runs the same bf16 kernels.
+TRAIN_REF_CASES = (("l2", "float32"), ("ce", "float32"), ("l2", "bfloat16"))
+
+
+def phase_train_reference() -> dict:
+    """One outer loss and its weight gradients through the kernels on the
+    card against the plain versions on the CPU in float32: ViT-L/14 widths
+    cut to 2 layers, batch 4, on the same fixed x_adv; FARE (l2 to a frozen
+    original of other weights) and TeCoA (ce against class embeddings) in
+    float32, and FARE in bf16 on the card (`train[tecoa2]`'s compute
+    dtype)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.models.clip import CLIP, CLIP_CONFIGS
+    from robustvlm_tpu_torch.train.trainer import TrainConfig, TrainStep
+
+    t0 = time.perf_counter()
+    full = CLIP_CONFIGS["ViT-L-14"]
+    cfg = dataclasses.replace(full, vision=dataclasses.replace(full.vision, layers=2),
+                              text=dataclasses.replace(full.text, layers=2))
+    npr = np.random.RandomState(0)
+    x = npr.rand(4, 3, cfg.image_size, cfg.image_size).astype(np.float32)
+    x_adv = np.clip(x + np.sign(npr.randn(*x.shape)) * 4 / 255, 0, 1).astype(np.float32)
+    y = npr.randint(0, 10, 4)
+    temb = npr.randn(cfg.embed_dim, 10).astype(np.float32)
+    temb /= np.linalg.norm(temb, axis=0, keepdims=True)
+    cpu, cpu_orig = CLIP(cfg, device="cpu").init_random_(0), CLIP(cfg, device="cpu").init_random_(1)
+
+    def loss_and_grads(loss, dev, dtype):
+        tcfg = TrainConfig(loss=loss, inner_loss=loss, attack="none", compute_dtype=dtype)
+        model, orig = CLIP(cfg, device=dev), CLIP(cfg, device=dev)
+        model.load_state_dict(cpu.state_dict())
+        orig.load_state_dict(cpu_orig.state_dict())
+        step = TrainStep(tcfg, model, orig, torch.from_numpy(temb).to(dev))
+        xs, xas, ys = (torch.from_numpy(a).to(dev) for a in (x, x_adv, y))
+        total, _ = step.outer_loss(xs, ys, xas, step.frozen_embedding(xs))
+        names, params = zip(*model.visual.named_parameters())
+        grads = torch.autograd.grad(total, params)
+        return float(total.detach()), {n: g.detach().cpu().double() for n, g in zip(names, grads)}
+
+    witness = {loss: loss_and_grads(loss, "cpu", "float32") for loss in {c[0] for c in TRAIN_REF_CASES}}
+    res, launches, checks = {}, {}, {}
+    for loss, dtype in TRAIN_REF_CASES:
+        key = f"{loss}[{dtype}]"
+        _reset_launches()
+        got = loss_and_grads(loss, "cuda", dtype)
+        torch.cuda.synchronize()
+        launches[key] = _launches()
+        ref = witness[loss]
+        loss_rel = abs(got[0] - ref[0]) / abs(ref[0])
+        g_rel = {n: float((got[1][n] - g).norm() / g.norm()) for n, g in ref[1].items()
+                 if float(g.norm()) > 0}
+        res[key] = {"loss": ref[0], "loss_rel_err": loss_rel, "grad_rel_err_max": max(g_rel.values()),
+                    "grad_rel_err_worst_leaf": max(g_rel, key=g_rel.get), "leaves": len(g_rel)}
+        tol = TRAIN_REF_TOL[dtype]
+        checks[f"{key}_loss_rel"] = loss_rel <= tol["loss_rel"]
+        checks[f"{key}_grad_rel"] = res[key]["grad_rel_err_max"] <= tol["grad_rel"]
+    checks["launched"] = all(_launched(v, ("vit_attention_fwd", "vit_attention_bwd"))
+                             for v in launches.values())
+    emit({"phase": "train_reference", "model": "ViT-L-14 widths, 2 layers", "witness": "cpu float32",
+          "batch": 4, "results": res, "tol": TRAIN_REF_TOL, "launches": launches,
+          "wall_s": time.perf_counter() - t0, "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"train_reference checks failed: {checks}")
+    return launches["l2[float32]"]
+
+
+def phase_train(name: str) -> dict:
+    """`driver.main` (the training CLI) at ViT-L/14 full width for 3 steps,
+    then checks: every loss finite, the weights moved and the frozen
+    original did not, one chunk's x_adv inside the eps-ball and [0, 1] with
+    its inner loss above clean, and the visual tower exported as the
+    checkpoint manager writes `final.pt` loading back through
+    `visual_from_openai` to the same embedding."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.attacks.apgd import fold_in
+    from robustvlm_tpu_torch.data.loaders import SyntheticClassificationDataset
+    from robustvlm_tpu_torch.models.clip import CLIP, visual_from_openai
+    from robustvlm_tpu_torch.ops.image import normalize_clip
+    from robustvlm_tpu_torch.train import driver
+    from robustvlm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    # the run's files (a 1.2 GB export) go to a temporary directory
+    out = Path(tempfile.mkdtemp(prefix=f"train-{name}-"))
+    argv = TRAIN_COMMON + TRAIN_RUNS[name] + ["--output_dir", str(out), "--save_checkpoints", "false"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run = driver.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        recs = [json.loads(ln) for ln in (out / "metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in recs if "loss" in r]
+        cfg, ts = run.model.cfg, run.train_step
+        eps = ts.cfg.eps
+
+        moved = any(not torch.equal(a, b) for a, b in zip(run.model.visual.parameters(),
+                                                          run.model_orig.visual.parameters()))
+        fresh = CLIP(cfg, device="cuda").init_random_(0)
+        frozen = all(torch.equal(a, b) for a, b in zip(run.model_orig.parameters(), fresh.parameters()))
+        del fresh
+
+        x, y = SyntheticClassificationDataset(n=8, size=cfg.image_size).arrays()
+        x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+        emb_orig = ts.frozen_embedding(x)
+        x_adv = ts.inner_attack(x, y, emb_orig, fold_in(fold_in(1, 0), 0))
+        with torch.no_grad():
+            inner_adv, inner_clean = (float(ts.inner_loss(t, y, emb_orig)) for t in (x_adv, x))
+        linf = float((x_adv - x).abs().max())
+
+        t_exp = time.perf_counter()
+        path = CheckpointManager(str(out), 3).export_torch_visual(run.model, cfg)
+        sd = run.model.state_dict()
+        sd.update(visual_from_openai(torch.load(path), cfg))
+        back = CLIP(cfg, device="cuda")
+        back.load_state_dict(sd)
+        with torch.no_grad():
+            same = torch.equal(back.encode_image(normalize_clip(x[:2])),
+                               run.model.encode_image(normalize_clip(x[:2])))
+        export_s = time.perf_counter() - t_exp
+        del back, sd
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    step_s = [r["step_s"] for r in steps]
+    batch = int(argv[argv.index("--batch_size") + 1])
+    kernels = ("linf_step", "vit_attention_fwd", "vit_attention_bwd")
+    checks = {
+        "steps": [r["step"] for r in steps] == [1, 2, 3],
+        "losses_finite": all(math.isfinite(r["loss"]) and math.isfinite(r["loss_total"]) for r in steps),
+        "weights_moved": moved, "frozen_unchanged": frozen,
+        "x_adv_in_ball": linf <= eps + 1e-6,
+        "x_adv_in_box": float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0,
+        "inner_loss_above_clean": inner_adv > inner_clean,
+        "export_round_trip": same,
+        "linf_step_launches": launches["linf_step"] == TRAIN_LINF_LAUNCHES[name],
+        "launched": _launched(launches, kernels)
+        and (name != "tecoa2" or launches["flash_attention_fwd"] > 0),
+        "eval": (run.eval_metrics is not None) == (name == "tecoa2"),
+    }
+    emit({"phase": f"train[{name}]", "entry": "robustvlm_tpu_torch.train.driver.main", "argv": argv,
+          "cuts": TRAIN_CUTS, "wall_s": wall, "run_wall_s": run.wall_s,
+          "s_per_step": step_s, "imgs_per_sec": batch / (sum(step_s[1:]) / len(step_s[1:])),
+          "imgs_per_sec_cli": steps[-1]["imgs_per_sec"], "peak_mem_gib": peak,
+          "loss": [r["loss"] for r in steps], "cos_sim": [r["cos_sim"] for r in steps],
+          "eval": run.eval_metrics, "x_adv_linf": linf, "eps": eps,
+          "inner_loss": {"clean": inner_clean, "x_adv": inner_adv}, "export_s": export_s,
+          "launches": launches, "expected_linf_step_launches": TRAIN_LINF_LAUNCHES[name],
+          "card": card_line(), "checks": checks, "ok": all(checks.values())})
+    del run
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"train[{name}] checks failed: {checks}")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 8
 def _llava_cut(n_layers: int):
     """llava-1.5-7b at full width with the LM and the vision tower cut to
     `n_layers` transformer layers each."""
@@ -1091,7 +1344,7 @@ def adapter_seq_len(cfg, max_post_len: int = 16) -> int:
     return pre + cfg.n_image_tokens + max_post_len
 
 
-# ------------------------------------------------------------------ phase 7
+# ------------------------------------------------------------------ phase 9
 LLAVA_EPS = 2.0  # /255
 LLAVA_IMAGES = [  # COCO-style references, two images
     ["a man riding a wave on top of a surfboard", "a surfer rides a large wave in the ocean",
@@ -1199,7 +1452,7 @@ def phase_llava() -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ phase 8
+# ------------------------------------------------------------------ phase 10
 LLAVA_ENSEMBLE_ITERS = 5
 
 
@@ -1305,7 +1558,7 @@ def phase_llava_ensemble() -> dict:
     return full
 
 
-# ------------------------------------------------------------------ phase 9
+# ------------------------------------------------------------------ phase 11
 SERVE_ARGV = ["--device", "cuda", "--model", "llava", "--model_size", "7b", "--quantize-decode",
               "--quantize-bits", "4", "--host", "127.0.0.1", "--port", "0", "--controller-address", ""]
 SERVE_NEW_TOKENS = 32
@@ -1624,6 +1877,9 @@ def main() -> int:
     runs = {"main[float32]": phase_main("apgd-ce,apgd-t", 100, "float32"),
             "main[bfloat16]": phase_main("apgd-t", 100, "bfloat16")}
     phase_timed()
+    runs["train_reference"] = phase_train_reference()
+    runs["train[fare4]"] = phase_train("fare4")
+    runs["train[tecoa2]"] = phase_train("tecoa2")
     runs["llava_reference"] = phase_llava_reference()
     runs["llava"] = phase_llava()
     runs["llava_ensemble[float32 stage]"] = phase_llava_ensemble()

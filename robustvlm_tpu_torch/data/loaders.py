@@ -1,18 +1,22 @@
-"""Host-side evaluation data: the image transform, synthetic images and
-CIFAR-10.
+"""Host-side data: the image transform, an image-folder tree, synthetic
+images, CIFAR-10, and a shuffling, prefetching batch loader.
 
 Counterpart of `default_image_transform` (its PIL path; the native C++
-pipeline comes with training, ROADMAP A7), `SyntheticClassificationDataset`
-and `load_cifar10` in `robustvlm_tpu/data/loaders.py`. Images are float32
-NCHW in [0,1], without CLIP normalization (normalization happens inside the
-model).
+transform of `robustvlm_tpu/data/native.py` is not ported, ROADMAP A1),
+`ImageFolderDataset`, `SyntheticClassificationDataset`, `load_cifar10`,
+`prefetch_iter` and `DataLoader` in `robustvlm_tpu/data/loaders.py`. Images
+are float32 NCHW in [0,1], without CLIP normalization (normalization
+happens inside the model). `DataLoader` yields numpy batches in the JAX
+loader's order from the same seed.
 """
 
 from __future__ import annotations
 
 import pickle
+import queue
+import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -34,6 +38,35 @@ def default_image_transform(size: int = 224):
         return (np.asarray(img, np.float32) / 255.0).transpose(2, 0, 1)
 
     return tf
+
+
+class ImageFolderDataset:
+    """An ImageNet-style tree, one directory per class (sorted names give the
+    labels), image files sorted within each."""
+
+    EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
+
+    def __init__(self, root: str, transform: Optional[Callable] = None, size: int = 224):
+        self.root = Path(root)
+        self.transform = transform or default_image_transform(size)
+        classes = sorted(d.name for d in self.root.iterdir() if d.is_dir())
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples = [
+            (p, self.class_to_idx[c])
+            for c in classes
+            for p in sorted((self.root / c).iterdir())
+            if p.suffix.lower() in self.EXTS
+        ]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i) -> Tuple[np.ndarray, int]:
+        from PIL import Image
+
+        path, label = self.samples[i]
+        with Image.open(path) as img:
+            return self.transform(img), label
 
 
 class SyntheticClassificationDataset:
@@ -78,3 +111,87 @@ def load_cifar10(root: str, train: bool = False, n_examples: Optional[int] = Non
     if n_examples is not None:
         x, y = x[:n_examples], y[:n_examples]
     return x, y
+
+
+def prefetch_iter(it: Iterator, depth: int = 2) -> Iterator:
+    """Run `it` on a background daemon thread, keeping up to `depth` items
+    ready, so host decoding overlaps the consumer's device work. An
+    abandoned consumer stops the producer; a producer's exception is
+    raised at the consumer's next pull."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end, err = object(), object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for item in it:
+                if not put(item):
+                    return
+            put(end)
+        except BaseException as e:  # noqa: BLE001 - raised again at the consumer
+            put((err, e))
+
+    threading.Thread(target=producer, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, tuple) and len(item) == 2 and item[0] is err:
+                raise item[1]
+            yield item
+    finally:
+        stop.set()
+
+
+class DataLoader:
+    """Shuffling, batching, background-prefetching loader of numpy batches
+    (x (B, 3, S, S) float32, y (B,) int64). Epoch e's order is
+    `np.random.RandomState(seed + e).shuffle` of the indices, as in JAX."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True, drop_last: bool = True,
+                 seed: int = 0, prefetch: int = 2, num_threads: int = 8):
+        self.ds = dataset
+        self.bs = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.prefetch = prefetch
+        self.num_threads = num_threads
+        self.epoch = 0
+
+    def __len__(self):
+        n = len(self.ds)
+        return n // self.bs if self.drop_last else (n + self.bs - 1) // self.bs
+
+    def _load_batch(self, idxs: np.ndarray):
+        from concurrent.futures import ThreadPoolExecutor
+
+        if self.num_threads > 1 and len(idxs) > 8:
+            with ThreadPoolExecutor(self.num_threads) as ex:
+                items = list(ex.map(self.ds.__getitem__, idxs))
+        else:
+            items = [self.ds[i] for i in idxs]
+        return np.stack([it[0] for it in items]), np.asarray([it[1] for it in items], np.int64)
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        self.epoch += 1
+        n_batches = len(self)
+
+        def batches():
+            for b in range(n_batches):
+                yield self._load_batch(order[b * self.bs: (b + 1) * self.bs])
+
+        return prefetch_iter(batches(), self.prefetch)

@@ -1,5 +1,6 @@
 from robustvlm_tpu_torch.models.clip.convert import (
     clip_from_openai,
+    export_visual_state_dict,
     load_clip_checkpoint,
     params_from_jax,
     visual_from_openai,
@@ -17,6 +18,7 @@ __all__ = [
     "CLIPConfig",
     "TransformerConfig",
     "clip_from_openai",
+    "export_visual_state_dict",
     "load_clip_checkpoint",
     "params_from_jax",
     "visual_from_openai",

@@ -8,6 +8,9 @@ Counterpart of `robustvlm_tpu/models/clip/import_torch.py`:
   `PackedQ4Weight` (p, s) named tuples of the LLaMA serving layout) become
   the port's quantized modules (`ops/quant.py`) with their codes as they
   are, which `ops/quant.install_quantized` puts into a model;
+- `export_visual_state_dict` is the inverse of `visual_from_openai`: the
+  visual tower as a torch-layout state dict (`conv1.weight`, ...), the
+  checkpoint format the upstream eval stack loads;
 - `load_clip_checkpoint` reads the published checkpoint families: full
   openai/open_clip CLIP state dicts (`visual.conv1.weight`, ...),
   visual-only fine-tunes (FARE: `conv1.weight`, ...) overlaid on a base
@@ -128,6 +131,34 @@ def visual_from_openai(sd: Mapping[str, Any], cfg: CLIPConfig, prefix: str = "")
     }
     out.update(_blocks_from_openai(sd, prefix, cfg.vision.layers, "visual"))
     return out
+
+
+def export_visual_state_dict(sd: Mapping[str, torch.Tensor], cfg: CLIPConfig) -> StateDict:
+    """The port's `visual.*` entries -> a torch visual-tower state dict
+    (float32, on the CPU), the inverse of `visual_from_openai`."""
+    g = lambda k: sd["visual." + k].detach().float().cpu()
+    w, p = cfg.vision.width, cfg.patch_size
+    out = {
+        "conv1.weight": g("patch_embed").T.reshape(w, 3, p, p),
+        "class_embedding": g("class_embedding"),
+        "positional_embedding": g("positional_embedding"),
+        "ln_pre.weight": g("ln_pre.g"),
+        "ln_pre.bias": g("ln_pre.b"),
+    }
+    for i in range(cfg.vision.layers):
+        rb, ob = f"transformer.resblocks.{i}.", f"blocks.{i}."
+        for theirs, ours, transpose in (
+            ("ln_1.weight", "ln_1.g", False), ("ln_1.bias", "ln_1.b", False),
+            ("attn.in_proj_weight", "attn.qkv_w", True), ("attn.in_proj_bias", "attn.qkv_b", False),
+            ("attn.out_proj.weight", "attn.out_w", True), ("attn.out_proj.bias", "attn.out_b", False),
+            ("ln_2.weight", "ln_2.g", False), ("ln_2.bias", "ln_2.b", False),
+            ("mlp.c_fc.weight", "mlp.fc_w", True), ("mlp.c_fc.bias", "mlp.fc_b", False),
+            ("mlp.c_proj.weight", "mlp.proj_w", True), ("mlp.c_proj.bias", "mlp.proj_b", False),
+        ):
+            t = g(ob + ours)
+            out[rb + theirs] = t.T if transpose else t
+    out.update({"ln_post.weight": g("ln_post.g"), "ln_post.bias": g("ln_post.b"), "proj": g("proj")})
+    return {k: v.contiguous() for k, v in out.items()}
 
 
 def clip_from_openai(sd: Mapping[str, Any], cfg: CLIPConfig) -> StateDict:

@@ -12,9 +12,12 @@ the JAX package's parameter names and layouts (linear weights stored
 - Non-causal vision attention goes through the port's `vit_attention`,
   causal text attention through its `flash_attention` (CUDA kernels on the
   card for both), as the JAX `flash=True` branch routes them.
-- The weights are frozen (`requires_grad_(False)`): the attacks
+- The weights are created frozen (`requires_grad_(False)`): the attacks
   differentiate with respect to pixels only, so autograd computes no
-  weight gradients.
+  weight gradients. The trainer (`train/trainer.py`) unfreezes the model
+  it fine-tunes.
+- `remat=True` recomputes each vision block's activations in the backward
+  (`torch.utils.checkpoint`), the counterpart of the JAX `remat` flag.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
@@ -197,7 +201,7 @@ class VisionTower(nn.Module):
         self.ln_post = LayerNorm(w)
         self.proj = nn.Parameter(torch.zeros(w, cfg.embed_dim))
 
-    def forward(self, x, *, compute_dtype=torch.float32, tokens=False, n_skip_last=0):
+    def forward(self, x, *, compute_dtype=torch.float32, tokens=False, n_skip_last=0, remat=False):
         b = x.shape[0]
         p = self.patch_size
         g = x.shape[-1] // p
@@ -210,7 +214,10 @@ class VisionTower(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(cd)
         x = self.ln_pre(x)
         for blk in self.blocks[: len(self.blocks) - n_skip_last]:
-            x = blk(x)
+            if remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
         if tokens:
             return x.float()
         x = self.ln_post(x[:, 0])
@@ -259,11 +266,12 @@ class CLIP(nn.Module):
             self.to(device)
 
     def encode_image(self, x, *, normalize=False, compute_dtype=torch.float32,
-                     tokens=False, n_skip_last=0):
+                     tokens=False, n_skip_last=0, remat=False):
         """NCHW normalized pixels -> (B, embed_dim) float32 embedding;
         `tokens=True` returns every token's features after the (partial)
-        transformer."""
-        out = self.visual(x, compute_dtype=compute_dtype, tokens=tokens, n_skip_last=n_skip_last)
+        transformer; `remat` recomputes each block in the backward."""
+        out = self.visual(x, compute_dtype=compute_dtype, tokens=tokens, n_skip_last=n_skip_last,
+                          remat=remat)
         return _l2_normalize(out) if normalize and not tokens else out
 
     def encode_text(self, tokens, *, normalize=False, compute_dtype=torch.float32):

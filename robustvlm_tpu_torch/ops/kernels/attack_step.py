@@ -34,8 +34,10 @@ def jnp_sign(g: torch.Tensor) -> torch.Tensor:
 
 def _f32(value, device) -> torch.Tensor:
     """A float32 0-d tensor: the value rounded to float32 once, on the host,
-    as JAX rounds a weak-typed Python float against a float32 array."""
-    return torch.tensor(float(np.float32(value)), dtype=torch.float32, device=device)
+    as JAX rounds a weak-typed Python float against a float32 array. A fill,
+    not a copy from the host, so the plain version can be captured in a
+    CUDA graph."""
+    return torch.full((), float(np.float32(value)), dtype=torch.float32, device=device)
 
 
 def linf_step_plain(x_adv, x_adv_old, grad, x, step_size, eps, a) -> torch.Tensor:

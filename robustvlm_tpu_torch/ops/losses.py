@@ -1,7 +1,8 @@
-"""Attack losses: cross-entropy and the (targeted) DLR losses.
+"""Attack and training losses: cross-entropy, the (targeted) DLR losses and
+the FARE embedding loss.
 
-Counterpart of `robustvlm_tpu/ops/losses.py` (`ce_loss`, `dlr_loss`,
-`dlr_loss_targeted`); the DLR losses read the top-4 logits only.
+Counterpart of `robustvlm_tpu/ops/losses.py`; the DLR losses read the top-4
+logits only.
 """
 
 from __future__ import annotations
@@ -28,6 +29,22 @@ def ce_loss(logits: torch.Tensor, targets: torch.Tensor, reduction: str = "mean"
     return _reduce(nll, reduction)
 
 
+def ce_loss_targeted(logits: torch.Tensor, y_target: torch.Tensor,
+                     reduction: str = "none") -> torch.Tensor:
+    """-CE against the target class."""
+    return _reduce(-ce_loss(logits, y_target, reduction="none"), reduction)
+
+
+def l2_embedding_loss(embedding: torch.Tensor, embedding_orig: torch.Tensor,
+                      reduction: str = "mean") -> torch.Tensor:
+    """The FARE loss: per example, the squared error summed over the
+    feature axis (no division by the dimension); 'mean' averages the
+    per-example sums over the batch."""
+    if embedding.shape != embedding_orig.shape:
+        raise ValueError(f"l2_embedding_loss: {tuple(embedding.shape)} vs {tuple(embedding_orig.shape)}")
+    return _reduce(torch.square(embedding - embedding_orig).sum(dim=-1), reduction)
+
+
 def _top4_and_gather(logits: torch.Tensor, *idx: torch.Tensor):
     topv, topi = torch.topk(logits, 4, dim=-1)  # descending: topv[:, 0] is the max
     gathered = [torch.gather(logits, -1, i[:, None].long())[:, 0] for i in idx]
@@ -49,3 +66,26 @@ def dlr_loss_targeted(logits: torch.Tensor, y: torch.Tensor, y_target: torch.Ten
     topv, _, (z_y, z_t) = _top4_and_gather(logits, y, y_target)
     den = topv[:, 0] - 0.5 * (topv[:, 2] + topv[:, 3]) + _EPS_DIV
     return -(z_y - z_t) / den
+
+
+def make_loss_fn(loss: str, **kw):
+    """Per-example criterion fn(logits_or_embedding, y) -> (B,) by name:
+    'ce'; 'ce-targeted-cfts' (-CE toward y); 'ce-targeted' (needs
+    y_target); 'dlr'; 'dlr-targeted' (needs y_target); 'l2' (the FARE
+    distance, needs embedding_orig)."""
+    if loss == "ce":
+        return lambda out, y: ce_loss(out, y, reduction="none")
+    if loss == "ce-targeted-cfts":
+        return lambda out, y: -ce_loss(out, y, reduction="none")
+    if loss == "ce-targeted":
+        y_target = kw["y_target"]
+        return lambda out, y: ce_loss_targeted(out, y_target, reduction="none")
+    if loss == "dlr":
+        return dlr_loss
+    if loss == "dlr-targeted":
+        y_target = kw["y_target"]
+        return lambda out, y: dlr_loss_targeted(out, y, y_target)
+    if loss == "l2":
+        embedding_orig = kw["embedding_orig"]
+        return lambda out, y: l2_embedding_loss(out, embedding_orig, reduction="none")
+    raise ValueError(f"unknown loss: {loss}")

@@ -105,3 +105,27 @@ def test_cuda_kernel_bitwise_equals_plain():
             ref = K.linf_step_plain(*args, 2 / 255, a).cpu().numpy()
             assert _bits_equal(got, ref)
         assert K.LAUNCHES["linf_step"] == before + 2
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose data starts one float past 16-byte
+    alignment."""
+    flat = torch.cat([t.new_zeros(1), t.reshape(-1)])
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["whole_waves", "f_not_multiple_of_4", "misaligned", "b1", "b33"])
+def test_cuda_kernel_paths_bitwise_equal_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    b, f = {"whole_waves": (8, 3 * 224 * 224), "f_not_multiple_of_4": (8, 3 * 224 * 224 - 1),
+            "misaligned": (8, 3 * 224 * 224), "b1": (1, 3 * 224 * 224), "b33": (33, 3 * 224 * 224)}[case]
+    args = [torch.from_numpy(t).cuda() for t in _inputs(b, f, seed=5)]
+    if case == "misaligned":
+        args[:4] = [_misaligned(t) for t in args[:4]]
+        assert all(t.data_ptr() % 16 == 4 for t in args[:4])
+    for a in (1.0, 0.75):
+        got = K.fused_linf_apgd_step(*args, 4 / 255, a).cpu().numpy()
+        ref = K.linf_step_plain(*args, 4 / 255, a).cpu().numpy()
+        assert _bits_equal(got, ref)
