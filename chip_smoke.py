@@ -9,6 +9,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 at the main paths' shapes, with times (kernels by CUDA-graph
                 replay), bounds and the library call of the same function
                 (SDPA; PyTorch's int4 weight-only matmul for q4_matmul);
+                the flash kernels also with ALiBi at MPT-7B's shape in
+                OpenFlamingo (32 heads of 128, causal, the flamingo phase's
+                prompt length) against SDPA with the bias as a float mask;
                 planted faults show that the attention and q4_matmul checks
                 can fail;
   3. reference - ViT-B/32 logits and pixel gradient through the kernels
@@ -40,7 +43,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 with both precisions' models held together, every stage
                 run (its last in float32), with peak memory, the float32
                 stage's launches and the ms of one float32 loss and gradient;
- 11. serve    - the model worker (`build_worker`, its CLI's path) at
+ 11. flamingo_reference - OpenFlamingo-9B widths cut to 4 MPT layers (one
+                gated cross-attention block) and 2 vision layers, the whole
+                Perceiver, float32, gates opened to 0.5: the per-sample loss
+                and pixel gradient through the kernels on the card against
+                the plain path on the CPU;
+ 12. flamingo - `run_evaluation.main --model open_flamingo` at
+                OpenFlamingo-9B full width (32 MPT layers, 8 gated blocks,
+                ViT-L/14 at 224 px), bf16, 100 APGD iterations on 2 of 4
+                COCO-format images (2 text-only demos each), the gates
+                opened after the CLI builds the model (a random model with
+                the reference's zero gates ignores its image): ms per APGD
+                iteration, peak memory, the prompt length, each kernel's
+                launches (the flash kernels with ALiBi slopes), x_adv, the
+                loss at x_adv above clean, captions and CIDEr;
+ 13. flamingo_ensemble - the ensemble schedule at OpenFlamingo-9B full width
+                with both precisions held, every stage run: peak memory and
+                the ms of one float32 loss and gradient;
+ 14. serve    - the model worker (`build_worker`, its CLI's path) at
                 LLaVA-1.5-7B full width with int4 LM weights behind the
                 port's controller on local ports: captions, VQA, a stream,
                 the shift body and a batch-4 micro-batch over HTTP, with ms
@@ -54,6 +74,7 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -183,7 +204,8 @@ SDPA_BACKENDS = (("cudnn", "cuDNN"), ("flash", "flash"), ("fmha_cutlass", "memor
 
 def sdpa_backend(fn) -> dict:
     """Which of SDPA's backends ran in fn(), from the names of the CUDA
-    kernels of one torch.profiler pass; "math" when none of theirs ran."""
+    kernels of one torch.profiler pass; "math" when none of theirs ran, "not
+    measured" when the pass recorded no CUDA kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -195,6 +217,8 @@ def sdpa_backend(fn) -> dict:
     names = sorted({e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA})
     hits = [n for n in names if any(m in n for m, _ in SDPA_BACKENDS)]
     backend = next((b for m, b in SDPA_BACKENDS if any(m in n for n in hits)), "math")
+    if not names:  # the profiler saw no CUDA kernel at all: nothing to name
+        backend = "not measured"
     return {"library_backend": backend, "library_kernels": [n[:120] for n in hits[:4]],
             "profiled_kernels": len(names)}
 
@@ -901,6 +925,7 @@ def phase_kernels(peaks: dict) -> list:
           "bitwise_equal": True, "shape": list(LINF_SHAPE)})
     rows += check_attention(peaks)
     rows += check_flash(peaks)
+    rows += check_flash_alibi(peaks, max(flamingo_prompt_lens()))
     rows += check_q4_matmul(peaks)
     return rows
 
@@ -1354,8 +1379,9 @@ LLAVA_IMAGES = [  # COCO-style references, two images
 ]
 
 
-def _coco_fixture(root: Path) -> tuple:
-    """Two seeded 400x360 RGB images and a COCO-format annotations json."""
+def _coco_fixture(root: Path, captions=LLAVA_IMAGES) -> tuple:
+    """Seeded 400x360 RGB images, one a caption list, and a COCO-format
+    annotations json."""
     import numpy as np
     from PIL import Image
 
@@ -1363,7 +1389,7 @@ def _coco_fixture(root: Path) -> tuple:
     img_dir.mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(0)
     images, anns = [], []
-    for i, caps in enumerate(LLAVA_IMAGES):
+    for i, caps in enumerate(captions):
         name = f"COCO_val2014_{i:012d}.png"
         Image.fromarray(rng.randint(0, 255, (360, 400, 3), np.uint8)).save(img_dir / name)
         images.append({"id": i, "file_name": name})
@@ -1457,9 +1483,9 @@ LLAVA_ENSEMBLE_ITERS = 5
 
 
 class _FullStageLaunches(dict):
-    """`build_llava_models`' result; notes the launch counts when the float32
-    model is first taken, at the start of the ensemble's last stage, the
-    only one that runs it."""
+    """`build_llava_models`' (or `build_models`') result; notes the launch
+    counts when the float32 model is first taken, at the start of the
+    ensemble's last stage, the only one that runs it."""
 
     at_full = None
 
@@ -1559,6 +1585,448 @@ def phase_llava_ensemble() -> dict:
 
 
 # ------------------------------------------------------------------ phase 11
+# OpenFlamingo-9B. The reference initialises both gates of every gated
+# cross-attention block at 0, where tanh(0) = 0 and a random OpenFlamingo
+# ignores its image: the pixel gradient would be exactly 0 and APGD would
+# step by sign(0) = 0. The port's init and CLI keep the zero gates; these
+# phases open them to FLAMINGO_GATE after the weights are made.
+FLAMINGO_GATE = 0.5
+FLAMINGO_EPS = 2.0  # /255
+FLAMINGO_IMAGES = LLAVA_IMAGES + [  # four images: each attacked one has 2 demos besides itself
+    ["a dog catching a frisbee in a park", "a brown dog jumps for a frisbee",
+     "a dog playing on the grass", "a dog leaping in the air", "a dog with a red frisbee"],
+    ["a red bus parked on a city street", "a double decker bus on the road",
+     "a bus stopped at a station", "a large red bus near buildings", "a city bus driving by"],
+]
+FLAMINGO_KERNELS = ("linf_step", "vit_attention_fwd", "vit_attention_bwd",
+                    "flash_attention_fwd_alibi", "flash_attention_bwd_alibi")
+FLAMINGO_ENSEMBLE_ITERS = 5
+
+
+@contextlib.contextmanager
+def open_gates_in_cli(seen: dict):
+    """`run_evaluation.build_eval_model` wrapped for the duration: each
+    adapter the CLI builds gets its model's gates opened to FLAMINGO_GATE,
+    and records its teacher-forced prompts and their token lengths in
+    `seen` ("prompts", "lens"); the adapters stay in seen["adapters"]."""
+    import torch
+
+    from robustvlm_tpu_torch.vlm_eval import run_evaluation as R
+
+    orig = R.build_eval_model
+    seen.setdefault("prompts", [])
+    seen.setdefault("lens", [])
+    seen.setdefault("adapters", {})
+
+    def build(args, precision, models=None):
+        adapter = orig(args, precision, models)
+        with torch.no_grad():
+            open_gates_(adapter.model)
+        set_inputs = adapter.set_inputs
+
+        def record(prompts):
+            set_inputs(prompts)
+            seen["prompts"].append(list(prompts))
+            seen["lens"].append(int(adapter._lang.shape[1]))
+
+        adapter.set_inputs = record
+        seen["adapters"][precision] = adapter
+        return adapter
+
+    R.build_eval_model = build
+    try:
+        yield seen
+    finally:
+        R.build_eval_model = orig
+
+
+def open_gates_(model) -> None:
+    """Both gates of every cross-attention block to FLAMINGO_GATE, in place."""
+    for blk in model.xattn:
+        blk.attn_gate.fill_(FLAMINGO_GATE)
+        blk.ff_gate.fill_(FLAMINGO_GATE)
+
+
+def flamingo_prompt(adapter, caption: str) -> str:
+    """The 0-shot captioning prompt: 2 text-only demos (the CLI's, with
+    OpenFlamingo at 0 shots) and `caption` teacher-forced."""
+    from robustvlm_tpu_torch.vlm_eval.fewshot import build_context_text
+
+    demos = [{"caption": caps[0]} for caps in FLAMINGO_IMAGES[2:]]
+    return build_context_text(adapter, demos, 0) + adapter.get_caption_prompt(caption)
+
+
+def _flamingo_cut(n_lm: int, n_vision: int):
+    """openflamingo-9b at full width with the MPT cut to `n_lm` layers (one
+    gated block every 4) and the vision tower to `n_vision`; the Perceiver
+    whole; the hash tokenizer's <image> id."""
+    import dataclasses
+
+    from robustvlm_tpu_torch.models.flamingo.model import FLAMINGO_CONFIGS
+    from robustvlm_tpu_torch.vlm_eval.eval_models import WordTokenizer
+
+    cfg = FLAMINGO_CONFIGS["openflamingo-9b"]
+    vision = dataclasses.replace(cfg.vision, vision=dataclasses.replace(cfg.vision.vision, layers=n_vision))
+    return dataclasses.replace(cfg, name=f"openflamingo-9b-{n_lm}l", vision=vision,
+                               mpt=dataclasses.replace(cfg.mpt, n_layers=n_lm),
+                               media_token_id=WordTokenizer().media_token_id)
+
+
+def phase_flamingo_reference() -> dict:
+    """The OpenFlamingo loss path through the kernels on the card against the
+    plain path on the CPU: OF-9B widths cut to 4 MPT layers (one gated block)
+    and 2 vision layers, the whole 6-layer Perceiver with 64 latents,
+    float32, batch 1, the 2-demo 0-shot prompt, gates opened: the per-sample
+    loss (1e-4 relative) and its pixel gradient (1e-3 of its largest
+    element, and not 0). Returns the kernels' launches of the card's run."""
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.models.flamingo.convert import init_random_state
+    from robustvlm_tpu_torch.models.flamingo.model import Flamingo
+    from robustvlm_tpu_torch.vlm_eval.eval_models import FlamingoEvalModel, WordTokenizer
+
+    t0 = time.perf_counter()
+    cfg = _flamingo_cut(4, 2)
+    state = init_random_state(cfg, 0, "cpu")
+    for i in range(cfg.n_xattn):
+        for gate in ("attn_gate", "ff_gate"):
+            state[f"xattn.{i}.{gate}"].fill_(FLAMINGO_GATE)
+    size = cfg.vision.image_size
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 3, size, size).astype(np.float32))
+    out, launches, seq_len = {}, None, None
+    torch.cuda.reset_peak_memory_stats()
+    for dev in ("cpu", "cuda"):
+        model = Flamingo.from_state(cfg, {k: v.to(dev) for k, v in state.items()})
+        adapter = FlamingoEvalModel(model, WordTokenizer(), compute_dtype=torch.float32)
+        adapter.set_inputs([flamingo_prompt(adapter, FLAMINGO_IMAGES[0][0])])
+        seq_len = int(adapter._lang.shape[1])
+        xa = x.to(dev).requires_grad_(True)
+        _reset_launches()
+        loss = adapter(xa)
+        (grad,) = torch.autograd.grad(loss.sum(), xa)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = _launches()
+        out[dev] = (loss.detach().cpu().double(), grad.cpu().double())
+        del model, adapter
+    loss_rel = float(((out["cuda"][0] - out["cpu"][0]).abs() / out["cpu"][0].abs()).max())
+    g_max = float(out["cpu"][1].abs().max())
+    g_err = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    checks = {"loss_rel": loss_rel <= 1e-4, "grad": g_err <= 1e-3 * g_max,
+              "grad_nonzero": g_max > 0 and float(out["cuda"][1].abs().max()) > 0,
+              "finite": bool(torch.isfinite(out["cuda"][1]).all()),
+              "launched": _launched(launches, FLAMINGO_KERNELS[1:])}
+    emit({"phase": "flamingo_reference", "model": cfg.name, "dtype": "float32", "batch": 1,
+          "seq_len": seq_len, "gates": FLAMINGO_GATE, "loss": float(out["cpu"][0][0]),
+          "loss_rel_err": loss_rel, "grad_max_abs_err": g_err, "grad_max_abs": g_max,
+          "tol": {"loss_rel": 1e-4, "grad_of_largest": 1e-3}, "launches": launches,
+          "wall_s": time.perf_counter() - t0,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "checks": checks,
+          "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"flamingo_reference checks failed: {checks}")
+    return launches
+
+
+def flamingo_argv(img_dir, ann, out_dir, *flags) -> list:
+    return ["--device", "cuda", "--model", "open_flamingo", "--model_size", "7b", "--eval_coco",
+            "--coco_image_dir", str(img_dir), "--coco_annotations", str(ann),
+            "--eps", str(FLAMINGO_EPS), "--max_new_tokens", "32", "--out_base_path", str(out_dir),
+            "--verbose", *flags]
+
+
+def flamingo_prompt_lens() -> list:
+    """Token lengths of the `flamingo` phase's teacher-forced prompts, in
+    its item order, built by the CLI's own steps without a model: the eval
+    subset, the demo pool (the fixture's annotations, as the phase passes no
+    train file), each item's 2 text-only demos and its first caption."""
+    import torch
+
+    from robustvlm_tpu_torch.models.flamingo.model import Flamingo
+    from robustvlm_tpu_torch.vlm_eval import run_evaluation as R
+    from robustvlm_tpu_torch.vlm_eval.datasets import CaptionDataset
+    from robustvlm_tpu_torch.vlm_eval.eval_models import FlamingoEvalModel
+    from robustvlm_tpu_torch.vlm_eval.fewshot import build_context_text
+
+    img_dir, ann = _coco_fixture(OUT / "flamingo-coco", FLAMINGO_IMAGES)
+    args = R.build_parser().parse_args(flamingo_argv(img_dir, ann, OUT, "--num_samples", "2"))
+    tok = R._tokenizer(args)
+    with torch.device("meta"):
+        adapter = FlamingoEvalModel(Flamingo(R.flamingo_config(args, tok)), tok)
+    size = R._image_size(args)
+    ds = CaptionDataset(str(img_dir), str(ann), size=size, split="val")
+    train = CaptionDataset(str(img_dir), str(ann), size=size, split="train", image_root_train=str(img_dir))
+    items = R._wrap_few_shot(args, ds, train, 0, args.seed)
+    lens = []
+    for k in R._eval_indices(len(ds.ids), args.num_samples, args.seed):
+        item = items[int(k)]
+        prompt = build_context_text(adapter, item["demos"], 0) + adapter.get_caption_prompt(
+            item["all_captions"][0])
+        lens.append(len(adapter._encode(prompt)))
+    return lens
+
+
+# ------------------------------------------------------------------ phase 12
+def phase_flamingo() -> dict:
+    """`run_evaluation.main` at OpenFlamingo-9B full width (32 MPT layers, 8
+    gated blocks, ViT-L/14 at 224 px), random weights from seed 0 with the
+    gates opened after the CLI builds the model (`open_gates_in_cli`), bf16
+    APGD (--attack apgd), eps 2/255, 100 iterations, 2 of 4 COCO-format
+    images, each with 2 text-only demos of the others. Then the loss at
+    x_adv is recomputed against the clean loss on the CLI's own bf16 model.
+    Returns the kernels' launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.vlm_eval import run_evaluation as R
+    from robustvlm_tpu_torch.vlm_eval.datasets import CaptionDataset
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = OUT / "flamingo-coco"
+    img_dir, ann = _coco_fixture(root, FLAMINGO_IMAGES)
+    out_dir = root / "out"
+    argv = flamingo_argv(img_dir, ann, out_dir, "--attack", "apgd", "--n_iter", "100",
+                         "--num_samples", "2")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with open_gates_in_cli({}) as seen:
+        result = R.main(argv)["coco"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    adapter = seen["adapters"]["half"]
+    state = json.loads((out_dir / "coco" / "ensemble_state.json").read_text())
+    size = R._image_size(R.build_parser().parse_args(argv))
+    ds = CaptionDataset(str(img_dir), str(ann), size=size, split="val")
+    clean = {str(iid): ds[k]["image"] for k, iid in enumerate(ds.ids)}
+    per_image = []
+    with torch.no_grad():
+        # the runner sets one prompt an attacked image, in its item order
+        for iid, prompts in zip(state["ids"], seen["prompts"]):
+            x = np.asarray(clean[iid], np.float32)
+            x_adv = np.load(out_dir / "coco" / "adv" / f"{iid}.npy")
+            adapter.set_inputs(prompts)
+            losses = [float(adapter(torch.from_numpy(a[None]).cuda())[0]) for a in (x, x_adv)]
+            per_image.append({
+                "image_id": iid, "loss_clean": losses[0], "loss_adv": losses[1],
+                "linf": float(np.abs(x_adv.astype(np.float64) - x).max()),
+                "in_box": bool(x_adv.min() >= 0.0 and x_adv.max() <= 1.0),
+                "caption": state["best_outputs"][iid], "prompt_tokens": int(adapter._lang.shape[1]),
+            })
+    del adapter, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {
+        "in_box": all(r["in_box"] for r in per_image),
+        "in_ball": all(r["linf"] <= FLAMINGO_EPS / 255.0 + 1e-6 for r in per_image),
+        "loss_raised": all(r["loss_adv"] > r["loss_clean"] for r in per_image),
+        "captions": all(isinstance(r["caption"], str) for r in per_image),
+        "cider": isinstance(result["cider"], float) and math.isfinite(result["cider"]),
+        "launched": _launched(launches, FLAMINGO_KERNELS),
+        "linf_step_100_per_image": launches["linf_step"] == 100 * len(per_image),
+        # the ALiBi kernel rows were checked and timed at this length
+        "prompt_tokens_as_kernel_rows": [r["prompt_tokens"] for r in per_image] == flamingo_prompt_lens(),
+        "iterations": result["attack_iters"] == 100 * len(per_image) == 200,
+    }
+    lens = [r["prompt_tokens"] for r in per_image]
+    emit({"phase": "flamingo", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation.main",
+          "argv": argv, "model": "openflamingo-9b", "dtype": "bfloat16", "gates": FLAMINGO_GATE,
+          "prompt_tokens": lens, "wall_s": wall, "attack_s": result["attack_s"],
+          "attack_iters": result["attack_iters"],
+          "ms_per_apgd_iter": result["attack_s"] / result["attack_iters"] * 1e3,
+          "peak_mem_gib": peak, "cider": result["cider"], "per_image": per_image,
+          "eps": FLAMINGO_EPS / 255.0, "launches": launches, "card": card_line(),
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"flamingo checks failed: {checks}")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 13
+def phase_flamingo_ensemble() -> dict:
+    """`--attack ensemble` at OpenFlamingo-9B full width on one image: one
+    set of random weights (seed 0, gates opened) held as one float32 and one
+    bf16 copy, the clean pass, five bf16 APGD stages and the float32
+    prev-best stage at FLAMINGO_ENSEMBLE_ITERS iterations each, through
+    `evaluate_captioning` with the early-stop threshold at -inf (random
+    weights caption at CIDEr 0, under COCO's 10). Then the float32 adapter's
+    loss and pixel gradient are timed alone. Returns the float32 stage's
+    launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.vlm_eval import run_evaluation as R
+    from robustvlm_tpu_torch.vlm_eval.datasets import CaptionDataset
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    img_dir, ann = _coco_fixture(OUT / "flamingo-coco", FLAMINGO_IMAGES)
+    out_dir = OUT / "flamingo-ensemble"
+    argv = flamingo_argv(img_dir, ann, out_dir, "--attack", "ensemble", "--n_iter",
+                         str(FLAMINGO_ENSEMBLE_ITERS), "--num_samples", "1")
+    args = R.build_parser().parse_args(argv)
+    schedule = R.captioning_schedule(args)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _reset_launches()
+    t0 = time.perf_counter()
+    built = R.build_models(args, {s.precision for s in schedule}, torch.device("cuda"))
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    held = {t.data_ptr(): t.numel() * t.element_size()
+            for m in built.values() for t in m.state_dict().values()}
+    n_params = sum(t.numel() for t in built["full"].state_dict().values())
+    n_matrix = sum(t.numel() for t in built["half"].state_dict().values() if t.dtype == torch.bfloat16)
+    models = _FullStageLaunches(built)
+    with open_gates_in_cli({}) as seen:
+        result = R.evaluate_captioning(args, "coco", str(img_dir), str(ann), models=models,
+                                       threshold=-math.inf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = _launches()
+    full = {k: total[k] - models.at_full[k] for k in total}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    adapter = seen["adapters"]["full"]
+    adapter.set_inputs(seen["prompts"][-1])
+    iid = json.loads((out_dir / "coco" / "ensemble_state.json").read_text())["ids"][0]
+    ds = CaptionDataset(str(img_dir), str(ann), size=R._image_size(args), split="val")
+    x_np = np.asarray(ds[[str(i) for i in ds.ids].index(iid)]["image"], np.float32)
+    x = torch.from_numpy(x_np[None]).cuda()
+
+    def fp32_iteration():
+        xa = x.clone().requires_grad_(True)
+        torch.autograd.grad(adapter(xa).sum(), xa)
+
+    fp32_ms = time_ms(fp32_iteration, iters=3, warmup=1)
+    del adapter, seen, models, built
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = json.loads((out_dir / "coco" / "ensemble_state.json").read_text())
+    x_adv = np.load(out_dir / "coco" / "adv" / f"{iid}.npy")
+    linf = float(np.abs(x_adv.astype(np.float64) - x_np).max())
+    checks = {
+        "every_stage_ran": (state["stages_done"] == len(schedule)
+                            and result["attack_iters"] == (len(schedule) - 1) * FLAMINGO_ENSEMBLE_ITERS),
+        "one_copy_per_precision": sum(held.values()) == 4 * n_params + 2 * n_matrix,
+        "nothing_else_allocated": allocated <= sum(held.values()) + 2**26,
+        "in_box": bool(x_adv.min() >= 0.0 and x_adv.max() <= 1.0),
+        "in_ball": linf <= FLAMINGO_EPS / 255.0 + 1e-6,
+        "caption": isinstance(state["best_outputs"][iid], str),
+        "cider": isinstance(result["cider"], float) and math.isfinite(result["cider"]),
+        "launched": _launched(total, FLAMINGO_KERNELS),
+        "float32_stage_launched_alibi": _launched(full, FLAMINGO_KERNELS[3:]),
+    }
+    emit({"phase": "flamingo_ensemble", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation."
+          "evaluate_captioning", "argv": argv, "threshold": "-inf", "model": "openflamingo-9b",
+          "gates": FLAMINGO_GATE, "stages": len(schedule), "iters_per_stage": FLAMINGO_ENSEMBLE_ITERS,
+          "wall_s": wall, "attack_s": result["attack_s"], "attack_iters": result["attack_iters"],
+          "float32_ms_per_loss_and_grad": fp32_ms, "weights_allocated_gib": allocated / 2**30,
+          "held_tensor_gib": sum(held.values()) / 2**30, "peak_mem_gib": peak,
+          "launches": total, "launches_float32_stage": full, "linf": linf,
+          "cider": result["cider"], "card": card_line(), "checks": checks,
+          "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"flamingo_ensemble checks failed: {checks}")
+    return full
+
+
+def check_flash_alibi(peaks: dict, n: int) -> list:
+    """The flash forward and backward with ALiBi at OpenFlamingo's MPT-7B
+    shape: 32 heads of 128, causal, the slopes of `alibi_slopes(32)`, n the
+    `flamingo` phase's longest teacher-forced prompt (`flamingo_prompt_lens`);
+    float32 and bf16. The
+    same checks as the other flash rows (limits ATTN_TOL/LSE_TOL, four
+    planted faults caught, the backward bitwise repeatable); times by
+    CUDA-graph replay against SDPA with the ALiBi bias and the causal mask
+    as one additive float attn_mask (in q's dtype). Rows take their
+    launches from `flamingo` (bf16) and the float32 stage of
+    `flamingo_ensemble`."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from robustvlm_tpu_torch.models.mpt.model import alibi_slopes
+    from robustvlm_tpu_torch.ops.kernels import flash_attention as F
+
+    bh, d = 32, 128
+    slopes = torch.from_numpy(alibi_slopes(bh)).cuda()
+    i = torch.arange(n, device="cuda")
+    rel = (i[:, None] - i[None, :]).float()
+    bias = torch.where(rel >= 0, -slopes[:, None, None] * rel, -math.inf)[None]  # (1, H, n, n)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        (q, k, v, do), _ = _flash_inputs(bh, n, n, d, dtype, seed=n)
+        kw = dict(causal=True, slopes=slopes)
+        o, lse = F.flash_fwd_cuda(q, k, v, **kw)
+        grads = F.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+        again = F.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+        got = (o, lse, *grads)
+        ref = _flash_plain_all(q, k, v, do, kw)
+        res = _attn_check(dname, got, ref, False)
+        repeatable = all(torch.equal(a, b) for a, b in zip(grads, again))
+        controls = _flash_controls(dname, q, k, v, do, kw, got, ref)
+        ok = all(r[1] for r in res.values()) and repeatable and all(controls.values())
+        emit({"phase": "kernels", "kernel": "flash_attention", "case": "alibi_openflamingo",
+              "dtype": dname, "shape": [bh, n, n, d], "causal": True, "alibi": True,
+              "max_abs_err": {m: e for m, (e, _) in res.items()},
+              "within": {m: w for m, (_, w) in res.items()}, "bwd_bitwise_repeatable": repeatable,
+              "controls_caught": controls,
+              "tol": {"outputs": ATTN_TOL[dname], "relative_to_max_ref": dname != "float32",
+                      "lse": LSE_TOL}, "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash_attention {dname} with ALiBi at OpenFlamingo's shape: "
+                                 "disagrees, is not repeatable, or a planted fault passed")
+        fwd_ms = time_graph_ms(lambda: F.flash_fwd_cuda(q, k, v, **kw))
+        fwd_plain = time_ms(lambda: F.flash_fwd_plain(q, k, v, **kw), iters=5)
+        bwd_ms = time_graph_ms(lambda: F.flash_bwd_cuda(q, k, v, o, lse, do, **kw))
+        bwd_plain = time_ms(lambda: F.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=5)
+        q4, k4, v4, do4 = (t.view(1, bh, n, d) for t in (q, k, v, do))
+        mask = bias.to(dtype)
+
+        def sdpa_alibi(q_, k_, v_):
+            return Fn.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask)
+
+        lib_fwd = time_graph_ms(lambda: sdpa_alibi(q4, k4, v4))
+        lib_err = float((sdpa_alibi(q4, k4, v4).float() - ref[0].view(1, bh, n, d).float()).abs().max())
+        fwd_backend = sdpa_backend(lambda: sdpa_alibi(q4, k4, v4))
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
+        lib_bwd = time_graph_fwd_bwd_ms(sdpa_alibi, (ql, kl, vl), do4)
+        lib_bwd.update(sdpa_backend(lambda: torch.autograd.grad(sdpa_alibi(ql, kl, vl), (ql, kl, vl), do4)))
+        itm = q.element_size()
+        elems = bh * n * d
+        causal_pairs = bh * n * (n + 1) / 2
+        fb, fby = bound_ms(4 * elems * itm + bh * n * 4, 4 * causal_pairs * d, dname, peaks)
+        bb, bby = bound_ms(8 * elems * itm + bh * n * 4, 10 * causal_pairs * d, dname, peaks)
+        common = {"route": "cuda", "dtype": dname, "shape": [bh, n, d], "causal": True, "alibi": True,
+                  "launches_from": "flamingo" if dtype == torch.bfloat16
+                  else "flamingo_ensemble[float32 stage]",
+                  "library": "SDPA, ALiBi bias + causal mask as one additive float attn_mask"}
+        rows.append({"name": f"flash_attention_fwd_alibi[{dname}]", **common,
+                     **_attn_source("fwd", dname, "flash_attention.cu"),
+                     "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
+                     "max_abs_err": res["o"][0], "ms": fwd_ms, "plain_ms": fwd_plain,
+                     "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
+                     "library_max_abs_err": lib_err, **fwd_backend, "timed_by": TIMED_BY["fwd"]})
+        rows.append({"name": f"flash_attention_bwd_alibi[{dname}]", **common,
+                     **_attn_source("bwd", dname, "flash_attention.cu"),
+                     "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:273 (dQ), :295 (dK/dV)",
+                     "max_abs_err": max(res["dq"][0], res["dk"][0], res["dv"][0]), "ms": bwd_ms,
+                     "plain_ms": bwd_plain, "bound_ms": bb, "bound_by": bby, **lib_bwd,
+                     "timed_by": TIMED_BY["bwd"]})
+    return rows
+
+
+# ------------------------------------------------------------------ phase 14
 SERVE_ARGV = ["--device", "cuda", "--model", "llava", "--model_size", "7b", "--quantize-decode",
               "--quantize-bits", "4", "--host", "127.0.0.1", "--port", "0", "--controller-address", ""]
 SERVE_NEW_TOKENS = 32
@@ -1883,11 +2351,15 @@ def main() -> int:
     runs["llava_reference"] = phase_llava_reference()
     runs["llava"] = phase_llava()
     runs["llava_ensemble[float32 stage]"] = phase_llava_ensemble()
+    runs["flamingo_reference"] = phase_flamingo_reference()
+    runs["flamingo"] = phase_flamingo()
+    runs["flamingo_ensemble[float32 stage]"] = phase_flamingo_ensemble()
     runs["serve"] = phase_serve()
     # Each row takes the launches of the run of its path and dtype: the CLIP
     # kernels from the CLI's CLIP runs; flash in bf16 from the LLaVA eval,
     # in float32 from the ensemble's float32 stage (at head dim 64 from the
-    # float32 CLIP run's text tower); q4_matmul from serving.
+    # float32 CLIP run's text tower; with ALiBi from the OpenFlamingo runs,
+    # named in the row); q4_matmul from serving.
     for r in rows:
         kernel = r.pop("counter", r["name"].split("[")[0])
         if "launches_from" in r:

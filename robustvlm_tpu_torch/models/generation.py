@@ -4,7 +4,8 @@ Counterpart of `robustvlm_tpu/models/generation.py` (the JAX scans become
 Python loops over one-token decode steps). Prompts are LEFT-padded so every
 example writes cache slot T + i at step i; a key-validity mask hides the
 pad slots. Model-agnostic: driven by a `prefill_fn` / `decode_fn` pair
-(`models/llava/model.make_llava_decode_fns`).
+(`models/llava/model.make_llava_decode_fns`,
+`models/flamingo/model.make_flamingo_decode_fns`).
 """
 
 from __future__ import annotations
@@ -76,11 +77,15 @@ def beam_generate(prefill_fn: Callable, decode_fn: Callable, prompt_tokens: torc
                   num_beams: int = 3, length_penalty: float = 0.0,
                   pad_id: int = 0) -> GenerateResult:
     """Batched beam search with HF-style length penalty (score = logp /
-    len**length_penalty). Cache rows (axis 1 of the (L, B, ...) buffers) are
-    reordered each step."""
+    len**length_penalty). The carry's rows are reordered each step: by
+    default a dict of (L, B, ...) cache buffers, batch on axis 1; a decode
+    family whose carry holds more (Flamingo's media_locations, batch on
+    axis 0) sets `prefill_fn.reorder_carry(carry, gather)`."""
     b, t = prompt_tokens.shape
     nb = num_beams
     dev = prompt_tokens.device
+    reorder = getattr(prefill_fn, "reorder_carry",
+                      lambda carry, gather: {k: buf[:, gather] for k, buf in carry.items()})
     tokens_r = prompt_tokens.repeat_interleave(nb, dim=0)
     n_pad_r = n_pad.repeat_interleave(nb, dim=0)
     logits, cache, kv_mask = _start(prefill_fn, tokens_r, n_pad_r, max_new_tokens)
@@ -103,7 +108,7 @@ def beam_generate(prefill_fn: Callable, decode_fn: Callable, prompt_tokens: torc
         tok = top_idx % v
         gather = (torch.arange(b, device=dev)[:, None] * nb + src_beam).reshape(-1)
 
-        cache = {k: buf[:, gather] for k, buf in cache.items()}
+        cache = reorder(cache, gather)
         kv_mask = kv_mask[gather]
         out_toks = out_toks[gather]
         done = done[gather]

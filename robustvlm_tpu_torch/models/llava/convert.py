@@ -30,7 +30,7 @@ from robustvlm_tpu_torch.models.llava.model import Llava, LlavaConfig, half_stat
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
     """A JAX LLaVA parameter tree -> the port's `Llava` state dict."""
     if "mpt" in tree:
-        raise NotImplementedError("LLaVA-MPT is not ported (ROADMAP A11, OpenFlamingo/MPT)")
+        raise NotImplementedError("LLaVA-MPT is not ported (ROADMAP A3, its kv_positions splice)")
     tree = dict(tree)
     layers = tree.pop("layers", None)
     out = _tree_to_state(tree)

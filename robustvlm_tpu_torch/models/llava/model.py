@@ -56,7 +56,7 @@ class LlavaConfig:
 class _Configs(dict):
     def __missing__(self, name):
         if name == "test-tiny-mpt":
-            raise NotImplementedError("LLaVA-MPT is not ported (ROADMAP A11, OpenFlamingo/MPT)")
+            raise NotImplementedError("LLaVA-MPT is not ported (ROADMAP A3, its kv_positions splice)")
         raise KeyError(name)
 
 

@@ -38,8 +38,10 @@ import torch
 from robustvlm_tpu_torch.ops.kernels import _build
 
 # launches of the CUDA kernels (not of the plain versions); one backward
-# launch is the dQ kernel followed by the dK/dV kernel
-LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+# launch is the dQ kernel followed by the dK/dV kernel. The `_alibi` counts
+# are the launches of them with ALiBi slopes (MPT), among the others.
+LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "flash_attention_fwd_alibi": 0, "flash_attention_bwd_alibi": 0}
 
 HEAD_DIMS = (64, 128)  # CLIP text towers and LLaMA-7B
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -170,6 +172,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = False, slopes=None):
         )
     _build.check_launch(err, "flash_attention forward")
     LAUNCHES["flash_attention_fwd"] += 1
+    LAUNCHES["flash_attention_fwd_alibi"] += slopes is not None
     return o, lse
 
 
@@ -189,6 +192,7 @@ def flash_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = False, slopes=None):
         )
     _build.check_launch(err, "flash_attention backward")
     LAUNCHES["flash_attention_bwd"] += 1
+    LAUNCHES["flash_attention_bwd_alibi"] += slopes is not None
     return dq, dk, dv
 
 

@@ -31,6 +31,7 @@ import torch
 
 from robustvlm_tpu_torch.attacks.apgd import apgd_attack, fold_in
 from robustvlm_tpu_torch.vlm_eval.datasets import save_adv_image
+from robustvlm_tpu_torch.vlm_eval.eval_models import make_frame_mask
 
 
 def _crit_untargeted(o, y):
@@ -90,9 +91,14 @@ class EnsembleRunner:
     prompt: spec.target_str for targeted specs, else the gt caption/answer
     selected by spec.gt_idx.
 
-    `host_loop` is JAX machinery (a host-driven attack loop to bound compile
-    time); the port's APGD is always a Python loop, so it is accepted and
-    ignored. `mask_out` (few-shot frame masks) comes with OpenFlamingo.
+    `mask_out` ('context' / 'query') masks the gradient of few-shot media
+    frames (`eval_models.make_frame_mask`) where the input has a media axis
+    of more than one frame, (B, T > 1, F, C, H, W); at 0 shots there is
+    none. `host_loop` is JAX machinery (a host-driven attack loop to bound
+    compile time); the port's APGD is always a Python loop, so it is
+    accepted and ignored. The JAX runner's pad-length bucketing of batched
+    Flamingo stages, also a retrace bound, is not carried over (end padding
+    leaves the loss unchanged).
     """
 
     def __init__(self, make_model: Callable[[str], object], *, eps: float, norm: str = "linf",
@@ -101,9 +107,7 @@ class EnsembleRunner:
                  threshold: float = 10.0, out_dir: Optional[str] = None,
                  max_new_tokens: int = 32, num_beams: int = 1, verbose: bool = True,
                  host_loop: bool = False, mask_out: Optional[str] = None, batch_size: int = 1):
-        if mask_out not in (None, "none"):
-            raise NotImplementedError(
-                "EnsembleRunner: few-shot frame masks are not ported (ROADMAP A11, OpenFlamingo)")
+        self.mask_out = mask_out if mask_out not in (None, "none") else None
         self.make_model = make_model
         self.eps = eps
         self.norm = norm
@@ -174,9 +178,12 @@ class EnsembleRunner:
         if spec.kind == "none":
             return x
         crit = _crit_targeted if spec.targeted else _crit_untargeted
+        mask = None
+        if self.mask_out and x.dim() == 6 and x.shape[1] > 1:
+            mask = make_frame_mask(tuple(x.shape), self.mask_out).to(x.device)
         res = apgd_attack(
             model, x, None, criterion=crit, eps=self.eps, n_iter=spec.n_iter, norm=self.norm,
-            x_init=x_init, rng=rng,
+            mask=mask, x_init=x_init, rng=rng,
             # targeted stages all teacher-force the same target: a random
             # start (seeded per stage and item) makes the worst case over
             # stages more than one run repeated; untargeted stages start

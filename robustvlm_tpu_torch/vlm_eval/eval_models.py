@@ -1,7 +1,9 @@
-"""The LLaVA eval-model adapter: the threat-model layer of the VLM attacks.
+"""The LLaVA and OpenFlamingo eval-model adapters: the threat-model layer of
+the VLM attacks.
 
-Counterpart of `WordTokenizer`, `truncate_at_stops` and `LlavaEvalModel` in
-`robustvlm_tpu/vlm_eval/eval_models.py`: holds the model and a tokenizer,
+Counterpart of `WordTokenizer`, `truncate_at_stops`, `LlavaEvalModel`,
+`FlamingoEvalModel` and `make_frame_mask` in
+`robustvlm_tpu/vlm_eval/eval_models.py`: each adapter holds the model and a tokenizer,
 builds prompts, caches the tokenized teacher-forcing targets (`set_inputs`),
 exposes `__call__(x01) -> (B,) per-sample loss` for the attack loop and
 `get_outputs(x01) -> captions` for generation; pixels are unnormalized
@@ -16,18 +18,24 @@ lazily beside the fp model (`quantize_decode`) or in place for a
 serving-only process (`quantize_for_serving`), and `stream_tokens` /
 `stream_outputs` yield tokens as they are made. Not ported here: the
 continuous-batching cores and speculative decoding (ROADMAP A13); the
-OpenFlamingo and BLIP-2 adapters (ROADMAP A11, A12).
+BLIP-2 adapter (ROADMAP A12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 import zlib
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from robustvlm_tpu_torch.models.flamingo.model import (
+    Flamingo,
+    flamingo_per_sample_loss,
+    make_flamingo_decode_fns,
+)
 from robustvlm_tpu_torch.models.generation import (
     beam_generate,
     greedy_generate,
@@ -276,21 +284,166 @@ class LlavaEvalModel:
                                            self.tok.pad_token_id)]
 
 
+class FlamingoEvalModel:
+    """OpenFlamingo adapter. Prompts follow the reference few-shot format,
+    '<image>Output:...<|endofchunk|>' chains; `__call__` returns the
+    per-sample SUMMED CE over the answer span, the labels masked up to and
+    including the LAST ':' of the prompt (the reference's get_label), and
+    <image> / <|endofchunk|> never carry loss. Pixels are (B, T_img, F, C,
+    H, W) in [0,1]; a (B, C, H, W) batch is one frame of one media slot.
+
+    `pad_to_multiple` rounds the token length up (end padding leaves the
+    loss unchanged: causal attention and masked labels)."""
+
+    DEFAULT_STOPS = ("<|endofchunk|>", "Output:", "Question:")
+
+    def __init__(self, model: Flamingo, tokenizer, *, compute_dtype=torch.bfloat16,
+                 remat: bool = False, max_len: int = 128, pad_to_multiple: Optional[int] = None):
+        if remat:
+            raise NotImplementedError("FlamingoEvalModel: remat is not ported (ROADMAP A1, training)")
+        self.model = model
+        self.cfg = model.cfg
+        self.tok = tokenizer
+        self.compute_dtype = compute_dtype
+        self.max_len = max_len
+        self.pad_to_multiple = pad_to_multiple
+        self._lang = self._labels = self._mask = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def get_caption_prompt(self, caption: Optional[str] = None) -> str:
+        c = f" {caption.strip()}<|endofchunk|>" if caption else ""
+        return f"<image>Output:{c}"
+
+    def get_vqa_prompt(self, question: str, answer: Optional[str] = None) -> str:
+        a = f" {answer.strip()}<|endofchunk|>" if answer else ""
+        return f"<image>Question:{question.strip()} Short answer:{a}"
+
+    def _encode(self, text: str) -> List[int]:
+        """Split ONLY on <image> and <|endofchunk|> and encode each plain
+        segment in one call (BPE tokenizers are whitespace-sensitive, and the
+        reference tokenizes the whole prompt with both markers registered as
+        special tokens)."""
+        out = []
+        for seg in re.split(r"(<image>|<\|endofchunk\|>)", text):
+            if seg == "<image>":
+                out.append(self.cfg.media_token_id)
+            elif seg == "<|endofchunk|>":
+                out.append(self.tok.eos_token_id)
+            elif seg:
+                out.extend(_encode_plain(self.tok, seg))
+        return out
+
+    def set_inputs(self, full_prompts: Sequence[str]) -> None:
+        """Tokenize teacher-forcing prompts: the context up to the last ':'
+        and the answer after it as separate segments, so the answer mask is
+        exact in token space; right-padded to the longest (rounded up to
+        `pad_to_multiple`), at most `max_len`."""
+        langs, masks = [], []
+        special = (self.cfg.media_token_id, self.tok.eos_token_id)
+        for p in full_prompts:
+            marker = p.rfind(":")
+            if marker >= 0:
+                ctx_ids, ans_ids = self._encode(p[:marker + 1]), self._encode(p[marker + 1:])
+            else:
+                ctx_ids, ans_ids = [], self._encode(p)
+            ids = ctx_ids + ans_ids
+            m = [0.0] * len(ctx_ids) + [1.0] * len(ans_ids)
+            langs.append(ids)
+            masks.append([0.0 if t in special else w for t, w in zip(ids, m)])
+        t = max(len(x) for x in langs)
+        if self.pad_to_multiple:
+            t = -(-t // self.pad_to_multiple) * self.pad_to_multiple
+        t = min(t, self.max_len)
+        lang_arr, _ = _pad_right(langs, self.tok.pad_token_id, t)
+        mask_arr = np.zeros((len(langs), t), np.float32)
+        for i, m in enumerate(masks):
+            m = m[:t]
+            mask_arr[i, :len(m)] = m
+        dev = self.device
+        self._lang = torch.from_numpy(lang_arr).long().to(dev)
+        self._labels = self._lang
+        self._mask = torch.from_numpy(mask_arr).to(dev)
+
+    def __call__(self, vision_x: torch.Tensor) -> torch.Tensor:
+        if self._lang is None:
+            raise RuntimeError("FlamingoEvalModel: call set_inputs first")
+        if vision_x.dim() == 4:  # (B, C, H, W) -> (B, T=1, F=1, C, H, W)
+            vision_x = vision_x[:, None, None]
+        return flamingo_per_sample_loss(self.model, vision_x, self._lang, self._labels, self._mask,
+                                        compute_dtype=self.compute_dtype)
+
+    def _decode_fns(self, vision_x, prompts, max_new_tokens):
+        """(prefill_fn, decode_fn, left-padded tokens, n_pad) of a generation."""
+        if vision_x.dim() == 4:
+            vision_x = vision_x[:, None, None]
+        toks, n_pad = left_pad([self._encode(p) for p in prompts], self.tok.pad_token_id)
+        dev = self.device
+        pf, df = make_flamingo_decode_fns(self.model, vision_x,
+                                          max_total_len=toks.shape[1] + max_new_tokens,
+                                          compute_dtype=self.compute_dtype)
+        return pf, df, torch.from_numpy(toks).long().to(dev), torch.from_numpy(n_pad).long().to(dev)
+
+    @torch.no_grad()
+    def get_outputs(self, vision_x: torch.Tensor, prompts: Sequence[str], *, max_new_tokens: int = 32,
+                    num_beams: int = 1, length_penalty: float = 0.0,
+                    stop_strings: Sequence[str] = DEFAULT_STOPS) -> List[str]:
+        pf, df, toks, n_pad = self._decode_fns(vision_x, prompts, max_new_tokens)
+        kw = dict(max_new_tokens=max_new_tokens, eos_id=self.tok.eos_token_id,
+                  pad_id=self.tok.pad_token_id)
+        if num_beams == 1:
+            res = greedy_generate(pf, df, toks, n_pad, **kw)
+        else:
+            res = beam_generate(pf, df, toks, n_pad, num_beams=num_beams,
+                                length_penalty=length_penalty, **kw)
+        return [truncate_at_stops(self.tok.decode(ids), stop_strings)
+                for ids in strip_after_eos(res.tokens, self.tok.eos_token_id,
+                                           self.tok.pad_token_id)]
+
+
 def stream_outputs(model, x01: torch.Tensor, prompt: str, *, max_new_tokens: int = 32,
                    stop_strings: Optional[Sequence[str]] = None, speculate: int = 0):
     """Yield the cumulative decoded text of ONE example as greedy tokens
-    arrive (the serving stream path), through the adapter's `stream_tokens`."""
+    arrive (the serving stream path), through the adapter's `_decode_fns`."""
     if speculate:
         raise NotImplementedError("speculative decoding is not ported (ROADMAP A13, serving)")
     stops = tuple(stop_strings) if stop_strings is not None else model.DEFAULT_STOPS
+    pf, df, toks, n_pad = model._decode_fns(x01, [prompt], max_new_tokens)
     ids: List[int] = []
-    for step in model.stream_tokens(x01, [prompt], max_new_tokens):
-        t_id = int(step[0])
-        if t_id in (model.tok.eos_token_id, model.tok.pad_token_id):
-            break
-        ids.append(t_id)
-        raw = model.tok.decode(ids)
-        if any(st in raw for st in stops):
-            yield truncate_at_stops(raw, stops)
-            return
-        yield raw.strip()
+    with torch.no_grad():
+        for step in greedy_generate_stream(pf, df, toks, n_pad, max_new_tokens=max_new_tokens,
+                                           eos_id=model.tok.eos_token_id,
+                                           pad_id=model.tok.pad_token_id):
+            t_id = int(step[0])
+            if t_id in (model.tok.eos_token_id, model.tok.pad_token_id):
+                break
+            ids.append(t_id)
+            raw = model.tok.decode(ids)
+            if any(st in raw for st in stops):
+                yield truncate_at_stops(raw, stops)
+                return
+            yield raw.strip()
+
+
+def make_frame_mask(vision_x_shape, mask_out: str = "context") -> torch.Tensor:
+    """float32 gradient mask (on the CPU) over the few-shot media frames of
+    a (B, T_img, F, C, H, W) input (the reference's _set_mask): 'context'
+    zeroes every frame but the LAST (only the query is attacked); 'query'
+    zeroes ONLY the last (only the context is attacked); an int k zeroes
+    only frame k; 'only:k' zeroes every frame but k; 'none' attacks
+    everything."""
+    mask = np.ones(vision_x_shape, np.float32)
+    t = vision_x_shape[1]
+    if mask_out == "context":
+        mask[:, :t - 1] = 0.0
+    elif mask_out == "query":
+        mask[:, t - 1] = 0.0
+    elif isinstance(mask_out, str) and mask_out.startswith("only:"):
+        k = int(mask_out[len("only:"):])
+        mask[:, :k] = 0.0
+        mask[:, k + 1:] = 0.0
+    elif mask_out != "none":
+        mask[:, int(mask_out)] = 0.0
+    return torch.from_numpy(mask)

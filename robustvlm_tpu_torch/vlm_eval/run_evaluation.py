@@ -1,4 +1,5 @@
-"""VLM adversarial evaluation CLI: LLaVA captioning on the card.
+"""VLM adversarial evaluation CLI: LLaVA and OpenFlamingo captioning on the
+card.
 
 Counterpart of `robustvlm_tpu/vlm_eval/run_evaluation.py`, with the same
 flags and `--device` (default cuda):
@@ -7,24 +8,32 @@ flags and `--device` (default cuda):
       --model llava --eval_coco --coco_image_dir /data/coco/val2014 \\
       --coco_annotations /data/coco/captions_val2014.json \\
       --attack ensemble --eps 2 --n_iter 100 --num_samples 500
+  python -m robustvlm_tpu_torch.vlm_eval.run_evaluation --model open_flamingo \\
+      --eval_coco ... --attack apgd --shots 0 4 [--mask_out context]
 
 eps in /255 units. --attack none = clean eval; apgd = one untargeted run
 (half precision); ensemble = the full worst-case schedule; --targeted adds
---target_str. Without --llava_ckpt the weights are random from seed 0 (made
-once per run, on the device, and shared by the bf16 and float32 adapters);
-without --tokenizer_path the hash tokenizer stands in. --model_size
-test-tiny runs the tiny config (tests).
+--target_str. Without a checkpoint the weights are random from seed 0 (made
+once per run, on the device, and shared by the bf16 and float32 adapters;
+OpenFlamingo's gates at 0, as the reference initialises them); without
+--tokenizer_path the hash tokenizer stands in. --model_size test-tiny runs
+the tiny configs (tests). OpenFlamingo takes --of_ckpt with --mpt_ckpt and
+--clip_ckpt (or a robust tower, --vision_encoder_pretrained); --shots N
+stacks N demo images before the query (2 text-only demos at 0 shots), drawn
+from the train annotations (or, warned, the eval file); --mask_out masks
+the context or the query frames' gradient.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP item: the
-VQA evals, --model open_flamingo / blip2, --shots > 0, --llava_ckpt and
---tokenizer_path, --mask_out.
+VQA evals, --model blip2, --llava_ckpt and --tokenizer_path.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
+import warnings
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -127,9 +136,6 @@ def build_llava_models(args, precisions, device) -> Dict[str, object]:
     of weights: random from seed 0, drawn once on the device. The bf16 model
     holds one bf16 copy of the matrices (made once) and shares the rest with
     the float32 one; with no 'full' stage no float32 matrix is ever held."""
-    if args.model != "llava":
-        item = "A11, OpenFlamingo" if args.model == "open_flamingo" else "A12, BLIP-2"
-        raise NotImplementedError(f"--model {args.model} is not ported (ROADMAP {item})")
     if args.llava_ckpt or args.vision_encoder_pretrained:
         raise NotImplementedError(
             "loading LLaVA checkpoints is not ported: no checkpoint in the repository to test "
@@ -149,28 +155,103 @@ def build_llava_models(args, precisions, device) -> Dict[str, object]:
     return models
 
 
+def flamingo_config(args, tok):
+    """openflamingo-9b (test-tiny for the tiny size) with the tokenizer's
+    <image> id: its `media_token_id`, else the last id of its vocabulary,
+    else OpenFlamingo's 50431."""
+    from robustvlm_tpu_torch.models.flamingo.model import FLAMINGO_CONFIGS
+
+    cfg = FLAMINGO_CONFIGS["openflamingo-9b" if args.model_size == "7b" else "test-tiny"]
+    media_id = getattr(tok, "media_token_id", None)
+    if media_id is None:
+        media_id = len(tok) - 1 if hasattr(tok, "__len__") else 50431
+    return dataclasses.replace(cfg, media_token_id=media_id)
+
+
+def build_flamingo_models(args, precisions, device) -> Dict[str, object]:
+    """One `Flamingo` per precision from ONE set of weights, shared as
+    `build_llava_models` shares them: the three checkpoints of --of_ckpt,
+    --mpt_ckpt and --clip_ckpt (or --vision_encoder_pretrained), else random
+    from seed 0 with the reference's zero gates."""
+    from robustvlm_tpu_torch.models.flamingo import (
+        Flamingo,
+        half_state,
+        init_random_state,
+        load_flamingo_checkpoint,
+    )
+
+    cfg = flamingo_config(args, _tokenizer(args))
+    if args.of_ckpt:
+        full = {k: v.to(device) for k, v in load_flamingo_checkpoint(
+            args.of_ckpt, cfg, mpt_path=args.mpt_ckpt, visual_path=args.clip_ckpt,
+            robust_visual_path=args.vision_encoder_pretrained or None).items()}
+    elif args.vision_encoder_pretrained:
+        raise ValueError("--vision_encoder_pretrained replaces the tower of --of_ckpt's model; "
+                         "pass --of_ckpt, --mpt_ckpt and --clip_ckpt with it")
+    elif "full" in precisions:
+        full = init_random_state(cfg, 0, device)
+    else:
+        return {"half": Flamingo.from_state(cfg, init_random_state(cfg, 0, device, torch.bfloat16))}
+    models = {"full": Flamingo.from_state(cfg, full)} if "full" in precisions else {}
+    if "half" in precisions:
+        models["half"] = Flamingo.from_state(cfg, half_state(full))
+    return models
+
+
+def build_models(args, precisions, device) -> Dict[str, object]:
+    """The models of --model, one per precision, shared by every dataset
+    and trial of a run."""
+    if args.model == "blip2":
+        raise NotImplementedError("--model blip2 is not ported (ROADMAP A12, BLIP-2)")
+    build = build_flamingo_models if args.model == "open_flamingo" else build_llava_models
+    return build(args, precisions, device)
+
+
 def build_eval_model(args, precision: str, models: Optional[Dict[str, object]] = None):
     """The adapter of one precision ('half' bf16, 'full' float32) over
-    `models` (`build_llava_models`' result). Without `models` (the serving
+    `models` (`build_models`' result). Without `models` (the serving
     worker) the weights are drawn here, random from seed 0 as the eval CLI
     draws them: in float32 under --quantize-decode, so that
     `quantize_for_serving` quantizes the float32 draws (the JAX worker
     quantizes its float32 tree) and then holds the rest in the precision's
     layout; else in the precision's layout directly."""
-    from robustvlm_tpu_torch.vlm_eval.eval_models import LlavaEvalModel
+    from robustvlm_tpu_torch.vlm_eval.eval_models import FlamingoEvalModel, LlavaEvalModel
 
     dtype = torch.bfloat16 if precision == "half" else torch.float32
     if models is None:
         drawn = "full" if getattr(args, "quantize_decode", False) else precision
-        model = build_llava_models(args, {drawn}, resolve_device(args.device))[drawn]
+        model = build_models(args, {drawn}, resolve_device(args.device))[drawn]
     else:
         model = models[precision]
-    return LlavaEvalModel(model, _tokenizer(args), compute_dtype=dtype)
+    adapter = FlamingoEvalModel if args.model == "open_flamingo" else LlavaEvalModel
+    return adapter(model, _tokenizer(args), compute_dtype=dtype)
 
 
 def _image_size(args) -> int:
-    """336 px for LLaVA-1.5's tower, 32 for the tiny config."""
-    return 336 if args.model_size == "7b" else 32
+    """336 px for LLaVA-1.5's tower, 224 for OpenFlamingo's ViT-L/14, 32 for
+    the tiny configs."""
+    if args.model == "llava" and args.model_size == "7b" and not args.vision_encoder_pretrained:
+        return 336
+    return 224 if args.model_size == "7b" else 32
+
+
+def _wrap_few_shot(args, ds, train_ds, num_shots: int, seed: int):
+    """The dataset with each item's demos (and, at num_shots > 0, stacked
+    context frames); unchanged when the effective shot count is 0."""
+    from robustvlm_tpu_torch.vlm_eval.fewshot import (
+        FewShotDataset,
+        compute_effective_num_shots,
+        get_query_set,
+    )
+
+    eff = compute_effective_num_shots(num_shots, args.model)
+    if eff <= 0:
+        return ds
+    if num_shots > 0 and args.model != "open_flamingo":
+        raise ValueError("--shots > 0 needs the interleaved-media model (open_flamingo); "
+                         "llava/blip2 towers take a single image per example")
+    query_set = get_query_set(train_ds, args.query_set_size, seed)
+    return FewShotDataset(ds, query_set, num_shots=num_shots, effective_num_shots=eff, seed=seed)
 
 
 def captioning_schedule(args):
@@ -190,25 +271,40 @@ def evaluate_captioning(args, dataset_name: str, image_dir: str, annotations: st
                         models: Dict[str, object], num_shots: int = 0,
                         seed: Optional[int] = None, trial: Optional[int] = None,
                         threshold: Optional[float] = None) -> Dict:
-    """`models` is `build_llava_models`' result, made once per run and
-    shared by every dataset and trial. An image leaves the ensemble once its
-    worst CIDEr is under `threshold` (None: the dataset's, COCO 10, Flickr
-    2)."""
+    """`models` is `build_models`' result, made once per run and shared by
+    every dataset, shot count and trial. The demo pool comes from the train
+    split (`--<dataset>_train_annotations`, else the eval file, warned). An
+    image leaves the ensemble once its worst CIDEr is under `threshold`
+    (None: the dataset's, COCO 10, Flickr 2)."""
     from robustvlm_tpu_torch.vlm_eval.datasets import CaptionDataset, TensorCaptionDataset
     from robustvlm_tpu_torch.vlm_eval.ensemble import EnsembleRunner, attack_success_rate
     from robustvlm_tpu_torch.vlm_eval.fewshot import build_context_text, compute_effective_num_shots
     from robustvlm_tpu_torch.vlm_eval.metrics.cider import CiderIDF, CiderScorer
 
-    if compute_effective_num_shots(num_shots, args.model) > 0:
-        raise NotImplementedError("few-shot evaluation is not ported (ROADMAP A11, OpenFlamingo)")
     seed = args.seed if seed is None else seed
-    ds = CaptionDataset(image_dir, annotations, size=_image_size(args), split="val")
+    size = _image_size(args)
+    ds = CaptionDataset(image_dir, annotations, size=size, split="val")
     if args.from_saved:
         if args.attack != "none":
             # a new eps-ball around already perturbed pixels reaches 2 eps
             # from the clean image: --from_saved is for re-evaluation
             raise ValueError("--from_saved requires --attack none")
         ds = TensorCaptionDataset(ds, args.from_saved)
+    if compute_effective_num_shots(num_shots, args.model) > 0:
+        train_ann = getattr(args, f"{dataset_name}_train_annotations", "") or annotations
+        train_dir = getattr(args, f"{dataset_name}_train_image_dir", "") or image_dir
+        train_ds = CaptionDataset(train_dir, train_ann, size=size, split="train",
+                                  image_root_train=train_dir)
+        if train_ann == annotations and not train_ds.split_filtered:
+            # a plain COCO json without karpathy split fields: the 'train'
+            # view is the eval file; items never demonstrate themselves, but
+            # the pool overlaps the eval set
+            warnings.warn(
+                f"--{dataset_name}_train_annotations not set and the eval json has no karpathy "
+                "split fields: few-shot demos are drawn from the EVAL annotations (overlapping "
+                "pool). Pass a train annotations file for reference-comparable numbers.",
+                stacklevel=2)
+        ds = _wrap_few_shot(args, ds, train_ds, num_shots, seed)
 
     def prompt_fn(model, item, spec, query_only):
         ctx = build_context_text(model, item.get("demos") or [], num_shots, task="caption")
@@ -232,12 +328,16 @@ def evaluate_captioning(args, dataset_name: str, image_dir: str, annotations: st
     if threshold is None:
         threshold = {"coco": 10.0, "flickr": 2.0}.get(dataset_name, 10.0)
     schedule = captioning_schedule(args)
-    out_dir = Path(args.out_base_path) / (dataset_name + ("" if trial is None else f"_trial{trial}"))
+    # per shot count and trial: runs of a grid never share adversarial
+    # tensors or the resume state
+    out_dir = Path(args.out_base_path) / (
+        (dataset_name if num_shots == 0 else f"{dataset_name}_shots{num_shots}")
+        + ("" if trial is None else f"_trial{trial}"))
     runner = EnsembleRunner(
         lambda prec: build_eval_model(args, prec, models),
         eps=args.eps / 255.0, score_fn=score_fn, prompt_fn=prompt_fn, threshold=threshold,
         out_dir=str(out_dir), max_new_tokens=args.max_new_tokens, num_beams=args.num_beams,
-        verbose=args.verbose, batch_size=args.batch_size,
+        verbose=args.verbose, batch_size=args.batch_size, mask_out=args.mask_out,
     )
     res = runner.run(ds, schedule, seed=seed, indices=sel, resume=args.resume)
 
@@ -261,8 +361,6 @@ def main(argv=None):
     for ds in ("vqav2", "textvqa", "vizwiz", "ok_vqa"):
         if getattr(args, f"eval_{ds}"):
             raise NotImplementedError(f"--eval_{ds}: the VQA evals are not ported (ROADMAP A10)")
-    if any(s > 0 for s in args.shots):
-        raise NotImplementedError("--shots > 0 is not ported (ROADMAP A11, OpenFlamingo)")
     device = resolve_device(args.device)
     use_full_fp32()  # float32 stages at full precision: no TF32
     out = Path(args.out_base_path)
@@ -280,28 +378,33 @@ def main(argv=None):
     t0 = time.time()
     models = None
     if args.eval_coco or args.eval_flickr30:
-        models = build_llava_models(args, {s.precision for s in captioning_schedule(args)}, device)
-    # the JAX CLI's result keys: bare with one trial, else per shot and trial
-    sfx0 = "" if args.num_trials == 1 else "_shots0"
-    for trial in range(args.num_trials):
-        sfx = sfx0 + (f"_trial{trial}" if args.num_trials > 1 else "")
-        kw = dict(models=models, seed=trial_seeds[trial],
-                  trial=trial if args.num_trials > 1 else None)
-        if args.eval_coco:
-            results["coco" + sfx] = evaluate_captioning(
-                args, "coco", args.coco_image_dir, args.coco_annotations, **kw)
-        if args.eval_flickr30:
-            results["flickr" + sfx] = evaluate_captioning(
-                args, "flickr", args.flickr_image_dir, args.flickr_annotations, **kw)
-    if args.num_trials > 1:  # means across trials
-        for base in ("coco", "flickr"):
-            keys = [k for k in (f"{base}_shots0_trial{t}" for t in range(args.num_trials))
-                    if k in results]
-            if keys:
-                results[f"{base}_shots0_mean"] = {
-                    m: float(np.nanmean([results[k][m] for k in keys]))
-                    for m in results[keys[0]] if isinstance(results[keys[0]][m], (int, float))
-                }
+        models = build_models(args, {s.precision for s in captioning_schedule(args)}, device)
+    # the shots x trials grid, with the JAX CLI's result keys: bare for one
+    # 0-shot trial, else per shot count (and trial)
+    default_grid = args.shots == [0] and args.num_trials == 1
+    for num_shots in args.shots:
+        for trial in range(args.num_trials):
+            sfx = "" if default_grid else f"_shots{num_shots}"
+            if args.num_trials > 1:
+                sfx += f"_trial{trial}"
+            kw = dict(models=models, num_shots=num_shots, seed=trial_seeds[trial],
+                      trial=trial if args.num_trials > 1 else None)
+            if args.eval_coco:
+                results["coco" + sfx] = evaluate_captioning(
+                    args, "coco", args.coco_image_dir, args.coco_annotations, **kw)
+            if args.eval_flickr30:
+                results["flickr" + sfx] = evaluate_captioning(
+                    args, "flickr", args.flickr_image_dir, args.flickr_annotations, **kw)
+    if args.num_trials > 1:  # means across trials, per shot count
+        for num_shots in args.shots:
+            for base in ("coco", "flickr"):
+                keys = [k for k in (f"{base}_shots{num_shots}_trial{t}"
+                                    for t in range(args.num_trials)) if k in results]
+                if keys:
+                    results[f"{base}_shots{num_shots}_mean"] = {
+                        m: float(np.nanmean([results[k][m] for k in keys]))
+                        for m in results[keys[0]] if isinstance(results[keys[0]][m], (int, float))
+                    }
     results["total_wall_s"] = round(time.time() - t0, 1)
     (out / "results.json").write_text(json.dumps(results, indent=2))
     print(json.dumps(results))

@@ -196,3 +196,30 @@ def test_cuda_kernels_match_plain(dtype, bh, nq, nk, d, causal, alibi):
     again = F.flash_bwd(q, k, v, o, lse, do, **kw)  # no atomics: the same bits
     for a, b in zip(grads, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n", [40, 65])
+def test_cuda_alibi_at_mpt7b_shape(dtype, n):
+    """MPT-7B's attention as OpenFlamingo runs it: 32 heads of 128, causal,
+    the slopes of `models/mpt/model.alibi_slopes(32)`, at about the 0-shot
+    caption prompt's length and one row past a 64-row tile; counted as
+    ALiBi launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from robustvlm_tpu_torch.models.mpt.model import alibi_slopes
+
+    q, k, v, do = _card_inputs(32, n, n, 128, dtype, seed=n)
+    kw = dict(causal=True, slopes=torch.from_numpy(alibi_slopes(32)).cuda())
+    before = dict(F.LAUNCHES)
+    o, lse = F.flash_fwd(q, k, v, **kw)
+    grads = F.flash_bwd(q, k, v, o, lse, do, **kw)
+    for name in ("flash_attention_fwd_alibi", "flash_attention_bwd_alibi"):
+        assert F.LAUNCHES[name] == before[name] + 1
+    o_ref, lse_ref = F.flash_fwd_plain(q, k, v, **kw)
+    ref = (o_ref, *F.flash_bwd_plain(q, k, v, o_ref, lse_ref, do, **kw))
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-6)
+    for got, r in zip((o, *grads), ref):
+        lim = 1e-5 if dtype == torch.float32 else 2e-2 * float(r.float().abs().max())
+        torch.testing.assert_close(got.float(), r.float(), atol=lim, rtol=0)

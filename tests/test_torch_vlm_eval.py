@@ -221,15 +221,19 @@ def test_ensemble_every_stage_one_copy_per_precision(tmp_path):
     assert res["attack_iters"] == 6 * 2
 
 
-@pytest.mark.parametrize("flag", [["--eval_vqav2"], ["--model", "blip2", "--eval_coco"],
-                                  ["--shots", "2", "--eval_coco"], ["--llava_ckpt", "x", "--eval_coco"]])
-def test_cli_unported_parts_raise(tmp_path, flag):
+@pytest.mark.parametrize("flag, error, match", [
+    (["--eval_vqav2"], NotImplementedError, "ROADMAP"),
+    (["--model", "blip2", "--eval_coco"], NotImplementedError, "ROADMAP"),
+    # few-shot demo images need the interleaved-media model, as in JAX
+    (["--shots", "2", "--eval_coco"], ValueError, "open_flamingo"),
+    (["--llava_ckpt", "x", "--eval_coco"], NotImplementedError, "ROADMAP")])
+def test_cli_unported_parts_raise(tmp_path, flag, error, match):
     from robustvlm_tpu_torch.vlm_eval.run_evaluation import main
 
     img_dir, ann = _coco_fixture(tmp_path)
     base = ["--device", "cpu", "--model_size", "test-tiny", "--coco_image_dir", str(img_dir),
             "--coco_annotations", str(ann), "--out_base_path", str(tmp_path / "out")]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         main(base + flag)
 
 
