@@ -9,11 +9,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 at the main paths' shapes, with times (kernels by CUDA-graph
                 replay), bounds and the library call of the same function
                 (SDPA; PyTorch's int4 weight-only matmul for q4_matmul);
-                the flash kernels also with ALiBi at MPT-7B's shape in
-                OpenFlamingo (32 heads of 128, causal, the flamingo phase's
-                prompt length) against SDPA with the bias as a float mask;
-                planted faults show that the attention and q4_matmul checks
-                can fail;
+                the flash kernels also with ALiBi at MPT-7B's shape (32
+                heads of 128, causal) at OpenFlamingo's prompt length (the
+                flamingo phase's) and at LLaVA-MPT's sequence length
+                (`llava_mpt_reference`'s), against SDPA with the bias as a
+                float mask; planted faults show that the attention and
+                q4_matmul checks can fail;
   3. reference - ViT-B/32 logits and pixel gradient through the kernels
                 on the card against the plain path on the CPU;
   4. main     - `robustbench.main` (the CLI entry point) at CLIP ViT-L/14
@@ -39,16 +40,37 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 width, bf16, 100 APGD iterations on 2 COCO-format images
                 written under chiprun_out/, captions and CIDEr, with each
                 kernel's launches, ms per APGD iteration and peak memory;
- 10. llava_ensemble - the CLI's ensemble schedule at LLaVA-1.5-7B full width
+ 10. llava_vqa - `run_evaluation.main --eval_vqav2` at LLaVA-1.5-7B full
+                width, bf16, a targeted APGD run ('maybe', 100 iterations) on
+                3 questions of a VQAv2-layout fixture (2 on one image): the
+                target's loss at x_adv below clean, per-question keys,
+                accuracy and success rate, ms per iteration, peak memory;
+ 11. llava_ensemble - the CLI's ensemble schedule at LLaVA-1.5-7B full width
                 with both precisions' models held together, every stage
                 run (its last in float32), with peak memory, the float32
                 stage's launches and the ms of one float32 loss and gradient;
- 11. flamingo_reference - OpenFlamingo-9B widths cut to 4 MPT layers (one
+                then the 9-stage VQA schedule (targeted 'maybe' and 'Word'
+                stages) on one question over the same models;
+ 12. llava_rob - the loaders at full width: an HF-layout LLaVA-1.5-7B
+                directory of fp16 shards and a robust ViT-L/14 tower file
+                written under chiprun_out/ (deleted after), loaded by
+                `run_evaluation.main --llava_ckpt --vision_encoder_pretrained
+                --eval_textvqa --attack apgd`: logits bit-equal to a model
+                built straight from the written values, the tower at 224 px,
+                write and load seconds, host peak RSS;
+ 13. llava_mpt_reference - LLaVA-MPT at MPT-7B and ViT-L/14 widths cut to 2
+                layers each: float32 loss, pixel gradient and greedy tokens of
+                a left-padded batch on the card against the CPU, then bf16 on
+                the card (the ALiBi rows' launches at this length);
+ 14. llava_qualitative - `run_evaluation_qualitative.main` at full width, 50
+                iterations on one image: the target's loss fell;
+ 15. llava_aux  - POPE's and ScienceQA's `main` at full width on 2 items each;
+ 16. flamingo_reference - OpenFlamingo-9B widths cut to 4 MPT layers (one
                 gated cross-attention block) and 2 vision layers, the whole
                 Perceiver, float32, gates opened to 0.5: the per-sample loss
                 and pixel gradient through the kernels on the card against
                 the plain path on the CPU;
- 12. flamingo - `run_evaluation.main --model open_flamingo` at
+ 17. flamingo - `run_evaluation.main --model open_flamingo` at
                 OpenFlamingo-9B full width (32 MPT layers, 8 gated blocks,
                 ViT-L/14 at 224 px), bf16, 100 APGD iterations on 2 of 4
                 COCO-format images (2 text-only demos each), the gates
@@ -57,10 +79,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 iteration, peak memory, the prompt length, each kernel's
                 launches (the flash kernels with ALiBi slopes), x_adv, the
                 loss at x_adv above clean, captions and CIDEr;
- 13. flamingo_ensemble - the ensemble schedule at OpenFlamingo-9B full width
+ 18. flamingo_ensemble - the ensemble schedule at OpenFlamingo-9B full width
                 with both precisions held, every stage run: peak memory and
                 the ms of one float32 loss and gradient;
- 14. serve    - the model worker (`build_worker`, its CLI's path) at
+ 19. serve    - the model worker (`build_worker`, its CLI's path) at
                 LLaVA-1.5-7B full width with int4 LM weights behind the
                 port's controller on local ports: captions, VQA, a stream,
                 the shift body and a batch-4 micro-batch over HTTP, with ms
@@ -926,6 +948,8 @@ def phase_kernels(peaks: dict) -> list:
     rows += check_attention(peaks)
     rows += check_flash(peaks)
     rows += check_flash_alibi(peaks, max(flamingo_prompt_lens()))
+    rows += check_flash_alibi(peaks, llava_mpt_seq_len(), case="alibi_llava_mpt", tag="llava-mpt",
+                              launches_from=LLAVA_MPT_RUNS)
     rows += check_q4_matmul(peaks)
     return rows
 
@@ -1478,7 +1502,7 @@ def phase_llava() -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ phase 10
+# ------------------------------------------------------------------ phase 11
 LLAVA_ENSEMBLE_ITERS = 5
 
 
@@ -1518,7 +1542,7 @@ def phase_llava_ensemble() -> dict:
             "--num_samples", "1", "--max_new_tokens", "32", "--out_base_path", str(out_dir),
             "--verbose"]
     args = run_evaluation.build_parser().parse_args(argv)
-    schedule = run_evaluation.captioning_schedule(args)
+    schedule = run_evaluation.attack_schedule(args)
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     _reset_launches()
@@ -1554,7 +1578,9 @@ def phase_llava_ensemble() -> dict:
         torch.autograd.grad(adapter(xa).sum(), xa)
 
     fp32_ms = time_ms(fp32_iteration, iters=3, warmup=1)
-    del adapter, models, built
+    del adapter
+    vqa = llava_ensemble_vqa(built, out_dir)
+    del models, built
     state = json.loads((out_dir / "coco" / "ensemble_state.json").read_text())
     x_adv = np.load(out_dir / "coco" / "adv" / f"{item['image_id']}.npy")
     linf = float(np.abs(x_adv.astype(np.float64) - x.cpu().numpy()[0]).max())
@@ -1569,6 +1595,7 @@ def phase_llava_ensemble() -> dict:
         "cider": isinstance(result["cider"], float) and math.isfinite(result["cider"]),
         "launched": _launched(total, LLAVA_KERNELS),
         "float32_stage_launched_flash": _launched(full, ("flash_attention_fwd", "flash_attention_bwd")),
+        **{f"vqa_{k}": v for k, v in vqa.pop("checks").items()},
     }
     emit({"phase": "llava_ensemble", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation."
           "evaluate_captioning", "argv": argv, "threshold": "-inf", "model": "llava-1.5-7b",
@@ -1577,14 +1604,590 @@ def phase_llava_ensemble() -> dict:
           "float32_ms_per_loss_and_grad": fp32_ms, "weights_allocated_gib": allocated / 2**30,
           "held_tensor_gib": sum(held.values()) / 2**30, "peak_mem_gib": peak,
           "launches": total, "launches_float32_stage": full, "linf": linf,
-          "cider": result["cider"], "card": card_line(), "checks": checks,
+          "cider": result["cider"], "vqa": vqa, "card": card_line(), "checks": checks,
           "ok": all(checks.values())})
     if not all(checks.values()):
         raise AssertionError(f"llava_ensemble checks failed: {checks}")
     return full
 
 
-# ------------------------------------------------------------------ phase 11
+def llava_ensemble_vqa(built: dict, out_dir: Path) -> dict:
+    """`evaluate_vqa --attack ensemble` on one question of the `llava_vqa`
+    fixture over the models `llava_ensemble` already holds, threshold -inf:
+    the clean pass, 5 bf16 gt stages, the targeted 'maybe' and 'Word' stages
+    and the float32 prev-best stage, LLAVA_ENSEMBLE_ITERS iterations each.
+    Returns its numbers and checks."""
+    import torch
+
+    from robustvlm_tpu_torch.vlm_eval import run_evaluation as R
+
+    img_dir, qf, af = _vqa_fixture(OUT / "llava-vqa")
+    argv = vqa_argv("vqav2", img_dir, qf, af, out_dir, "--attack", "ensemble", "--n_iter",
+                    str(LLAVA_ENSEMBLE_ITERS), "--num_samples", "1")
+    args = R.build_parser().parse_args(argv)
+    schedule = R.attack_schedule(args, "vqa")
+    models = _FullStageLaunches(built)
+    _reset_launches()
+    t0 = time.perf_counter()
+    result = R.evaluate_vqa(args, "vqav2", models=models, threshold=-math.inf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = _launches()
+    full = {k: total[k] - models.at_full[k] for k in total}
+    state = json.loads((out_dir / "vqav2" / "ensemble_state.json").read_text())
+    stages = [(s.kind, s.precision, s.target_str) for s in schedule]
+    checks = {
+        "every_stage_ran": state["stages_done"] == len(schedule) == 9,
+        "targeted_maybe_word": stages[6:8] == [("apgd", "half", "maybe"), ("apgd", "half", "Word")],
+        "float32_prev_best_last": schedule[-1].precision == "full" and schedule[-1].init_from_best,
+        "float32_stage_launched_flash": _launched(full, ("flash_attention_fwd", "flash_attention_bwd")),
+        "iterations": result["attack_iters"] == 8 * LLAVA_ENSEMBLE_ITERS,
+        "question_key": (len(state["ids"]) == 1 and set(state["best_outputs"]) == set(state["ids"])
+                         and state["ids"][0] in {str(q[0]) for q in VQA_QUESTIONS}),
+        "vqa_accuracy": math.isfinite(result["vqa_accuracy"]),
+    }
+    return {"argv": argv, "threshold": "-inf", "stages": len(schedule), "wall_s": wall,
+            "attack_s": result["attack_s"], "attack_iters": result["attack_iters"],
+            "vqa_accuracy": result["vqa_accuracy"], "launches": total, "launches_float32_stage": full,
+            "checks": checks}
+
+
+# ------------------------------------------------------------------ VQA fixtures
+VQA_ITERS = 100
+VQA_QUESTIONS = [  # (question_id, image_id, question, 10 annotator answers): 2 on the first image
+    (70, 7, "what is the man riding?", ["surfboard"] * 6 + ["wave"] * 3 + ["board"]),
+    (71, 7, "is the water calm?", ["no"] * 8 + ["yes"] * 2),
+    (110, 11, "what vegetable is on the plate?", ["broccoli"] * 7 + ["rice"] * 2 + ["vegetables"]),
+]
+
+
+def _vqa_fixture(root: Path, layout: str = "vqav2", questions=VQA_QUESTIONS) -> tuple:
+    """Seeded 400x360 RGB JPEGs and VQAv2-format questions and annotations
+    jsons: images named `COCO_val2014_%012d.jpg` (VQAv2, OK-VQA) or
+    `{image_id}.jpg` (TextVQA, VizWiz)."""
+    import numpy as np
+    from PIL import Image
+
+    img_dir = root / "images"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(0)
+    for iid in sorted({q[1] for q in questions}):
+        name = f"COCO_val2014_{iid:012d}.jpg" if layout == "vqav2" else f"{iid}.jpg"
+        Image.fromarray(rng.randint(0, 255, (360, 400, 3), np.uint8)).save(img_dir / name, quality=95)
+    qf, af = root / "questions.json", root / "annotations.json"
+    qf.write_text(json.dumps({"questions": [{"question_id": q, "image_id": i, "question": t}
+                                            for q, i, t, _ in questions]}))
+    af.write_text(json.dumps({"annotations": [{"question_id": q, "answers": [{"answer": a} for a in ans]}
+                                              for q, _, _, ans in questions]}))
+    return img_dir, qf, af
+
+
+def vqa_argv(dataset: str, img_dir, qf, af, out_dir, *flags) -> list:
+    return ["--device", "cuda", "--model", "llava", "--model_size", "7b", f"--eval_{dataset}",
+            f"--{dataset}_image_dir", str(img_dir), f"--{dataset}_questions", str(qf),
+            f"--{dataset}_annotations", str(af), "--eps", str(LLAVA_EPS), "--max_new_tokens", "16",
+            "--out_base_path", str(out_dir), "--verbose", *flags]
+
+
+@contextlib.contextmanager
+def adapters_of_cli(module, seen: dict):
+    """`module.build_eval_model` wrapped for the duration: each adapter the
+    CLI builds is kept in seen[precision]."""
+    orig = module.build_eval_model
+
+    def build(args, precision, models=None):
+        seen[precision] = orig(args, precision, models)
+        return seen[precision]
+
+    module.build_eval_model = build
+    try:
+        yield seen
+    finally:
+        module.build_eval_model = orig
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 10
+def phase_llava_vqa() -> dict:
+    """`run_evaluation.main --eval_vqav2` at LLaVA-1.5-7B full width, random
+    weights from seed 0, bf16, a targeted APGD run (--attack apgd --targeted
+    --target_str maybe), eps 2/255, VQA_ITERS iterations on each of the 3
+    questions of a VQAv2-layout fixture (2 share an image). Then, on the
+    CLI's own adapter, the target's teacher-forced loss at each x_adv against
+    the clean image. Returns the kernels' launches."""
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.vlm_eval import run_evaluation as R
+    from robustvlm_tpu_torch.vlm_eval.datasets import VQADataset
+
+    _free()
+    root = OUT / "llava-vqa"
+    img_dir, qf, af = _vqa_fixture(root)
+    out_dir = root / "out"
+    argv = vqa_argv("vqav2", img_dir, qf, af, out_dir, "--attack", "apgd", "--targeted", "--target_str",
+                    "maybe", "--n_iter", str(VQA_ITERS), "--num_samples", str(len(VQA_QUESTIONS)))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with adapters_of_cli(R, {}) as seen:
+        result = R.main(argv)["vqav2"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    adapter = seen["half"]
+    args = R.build_parser().parse_args(argv)
+    ds = VQADataset(str(img_dir), str(qf), str(af), size=R._image_size(args),
+                    **R.vqa_layout_for_dir("vqav2", str(img_dir)))
+    state = json.loads((out_dir / "vqav2" / "ensemble_state.json").read_text())
+    per_q = []
+    with torch.no_grad():
+        for k in range(len(ds)):
+            item = ds[k]
+            qid = str(item["question_id"])
+            x = np.asarray(item["image"], np.float32)
+            x_adv = np.load(out_dir / "vqav2" / "adv" / f"{qid}.npy")
+            adapter.set_inputs([adapter.get_vqa_prompt(item["question"], "maybe")])
+            losses = [float(adapter(torch.from_numpy(a[None]).cuda())[0]) for a in (x, x_adv)]
+            per_q.append({"question_id": qid, "image_id": item["image_id"], "target_loss_clean": losses[0],
+                          "target_loss_adv": losses[1], "linf": float(np.abs(x_adv.astype(np.float64) - x).max()),
+                          "in_box": bool(x_adv.min() >= 0.0 and x_adv.max() <= 1.0),
+                          "answer": state["best_outputs"].get(qid)})
+    del adapter, seen
+    _free()
+    checks = {
+        "in_box": all(r["in_box"] for r in per_q),
+        "in_ball": all(r["linf"] <= LLAVA_EPS / 255.0 + 1e-6 for r in per_q),
+        "target_loss_fell": all(r["target_loss_adv"] < r["target_loss_clean"] for r in per_q),
+        "scored_per_question": sorted(state["best_outputs"]) == sorted(str(q[0]) for q in VQA_QUESTIONS)
+        and all(isinstance(r["answer"], str) for r in per_q),
+        "vqa_accuracy": math.isfinite(result["vqa_accuracy"]),
+        "success_rate": math.isfinite(result["success_rate"]),
+        "iterations": result["attack_iters"] == VQA_ITERS * len(VQA_QUESTIONS) == 300,
+        "launched": _launched(launches, LLAVA_KERNELS),
+    }
+    emit({"phase": "llava_vqa", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation.main",
+          "argv": argv, "model": "llava-1.5-7b", "dtype": "bfloat16", "wall_s": wall,
+          "attack_s": result["attack_s"], "attack_iters": result["attack_iters"],
+          "ms_per_apgd_iter": result["attack_s"] / result["attack_iters"] * 1e3, "peak_mem_gib": peak,
+          "vqa_accuracy": result["vqa_accuracy"], "success_rate": result["success_rate"],
+          "per_question": per_q, "eps": LLAVA_EPS / 255.0, "launches": launches, "card": card_line(),
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"llava_vqa checks failed: {checks}")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 12
+ROB_ITERS = 100
+ROB_QUESTIONS = VQA_QUESTIONS[:1]
+ROB_SHARD_LAYERS = 4  # LM layers a shard: 8 shards of about 1.6 GB + one of the rest
+
+
+def hf_llava_names(cfg) -> dict:
+    """The port's LM and projector names -> (HF LLaVA-1.5 key, transposed),
+    written out independently of the importer, which inverts it."""
+    names = {"llama.tok_embedding": ("model.embed_tokens.weight", False),
+             "llama.norm": ("model.norm.weight", False), "llama.lm_head": ("lm_head.weight", True),
+             "projector.w1": ("model.mm_projector.0.weight", True),
+             "projector.b1": ("model.mm_projector.0.bias", False),
+             "projector.w2": ("model.mm_projector.2.weight", True),
+             "projector.b2": ("model.mm_projector.2.bias", False)}
+    for i in range(cfg.llama.n_layers):
+        lay, ours = f"model.layers.{i}.", f"llama.blocks.{i}."
+        names[ours + "attn_norm"] = (lay + "input_layernorm.weight", False)
+        names[ours + "ffn_norm"] = (lay + "post_attention_layernorm.weight", False)
+        for n in "qkvo":
+            names[ours + f"attn.w{n}"] = (lay + f"self_attn.{n}_proj.weight", True)
+        for n in ("gate", "up", "down"):
+            names[ours + f"mlp.w_{n}"] = (lay + f"mlp.{n}_proj.weight", True)
+    return names
+
+
+def write_llava_rob_checkpoint(root: Path) -> tuple:
+    """An HF-layout LLaVA-1.5-7B directory of fp16 `.bin` shards (LM and
+    projector, as the published checkpoint holds them) and a robust ViT-L/14
+    tower file in the `vision_encoder_state_dict` wrapper (the port's
+    float32 export format), both from the seed-0 random `llava-1.5-7b-rob`
+    weights drawn on the card. Returns (checkpoint dir, tower file, the bf16
+    state a `Llava` built straight from the written values holds, seconds
+    to write)."""
+    import torch
+
+    from robustvlm_tpu_torch.models.clip.convert import export_visual_state_dict
+    from robustvlm_tpu_torch.models.llava.convert import init_random_state
+    from robustvlm_tpu_torch.models.llava.model import LLAVA_CONFIGS, half_state
+
+    cfg = LLAVA_CONFIGS["llava-1.5-7b-rob"]
+    t0 = time.perf_counter()
+    state = init_random_state(cfg, 0, "cuda")
+    ckpt, tower = root / "llava-1.5-7b-rob-hf", root / "fare-vit-l-14.pt"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    visual = {"visual." + k[len("vision."):]: v for k, v in state.items() if k.startswith("vision.")}
+    torch.save({"vision_encoder_state_dict": export_visual_state_dict(visual, cfg.vision)}, tower)
+    ref = half_state({k: state.pop(k) for k in list(state) if k.startswith("vision.")})
+    names = hf_llava_names(cfg)
+    n_shards = cfg.llama.n_layers // ROB_SHARD_LAYERS + 1
+    shards = [{} for _ in range(n_shards)]
+    for ours in list(state):
+        theirs, transpose = names[ours]
+        v16 = state.pop(ours).to(torch.float16)
+        ref.update(half_state({ours: v16.float()}))  # the values as the checkpoint holds them
+        shard = int(ours.split(".")[2]) // ROB_SHARD_LAYERS if ".blocks." in ours else n_shards - 1
+        shards[shard][theirs] = (v16.T if transpose else v16).contiguous().cpu()
+    for k, part in enumerate(shards):
+        torch.save(part, ckpt / f"pytorch_model-{k + 1:05d}-of-{n_shards:05d}.bin")
+    return ckpt, tower, ref, time.perf_counter() - t0
+
+
+def phase_llava_rob() -> dict:
+    """The loaders at LLaVA-1.5-7B full width: `run_evaluation.main
+    --llava_ckpt DIR --vision_encoder_pretrained FILE --eval_textvqa --attack
+    apgd` (bf16, ROB_ITERS iterations, one question) on the checkpoint that
+    `write_llava_rob_checkpoint` writes under chiprun_out/ (deleted at the
+    end). The CLI's model against a `Llava` built straight from the written
+    values (logits bit-equal), the tower at 224 px with `vit_attention` at
+    257 tokens, x_adv in the eps-ball and the box, the loss at x_adv above
+    clean. Returns the kernels' launches."""
+    import resource
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.models.llava.model import LLAVA_CONFIGS, Llava, llava_forward
+    from robustvlm_tpu_torch.ops.kernels import vit_attention
+    from robustvlm_tpu_torch.vlm_eval import run_evaluation as R
+    from robustvlm_tpu_torch.vlm_eval.datasets import VQADataset
+
+    _free()
+    root = OUT / "llava-rob"
+    try:
+        ckpt, tower, ref_state, write_s = write_llava_rob_checkpoint(root)
+        ckpt_gb = sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9
+        _free()
+        img_dir, qf, af = _vqa_fixture(root / "textvqa", "textvqa", ROB_QUESTIONS)
+        out_dir = root / "out"
+        argv = vqa_argv("textvqa", img_dir, qf, af, out_dir, "--llava_ckpt", str(ckpt),
+                        "--vision_encoder_pretrained", str(tower), "--attack", "apgd",
+                        "--n_iter", str(ROB_ITERS), "--num_samples", "1")
+        load = {}
+        real_build, real_fwd = R.build_llava_models, vit_attention.attention_fwd_cuda
+        tokens_seen = set()
+
+        def timed_build(*a):
+            t = time.perf_counter()
+            out = real_build(*a)
+            torch.cuda.synchronize()
+            load["s"] = time.perf_counter() - t
+            return out
+
+        def fwd(q, k, v):
+            tokens_seen.add(int(q.shape[1]))
+            return real_fwd(q, k, v)
+
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        R.build_llava_models, vit_attention.attention_fwd_cuda = timed_build, fwd
+        try:
+            with adapters_of_cli(R, {}) as seen:
+                result = R.main(argv)["textvqa"]
+        finally:
+            R.build_llava_models, vit_attention.attention_fwd_cuda = real_build, real_fwd
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        adapter = seen["half"]
+        cfg = LLAVA_CONFIGS["llava-1.5-7b-rob"]
+        direct = Llava.from_state(cfg, ref_state)
+        args = R.build_parser().parse_args(argv)
+        size = R._image_size(args)
+        ds = VQADataset(str(img_dir), str(qf), str(af), size=size, **R.vqa_layout_for_dir("textvqa", str(img_dir)))
+        item = ds[0]
+        x = np.asarray(item["image"], np.float32)
+        qid = str(item["question_id"])
+        x_adv = np.load(out_dir / "textvqa" / "adv" / f"{qid}.npy")
+        with torch.no_grad():
+            adapter.set_inputs([adapter.get_vqa_prompt(item["question"], item["gt_answer"])])
+            c = adapter._cached
+            xr = torch.from_numpy(np.random.RandomState(1).rand(1, 3, size, size).astype(np.float32)).cuda()
+            logits = [llava_forward(m, xr, c.pre, c.post, compute_dtype=torch.bfloat16)
+                      for m in (adapter.model, direct)]
+            losses = [float(adapter(torch.from_numpy(a[None]).cuda())[0]) for a in (x, x_adv)]
+        del adapter, seen, direct, ref_state
+        _free()
+        linf = float(np.abs(x_adv.astype(np.float64) - x).max())
+        checks = {
+            "logits_bit_equal_direct": bool(torch.equal(logits[0], logits[1])),
+            "robust_config": args.vision_encoder_pretrained != "" and R._llava_config(args).name == cfg.name,
+            "tower_224px": size == 224 == cfg.vision.image_size,
+            "vit_attention_257_tokens": tokens_seen == {257},
+            "in_box": bool(x_adv.min() >= 0.0 and x_adv.max() <= 1.0),
+            "in_ball": linf <= LLAVA_EPS / 255.0 + 1e-6,
+            "loss_raised": losses[1] > losses[0],
+            "vqa_accuracy": math.isfinite(result["vqa_accuracy"]),
+            "iterations": result["attack_iters"] == ROB_ITERS,
+            "launched": _launched(launches, LLAVA_KERNELS),
+        }
+        emit({"phase": "llava_rob", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation.main",
+              "argv": argv, "model": cfg.name, "dtype": "bfloat16", "checkpoint_gb": ckpt_gb,
+              "write_s": write_s, "load_s": load["s"], "wall_s": wall, "attack_s": result["attack_s"],
+              "ms_per_apgd_iter": result["attack_s"] / result["attack_iters"] * 1e3,
+              "peak_mem_gib": peak, "host_peak_rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+              "vit_tokens": sorted(tokens_seen), "loss_clean": losses[0], "loss_adv": losses[1], "linf": linf,
+              "launches": launches, "card": card_line(), "checks": checks, "ok": all(checks.values())})
+        if not all(checks.values()):
+            raise AssertionError(f"llava_rob checks failed: {checks}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ phase 13
+LLAVA_MPT_LAYERS = 2
+LLAVA_MPT_POST_LEN = 16
+LLAVA_MPT_RUNS = ("llava_mpt_reference[bfloat16]", "llava_mpt_reference[float32]")
+LLAVA_MPT_NEW_TOKENS = 8
+
+
+def _llava_mpt_cut(n_layers: int = LLAVA_MPT_LAYERS):
+    """LLaVA-MPT as the JAX package pairs it at full size (`test-tiny-mpt`
+    with `dataclasses.replace`): the robust 224 px ViT-L/14 tower and MPT-7B,
+    both cut to `n_layers` transformer layers."""
+    import dataclasses
+
+    from robustvlm_tpu_torch.models.clip.model import CLIP_CONFIGS
+    from robustvlm_tpu_torch.models.llava.model import LLAVA_CONFIGS
+    from robustvlm_tpu_torch.models.mpt.model import MPT_CONFIGS
+
+    vision = CLIP_CONFIGS["ViT-L-14"]
+    vision = dataclasses.replace(vision, vision=dataclasses.replace(vision.vision, layers=n_layers))
+    return dataclasses.replace(LLAVA_CONFIGS["test-tiny-mpt"], name=f"llava-mpt-7b-{n_layers}l", vision=vision,
+                               mpt=dataclasses.replace(MPT_CONFIGS["mpt-7b"], n_layers=n_layers))
+
+
+def llava_mpt_seq_len() -> int:
+    """Tokens of `llava_mpt_reference`'s teacher-forced sequence (256 image
+    tokens and the prompt), the ALiBi rows' length."""
+    return adapter_seq_len(_llava_mpt_cut(), LLAVA_MPT_POST_LEN)
+
+
+def phase_llava_mpt_reference() -> dict:
+    """LLaVA-MPT through the kernels on the card against the plain path on
+    the CPU: MPT-7B and ViT-L/14 widths cut to 2 layers each (random weights,
+    seed 0), float32, batch 1, max_post_len 16: the per-sample CE (1e-4
+    relative), its pixel gradient (1e-3 of its largest element, not 0), and
+    the greedy tokens of a left-padded batch of 2 prompts of different
+    lengths (equal; the pad sits mid-sequence, so the ALiBi distances go
+    through `kv_positions`). Then the same loss and gradient in bf16 on the
+    card (its loss within 5e-2 of float32's). Returns the launches of the
+    card's bf16 and float32 runs, keyed as LLAVA_MPT_RUNS."""
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.models.generation import greedy_generate
+    from robustvlm_tpu_torch.models.llava.convert import init_random_state
+    from robustvlm_tpu_torch.models.llava.model import Llava, half_state
+    from robustvlm_tpu_torch.vlm_eval.eval_models import LlavaEvalModel, WordTokenizer
+
+    _free()
+    t0 = time.perf_counter()
+    cfg = _llava_mpt_cut()
+    state = init_random_state(cfg, 0, "cpu")
+    size = cfg.vision.image_size
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(2, 3, size, size).astype(np.float32))
+    caption = "two dogs play with a red ball on the grass"
+    out, launches, tokens, n_pad, seq_lens = {}, {}, {}, None, set()
+    torch.cuda.reset_peak_memory_stats()
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.float32), ("cuda", torch.bfloat16)):
+        on_dev = {k: v.to(dev) for k, v in state.items()}
+        model = Llava.from_state(cfg, half_state(on_dev) if dtype == torch.bfloat16 else on_dev)
+        adapter = LlavaEvalModel(model, WordTokenizer(), compute_dtype=dtype, max_post_len=LLAVA_MPT_POST_LEN)
+        adapter.set_inputs([adapter.get_caption_prompt(caption)])
+        seq_lens.add(adapter._cached.pre.shape[1] + cfg.n_image_tokens + adapter._cached.post.shape[1])
+        xa = x[:1].to(dev).requires_grad_(True)
+        _reset_launches()
+        loss = adapter(xa)
+        (grad,) = torch.autograd.grad(loss.sum(), xa)
+        key = f"{dev}[{str(dtype).split('.')[-1]}]"
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches[f"llava_mpt_reference[{str(dtype).split('.')[-1]}]"] = _launches()
+        out[key] = (loss.detach().cpu().double(), grad.cpu().double())
+        if dtype == torch.float32:
+            prompts = [adapter.get_vqa_prompt("what is in the picture and what color is it?"),
+                       adapter.get_caption_prompt(None)]
+            pf, df, toks, n_pad = adapter._decode_fns(x.to(dev), prompts, LLAVA_MPT_NEW_TOKENS)
+            res = greedy_generate(pf, df, toks, n_pad, max_new_tokens=LLAVA_MPT_NEW_TOKENS,
+                                  eos_id=adapter.tok.eos_token_id, pad_id=adapter.tok.pad_token_id)
+            tokens[dev] = res.tokens.cpu().tolist()
+            n_pad = n_pad.cpu().tolist()
+        del model, adapter, on_dev
+    _free()
+    ref, card, half = out["cpu[float32]"], out["cuda[float32]"], out["cuda[bfloat16]"]
+    loss_rel = float(((card[0] - ref[0]).abs() / ref[0].abs()).max())
+    g_max = float(ref[1].abs().max())
+    g_err = float((card[1] - ref[1]).abs().max())
+    half_rel = float(((half[0] - card[0]).abs() / card[0].abs()).max())
+    seq_len = llava_mpt_seq_len()
+    checks = {"loss_rel": loss_rel <= 1e-4, "grad": g_err <= 1e-3 * g_max,
+              "grad_nonzero": g_max > 0 and float(card[1].abs().max()) > 0,
+              "finite": bool(torch.isfinite(card[1]).all() and torch.isfinite(half[1]).all()),
+              "greedy_tokens_equal": tokens["cpu"] == tokens["cuda"],
+              "left_padded_batch": len(set(n_pad)) == 2,
+              "seq_len_as_kernel_rows": seq_lens == {seq_len},
+              "bf16_loss": half_rel <= 5e-2,
+              "launched_alibi": all(_launched(v, ("flash_attention_fwd_alibi", "flash_attention_bwd_alibi",
+                                                  "vit_attention_fwd", "vit_attention_bwd"))
+                                    for v in launches.values())}
+    emit({"phase": "llava_mpt_reference", "model": cfg.name, "dtypes": ["float32", "bfloat16 (card)"],
+          "batch": 1, "seq_len": seq_len, "loss": float(ref[0][0]), "loss_rel_err": loss_rel,
+          "grad_max_abs_err": g_err, "grad_max_abs": g_max, "bf16_loss_rel_to_float32": half_rel,
+          "tol": {"loss_rel": 1e-4, "grad_of_largest": 1e-3, "bf16_loss_rel": 5e-2},
+          "greedy_tokens": tokens, "n_pad": n_pad, "launches": launches,
+          "cuts": [f"{LLAVA_MPT_LAYERS} of 32 MPT-7B layers", f"{LLAVA_MPT_LAYERS} of 24 ViT-L/14 layers",
+                   "random weights (seed 0)"],
+          "wall_s": time.perf_counter() - t0, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"llava_mpt_reference checks failed: {checks}")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 14
+QUAL_ITERS = 50
+
+
+def phase_llava_qualitative() -> dict:
+    """`run_evaluation_qualitative.main` at LLaVA-1.5-7B full width (bf16,
+    random weights from seed 0) on one fixture image, the default target
+    with its table seed, eps 2/255, QUAL_ITERS iterations: the target's
+    teacher-forced loss at the saved x_adv below clean, on the CLI's own
+    adapter, x_adv in the eps-ball and the box. Returns the launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from robustvlm_tpu_torch.benchmark.templates import target_to_seed
+    from robustvlm_tpu_torch.data.loaders import default_image_transform
+    from robustvlm_tpu_torch.vlm_eval import run_evaluation as R
+    from robustvlm_tpu_torch.vlm_eval import run_evaluation_qualitative as Q
+
+    _free()
+    root = OUT / "llava-qualitative"
+    root.mkdir(parents=True, exist_ok=True)
+    img = root / "surfer.png"
+    Image.fromarray(np.random.RandomState(3).randint(0, 255, (360, 400, 3), np.uint8)).save(img)
+    target = Q.build_parser().get_default("target_str")
+    argv = ["--device", "cuda", "--model", "llava", "--model_size", "7b", "--images", str(img),
+            "--eps", str(LLAVA_EPS), "--n_iter", str(QUAL_ITERS), "--max_new_tokens", "16",
+            "--out_base_path", str(root / "out")]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with adapters_of_cli(R, {}) as seen:
+        report = Q.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    adapter = seen["half"]
+    with Image.open(img) as im:
+        x = default_image_transform(adapter.cfg.vision.image_size)(im)
+    x_adv = np.load(root / "out" / "adv" / "surfer.npy")
+    with torch.no_grad():
+        adapter.set_inputs([adapter.get_caption_prompt(target)])
+        losses = [float(adapter(torch.from_numpy(a[None]).cuda())[0]) for a in (x, x_adv)]
+    del adapter, seen
+    _free()
+    linf = float(np.abs(x_adv.astype(np.float64) - x).max())
+    checks = {"target_loss_fell": losses[1] < losses[0],
+              "in_box": bool(x_adv.min() >= 0.0 and x_adv.max() <= 1.0),
+              "in_ball": linf <= LLAVA_EPS / 255.0 + 1e-6,
+              "report": set(report) == {"target_str", "eps", "n_iter", "success_rate", "results", "wall_s"}
+              and report["target_str"] == target and math.isfinite(report["results"][0]["loss"]),
+              "launched": _launched(launches, LLAVA_KERNELS)}
+    emit({"phase": "llava_qualitative", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation_qualitative.main",
+          "argv": argv, "model": "llava-1.5-7b", "dtype": "bfloat16", "target_str": target,
+          "seed": Q.table_seed(target_to_seed(), target), "n_iter": QUAL_ITERS, "wall_s": wall,
+          "target_loss_clean": losses[0], "target_loss_adv": losses[1], "linf": linf,
+          "caption": report["results"][0]["caption"], "success_rate": report["success_rate"],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+          "card": card_line(), "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"llava_qualitative checks failed: {checks}")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 15
+def phase_llava_aux() -> dict:
+    """POPE's and ScienceQA's `main` at LLaVA-1.5-7B full width (the float32
+    adapter each CLI builds, random weights from seed 0) on 2 fixture items
+    each (one ScienceQA problem text-only): finite metrics."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from robustvlm_tpu_torch.vlm_eval import pope, science_qa
+
+    _free()
+    root = OUT / "llava-aux"
+    (root / "sqa" / "q1").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(4)
+    for path in (root / "pope.jpg", root / "sqa" / "q1" / "image.png"):
+        Image.fromarray(rng.randint(0, 255, (360, 400, 3), np.uint8)).save(path)
+    qfile = root / "pope.jsonl"
+    qfile.write_text("".join(json.dumps({"question_id": i, "image": "pope.jpg", "text": t, "label": lab}) + "\n"
+                             for i, (t, lab) in enumerate([("Is there a surfboard in the image?", "yes"),
+                                                           ("Is there a giraffe in the image?", "no")])))
+    pfile = root / "problems.json"
+    pfile.write_text(json.dumps({
+        "q1": {"question": "Which animal is shown?", "choices": ["a dog", "a cat", "a bird"], "answer": 0,
+               "image": "image.png"},
+        "q2": {"question": "Which is a liquid?", "choices": ["ice", "water"], "answer": 1}}))
+    common = ["--device", "cuda", "--model", "llava", "--model_size", "7b", "--max_new_tokens", "8"]
+    _reset_launches()
+    t0 = time.perf_counter()
+    m_pope = pope.main([*common, "--pope_questions", str(qfile), "--image_root", str(root)])
+    t1 = time.perf_counter()
+    _free()
+    m_sqa = science_qa.main([*common, "--problems", str(pfile), "--image_root", str(root / "sqa")])
+    t2 = time.perf_counter()
+    launches = _launches()
+    _free()
+
+    def finite(m):
+        return all(math.isfinite(v) for v in m.values() if isinstance(v, (int, float)))
+
+    # generation only: the tower's forward kernel (the LM's cached prefill
+    # and decode are masked plain attention, as in JAX)
+    checks = {"pope_metrics": finite(m_pope) and {"precision", "recall", "f1", "accuracy", "yes_ratio"} <= set(m_pope),
+              "science_qa_metrics": finite(m_sqa) and m_sqa["total"] == 2,
+              "launched": _launched(launches, ("vit_attention_fwd",))}
+    emit({"phase": "llava_aux", "entry": ["robustvlm_tpu_torch.vlm_eval.pope.main",
+                                          "robustvlm_tpu_torch.vlm_eval.science_qa.main"],
+          "model": "llava-1.5-7b", "dtype": "float32", "pope": m_pope, "science_qa": m_sqa,
+          "pope_wall_s": t1 - t0, "science_qa_wall_s": t2 - t1, "launches": launches,
+          "card": card_line(), "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"llava_aux checks failed: {checks}")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 16
 # OpenFlamingo-9B. The reference initialises both gates of every gated
 # cross-attention block at 0, where tanh(0) = 0 and a random OpenFlamingo
 # ignores its image: the pixel gradient would be exactly 0 and APGD would
@@ -1767,7 +2370,7 @@ def flamingo_prompt_lens() -> list:
     return lens
 
 
-# ------------------------------------------------------------------ phase 12
+# ------------------------------------------------------------------ phase 17
 def phase_flamingo() -> dict:
     """`run_evaluation.main` at OpenFlamingo-9B full width (32 MPT layers, 8
     gated blocks, ViT-L/14 at 224 px), random weights from seed 0 with the
@@ -1849,7 +2452,7 @@ def phase_flamingo() -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ phase 13
+# ------------------------------------------------------------------ phase 18
 def phase_flamingo_ensemble() -> dict:
     """`--attack ensemble` at OpenFlamingo-9B full width on one image: one
     set of random weights (seed 0, gates opened) held as one float32 and one
@@ -1874,7 +2477,7 @@ def phase_flamingo_ensemble() -> dict:
     argv = flamingo_argv(img_dir, ann, out_dir, "--attack", "ensemble", "--n_iter",
                          str(FLAMINGO_ENSEMBLE_ITERS), "--num_samples", "1")
     args = R.build_parser().parse_args(argv)
-    schedule = R.captioning_schedule(args)
+    schedule = R.attack_schedule(args)
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     _reset_launches()
@@ -1940,16 +2543,18 @@ def phase_flamingo_ensemble() -> dict:
     return full
 
 
-def check_flash_alibi(peaks: dict, n: int) -> list:
-    """The flash forward and backward with ALiBi at OpenFlamingo's MPT-7B
-    shape: 32 heads of 128, causal, the slopes of `alibi_slopes(32)`, n the
-    `flamingo` phase's longest teacher-forced prompt (`flamingo_prompt_lens`);
-    float32 and bf16. The
-    same checks as the other flash rows (limits ATTN_TOL/LSE_TOL, four
-    planted faults caught, the backward bitwise repeatable); times by
-    CUDA-graph replay against SDPA with the ALiBi bias and the causal mask
-    as one additive float attn_mask (in q's dtype). Rows take their
-    launches from `flamingo` (bf16) and the float32 stage of
+def check_flash_alibi(peaks: dict, n: int, case: str = "alibi_openflamingo", tag: str = "",
+                      launches_from=("flamingo", "flamingo_ensemble[float32 stage]")) -> list:
+    """The flash forward and backward with ALiBi at an MPT-7B shape: 32
+    heads of 128, causal, the slopes of `alibi_slopes(32)`, n tokens:
+    OpenFlamingo's (`flamingo`'s longest teacher-forced prompt,
+    `flamingo_prompt_lens`) or LLaVA-MPT's (`llava_mpt_seq_len`, the row
+    names tagged with `tag`); float32 and bf16. The same checks as the other
+    flash rows (limits ATTN_TOL/LSE_TOL, four planted faults caught, the
+    backward bitwise repeatable); times by CUDA-graph replay against SDPA
+    with the ALiBi bias and the causal mask as one additive float attn_mask
+    (in q's dtype). Rows take their launches from `launches_from` (bf16's
+    run, float32's run): by default `flamingo` and the float32 stage of
     `flamingo_ensemble`."""
     import torch
     import torch.nn.functional as Fn
@@ -1976,7 +2581,7 @@ def check_flash_alibi(peaks: dict, n: int) -> list:
         repeatable = all(torch.equal(a, b) for a, b in zip(grads, again))
         controls = _flash_controls(dname, q, k, v, do, kw, got, ref)
         ok = all(r[1] for r in res.values()) and repeatable and all(controls.values())
-        emit({"phase": "kernels", "kernel": "flash_attention", "case": "alibi_openflamingo",
+        emit({"phase": "kernels", "kernel": "flash_attention", "case": case,
               "dtype": dname, "shape": [bh, n, n, d], "causal": True, "alibi": True,
               "max_abs_err": {m: e for m, (e, _) in res.items()},
               "within": {m: w for m, (_, w) in res.items()}, "bwd_bitwise_repeatable": repeatable,
@@ -1984,7 +2589,7 @@ def check_flash_alibi(peaks: dict, n: int) -> list:
               "tol": {"outputs": ATTN_TOL[dname], "relative_to_max_ref": dname != "float32",
                       "lse": LSE_TOL}, "ok": ok})
         if not ok:
-            raise AssertionError(f"flash_attention {dname} with ALiBi at OpenFlamingo's shape: "
+            raise AssertionError(f"flash_attention {dname} with ALiBi ({case}, n = {n}): "
                                  "disagrees, is not repeatable, or a planted fault passed")
         fwd_ms = time_graph_ms(lambda: F.flash_fwd_cuda(q, k, v, **kw))
         fwd_plain = time_ms(lambda: F.flash_fwd_plain(q, k, v, **kw), iters=5)
@@ -2008,16 +2613,16 @@ def check_flash_alibi(peaks: dict, n: int) -> list:
         fb, fby = bound_ms(4 * elems * itm + bh * n * 4, 4 * causal_pairs * d, dname, peaks)
         bb, bby = bound_ms(8 * elems * itm + bh * n * 4, 10 * causal_pairs * d, dname, peaks)
         common = {"route": "cuda", "dtype": dname, "shape": [bh, n, d], "causal": True, "alibi": True,
-                  "launches_from": "flamingo" if dtype == torch.bfloat16
-                  else "flamingo_ensemble[float32 stage]",
+                  "launches_from": launches_from[1] if dtype == torch.float32 else launches_from[0],
                   "library": "SDPA, ALiBi bias + causal mask as one additive float attn_mask"}
-        rows.append({"name": f"flash_attention_fwd_alibi[{dname}]", **common,
+        suffix = f", {tag}" if tag else ""
+        rows.append({"name": f"flash_attention_fwd_alibi[{dname}{suffix}]", **common,
                      **_attn_source("fwd", dname, "flash_attention.cu"),
                      "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
                      "max_abs_err": res["o"][0], "ms": fwd_ms, "plain_ms": fwd_plain,
                      "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
                      "library_max_abs_err": lib_err, **fwd_backend, "timed_by": TIMED_BY["fwd"]})
-        rows.append({"name": f"flash_attention_bwd_alibi[{dname}]", **common,
+        rows.append({"name": f"flash_attention_bwd_alibi[{dname}{suffix}]", **common,
                      **_attn_source("bwd", dname, "flash_attention.cu"),
                      "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:273 (dQ), :295 (dK/dV)",
                      "max_abs_err": max(res["dq"][0], res["dk"][0], res["dv"][0]), "ms": bwd_ms,
@@ -2026,7 +2631,7 @@ def check_flash_alibi(peaks: dict, n: int) -> list:
     return rows
 
 
-# ------------------------------------------------------------------ phase 14
+# ------------------------------------------------------------------ phase 19
 SERVE_ARGV = ["--device", "cuda", "--model", "llava", "--model_size", "7b", "--quantize-decode",
               "--quantize-bits", "4", "--host", "127.0.0.1", "--port", "0", "--controller-address", ""]
 SERVE_NEW_TOKENS = 32
@@ -2350,7 +2955,12 @@ def main() -> int:
     runs["train[tecoa2]"] = phase_train("tecoa2")
     runs["llava_reference"] = phase_llava_reference()
     runs["llava"] = phase_llava()
+    runs["llava_vqa"] = phase_llava_vqa()
     runs["llava_ensemble[float32 stage]"] = phase_llava_ensemble()
+    runs["llava_rob"] = phase_llava_rob()
+    runs.update(phase_llava_mpt_reference())
+    runs["llava_qualitative"] = phase_llava_qualitative()
+    runs["llava_aux"] = phase_llava_aux()
     runs["flamingo_reference"] = phase_flamingo_reference()
     runs["flamingo"] = phase_flamingo()
     runs["flamingo_ensemble[float32 stage]"] = phase_flamingo_ensemble()
@@ -2358,8 +2968,8 @@ def main() -> int:
     # Each row takes the launches of the run of its path and dtype: the CLIP
     # kernels from the CLI's CLIP runs; flash in bf16 from the LLaVA eval,
     # in float32 from the ensemble's float32 stage (at head dim 64 from the
-    # float32 CLIP run's text tower; with ALiBi from the OpenFlamingo runs,
-    # named in the row); q4_matmul from serving.
+    # float32 CLIP run's text tower; with ALiBi from the OpenFlamingo runs
+    # or LLaVA-MPT's, named in the row); q4_matmul from serving.
     for r in rows:
         kernel = r.pop("counter", r["name"].split("[")[0])
         if "launches_from" in r:

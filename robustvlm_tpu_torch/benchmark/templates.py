@@ -1,9 +1,9 @@
 """Prompt templates and classname tables for zero-shot classifiers.
 
-Counterpart of `get_classnames`, `get_templates` and `format_prompts` in
-`robustvlm_tpu/benchmark/templates.py`. The tables are the JSON files under
-`robustvlm_tpu/benchmark/data/`, read by path (the port imports nothing of
-the JAX package).
+Counterpart of `get_classnames`, `get_templates`, `format_prompts` and
+`target_to_seed` in `robustvlm_tpu/benchmark/templates.py`. The tables are
+the JSON files under `robustvlm_tpu/benchmark/data/`, read by path (the
+port imports nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -53,3 +53,9 @@ def format_prompts(templates: Sequence[str], classname: str) -> List[str]:
         t.format(c=classname) if "{c}" in t else t.format(classname)
         for t in templates
     ]
+
+
+def target_to_seed() -> Dict[str, int]:
+    """Fixed seeds of the stealthy targeted caption attacks, one a target
+    string (`target_to_seed.json`)."""
+    return _load_json("target_to_seed.json")

@@ -41,7 +41,9 @@ def _to_np(v) -> np.ndarray:
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(_to_np(a), dtype=np.float32, copy=True))
+    """A new row-major float32 tensor (a transposed view is copied in row
+    order, so the model's weights are laid out as if drawn in place)."""
+    return torch.from_numpy(np.array(_to_np(a), dtype=np.float32, copy=True, order="C"))
 
 
 def _leaf(v):

@@ -6,7 +6,8 @@ attn.Wqkv.weight, attn.out_proj.weight, norm_2.weight, ffn.up_proj.weight,
 ffn.down_proj.weight}`, `transformer.norm_f.weight`; MPT-7B is bias-free.
 Linear weights are transposed once: torch stores (out, in), the port (in,
 out). `load_state` reads what the checkpoint flags name: a state dict, a
-`.pt`/`.bin`/`.safetensors` file, or an HF directory of shards.
+`.pt`/`.bin`/`.safetensors` file, or an HF directory of shards; the LLaMA
+and LLaVA importers read through it too.
 """
 
 from __future__ import annotations
@@ -41,22 +42,33 @@ def import_mpt_state_dict(sd: Mapping[str, Any], cfg: MPTConfig, prefix: str = "
 
 
 def load_state(path_or_sd) -> Mapping[str, Any]:
-    """A state dict from a mapping, a module, a file or an HF directory."""
-    if not isinstance(path_or_sd, str):
+    """A state dict from a mapping, a module, a file or an HF directory (the
+    reader of every checkpoint loader of the port). A directory merges its
+    `.safetensors` shards, else its `.bin`/`.pt` shards; `.bin`/`.pt` need
+    torch alone, `.safetensors` the `safetensors` package (an optional
+    import: without it such a checkpoint raises, naming the package)."""
+    if not isinstance(path_or_sd, (str, os.PathLike)):
         return path_or_sd.state_dict() if hasattr(path_or_sd, "state_dict") else path_or_sd
-    if os.path.isdir(path_or_sd):
-        names = sorted(os.listdir(path_or_sd))
+    path = os.fspath(path_or_sd)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    if os.path.isdir(path):
+        names = sorted(os.listdir(path))
         shards = [n for n in names if n.endswith(".safetensors")] or \
             [n for n in names if n.endswith((".bin", ".pt"))]
+        if not shards:
+            raise FileNotFoundError(f"no .safetensors, .bin or .pt shard in {path}")
         sd: Dict[str, Any] = {}
         for n in shards:
-            sd.update(load_state(os.path.join(path_or_sd, n)))
+            sd.update(load_state(os.path.join(path, n)))
         return sd
-    if path_or_sd.endswith(".safetensors"):
-        from safetensors.torch import load_file
-
-        return load_file(path_or_sd)
-    sd = torch.load(path_or_sd, map_location="cpu", weights_only=False)
+    if path.endswith(".safetensors"):
+        try:
+            from safetensors.torch import load_file
+        except ImportError as e:
+            raise ImportError(f"{path}: reading .safetensors needs the `safetensors` package") from e
+        return load_file(path)
+    sd = torch.load(path, map_location="cpu", weights_only=False)
     return sd.state_dict() if hasattr(sd, "state_dict") else sd
 
 

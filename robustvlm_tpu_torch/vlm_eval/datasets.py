@@ -1,16 +1,16 @@
-"""Caption datasets for the VLM eval (counterpart of `CaptionDataset`,
-`TensorCaptionDataset` and `save_adv_image` in
-`robustvlm_tpu/vlm_eval/datasets.py`).
+"""Caption and VQA datasets for the VLM eval (counterpart of
+`CaptionDataset`, `VQADataset`, `TensorCaptionDataset` and `save_adv_image`
+in `robustvlm_tpu/vlm_eval/datasets.py`).
 
 Images come out as [0,1] float32 CHW (the threat-model contract);
-adversarial tensors are stored as .npy, and .pt is still read. The VQA
-dataset comes with the VQA eval (ROADMAP A10).
+adversarial tensors are stored as .npy, and .pt is still read.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional, Union
 
@@ -97,6 +97,59 @@ class CaptionDataset:
             "image_id": iid,
             "caption": self.get_gt_caption(iid),
             "all_captions": self.captions[iid],
+        }
+
+
+class VQADataset:
+    """VQAv2-style questions and annotations jsons (a dict with
+    'questions' / 'annotations', or a bare list). The ground truth is the
+    `which_gt`-th most common annotator answer (an int, or a dict by
+    question id). An image is `<image_root>/<file_prefix><file_pattern>`,
+    else `<image_root>/<file_pattern>`."""
+
+    def __init__(self, image_root: str, questions_path: str, annotations_path: Optional[str] = None,
+                 *, size: int = 224, which_gt: Union[int, Dict] = 0, n_samples: Optional[int] = None,
+                 file_pattern: str = "{image_id:012d}.jpg", file_prefix: str = "COCO_val2014_"):
+        self.image_root = Path(image_root)
+        self.transform = default_image_transform(size)
+        with open(questions_path) as f:
+            qdata = json.load(f)
+        self.questions = (qdata["questions"] if isinstance(qdata, dict) else qdata)[:n_samples]
+        self.answers: Dict[int, List[str]] = {}
+        if annotations_path:
+            with open(annotations_path) as f:
+                adata = json.load(f)
+            for a in (adata["annotations"] if isinstance(adata, dict) else adata):
+                self.answers[a["question_id"]] = [x["answer"] for x in a["answers"]]
+        self.which_gt = which_gt
+        self.file_pattern = file_pattern
+        self.file_prefix = file_prefix
+
+    def __len__(self):
+        return len(self.questions)
+
+    def get_gt_answer(self, question_id: int) -> Optional[str]:
+        if question_id not in self.answers:
+            return None
+        wg = self.which_gt
+        if isinstance(wg, dict):
+            wg = wg.get(str(question_id), wg.get(question_id, 0))
+        ranked = [a for a, _ in Counter(self.answers[question_id]).most_common()]
+        return ranked[int(wg) % len(ranked)]
+
+    def __getitem__(self, i: int):
+        q = self.questions[i]
+        iid = q["image_id"]
+        path = self.image_root / (self.file_prefix + self.file_pattern.format(image_id=iid))
+        if not path.exists():
+            path = self.image_root / self.file_pattern.format(image_id=iid)
+        return {
+            "image": _load_image(str(path), self.transform),
+            "image_id": iid,
+            "question_id": q["question_id"],
+            "question": q["question"],
+            "answers": self.answers.get(q["question_id"], []),
+            "gt_answer": self.get_gt_answer(q["question_id"]),
         }
 
 

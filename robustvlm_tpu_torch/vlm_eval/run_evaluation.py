@@ -1,5 +1,5 @@
-"""VLM adversarial evaluation CLI: LLaVA and OpenFlamingo captioning on the
-card.
+"""VLM adversarial evaluation CLI: LLaVA and OpenFlamingo captioning and VQA
+on the card.
 
 Counterpart of `robustvlm_tpu/vlm_eval/run_evaluation.py`, with the same
 flags and `--device` (default cuda):
@@ -8,23 +8,35 @@ flags and `--device` (default cuda):
       --model llava --eval_coco --coco_image_dir /data/coco/val2014 \\
       --coco_annotations /data/coco/captions_val2014.json \\
       --attack ensemble --eps 2 --n_iter 100 --num_samples 500
+  python -m robustvlm_tpu_torch.vlm_eval.run_evaluation --model llava \\
+      --llava_ckpt /ckpt/llava-1.5-7b --vision_encoder_pretrained fare2.pt \\
+      --eval_vqav2 --vqav2_image_dir ... --vqav2_questions ... \\
+      --vqav2_annotations ... --attack ensemble [--targeted --target_str maybe]
   python -m robustvlm_tpu_torch.vlm_eval.run_evaluation --model open_flamingo \\
       --eval_coco ... --attack apgd --shots 0 4 [--mask_out context]
 
 eps in /255 units. --attack none = clean eval; apgd = one untargeted run
-(half precision); ensemble = the full worst-case schedule; --targeted adds
---target_str. Without a checkpoint the weights are random from seed 0 (made
-once per run, on the device, and shared by the bf16 and float32 adapters;
-OpenFlamingo's gates at 0, as the reference initialises them); without
---tokenizer_path the hash tokenizer stands in. --model_size test-tiny runs
-the tiny configs (tests). OpenFlamingo takes --of_ckpt with --mpt_ckpt and
---clip_ckpt (or a robust tower, --vision_encoder_pretrained); --shots N
-stacks N demo images before the query (2 text-only demos at 0 shots), drawn
-from the train annotations (or, warned, the eval file); --mask_out masks
-the context or the query frames' gradient.
+(half precision); ensemble = the full worst-case schedule (VQA adds the
+targeted 'maybe' and 'Word' stages); --targeted adds --target_str. The VQA
+evals (--eval_vqav2, --eval_textvqa, --eval_vizwiz, --eval_ok_vqa) score the
+official leave-one-out accuracy (OK-VQA's answers stemmed), per question.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item: the
-VQA evals, --model blip2, --llava_ckpt and --tokenizer_path.
+Weights: LLaVA loads --llava_ckpt (an HF directory of shards or one file),
+with --vision_encoder_pretrained a robust 224 px tower in place of its own
+(the `llava-1.5-7b-rob` config); OpenFlamingo takes --of_ckpt with
+--mpt_ckpt and --clip_ckpt (or a robust tower). Without a checkpoint the
+weights are random from seed 0, made once per run on the device (OpenFlamingo's
+gates at 0, as the reference initialises them). Either way one float32 set
+of weights is shared by the bf16 and float32 adapters. --tokenizer_path
+loads an HF tokenizer through `transformers` (an optional import); without
+it the hash tokenizer stands in. --model_size test-tiny runs the tiny
+configs (tests). --shots N stacks N demo images before the query
+(OpenFlamingo; 2 text-only demos at 0 shots), drawn from the train files
+(or, warned, the eval files); --mask_out masks the context or the query
+frames' gradient.
+
+Not ported yet, raising NotImplementedError with its ROADMAP item:
+--model blip2.
 """
 
 from __future__ import annotations
@@ -41,6 +53,17 @@ import numpy as np
 import torch
 
 from robustvlm_tpu_torch.device import resolve_device, use_full_fp32
+
+
+# per-dataset VQA file layouts: VQAv2 and OK-VQA are COCO images, TextVQA and
+# VizWiz name files by their bare id
+VQA_LAYOUTS = {
+    "vqav2": dict(file_prefix="COCO_val2014_", file_pattern="{image_id:012d}.jpg"),
+    "ok_vqa": dict(file_prefix="COCO_val2014_", file_pattern="{image_id:012d}.jpg"),
+    "textvqa": dict(file_prefix="", file_pattern="{image_id}.jpg"),
+    "vizwiz": dict(file_prefix="", file_pattern="{image_id}.jpg"),
+}
+VQA_DATASETS = ("vqav2", "textvqa", "vizwiz", "ok_vqa")  # the JAX CLI's order
 
 
 def add_model_args(p):
@@ -67,7 +90,7 @@ def build_parser():
     for flag in ("coco_image_dir", "coco_annotations", "flickr_image_dir", "flickr_annotations",
                  "coco_train_image_dir", "coco_train_annotations", "flickr_train_annotations"):
         p.add_argument(f"--{flag}", default="")
-    for ds in ("vqav2", "textvqa", "vizwiz", "ok_vqa"):
+    for ds in VQA_DATASETS:
         for part in ("image_dir", "questions", "annotations"):
             p.add_argument(f"--{ds}_{part}", default="")
             p.add_argument(f"--{ds}_train_{part}", default="")
@@ -117,41 +140,65 @@ def _eval_indices(n_total: int, num_samples, seed: int) -> np.ndarray:
 
 
 def _tokenizer(args):
+    """The HF tokenizer of --tokenizer_path (its pad token the EOS token
+    when it has none), else the hash tokenizer. `transformers` is an
+    optional import: without it --tokenizer_path raises."""
     if args.tokenizer_path:
-        raise NotImplementedError(
-            "--tokenizer_path needs `transformers`, which this environment lacks (ROADMAP A10)")
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as e:
+            raise ImportError("--tokenizer_path needs the `transformers` package") from e
+        tok = AutoTokenizer.from_pretrained(args.tokenizer_path)
+        if tok.pad_token_id is None:
+            tok.pad_token = tok.eos_token
+        return tok
     from robustvlm_tpu_torch.vlm_eval.eval_models import WordTokenizer
 
     return WordTokenizer()
 
 
 def _llava_config(args):
+    """llava-1.5-7b, or llava-1.5-7b-rob (the 224 px tower) with
+    --vision_encoder_pretrained; test-tiny for the tiny size."""
     from robustvlm_tpu_torch.models.llava.model import LLAVA_CONFIGS
 
-    return LLAVA_CONFIGS["llava-1.5-7b" if args.model_size == "7b" else "test-tiny"]
+    if args.model_size != "7b":
+        return LLAVA_CONFIGS["test-tiny"]
+    return LLAVA_CONFIGS["llava-1.5-7b-rob" if args.vision_encoder_pretrained else "llava-1.5-7b"]
 
 
 def build_llava_models(args, precisions, device) -> Dict[str, object]:
     """One `Llava` per precision ('half' bf16, 'full' float32) from ONE set
-    of weights: random from seed 0, drawn once on the device. The bf16 model
-    holds one bf16 copy of the matrices (made once) and shares the rest with
-    the float32 one; with no 'full' stage no float32 matrix is ever held."""
-    if args.llava_ckpt or args.vision_encoder_pretrained:
-        raise NotImplementedError(
-            "loading LLaVA checkpoints is not ported: no checkpoint in the repository to test "
-            "it against (ROADMAP A10)")
+    of weights: --llava_ckpt (with --vision_encoder_pretrained's tower),
+    loaded once in float32, or random from seed 0, drawn once on the device.
+    The bf16 model holds one bf16 copy of the matrices (made once) and
+    shares the rest with the float32 one; with no 'full' stage no float32
+    matrix is ever held on the device."""
     from robustvlm_tpu_torch.models.llava.convert import init_random_state
     from robustvlm_tpu_torch.models.llava.model import Llava, half_state
 
     cfg = _llava_config(args)
-    models = {}
-    if "full" in precisions:
+    if args.llava_ckpt:
+        from robustvlm_tpu_torch.models.llava.import_torch import load_llava_checkpoint
+
+        full = load_llava_checkpoint(args.llava_ckpt, cfg,
+                                     robust_vision_path=args.vision_encoder_pretrained or None)
+        if "full" not in precisions:  # bf16 alone: cast on the device, one tensor at a time
+            half = {}
+            for k in list(full):
+                half.update(half_state({k: full.pop(k).to(device)}))
+            return {"half": Llava.from_state(cfg, half)}
+        full = {k: v.to(device) for k, v in full.items()}
+    elif args.vision_encoder_pretrained:
+        raise ValueError("--vision_encoder_pretrained replaces the tower of --llava_ckpt's model; "
+                         "pass --llava_ckpt with it")
+    elif "full" in precisions:
         full = init_random_state(cfg, 0, device)
-        models["full"] = Llava.from_state(cfg, full)
-        if "half" in precisions:
-            models["half"] = Llava.from_state(cfg, half_state(full))
-    elif "half" in precisions:
-        models["half"] = Llava.from_state(cfg, init_random_state(cfg, 0, device, torch.bfloat16))
+    else:
+        return {"half": Llava.from_state(cfg, init_random_state(cfg, 0, device, torch.bfloat16))}
+    models = {"full": Llava.from_state(cfg, full)}
+    if "half" in precisions:
+        models["half"] = Llava.from_state(cfg, half_state(full))
     return models
 
 
@@ -254,17 +301,31 @@ def _wrap_few_shot(args, ds, train_ds, num_shots: int, seed: int):
     return FewShotDataset(ds, query_set, num_shots=num_shots, effective_num_shots=eff, seed=seed)
 
 
-def captioning_schedule(args):
+def attack_schedule(args, task: str = "caption"):
     """--attack none: a clean pass; apgd: one untargeted (or --targeted)
-    half-precision run; ensemble: the full worst-case schedule."""
-    from robustvlm_tpu_torch.vlm_eval.ensemble import AttackSpec, default_captioning_schedule
+    half-precision run; ensemble: the full worst-case schedule of the task
+    ('caption', or 'vqa' with its targeted 'maybe' / 'Word' stages)."""
+    from robustvlm_tpu_torch.vlm_eval.ensemble import (
+        AttackSpec,
+        default_captioning_schedule,
+        default_vqa_schedule,
+    )
 
     tgt = args.target_str if args.targeted else None
     if args.attack == "none":
         return [AttackSpec(kind="none")]
     if args.attack == "apgd":
         return [AttackSpec(n_iter=args.n_iter, gt_idx=0, targeted=args.targeted, target_str=tgt)]
-    return default_captioning_schedule(args.n_iter, target_str=tgt)
+    schedule = default_vqa_schedule if task == "vqa" else default_captioning_schedule
+    return schedule(args.n_iter, target_str=tgt)
+
+
+def _out_dir(args, dataset_name: str, num_shots: int, trial: Optional[int]) -> Path:
+    """Per dataset, shot count and trial: runs of a grid never share
+    adversarial tensors or the resume state."""
+    return Path(args.out_base_path) / (
+        (dataset_name if num_shots == 0 else f"{dataset_name}_shots{num_shots}")
+        + ("" if trial is None else f"_trial{trial}"))
 
 
 def evaluate_captioning(args, dataset_name: str, image_dir: str, annotations: str, *,
@@ -327,19 +388,14 @@ def evaluate_captioning(args, dataset_name: str, image_dir: str, annotations: st
 
     if threshold is None:
         threshold = {"coco": 10.0, "flickr": 2.0}.get(dataset_name, 10.0)
-    schedule = captioning_schedule(args)
-    # per shot count and trial: runs of a grid never share adversarial
-    # tensors or the resume state
-    out_dir = Path(args.out_base_path) / (
-        (dataset_name if num_shots == 0 else f"{dataset_name}_shots{num_shots}")
-        + ("" if trial is None else f"_trial{trial}"))
     runner = EnsembleRunner(
         lambda prec: build_eval_model(args, prec, models),
         eps=args.eps / 255.0, score_fn=score_fn, prompt_fn=prompt_fn, threshold=threshold,
-        out_dir=str(out_dir), max_new_tokens=args.max_new_tokens, num_beams=args.num_beams,
-        verbose=args.verbose, batch_size=args.batch_size, mask_out=args.mask_out,
+        out_dir=str(_out_dir(args, dataset_name, num_shots, trial)),
+        max_new_tokens=args.max_new_tokens, num_beams=args.num_beams, verbose=args.verbose,
+        batch_size=args.batch_size, mask_out=args.mask_out,
     )
-    res = runner.run(ds, schedule, seed=seed, indices=sel, resume=args.resume)
+    res = runner.run(ds, attack_schedule(args), seed=seed, indices=sel, resume=args.resume)
 
     cands = {i: c for i, c in res["outputs"].items() if c is not None}
     refs = {i: cap_ds.captions[i] for i in eval_ids if i in cands}
@@ -354,13 +410,105 @@ def evaluate_captioning(args, dataset_name: str, image_dir: str, annotations: st
     return metrics
 
 
+def vqa_layout_for_dir(dataset_name: str, image_dir: str) -> dict:
+    """The dataset's layout, with a COCO file prefix naming the split that
+    the image directory holds (train demos live in train2014/ as
+    COCO_train2014_*); other directory names keep the default prefix, and
+    `VQADataset` falls back to the bare file pattern anyway."""
+    layout = dict(VQA_LAYOUTS[dataset_name])
+    coco_split = Path(image_dir).name
+    if dataset_name in ("vqav2", "ok_vqa") and coco_split in ("train2014", "val2014", "test2015"):
+        layout["file_prefix"] = f"COCO_{coco_split}_"
+    return layout
+
+
+def evaluate_vqa(args, dataset_name: str = "vqav2", *, models: Dict[str, object],
+                 num_shots: int = 0, seed: Optional[int] = None, trial: Optional[int] = None,
+                 threshold: float = 1.0) -> Dict:
+    """One VQA dataset under the attack schedule. `models` is `build_models`'
+    result, shared by the run. Items are questions (several may share an
+    image), each scored by its own `question_id`; a question leaves the
+    ensemble once its worst accuracy is under `threshold` (1.0: every wrong
+    answer). Demos (num_shots > 0, OpenFlamingo) come from the train files,
+    else from the eval files, warned, and need annotator answers."""
+    from collections import Counter
+
+    from robustvlm_tpu_torch.vlm_eval.datasets import VQADataset
+    from robustvlm_tpu_torch.vlm_eval.ensemble import EnsembleRunner, attack_success_rate
+    from robustvlm_tpu_torch.vlm_eval.fewshot import build_context_text, compute_effective_num_shots
+    from robustvlm_tpu_torch.vlm_eval.metrics.ok_vqa import postprocess_ok_vqa_generation
+    from robustvlm_tpu_torch.vlm_eval.metrics.vqa_accuracy import (
+        postprocess_vqa_generation,
+        vqa_accuracy,
+    )
+
+    seed = args.seed if seed is None else seed
+    size = _image_size(args)
+    image_dir = getattr(args, f"{dataset_name}_image_dir")
+    questions = getattr(args, f"{dataset_name}_questions")
+    annotations = getattr(args, f"{dataset_name}_annotations")
+    ds = VQADataset(image_dir, questions, annotations, size=size,
+                    **vqa_layout_for_dir(dataset_name, image_dir))
+    if compute_effective_num_shots(num_shots, args.model) > 0:
+        train_dir = getattr(args, f"{dataset_name}_train_image_dir", "") or image_dir
+        train_q = getattr(args, f"{dataset_name}_train_questions", "") or questions
+        train_ann = getattr(args, f"{dataset_name}_train_annotations", "") or annotations
+        if train_q == questions or train_ann == annotations:
+            warnings.warn(
+                f"--{dataset_name}_train_questions/_train_annotations not set: few-shot demos are "
+                "drawn from the EVAL files (overlapping pool; each item is excluded from its own "
+                "demos). Pass the train-split files for reference-comparable numbers.",
+                stacklevel=2)
+        train_ds = VQADataset(train_dir, train_q, train_ann, size=size,
+                              **vqa_layout_for_dir(dataset_name, train_dir))
+        if not train_ds.answers:
+            raise ValueError(
+                f"few-shot {dataset_name} demo pool has no annotator answers: demos teacher-force "
+                f"answers[0]; pass --{dataset_name}_train_annotations (train split)")
+        ds = _wrap_few_shot(args, ds, train_ds, num_shots, seed)
+
+    def prompt_fn(model, item, spec, query_only):
+        ctx = build_context_text(model, item.get("demos") or [], num_shots, task="vqa")
+        if query_only:
+            return ctx + model.get_vqa_prompt(item["question"], None)
+        if spec.targeted and spec.target_str:
+            # the target word teacher-forced as the answer, its loss minimized
+            return ctx + model.get_vqa_prompt(item["question"], spec.target_str)
+        answers = item["answers"] or [item.get("gt_answer") or ""]
+        ranked = [a for a, _ in Counter(answers).most_common()]
+        return ctx + model.get_vqa_prompt(item["question"], ranked[(spec.gt_idx or 0) % len(ranked)])
+
+    def score_fn(pred, item):
+        if not item["answers"]:
+            return float("nan")
+        if dataset_name == "ok_vqa":  # OK-VQA's ground truths are stemmed
+            return 100.0 * vqa_accuracy(postprocess_ok_vqa_generation(pred), item["answers"])
+        return 100.0 * vqa_accuracy(postprocess_vqa_generation(pred), item["answers"])
+
+    runner = EnsembleRunner(
+        lambda prec: build_eval_model(args, prec, models),
+        eps=args.eps / 255.0, score_fn=score_fn, prompt_fn=prompt_fn, threshold=threshold,
+        out_dir=str(_out_dir(args, dataset_name, num_shots, trial)),
+        max_new_tokens=args.max_new_tokens, num_beams=args.num_beams, verbose=args.verbose,
+        batch_size=args.batch_size, mask_out=args.mask_out,
+    )
+    sel = _eval_indices(len(ds), args.num_samples, seed)
+    res = runner.run(ds, attack_schedule(args, "vqa"), seed=seed, indices=sel,
+                     resume=args.resume)
+    scores = [v for v in res["scores"].values() if np.isfinite(v)]
+    metrics = {"vqa_accuracy": float(np.mean(scores)) if scores else float("nan")}
+    if args.targeted:
+        metrics["success_rate"] = attack_success_rate(res["outputs"], args.target_str)
+    metrics["wall_s"] = res["wall_s"]
+    metrics["attack_s"] = res["attack_s"]
+    metrics["attack_iters"] = res["attack_iters"]
+    return metrics
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.mask_out != "none" and args.model != "open_flamingo":
         raise ValueError("--mask_out requires --model open_flamingo")
-    for ds in ("vqav2", "textvqa", "vizwiz", "ok_vqa"):
-        if getattr(args, f"eval_{ds}"):
-            raise NotImplementedError(f"--eval_{ds}: the VQA evals are not ported (ROADMAP A10)")
     device = resolve_device(args.device)
     use_full_fp32()  # float32 stages at full precision: no TF32
     out = Path(args.out_base_path)
@@ -377,8 +525,9 @@ def main(argv=None):
     results = {}
     t0 = time.time()
     models = None
-    if args.eval_coco or args.eval_flickr30:
-        models = build_models(args, {s.precision for s in captioning_schedule(args)}, device)
+    if args.eval_coco or args.eval_flickr30 or any(getattr(args, f"eval_{d}") for d in VQA_DATASETS):
+        # the captioning and VQA schedules run the same precisions
+        models = build_models(args, {s.precision for s in attack_schedule(args)}, device)
     # the shots x trials grid, with the JAX CLI's result keys: bare for one
     # 0-shot trial, else per shot count (and trial)
     default_grid = args.shots == [0] and args.num_trials == 1
@@ -395,9 +544,12 @@ def main(argv=None):
             if args.eval_flickr30:
                 results["flickr" + sfx] = evaluate_captioning(
                     args, "flickr", args.flickr_image_dir, args.flickr_annotations, **kw)
+            for ds in VQA_DATASETS:
+                if getattr(args, f"eval_{ds}"):
+                    results[ds + sfx] = evaluate_vqa(args, ds, **kw)
     if args.num_trials > 1:  # means across trials, per shot count
         for num_shots in args.shots:
-            for base in ("coco", "flickr"):
+            for base in ("coco", "flickr", *VQA_DATASETS):
                 keys = [k for k in (f"{base}_shots{num_shots}_trial{t}"
                                     for t in range(args.num_trials)) if k in results]
                 if keys:

@@ -114,5 +114,15 @@ def test_random_init_half_state_is_the_cast_of_float32():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PV.LLAVA_CONFIGS["test-tiny-mpt"]
+    """LLaVA-MPT is ported; an int8 KV cache with it is refused, as in JAX
+    (the int8 cache is llama-family only)."""
+    cfg = PV.LLAVA_CONFIGS["test-tiny-mpt"]
+    model = PV.Llava.from_state(cfg, init_random_state(cfg, 0))
+    x = torch.zeros(1, 3, 32, 32)
+    with pytest.raises(ValueError, match="llama-family only"):
+        PV.make_llava_decode_fns(model, x, torch.ones(1, 2, dtype=torch.long), max_total_len=4,
+                                 kv_bits=8)
+    with pytest.raises(ValueError, match="llama-family only"):
+        JV.make_llava_decode_fns(JV.init_llava_params(jax.random.PRNGKey(0), JV.LLAVA_CONFIGS["test-tiny-mpt"]),
+                                 JV.LLAVA_CONFIGS["test-tiny-mpt"], jnp.zeros((1, 3, 32, 32)),
+                                 jnp.ones((1, 2), jnp.int32), max_total_len=4, kv_bits=8)

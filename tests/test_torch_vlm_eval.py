@@ -207,7 +207,7 @@ def test_ensemble_every_stage_one_copy_per_precision(tmp_path):
         "--device", "cpu", "--model_size", "test-tiny", "--eval_coco", "--attack", "ensemble",
         "--n_iter", "2", "--num_samples", "1", "--max_new_tokens", "2",
         "--out_base_path", str(tmp_path / "out")])
-    schedule = R.captioning_schedule(args)
+    schedule = R.attack_schedule(args)
     models = R.build_llava_models(args, {s.precision for s in schedule}, torch.device("cpu"))
     held = {t.data_ptr(): t.numel() * t.element_size()
             for m in models.values() for t in m.state_dict().values()}
@@ -222,11 +222,13 @@ def test_ensemble_every_stage_one_copy_per_precision(tmp_path):
 
 
 @pytest.mark.parametrize("flag, error, match", [
-    (["--eval_vqav2"], NotImplementedError, "ROADMAP"),
+    # a robust tower replaces the tower of a loaded checkpoint: without one
+    # it would be silently dropped for random weights
+    (["--vision_encoder_pretrained", "x", "--eval_coco"], ValueError, "--llava_ckpt"),
     (["--model", "blip2", "--eval_coco"], NotImplementedError, "ROADMAP"),
     # few-shot demo images need the interleaved-media model, as in JAX
     (["--shots", "2", "--eval_coco"], ValueError, "open_flamingo"),
-    (["--llava_ckpt", "x", "--eval_coco"], NotImplementedError, "ROADMAP")])
+    (["--llava_ckpt", "x", "--eval_coco"], FileNotFoundError, "no checkpoint")])
 def test_cli_unported_parts_raise(tmp_path, flag, error, match):
     from robustvlm_tpu_torch.vlm_eval.run_evaluation import main
 
