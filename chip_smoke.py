@@ -536,17 +536,24 @@ def check_attention(peaks: dict) -> list:
 CLIP_TEXT_SHAPE = (96, 77, 64)  # (B*H, N, D) of the text tower on 8 prompts
 
 
-def _flash_llava_shape() -> tuple:
+def _flash_llava_shape(config: str = "llava-1.5-7b") -> tuple:
+    """(B*H, Nq, Nk, D) of LLaVA's teacher-forced LM at `config`'s tower:
+    576 image tokens (336 px) or the robust 224 px tower's 256."""
     from robustvlm_tpu_torch.models.llava.model import LLAVA_CONFIGS
 
-    n = adapter_seq_len(LLAVA_CONFIGS["llava-1.5-7b"], LLAVA_POST_LEN)
+    n = adapter_seq_len(LLAVA_CONFIGS[config], LLAVA_POST_LEN)
     return (32, n, n, 128)
 
 
-def _flash_cases() -> list:  # (label, bh, nq, nk, d, causal, alibi, extreme)
-    bh, n, _, d = _flash_llava_shape()
+FLASH_LM_CASES = ("llava_lm", "causal_nq_lt_nk", "extreme")  # the cases whose shape is the LM's
+
+
+def _flash_cases(config: str = "llava-1.5-7b", lm_only: bool = False) -> list:
+    """(label, bh, nq, nk, d, causal, alibi, extreme) of every flash case
+    at `config`'s LM length, or of FLASH_LM_CASES alone."""
+    bh, n, _, d = _flash_llava_shape(config)
     tbh, tn, td = CLIP_TEXT_SHAPE
-    return [
+    cases = [
         ("llava_lm", bh, n, n, d, True, False, False),
         ("clip_text", tbh, tn, tn, td, True, False, False),
         ("alibi_causal", 32, 300, 300, 128, True, True, False),
@@ -564,6 +571,7 @@ def _flash_cases() -> list:  # (label, bh, nq, nk, d, causal, alibi, extreme)
         ("keypad_noncausal_d128", 8, 50, 50, 128, False, False, False),
         ("past_tile_one_row_d64", 8, 65, 65, 64, True, False, False),
     ]
+    return [c for c in cases if c[0] in FLASH_LM_CASES] if lm_only else cases
 
 
 def _flash_inputs(bh, nq, nk, d, dtype, seed, extreme=False, alibi=False):
@@ -625,17 +633,25 @@ def _flash_controls(dname, q, k, v, do, kw, got, ref) -> dict:
             for name, f in faults.items()}
 
 
-def check_flash(peaks: dict) -> list:
+def check_flash(peaks: dict, config: str = "llava-1.5-7b", dtypes=("float32", "bfloat16"),
+                tag: str = "", launches_from: str = "") -> list:
+    """The flash kernels against their plain versions (limits ATTN_TOL/
+    LSE_TOL, the backward bitwise repeatable, four planted faults caught at
+    the LM shape) and their rows, timed at the causal LLaVA LM shape of
+    `config` by CUDA-graph replay against SDPA. The default runs every case
+    in both dtypes; a `tag` (another config) runs FLASH_LM_CASES alone, tags
+    the cases and row names, and takes the launches of `launches_from`."""
     import torch
     import torch.nn.functional as Fn
 
     from robustvlm_tpu_torch.ops.kernels import flash_attention as F
 
     results = []
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
+    suffix = f", {tag}" if tag else ""
+    for dname in dtypes:
+        dtype = getattr(torch, dname)
         worst = {"fwd": 0.0, "bwd": 0.0}
-        for label, bh, nq, nk, d, causal, alibi, extreme in _flash_cases():
+        for label, bh, nq, nk, d, causal, alibi, extreme in _flash_cases(config, lm_only=bool(tag)):
             (q, k, v, do), slopes = _flash_inputs(bh, nq, nk, d, dtype, nq + nk, extreme, alibi)
             kw = dict(causal=causal, slopes=slopes)
             o, lse = F.flash_fwd_cuda(q, k, v, **kw)
@@ -646,8 +662,8 @@ def check_flash(peaks: dict) -> list:
             res = _attn_check(dname, got, ref, extreme)
             repeatable = all(torch.equal(a, b) for a, b in zip(grads, again))
             ok = all(r[1] for r in res.values()) and repeatable
-            line = {"phase": "kernels", "kernel": "flash_attention", "case": label, "dtype": dname,
-                    "shape": [bh, nq, nk, d], "causal": causal, "alibi": alibi,
+            line = {"phase": "kernels", "kernel": "flash_attention", "case": label + (f"[{tag}]" if tag else ""),
+                    "dtype": dname, "shape": [bh, nq, nk, d], "causal": causal, "alibi": alibi,
                     "max_abs_err": {n: e for n, (e, _) in res.items()},
                     "within": {n: w for n, (_, w) in res.items()},
                     "bwd_bitwise_repeatable": repeatable,
@@ -664,7 +680,7 @@ def check_flash(peaks: dict) -> list:
             worst["bwd"] = max(worst["bwd"], res["dq"][0], res["dk"][0], res["dv"][0])
 
         # times at the LLaVA LM shape, causal
-        bh, n, _, d = _flash_llava_shape()
+        bh, n, _, d = _flash_llava_shape(config)
         (q, k, v, do), _ = _flash_inputs(bh, n, n, d, dtype, seed=1)
         o, lse = F.flash_fwd_cuda(q, k, v, causal=True)
         fwd_ms = time_graph_ms(lambda: F.flash_fwd_cuda(q, k, v, causal=True))
@@ -686,20 +702,21 @@ def check_flash(peaks: dict) -> list:
         causal_pairs = bh * n * (n + 1) / 2  # (query, key) pairs the causal mask keeps
         fb, fby = bound_ms(4 * elems * itm + bh * n * 4, 4 * causal_pairs * d, dname, peaks)
         bb, bby = bound_ms(8 * elems * itm + bh * n * 4, 10 * causal_pairs * d, dname, peaks)
-        common = {"route": "cuda", "dtype": dname, "shape": [bh, n, d], "causal": True}
-        results.append({"name": f"flash_attention_fwd[{dname}]", **common,
+        common = {"route": "cuda", "dtype": dname, "shape": [bh, n, d], "causal": True,
+                  **({"launches_from": launches_from} if launches_from else {})}
+        results.append({"name": f"flash_attention_fwd[{dname}{suffix}]", **common,
                         **_attn_source("fwd", dname, "flash_attention.cu"),
                         "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
                         "max_abs_err": worst["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
                         "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
                         "timed_by": TIMED_BY["fwd"]})
-        results.append({"name": f"flash_attention_bwd[{dname}]", **common,
+        results.append({"name": f"flash_attention_bwd[{dname}{suffix}]", **common,
                         **_attn_source("bwd", dname, "flash_attention.cu"),
                         "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:273 (dQ), :295 (dK/dV)",
                         "max_abs_err": worst["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
                         "bound_ms": bb, "bound_by": bby, **lib_bwd,
                         "timed_by": TIMED_BY["bwd"]})
-        if dtype == torch.float32:
+        if dtype == torch.float32 and not tag:
             results.append(_flash_clip_text_row(worst["fwd"], peaks))
     return results
 
@@ -948,8 +965,10 @@ def phase_kernels(peaks: dict) -> list:
     rows += check_attention(peaks)
     rows += check_flash(peaks)
     rows += check_flash_alibi(peaks, max(flamingo_prompt_lens()))
+    # the robust 224 px tower's LM length, as `llava_rob` runs it (bf16)
+    rows += check_flash(peaks, "llava-1.5-7b-rob", ("bfloat16",), tag="llava-rob", launches_from="llava_rob")
     rows += check_flash_alibi(peaks, llava_mpt_seq_len(), case="alibi_llava_mpt", tag="llava-mpt",
-                              launches_from=LLAVA_MPT_RUNS)
+                              launches_from=LLAVA_MPT_RUNS, launches_cut=LLAVA_MPT_CUT)
     rows += check_q4_matmul(peaks)
     return rows
 
@@ -1857,8 +1876,9 @@ def phase_llava_rob() -> dict:
     `write_llava_rob_checkpoint` writes under chiprun_out/ (deleted at the
     end). The CLI's model against a `Llava` built straight from the written
     values (logits bit-equal), the tower at 224 px with `vit_attention` at
-    257 tokens, x_adv in the eps-ball and the box, the loss at x_adv above
-    clean. Returns the kernels' launches."""
+    257 tokens, the LM's flash forward at the length of the `llava-rob` flash
+    rows, x_adv in the eps-ball and the box, the loss at x_adv above clean.
+    Returns the kernels' launches."""
     import resource
     import shutil
 
@@ -1866,7 +1886,7 @@ def phase_llava_rob() -> dict:
     import torch
 
     from robustvlm_tpu_torch.models.llava.model import LLAVA_CONFIGS, Llava, llava_forward
-    from robustvlm_tpu_torch.ops.kernels import vit_attention
+    from robustvlm_tpu_torch.ops.kernels import flash_attention, vit_attention
     from robustvlm_tpu_torch.vlm_eval import run_evaluation as R
     from robustvlm_tpu_torch.vlm_eval.datasets import VQADataset
 
@@ -1883,7 +1903,8 @@ def phase_llava_rob() -> dict:
                         "--n_iter", str(ROB_ITERS), "--num_samples", "1")
         load = {}
         real_build, real_fwd = R.build_llava_models, vit_attention.attention_fwd_cuda
-        tokens_seen = set()
+        real_flash = flash_attention.flash_fwd_cuda
+        tokens_seen, flash_seen = set(), set()
 
         def timed_build(*a):
             t = time.perf_counter()
@@ -1896,15 +1917,21 @@ def phase_llava_rob() -> dict:
             tokens_seen.add(int(q.shape[1]))
             return real_fwd(q, k, v)
 
+        def flash_fwd(q, k, v, **kw):
+            flash_seen.add(int(q.shape[1]))
+            return real_flash(q, k, v, **kw)
+
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
         t0 = time.perf_counter()
         R.build_llava_models, vit_attention.attention_fwd_cuda = timed_build, fwd
+        flash_attention.flash_fwd_cuda = flash_fwd
         try:
             with adapters_of_cli(R, {}) as seen:
                 result = R.main(argv)["textvqa"]
         finally:
             R.build_llava_models, vit_attention.attention_fwd_cuda = real_build, real_fwd
+            flash_attention.flash_fwd_cuda = real_flash
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _launches()
@@ -1935,6 +1962,7 @@ def phase_llava_rob() -> dict:
             "robust_config": args.vision_encoder_pretrained != "" and R._llava_config(args).name == cfg.name,
             "tower_224px": size == 224 == cfg.vision.image_size,
             "vit_attention_257_tokens": tokens_seen == {257},
+            "flash_at_row_length": _flash_llava_shape(cfg.name)[1] in flash_seen,
             "in_box": bool(x_adv.min() >= 0.0 and x_adv.max() <= 1.0),
             "in_ball": linf <= LLAVA_EPS / 255.0 + 1e-6,
             "loss_raised": losses[1] > losses[0],
@@ -1947,7 +1975,7 @@ def phase_llava_rob() -> dict:
               "write_s": write_s, "load_s": load["s"], "wall_s": wall, "attack_s": result["attack_s"],
               "ms_per_apgd_iter": result["attack_s"] / result["attack_iters"] * 1e3,
               "peak_mem_gib": peak, "host_peak_rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
-              "vit_tokens": sorted(tokens_seen), "loss_clean": losses[0], "loss_adv": losses[1], "linf": linf,
+              "vit_tokens": sorted(tokens_seen), "flash_tokens": sorted(flash_seen), "loss_clean": losses[0], "loss_adv": losses[1], "linf": linf,
               "launches": launches, "card": card_line(), "checks": checks, "ok": all(checks.values())})
         if not all(checks.values()):
             raise AssertionError(f"llava_rob checks failed: {checks}")
@@ -1960,6 +1988,7 @@ def phase_llava_rob() -> dict:
 LLAVA_MPT_LAYERS = 2
 LLAVA_MPT_POST_LEN = 16
 LLAVA_MPT_RUNS = ("llava_mpt_reference[bfloat16]", "llava_mpt_reference[float32]")
+LLAVA_MPT_CUT = f"{LLAVA_MPT_LAYERS} of 32 MPT-7B layers, {LLAVA_MPT_LAYERS} of 24 ViT-L/14 layers"
 LLAVA_MPT_NEW_TOKENS = 8
 
 
@@ -2544,7 +2573,8 @@ def phase_flamingo_ensemble() -> dict:
 
 
 def check_flash_alibi(peaks: dict, n: int, case: str = "alibi_openflamingo", tag: str = "",
-                      launches_from=("flamingo", "flamingo_ensemble[float32 stage]")) -> list:
+                      launches_from=("flamingo", "flamingo_ensemble[float32 stage]"),
+                      launches_cut: str = "") -> list:
     """The flash forward and backward with ALiBi at an MPT-7B shape: 32
     heads of 128, causal, the slopes of `alibi_slopes(32)`, n tokens:
     OpenFlamingo's (`flamingo`'s longest teacher-forced prompt,
@@ -2555,7 +2585,8 @@ def check_flash_alibi(peaks: dict, n: int, case: str = "alibi_openflamingo", tag
     with the ALiBi bias and the causal mask as one additive float attn_mask
     (in q's dtype). Rows take their launches from `launches_from` (bf16's
     run, float32's run): by default `flamingo` and the float32 stage of
-    `flamingo_ensemble`."""
+    `flamingo_ensemble`; `launches_cut` names the depth cut of a run that
+    is not at full depth, in the rows as `launches_cut`."""
     import torch
     import torch.nn.functional as Fn
 
@@ -2614,6 +2645,7 @@ def check_flash_alibi(peaks: dict, n: int, case: str = "alibi_openflamingo", tag
         bb, bby = bound_ms(8 * elems * itm + bh * n * 4, 10 * causal_pairs * d, dname, peaks)
         common = {"route": "cuda", "dtype": dname, "shape": [bh, n, d], "causal": True, "alibi": True,
                   "launches_from": launches_from[1] if dtype == torch.float32 else launches_from[0],
+                  **({"launches_cut": launches_cut} if launches_cut else {}),
                   "library": "SDPA, ALiBi bias + causal mask as one additive float attn_mask"}
         suffix = f", {tag}" if tag else ""
         rows.append({"name": f"flash_attention_fwd_alibi[{dname}{suffix}]", **common,
@@ -2968,8 +3000,9 @@ def main() -> int:
     # Each row takes the launches of the run of its path and dtype: the CLIP
     # kernels from the CLI's CLIP runs; flash in bf16 from the LLaVA eval,
     # in float32 from the ensemble's float32 stage (at head dim 64 from the
-    # float32 CLIP run's text tower; with ALiBi from the OpenFlamingo runs
-    # or LLaVA-MPT's, named in the row); q4_matmul from serving.
+    # float32 CLIP run's text tower; at the robust tower's length from
+    # `llava_rob`; with ALiBi from the OpenFlamingo runs or LLaVA-MPT's cut,
+    # named in the row); q4_matmul from serving.
     for r in rows:
         kernel = r.pop("counter", r["name"].split("[")[0])
         if "launches_from" in r:

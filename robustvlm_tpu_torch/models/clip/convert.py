@@ -40,10 +40,17 @@ def _to_np(v) -> np.ndarray:
     return np.asarray(v, dtype=np.float32)
 
 
-def _t(a) -> torch.Tensor:
-    """A new row-major float32 tensor (a transposed view is copied in row
-    order, so the model's weights are laid out as if drawn in place)."""
-    return torch.from_numpy(np.array(_to_np(a), dtype=np.float32, copy=True, order="C"))
+def _t(a, transpose: bool = False) -> torch.Tensor:
+    """A checkpoint tensor (torch or numpy) as a new row-major float32 CPU
+    tensor, transposed when asked: one copy (a 7B checkpoint is 6.7 B
+    values), never a view of the checkpoint's, and a transposed view is
+    copied in row order, so the weights are laid out as if drawn in place."""
+    if isinstance(a, torch.Tensor):
+        src = a.detach().cpu()
+        src = src.T if transpose else src
+        return torch.empty(src.shape, dtype=torch.float32).copy_(src)
+    a = np.asarray(a)
+    return torch.from_numpy(np.array(a.T if transpose else a, dtype=np.float32, order="C"))
 
 
 def _leaf(v):
@@ -103,15 +110,15 @@ def _blocks_from_openai(sd: Mapping[str, Any], prefix: str, n_layers: int, out_p
         g = lambda k: sd[rb + k]
         out[ob + "ln_1.g"] = _t(g("ln_1.weight"))
         out[ob + "ln_1.b"] = _t(g("ln_1.bias"))
-        out[ob + "attn.qkv_w"] = _t(_to_np(g("attn.in_proj_weight")).T)
+        out[ob + "attn.qkv_w"] = _t(g("attn.in_proj_weight"), True)
         out[ob + "attn.qkv_b"] = _t(g("attn.in_proj_bias"))
-        out[ob + "attn.out_w"] = _t(_to_np(g("attn.out_proj.weight")).T)
+        out[ob + "attn.out_w"] = _t(g("attn.out_proj.weight"), True)
         out[ob + "attn.out_b"] = _t(g("attn.out_proj.bias"))
         out[ob + "ln_2.g"] = _t(g("ln_2.weight"))
         out[ob + "ln_2.b"] = _t(g("ln_2.bias"))
-        out[ob + "mlp.fc_w"] = _t(_to_np(g("mlp.c_fc.weight")).T)
+        out[ob + "mlp.fc_w"] = _t(g("mlp.c_fc.weight"), True)
         out[ob + "mlp.fc_b"] = _t(g("mlp.c_fc.bias"))
-        out[ob + "mlp.proj_w"] = _t(_to_np(g("mlp.c_proj.weight")).T)
+        out[ob + "mlp.proj_w"] = _t(g("mlp.c_proj.weight"), True)
         out[ob + "mlp.proj_b"] = _t(g("mlp.c_proj.bias"))
     return out
 

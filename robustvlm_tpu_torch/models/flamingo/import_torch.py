@@ -19,7 +19,7 @@ from __future__ import annotations
 
 from typing import Any, Mapping, Optional
 
-from robustvlm_tpu_torch.models.clip.convert import StateDict, _t, _to_np, visual_from_openai
+from robustvlm_tpu_torch.models.clip.convert import StateDict, _t, visual_from_openai
 from robustvlm_tpu_torch.models.flamingo.model import FlamingoConfig
 from robustvlm_tpu_torch.models.mpt.import_torch import import_mpt_state_dict, load_state
 
@@ -50,8 +50,7 @@ _XATTN = {  # port leaf under xattn.<i>. <- key under {i}., transposed
 
 
 def _get(sd, key: str, transpose: bool):
-    a = _to_np(sd[key])
-    return _t(a.T if transpose else a)
+    return _t(sd[key], transpose)
 
 
 def import_perceiver(sd: Mapping[str, Any], cfg: FlamingoConfig, prefix: str = "perceiver.") -> StateDict:

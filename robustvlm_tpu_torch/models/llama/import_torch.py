@@ -15,10 +15,7 @@ from __future__ import annotations
 
 from typing import Any, Mapping
 
-import numpy as np
-import torch
-
-from robustvlm_tpu_torch.models.clip.convert import StateDict
+from robustvlm_tpu_torch.models.clip.convert import StateDict, _t
 from robustvlm_tpu_torch.models.llama.model import LlamaConfig
 from robustvlm_tpu_torch.models.mpt.import_torch import load_state
 
@@ -35,26 +32,16 @@ _BLOCK = {  # port leaf under blocks.<i>. <- HF key under model.layers.{i}., tra
 }
 
 
-def tensor(sd: Mapping[str, Any], key: str, transpose: bool = False) -> torch.Tensor:
-    """One checkpoint tensor (torch or numpy) as a new contiguous float32 CPU
-    tensor, transposed to (in, out) when asked: one pass of torch's copy
-    (a 7B checkpoint is 6.7 B values), never a view of the checkpoint's."""
-    v = sd[key]
-    src = v.detach().cpu() if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
-    src = src.T if transpose else src
-    return torch.empty(src.shape, dtype=torch.float32).copy_(src)
-
-
 def import_llama_state_dict(sd: Mapping[str, Any], cfg: LlamaConfig, prefix: str = "") -> StateDict:
     """An HF LLaMA state dict -> the port's `Llama` state dict (float32)."""
-    out = {"tok_embedding": tensor(sd, prefix + "model.embed_tokens.weight"),
-           "norm": tensor(sd, prefix + "model.norm.weight")}
+    out = {"tok_embedding": _t(sd[prefix + "model.embed_tokens.weight"]),
+           "norm": _t(sd[prefix + "model.norm.weight"])}
     for i in range(cfg.n_layers):
         for ours, (theirs, transpose) in _BLOCK.items():
-            out[f"blocks.{i}.{ours}"] = tensor(sd, f"{prefix}model.layers.{i}.{theirs}", transpose)
+            out[f"blocks.{i}.{ours}"] = _t(sd[f"{prefix}model.layers.{i}.{theirs}"], transpose)
     head = prefix + "lm_head.weight"
     # a checkpoint with tied embeddings has no lm_head: the embedding is the head
-    out["lm_head"] = tensor(sd, head if head in sd else prefix + "model.embed_tokens.weight", True)
+    out["lm_head"] = _t(sd[head if head in sd else prefix + "model.embed_tokens.weight"], True)
     return out
 
 

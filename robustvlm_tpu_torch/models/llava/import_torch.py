@@ -5,7 +5,7 @@ parts of a LLaVA checkpoint:
 - the language model: LLaMA/Vicuna under `model.` (LlavaLlamaForCausalLM),
   MPT under `transformer.` (LlavaMPTForCausalLM);
 - the projector, `<root>mm_projector.{0,2}.{weight,bias}` (`.0` alone for
-  the `linear` type);
+  the `linear` type, which `checkpoint_config` reads off the keys);
 - the vision tower: HF CLIPVisionModel keys (`<root>vision_tower.[vision_tower.]
   vision_model.*`), or a robust open_clip visual state dict (FARE/TeCoA,
   the port's own `export_visual_state_dict` format) in its place. The tower
@@ -16,13 +16,14 @@ out).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping, Optional
 
 import torch
 
-from robustvlm_tpu_torch.models.clip.convert import StateDict, visual_from_openai
+from robustvlm_tpu_torch.models.clip.convert import StateDict, _t, visual_from_openai
 from robustvlm_tpu_torch.models.clip.model import CLIPConfig
-from robustvlm_tpu_torch.models.llama.import_torch import import_llama_state_dict, tensor
+from robustvlm_tpu_torch.models.llama.import_torch import import_llama_state_dict
 from robustvlm_tpu_torch.models.llava.model import LlavaConfig
 from robustvlm_tpu_torch.models.mpt.import_torch import import_mpt_state_dict, load_state
 
@@ -47,26 +48,26 @@ def import_hf_clip_vision(sd: Mapping[str, Any], cfg: CLIPConfig, prefix: str) -
     pre-norm `pre_layrnorm`. HF has no projection and LLaVA never uses one:
     `proj` is zeros."""
     emb = prefix + "vision_model.embeddings."
-    conv = tensor(sd, emb + "patch_embedding.weight")  # (W, 3, p, p)
+    conv = _t(sd[emb + "patch_embedding.weight"])  # (W, 3, p, p)
     w = conv.shape[0]
     out = {
         "patch_embed": conv.reshape(w, -1).T.contiguous(),
-        "class_embedding": tensor(sd, emb + "class_embedding"),
-        "positional_embedding": tensor(sd, emb + "position_embedding.weight"),
-        "ln_pre.g": tensor(sd, prefix + "vision_model.pre_layrnorm.weight"),
-        "ln_pre.b": tensor(sd, prefix + "vision_model.pre_layrnorm.bias"),
-        "ln_post.g": tensor(sd, prefix + "vision_model.post_layernorm.weight"),
-        "ln_post.b": tensor(sd, prefix + "vision_model.post_layernorm.bias"),
+        "class_embedding": _t(sd[emb + "class_embedding"]),
+        "positional_embedding": _t(sd[emb + "position_embedding.weight"]),
+        "ln_pre.g": _t(sd[prefix + "vision_model.pre_layrnorm.weight"]),
+        "ln_pre.b": _t(sd[prefix + "vision_model.pre_layrnorm.bias"]),
+        "ln_post.g": _t(sd[prefix + "vision_model.post_layernorm.weight"]),
+        "ln_post.b": _t(sd[prefix + "vision_model.post_layernorm.bias"]),
         "proj": torch.zeros(w, cfg.embed_dim),
     }
     for i in range(cfg.vision.layers):
         lay = f"{prefix}vision_model.encoder.layers.{i}."
         blk = f"blocks.{i}."
-        qkv = [tensor(sd, f"{lay}self_attn.{n}_proj.weight") for n in "qkv"]
+        qkv = [_t(sd[f"{lay}self_attn.{n}_proj.weight"]) for n in "qkv"]
         out[blk + "attn.qkv_w"] = torch.cat(qkv, dim=0).T.contiguous()
-        out[blk + "attn.qkv_b"] = torch.cat([tensor(sd, f"{lay}self_attn.{n}_proj.bias") for n in "qkv"])
+        out[blk + "attn.qkv_b"] = torch.cat([_t(sd[f"{lay}self_attn.{n}_proj.bias"]) for n in "qkv"])
         for ours, (theirs, transpose) in _HF_VISION_BLOCK.items():
-            out[blk + ours] = tensor(sd, lay + theirs, transpose)
+            out[blk + ours] = _t(sd[lay + theirs], transpose)
     return out
 
 
@@ -78,17 +79,29 @@ def _vision_prefix(sd: Mapping[str, Any], base: str) -> str:
     raise ValueError("no vision tower found in LLaVA state dict")
 
 
+def _root(cfg: LlavaConfig) -> str:
+    return "model." if cfg.lm_family == "llama" else "transformer."
+
+
+def checkpoint_config(sd: Mapping[str, Any], cfg: LlavaConfig) -> LlavaConfig:
+    """`cfg` with the checkpoint's projector type: LLaVA-1.5's `mlp2x_gelu`
+    stores `mm_projector.{0,2}`, the `linear` projector `mm_projector.0`
+    alone."""
+    two = _root(cfg) + "mm_projector.2.weight" in sd
+    return dataclasses.replace(cfg, projector_type="mlp2x_gelu" if two else "linear")
+
+
 def import_llava_state_dict(sd: Mapping[str, Any], cfg: LlavaConfig,
                             robust_vision_sd: Optional[Mapping[str, Any]] = None) -> StateDict:
     """A whole LLaVA state dict -> the port's `Llava` state dict (float32).
     `robust_vision_sd`, an open_clip visual state dict (`conv1.weight`, ...),
     replaces the checkpoint's HF tower."""
-    base = "model." if cfg.lm_family == "llama" else "transformer."
-    out = {"projector.w1": tensor(sd, base + "mm_projector.0.weight", True),
-           "projector.b1": tensor(sd, base + "mm_projector.0.bias")}
+    base = _root(cfg)
+    out = {"projector.w1": _t(sd[base + "mm_projector.0.weight"], True),
+           "projector.b1": _t(sd[base + "mm_projector.0.bias"])}
     if cfg.projector_type != "linear":
-        out["projector.w2"] = tensor(sd, base + "mm_projector.2.weight", True)
-        out["projector.b2"] = tensor(sd, base + "mm_projector.2.bias")
+        out["projector.w2"] = _t(sd[base + "mm_projector.2.weight"], True)
+        out["projector.b2"] = _t(sd[base + "mm_projector.2.bias"])
     if robust_vision_sd is not None:
         out.update({"vision." + k[len("visual."):]: v
                     for k, v in visual_from_openai(robust_vision_sd, cfg.vision).items()})
@@ -106,7 +119,8 @@ def import_llava_state_dict(sd: Mapping[str, Any], cfg: LlavaConfig,
 def load_llava_checkpoint(path, cfg: LlavaConfig, robust_vision_path: Optional[str] = None) -> StateDict:
     """Read a LLaVA checkpoint (an HF directory of shards, one `.pt`/`.bin`/
     `.safetensors` file, or a state dict) and, when given, a robust tower
-    file, unwrapping TeCoA's `vision_encoder_state_dict` nesting."""
+    file, unwrapping TeCoA's `vision_encoder_state_dict` nesting. `cfg`'s
+    projector type is the one read; `checkpoint_config` gives the file's."""
     sd = load_state(path)
     rob = None
     if robust_vision_path:

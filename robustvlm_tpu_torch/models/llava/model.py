@@ -8,8 +8,8 @@ tokens are spliced between the embedded prompt tokens before and after the
 the answer span that the attacks maximize. Normalization and resizing live
 inside the forward (the threat-model contract: pixels in [0,1]).
 
-The language model is LLaMA/Vicuna (LLaVA-1.5) or MPT (LLaVA-MPT,
-`lm_family="mpt"`). MPT's ALiBi bias depends on token distances, and
+The language model is LLaMA/Vicuna (LLaVA-1.5) or MPT (LLaVA-MPT, a config
+with `mpt` set). MPT's ALiBi bias depends on token distances, and
 generation left-pads the post-image tokens, which puts the padding
 mid-sequence (between [pre | image] and the post tokens): MPT's decode
 carries a per-slot table of true positions (`kv_positions`) so that the
@@ -50,17 +50,24 @@ from robustvlm_tpu_torch.ops.quant import has_quantized, install_quantized
 @dataclasses.dataclass(frozen=True)
 class LlavaConfig:
     name: str
-    llama: Optional[LlamaConfig]
+    llama: Optional[LlamaConfig]  # exactly one of llama and mpt is set
     vision: CLIPConfig
-    projector_type: str = "mlp2x_gelu"  # or "linear" (w1, b1 only)
-    # penultimate-layer features: the tower's last block is skipped
-    drop_last_vision_block: bool = True
-    lm_family: str = "llama"  # or "mpt" (LLaVA-MPT)
-    mpt: Optional[MPTConfig] = None
+    # or "linear" (w1, b1 only); a checkpoint's own is read by
+    # `import_torch.checkpoint_config`
+    projector_type: str = "mlp2x_gelu"
+    mpt: Optional[MPTConfig] = None  # LLaVA-MPT
+
+    def __post_init__(self):
+        if (self.llama is None) == (self.mpt is None):
+            raise ValueError(f"{self.name}: a LLaVA config holds exactly one LM config, llama or mpt")
+
+    @property
+    def lm_family(self) -> str:
+        return "llama" if self.mpt is None else "mpt"
 
     @property
     def lm_dim(self) -> int:
-        return self.llama.dim if self.lm_family == "llama" else self.mpt.d_model
+        return self.llama.dim if self.mpt is None else self.mpt.d_model
 
     @property
     def n_image_tokens(self) -> int:
@@ -74,8 +81,7 @@ LLAVA_CONFIGS: Dict[str, LlavaConfig] = {
     "llava-1.5-7b-rob": LlavaConfig("llava-1.5-7b-rob", LLAMA_CONFIGS["llama-7b"], CLIP_CONFIGS["ViT-L-14"]),
     "test-tiny": LlavaConfig("test-tiny", LLAMA_CONFIGS["test-tiny"], CLIP_CONFIGS["test-tiny"]),
     # LLaVA-MPT; a full-size one pairs a tower with MPT-7B by dataclasses.replace
-    "test-tiny-mpt": LlavaConfig("test-tiny-mpt", None, CLIP_CONFIGS["test-tiny"], lm_family="mpt",
-                                 mpt=MPT_CONFIGS["test-tiny"]),
+    "test-tiny-mpt": LlavaConfig("test-tiny-mpt", None, CLIP_CONFIGS["test-tiny"], mpt=MPT_CONFIGS["test-tiny"]),
 }
 
 
@@ -111,10 +117,8 @@ class Llava(nn.Module):
         self.projector = Projector(cfg)
         if cfg.lm_family == "llama":
             self.llama = Llama(cfg.llama)
-        elif cfg.lm_family == "mpt":
-            self.mpt = MPT(cfg.mpt)
         else:
-            raise ValueError(f"unknown lm_family {cfg.lm_family!r}")
+            self.mpt = MPT(cfg.mpt)
         self.requires_grad_(False)
 
     @property
@@ -165,8 +169,8 @@ def encode_images(model: Llava, pixels01: torch.Tensor, *, compute_dtype=torch.b
     x = pixels01
     if x.shape[-1] != cfg.vision.image_size or x.shape[-2] != cfg.vision.image_size:
         x = resize_bicubic(x, cfg.vision.image_size)
-    feats = model.vision(normalize_clip(x), compute_dtype=compute_dtype, tokens=True,
-                         n_skip_last=1 if cfg.drop_last_vision_block else 0)
+    # penultimate-layer features: the tower's last block is skipped
+    feats = model.vision(normalize_clip(x), compute_dtype=compute_dtype, tokens=True, n_skip_last=1)
     return model.projector(feats[:, 1:])  # CLS dropped
 
 

@@ -17,7 +17,7 @@ from typing import Any, Dict, Mapping
 
 import torch
 
-from robustvlm_tpu_torch.models.clip.convert import StateDict, _t, _to_np
+from robustvlm_tpu_torch.models.clip.convert import StateDict, _t
 from robustvlm_tpu_torch.models.mpt.model import MPTConfig
 
 _BLOCK = {  # port leaf <- HF key under transformer.blocks.{i}., transposed
@@ -36,8 +36,7 @@ def import_mpt_state_dict(sd: Mapping[str, Any], cfg: MPTConfig, prefix: str = "
            "norm_f": _t(sd[prefix + "transformer.norm_f.weight"])}
     for i in range(cfg.n_layers):
         for ours, (theirs, transpose) in _BLOCK.items():
-            a = _to_np(sd[f"{prefix}transformer.blocks.{i}.{theirs}"])
-            out[f"blocks.{i}.{ours}"] = _t(a.T if transpose else a)
+            out[f"blocks.{i}.{ours}"] = _t(sd[f"{prefix}transformer.blocks.{i}.{theirs}"], transpose)
     return out
 
 

@@ -169,8 +169,8 @@ def _llava_config(args):
 
 def build_llava_models(args, precisions, device) -> Dict[str, object]:
     """One `Llava` per precision ('half' bf16, 'full' float32) from ONE set
-    of weights: --llava_ckpt (with --vision_encoder_pretrained's tower),
-    loaded once in float32, or random from seed 0, drawn once on the device.
+    of weights: --llava_ckpt (with --vision_encoder_pretrained's tower and
+    the checkpoint's own projector type), loaded once in float32, or random from seed 0, drawn once on the device.
     The bf16 model holds one bf16 copy of the matrices (made once) and
     shares the rest with the float32 one; with no 'full' stage no float32
     matrix is ever held on the device."""
@@ -179,10 +179,13 @@ def build_llava_models(args, precisions, device) -> Dict[str, object]:
 
     cfg = _llava_config(args)
     if args.llava_ckpt:
-        from robustvlm_tpu_torch.models.llava.import_torch import load_llava_checkpoint
+        from robustvlm_tpu_torch.models.llava.import_torch import checkpoint_config, load_llava_checkpoint
+        from robustvlm_tpu_torch.models.mpt.import_torch import load_state
 
-        full = load_llava_checkpoint(args.llava_ckpt, cfg,
-                                     robust_vision_path=args.vision_encoder_pretrained or None)
+        sd = load_state(args.llava_ckpt)
+        cfg = checkpoint_config(sd, cfg)
+        full = load_llava_checkpoint(sd, cfg, robust_vision_path=args.vision_encoder_pretrained or None)
+        del sd
         if "full" not in precisions:  # bf16 alone: cast on the device, one tensor at a time
             half = {}
             for k in list(full):

@@ -207,3 +207,22 @@ def test_missing_tower_and_missing_file_raise(tmp_path):
         PI.import_llava_state_dict(_as_torch(sd), pcfg)
     with pytest.raises(FileNotFoundError):
         PI.load_llava_checkpoint(str(tmp_path / "absent"), pcfg)
+
+
+@pytest.mark.parametrize("proj", ["mlp2x_gelu", "linear"])
+def test_cli_loader_reads_projector_type_bit_equal_jax(tmp_path, proj):
+    """`--llava_ckpt` builds the model with the checkpoint's own projector
+    type (`checkpoint_config`), whichever type the CLI's config names; its
+    weights are the JAX importer's for that type, bit-equal."""
+    import argparse
+
+    from robustvlm_tpu_torch.vlm_eval.run_evaluation import build_llava_models
+
+    jcfg, pcfg = _cfgs("test-tiny", proj)
+    sd, _ = _hf_llava(jcfg, seed=9)
+    path = tmp_path / "llava.pt"
+    torch.save(_as_torch(sd), path)
+    args = argparse.Namespace(model_size="test-tiny", llava_ckpt=str(path), vision_encoder_pretrained="")
+    model = build_llava_models(args, ("full",), torch.device("cpu"))["full"]
+    assert model.cfg.projector_type == proj == PI.checkpoint_config(sd, LLAVA_CONFIGS["test-tiny"]).projector_type
+    _assert_bit_equal(dict(model.state_dict()), JI.import_llava_state_dict(sd, jcfg))
