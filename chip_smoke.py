@@ -23,54 +23,64 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 (APGD-T), with each kernel's launch count read around each run;
   5. timed    - `apgd_attack` at ViT-L/14 in bfloat16, batch 8, 100
                 iterations: APGD example-steps/s;
-  6. train_reference - one TeCoA and one FARE outer loss and its weight
+  6. robustbench_breadth - at ViT-L/14 full width, bf16, 8 synthetic images:
+                the card's l1-ball and hyperplane-box projections against the
+                CPU's; `robustbench.main` with FAB-T (20 iterations), l2 and
+                l1 APGD-CE (20 iterations; l1 through the decr-eps schedule)
+                and `--full_benchmark`; Square (500 queries) through
+                `AutoAttack` on the CLI's classifier: x_adv in [0,1] and the
+                ball, every example counted as fooled fooled when run again,
+                the kernels' launches (no l-inf step outside l-inf APGD, no
+                ViT backward in Square), ms per FAB-T iteration and per
+                Square query, peak memory;
+  7. train_reference - one TeCoA and one FARE outer loss and its weight
                 gradients at ViT-L/14 widths cut to 2 layers, float32
                 (and FARE in bf16), through the kernels on the card against
                 the plain path on the CPU in float32;
-  7. train    - `driver.main` (the training CLI) at ViT-L/14 full width, 3
+  8. train    - `driver.main` (the training CLI) at ViT-L/14 full width, 3
                 steps of batch 32 in 4 chunks: FARE (eps 4, APGD-10, float32)
                 and TeCoA (eps 2, PGD-10, bf16, the text embedding and the
                 APGD-50 eval), with s per step, imgs/s, peak memory, losses,
                 exact linf_step launches, the inner attack's x_adv and the
                 exported visual tower checked;
-  8. llava_reference - LLaVA-1.5-7B widths cut to 2 LM and 2 vision layers,
+  9. llava_reference - LLaVA-1.5-7B widths cut to 2 LM and 2 vision layers,
                 float32: the per-sample loss and pixel gradient through the
                 kernels on the card against the plain path on the CPU;
-  9. llava    - `run_evaluation.main` (the VLM eval CLI) at LLaVA-1.5-7B full
+ 10. llava    - `run_evaluation.main` (the VLM eval CLI) at LLaVA-1.5-7B full
                 width, bf16, 100 APGD iterations on 2 COCO-format images
                 written under chiprun_out/, captions and CIDEr, with each
                 kernel's launches, ms per APGD iteration and peak memory;
- 10. llava_vqa - `run_evaluation.main --eval_vqav2` at LLaVA-1.5-7B full
-                width, bf16, a targeted APGD run ('maybe', 100 iterations) on
+ 11. llava_vqa - `run_evaluation.main --eval_vqav2` at LLaVA-1.5-7B full
+                width, bf16, a targeted APGD run ('maybe', 10 iterations) on
                 3 questions of a VQAv2-layout fixture (2 on one image): the
                 target's loss at x_adv below clean, per-question keys,
                 accuracy and success rate, ms per iteration, peak memory;
- 11. llava_ensemble - the CLI's ensemble schedule at LLaVA-1.5-7B full width
+ 12. llava_ensemble - the CLI's ensemble schedule at LLaVA-1.5-7B full width
                 with both precisions' models held together, every stage
                 run (its last in float32), with peak memory, the float32
                 stage's launches and the ms of one float32 loss and gradient;
                 then the 9-stage VQA schedule (targeted 'maybe' and 'Word'
                 stages) on one question over the same models;
- 12. llava_rob - the loaders at full width: an HF-layout LLaVA-1.5-7B
+ 13. llava_rob - the loaders at full width: an HF-layout LLaVA-1.5-7B
                 directory of fp16 shards and a robust ViT-L/14 tower file
                 written under chiprun_out/ (deleted after), loaded by
                 `run_evaluation.main --llava_ckpt --vision_encoder_pretrained
                 --eval_textvqa --attack apgd`: logits bit-equal to a model
                 built straight from the written values, the tower at 224 px,
                 write and load seconds, host peak RSS;
- 13. llava_mpt_reference - LLaVA-MPT at MPT-7B and ViT-L/14 widths cut to 2
+ 14. llava_mpt_reference - LLaVA-MPT at MPT-7B and ViT-L/14 widths cut to 2
                 layers each: float32 loss, pixel gradient and greedy tokens of
                 a left-padded batch on the card against the CPU, then bf16 on
                 the card (the ALiBi rows' launches at this length);
- 14. llava_qualitative - `run_evaluation_qualitative.main` at full width, 50
+ 15. llava_qualitative - `run_evaluation_qualitative.main` at full width, 10
                 iterations on one image: the target's loss fell;
- 15. llava_aux  - POPE's and ScienceQA's `main` at full width on 2 items each;
- 16. flamingo_reference - OpenFlamingo-9B widths cut to 4 MPT layers (one
+ 16. llava_aux  - POPE's and ScienceQA's `main` at full width on 2 items each;
+ 17. flamingo_reference - OpenFlamingo-9B widths cut to 4 MPT layers (one
                 gated cross-attention block) and 2 vision layers, the whole
                 Perceiver, float32, gates opened to 0.5: the per-sample loss
                 and pixel gradient through the kernels on the card against
                 the plain path on the CPU;
- 17. flamingo - `run_evaluation.main --model open_flamingo` at
+ 18. flamingo - `run_evaluation.main --model open_flamingo` at
                 OpenFlamingo-9B full width (32 MPT layers, 8 gated blocks,
                 ViT-L/14 at 224 px), bf16, 100 APGD iterations on 2 of 4
                 COCO-format images (2 text-only demos each), the gates
@@ -79,10 +89,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 iteration, peak memory, the prompt length, each kernel's
                 launches (the flash kernels with ALiBi slopes), x_adv, the
                 loss at x_adv above clean, captions and CIDEr;
- 18. flamingo_ensemble - the ensemble schedule at OpenFlamingo-9B full width
+ 19. flamingo_ensemble - the ensemble schedule at OpenFlamingo-9B full width
                 with both precisions held, every stage run: peak memory and
                 the ms of one float32 loss and gradient;
- 19. serve    - the model worker (`build_worker`, its CLI's path) at
+ 20. serve    - the model worker (`build_worker`, its CLI's path) at
                 LLaVA-1.5-7B full width with int4 LM weights behind the
                 port's controller on local ports: captions, VQA, a stream,
                 the shift body and a batch-4 micro-batch over HTTP, with ms
@@ -146,9 +156,13 @@ TIMED_BY = {
 }
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
-    """Print one JSON line, and keep it in chiprun_out/chip_smoke.jsonl."""
-    line = json.dumps(obj)
+    """Print one JSON line, and keep it in chiprun_out/chip_smoke.jsonl.
+    Each line of a phase carries `t_s`, the script's seconds so far."""
+    line = json.dumps({**obj, "t_s": round(time.perf_counter() - T_START, 1)} if "phase" in obj else obj)
     print(line, flush=True)
     OUT.mkdir(exist_ok=True)
     with open(OUT / "chip_smoke.jsonl", "a") as f:
@@ -1097,10 +1111,12 @@ def phase_timed() -> None:
     from robustvlm_tpu_torch.attacks.apgd import apgd_attack
     from robustvlm_tpu_torch.eval.classifier import make_zero_shot_classifier
     from robustvlm_tpu_torch.models.clip import CLIP, CLIP_CONFIGS
+    from robustvlm_tpu_torch.models.clip.model import cast_matrices_
     from robustvlm_tpu_torch.ops.losses import ce_loss
 
     cfg = CLIP_CONFIGS["ViT-L-14"]
-    model = CLIP(cfg, device="cuda").init_random_(0).to(torch.bfloat16)
+    # the CLI's bf16 layout: matrices in bf16, 1-D parameters in float32
+    model = cast_matrices_(CLIP(cfg, device="cuda").init_random_(0), torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(1)
     temb = torch.randn(cfg.embed_dim, 1000, generator=gen, device="cuda")
     temb = temb / temb.norm(dim=0, keepdim=True)
@@ -1141,7 +1157,186 @@ def phase_timed() -> None:
         raise AssertionError("timed attack left the eps-ball or launched no kernel")
 
 
-# ------------------------------------------------------------------ phases 6-7
+# ------------------------------------------------------------------ phase 6
+# AutoAttack's breadth at ViT-L/14 full width (224 px, N = 257), bf16, on 8
+# synthetic images with random weights (seed 0) and `--labels predicted`:
+# the card's l1 and hyperplane projections against the CPU's, FAB-T, Square,
+# l2 and l1 APGD-CE (decr-eps) and `--full_benchmark`. Random weights are
+# fooled at once, so a cascade stops after its first stage; each stage is
+# also driven on its own, where it sees every example. Cuts: 20 iterations
+# (FAB-T, APGD, the cascade) and 500 Square queries, of the default 100 and
+# 5000.
+BREADTH_N = 8
+BREADTH_ITERS = 20
+BREADTH_QUERIES = 500
+BREADTH_EPS = {"linf": 2.0, "l2": 127.5, "l1": 3060.0}  # /255: 2/255, 0.5, 12
+# The projections sum 150,528 float32 entries a row, as in JAX, and the card
+# sums in another order than the CPU: on the inputs below that moved the ball
+# by 8.2e-6 and the hyperplane by 1.5e-5 (H100), where the CPU's own float32
+# sits 7e-7 and 9e-6 from its float64. float32 is held to 5e-5; the same code
+# in float64, where the order no longer shows, to 1e-6 and 1e-5.
+PROJ_TOL = {"float32": {"l1_ball_projection": 5e-5, "projection_hyperplane_box": 5e-5},
+            "float64": {"l1_ball_projection": 1e-6, "projection_hyperplane_box": 1e-5}}
+
+
+def breadth_argv(tag: str, *flags) -> list:
+    return ["--device", "cuda", "--clip_model_name", "ViT-L-14", "--template", "std",
+            "--dataset", "synthetic", "--n_ex", str(BREADTH_N), "--attack_batch", str(BREADTH_N),
+            "--batch_size", str(BREADTH_N), "--compute_dtype", "bfloat16", "--labels", "predicted",
+            "--n_iter", str(BREADTH_ITERS), "--output_dir", str(OUT / f"breadth-{tag}"), "--save_adv",
+            *flags]
+
+
+def _projections_card_vs_cpu() -> dict:
+    """l1_ball_projection and projection_hyperplane_box (each norm) at full
+    image size, the card against the CPU on the same numpy draws, in float32
+    and in float64 (PROJ_TOL)."""
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.attacks.fab import projection_hyperplane_box
+    from robustvlm_tpu_torch.ops.projections import l1_ball_projection
+
+    npr = np.random.RandomState(11)
+    x = npr.rand(BREADTH_N, 3, 224, 224).astype(np.float32)
+    y = (npr.randn(BREADTH_N, 3, 224, 224) * 0.05).astype(np.float32)
+    y[0] = 0.0  # an all-zero row: every breakpoint ties
+    eps = BREADTH_EPS["l1"] / 255.0
+    u = x.reshape(BREADTH_N, -1)
+    w = npr.randn(*u.shape).astype(np.float32)
+    b = ((w * u).sum(1) - np.abs(npr.randn(BREADTH_N)) * 50.0).astype(np.float32)
+    errs, ok = {}, {}
+    for dt in ("float32", "float64"):
+        def on(a, d):
+            return torch.from_numpy(a).to(d, getattr(torch, dt))
+
+        outs = [l1_ball_projection(on(x, d), on(y, d), eps).cpu() for d in ("cuda", "cpu")]
+        errs[f"l1_ball_projection[{dt}]"] = float((outs[0] - outs[1]).abs().max())
+        for norm in ("linf", "l2", "l1"):
+            zs = [projection_hyperplane_box(on(u, d), on(w, d), on(b, d), norm).cpu() for d in ("cuda", "cpu")]
+            scale = max(1.0, float(zs[1].abs().max()))
+            errs[f"projection_hyperplane_box[{norm},{dt}]"] = float((zs[0] - zs[1]).abs().max()) / scale
+        ok.update({k: v <= PROJ_TOL[dt][k.split("[")[0]] for k, v in errs.items() if dt in k})
+    return {"max_err": errs, "tol": PROJ_TOL, "ok": ok}
+
+
+def _adv_checks(x, x_adv, y, logits_fn, norm: str, eps: float) -> dict:
+    """x_adv in [0,1] and the eps ball; each example the run changed is
+    misclassified when run again (the cascade writes fooled examples only)."""
+    import numpy as np
+    import torch
+
+    d = x_adv.astype(np.float64) - x
+    flat = np.abs(d.reshape(len(x), -1))
+    size = {"linf": flat.max(1), "l2": np.sqrt((flat ** 2).sum(1)), "l1": flat.sum(1)}[norm]
+    tol = 1e-6 if norm == "linf" else eps * 1e-5
+    box_tol = 1e-5 if norm == "l1" else 0.0  # l1 returns x + delta + d unclipped, as JAX
+    changed = flat.max(1) > 0
+    with torch.no_grad():
+        pred = logits_fn(torch.from_numpy(x_adv).cuda()).argmax(-1).cpu().numpy()
+    return {"norm_max": float(size.max()), "eps": eps, "fooled": int(changed.sum()),
+            "checks": {"finite": bool(np.isfinite(x_adv).all()),
+                       "in_box": bool(x_adv.min() >= -box_tol and x_adv.max() <= 1.0 + box_tol),
+                       "in_ball": bool((size <= eps + tol).all()),
+                       "fooled_on_rerun": bool((pred[changed] != y[changed]).all())}}
+
+
+def phase_robustbench_breadth() -> dict:
+    """FAB-T, Square, l2 and l1 APGD-CE and the standard cascade at ViT-L/14
+    through `robustbench.main` (Square through `AutoAttack` on the CLI's own
+    classifier), with launches, ms per FAB-T iteration and per Square query
+    and peak memory; returns the FAB-T run's launches."""
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.attacks.fab import fab_attack
+    from robustvlm_tpu_torch.data.loaders import SyntheticClassificationDataset
+    from robustvlm_tpu_torch.eval import robustbench
+    from robustvlm_tpu_torch.eval.autoattack import VERSIONS, AutoAttack
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    proj = _projections_card_vs_cpu()
+    # the CLI's classifier (the same seed-0 weights every CLI run draws)
+    args = robustbench.build_parser().parse_args(breadth_argv("model"))
+    _, logits_fn, _ = robustbench.build_classifier(args, torch.device("cuda"))
+    x, _ = SyntheticClassificationDataset(n=BREADTH_N, size=224).arrays()
+    with torch.no_grad():
+        y = logits_fn(torch.from_numpy(x).cuda()).argmax(-1).cpu().numpy()
+
+    def cli(tag, norm, *flags):
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = robustbench.main(breadth_argv(tag, "--norm", norm, "--eps", str(BREADTH_EPS[norm]), *flags))
+        torch.cuda.synchronize()
+        run = {"wall_s": time.perf_counter() - t0, "attack_s": result["wall_s"],
+               "cascade": result["cascade"], "launches": _launches()}
+        x_adv = np.load(OUT / f"breadth-{tag}" / "x_adv.npy")
+        run.update(_adv_checks(x, x_adv, y, logits_fn, norm, BREADTH_EPS[norm] / 255.0))
+        return run
+
+    runs = {"fab-t": cli("fab-t", "linf", "--attacks", "fab-t")}
+    # ms per FAB-T iteration, timed alone: one target, 5 iterations
+    xc, yc = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    fab_attack(logits_fn, xc, yc, n_iter=1, eps=2 / 255, targeted=True, n_target_classes=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fab_attack(logits_fn, xc, yc, n_iter=5, eps=2 / 255, targeted=True, n_target_classes=1)
+    torch.cuda.synchronize()
+    fab_ms = (time.perf_counter() - t0) / 5 * 1e3
+
+    # Square through AutoAttack on the CLI's classifier; every forward counted
+    calls = []
+
+    def counted(xa):
+        calls.append(xa.shape[0])
+        return logits_fn(xa)
+
+    _reset_launches()
+    aa = AutoAttack(counted, eps=BREADTH_EPS["linf"] / 255.0, attacks_to_run=["square"],
+                    square_n_queries=BREADTH_QUERIES, verbose=False, device="cuda")
+    t0 = time.perf_counter()
+    x_adv = aa.run_standard_evaluation(x, y, bs=BREADTH_N, run_checks=False).numpy()
+    torch.cuda.synchronize()
+    sq_s = time.perf_counter() - t0
+    sq_calls = len(calls) - 2  # less the clean pass and the re-check after the stage
+    d = np.abs(x_adv.astype(np.float64) - x)
+    on_vertex = (np.abs(d - BREADTH_EPS["linf"] / 255.0) <= 1e-6) | (x_adv == 0.0) | (x_adv == 1.0)
+    runs["square"] = {"wall_s": sq_s, "cascade": aa.robust_accuracy_dict, "launches": _launches(),
+                      "queries": sq_calls, "ms_per_query": sq_s / max(sq_calls, 1) * 1e3,
+                      **_adv_checks(x, x_adv, y, logits_fn, "linf", BREADTH_EPS["linf"] / 255.0)}
+    runs["square"]["checks"].update({
+        "queries_within_budget": 1 <= sq_calls <= BREADTH_QUERIES,
+        "delta_on_vertices": bool(on_vertex[d > 0].all()) and bool((d > 0).any()),
+        "no_vit_backward": runs["square"]["launches"]["vit_attention_bwd"] == 0})
+
+    runs["apgd-ce[l2]"] = cli("l2", "l2", "--attacks", "apgd-ce")
+    runs["apgd-ce[l1]"] = cli("l1", "l1", "--attacks", "apgd-ce")
+    runs["full_benchmark"] = cli("full", "linf", "--full_benchmark")
+    stages = [k for k in runs["full_benchmark"]["cascade"] if k != "clean"]
+
+    for name in ("fab-t", "apgd-ce[l2]", "apgd-ce[l1]"):
+        la = runs[name]["launches"]
+        runs[name]["checks"].update({"vit_fwd_bwd_launched": _launched(la, CLIP_KERNELS[1:]),
+                                     "no_linf_step": la["linf_step"] == 0})
+    runs["full_benchmark"]["checks"]["standard_order"] = (
+        bool(stages) and stages == VERSIONS["standard"][: len(stages)])
+    checks = {f"{name}.{k}": v for name, r in runs.items() for k, v in r["checks"].items()}
+    checks.update({f"projections.{k}": v for k, v in proj["ok"].items()})
+    emit({"phase": "robustbench_breadth", "entry": "robustvlm_tpu_torch.eval.robustbench.main",
+          "model": "ViT-L-14", "compute_dtype": "bfloat16", "n_ex": BREADTH_N, "n_iter": BREADTH_ITERS,
+          "square_queries": BREADTH_QUERIES, "projections": proj, "runs": runs,
+          "full_benchmark_stopped_after": stages[-1] if stages else None,
+          "fab_t_ms_per_iter": fab_ms, "square_ms_per_query": runs["square"]["ms_per_query"],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "phase_s": time.perf_counter() - t_phase, "card": card_line(),
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"robustbench_breadth checks failed: {[k for k, v in checks.items() if not v]}")
+    return runs["fab-t"]["launches"]
+
+
+# ------------------------------------------------------------------ phases 7-8
 # TeCoA/FARE fine-tuning (BASELINE.json configs 3-4) through the training CLI
 # at ViT-L/14 full width. Cut: 3 steps of 20,000; batch 32 of the paper's 128,
 # in 4 chunks of 8 (--grad_accum); random weights from seed 0; synthetic
@@ -1337,7 +1532,7 @@ def phase_train(name: str) -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ phase 8
+# ------------------------------------------------------------------ phase 9
 def _llava_cut(n_layers: int):
     """llava-1.5-7b at full width with the LM and the vision tower cut to
     `n_layers` transformer layers each."""
@@ -1412,7 +1607,7 @@ def adapter_seq_len(cfg, max_post_len: int = 16) -> int:
     return pre + cfg.n_image_tokens + max_post_len
 
 
-# ------------------------------------------------------------------ phase 9
+# ------------------------------------------------------------------ phase 10
 LLAVA_EPS = 2.0  # /255
 LLAVA_IMAGES = [  # COCO-style references, two images
     ["a man riding a wave on top of a surfboard", "a surfer rides a large wave in the ocean",
@@ -1521,7 +1716,7 @@ def phase_llava() -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ phase 11
+# ------------------------------------------------------------------ phase 12
 LLAVA_ENSEMBLE_ITERS = 5
 
 
@@ -1672,7 +1867,9 @@ def llava_ensemble_vqa(built: dict, out_dir: Path) -> dict:
 
 
 # ------------------------------------------------------------------ VQA fixtures
-VQA_ITERS = 100
+# 10 of the CLI's 100 iterations: cut for the smoke's time (the bf16 flash
+# rows take their launches from `llava`, not from here)
+VQA_ITERS = 10
 VQA_QUESTIONS = [  # (question_id, image_id, question, 10 annotator answers): 2 on the first image
     (70, 7, "what is the man riding?", ["surfboard"] * 6 + ["wave"] * 3 + ["board"]),
     (71, 7, "is the water calm?", ["no"] * 8 + ["yes"] * 2),
@@ -1734,7 +1931,7 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-# ------------------------------------------------------------------ phase 10
+# ------------------------------------------------------------------ phase 11
 def phase_llava_vqa() -> dict:
     """`run_evaluation.main --eval_vqav2` at LLaVA-1.5-7B full width, random
     weights from seed 0, bf16, a targeted APGD run (--attack apgd --targeted
@@ -1792,7 +1989,7 @@ def phase_llava_vqa() -> dict:
         and all(isinstance(r["answer"], str) for r in per_q),
         "vqa_accuracy": math.isfinite(result["vqa_accuracy"]),
         "success_rate": math.isfinite(result["success_rate"]),
-        "iterations": result["attack_iters"] == VQA_ITERS * len(VQA_QUESTIONS) == 300,
+        "iterations": result["attack_iters"] == VQA_ITERS * len(VQA_QUESTIONS),
         "launched": _launched(launches, LLAVA_KERNELS),
     }
     emit({"phase": "llava_vqa", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation.main",
@@ -1807,7 +2004,7 @@ def phase_llava_vqa() -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ phase 12
+# ------------------------------------------------------------------ phase 13
 ROB_ITERS = 100
 ROB_QUESTIONS = VQA_QUESTIONS[:1]
 ROB_SHARD_LAYERS = 4  # LM layers a shard: 8 shards of about 1.6 GB + one of the rest
@@ -1984,7 +2181,7 @@ def phase_llava_rob() -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-# ------------------------------------------------------------------ phase 13
+# ------------------------------------------------------------------ phase 14
 LLAVA_MPT_LAYERS = 2
 LLAVA_MPT_POST_LEN = 16
 LLAVA_MPT_RUNS = ("llava_mpt_reference[bfloat16]", "llava_mpt_reference[float32]")
@@ -2097,8 +2294,8 @@ def phase_llava_mpt_reference() -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ phase 14
-QUAL_ITERS = 50
+# ------------------------------------------------------------------ phase 15
+QUAL_ITERS = 10  # cut from 50 for the smoke's time
 
 
 def phase_llava_qualitative() -> dict:
@@ -2161,7 +2358,7 @@ def phase_llava_qualitative() -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ phase 15
+# ------------------------------------------------------------------ phase 16
 def phase_llava_aux() -> dict:
     """POPE's and ScienceQA's `main` at LLaVA-1.5-7B full width (the float32
     adapter each CLI builds, random weights from seed 0) on 2 fixture items
@@ -2216,7 +2413,7 @@ def phase_llava_aux() -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ phase 16
+# ------------------------------------------------------------------ phase 17
 # OpenFlamingo-9B. The reference initialises both gates of every gated
 # cross-attention block at 0, where tanh(0) = 0 and a random OpenFlamingo
 # ignores its image: the pixel gradient would be exactly 0 and APGD would
@@ -2399,7 +2596,7 @@ def flamingo_prompt_lens() -> list:
     return lens
 
 
-# ------------------------------------------------------------------ phase 17
+# ------------------------------------------------------------------ phase 18
 def phase_flamingo() -> dict:
     """`run_evaluation.main` at OpenFlamingo-9B full width (32 MPT layers, 8
     gated blocks, ViT-L/14 at 224 px), random weights from seed 0 with the
@@ -2481,7 +2678,7 @@ def phase_flamingo() -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ phase 18
+# ------------------------------------------------------------------ phase 19
 def phase_flamingo_ensemble() -> dict:
     """`--attack ensemble` at OpenFlamingo-9B full width on one image: one
     set of random weights (seed 0, gates opened) held as one float32 and one
@@ -2663,7 +2860,7 @@ def check_flash_alibi(peaks: dict, n: int, case: str = "alibi_openflamingo", tag
     return rows
 
 
-# ------------------------------------------------------------------ phase 19
+# ------------------------------------------------------------------ phase 20
 SERVE_ARGV = ["--device", "cuda", "--model", "llava", "--model_size", "7b", "--quantize-decode",
               "--quantize-bits", "4", "--host", "127.0.0.1", "--port", "0", "--controller-address", ""]
 SERVE_NEW_TOKENS = 32
@@ -2982,6 +3179,7 @@ def main() -> int:
     runs = {"main[float32]": phase_main("apgd-ce,apgd-t", 100, "float32"),
             "main[bfloat16]": phase_main("apgd-t", 100, "bfloat16")}
     phase_timed()
+    runs["robustbench_breadth"] = phase_robustbench_breadth()
     runs["train_reference"] = phase_train_reference()
     runs["train[fare4]"] = phase_train("fare4")
     runs["train[tecoa2]"] = phase_train("tecoa2")

@@ -2,7 +2,7 @@
 images, CIFAR-10, and a shuffling, prefetching batch loader.
 
 Counterpart of `default_image_transform` (its PIL path; the native C++
-transform of `robustvlm_tpu/data/native.py` is not ported, ROADMAP A1),
+transform of `robustvlm_tpu/data/native.py` is not ported, ROADMAP A.2),
 `ImageFolderDataset`, `SyntheticClassificationDataset`, `load_cifar10`,
 `prefetch_iter` and `DataLoader` in `robustvlm_tpu/data/loaders.py`. Images
 are float32 NCHW in [0,1], without CLIP normalization (normalization

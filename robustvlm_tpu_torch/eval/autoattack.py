@@ -1,19 +1,21 @@
 """AutoAttack orchestrator: run an attack cascade over still-robust examples.
 
-Counterpart of `robustvlm_tpu/eval/autoattack.py` (`AutoAttackTPU`), l-inf:
-the robust-flags bookkeeping (an example is attacked by a later stage only
-while it is still classified correctly), per-attack robust accuracy,
-resumable `EvaluationState`, and the pre-run sanity checks.
+Counterpart of `robustvlm_tpu/eval/autoattack.py` (`AutoAttackTPU`): the
+versions `standard`, `plus`, `rand` and `custom` with their presets; the
+stages apgd-ce, apgd-dlr, apgd-t, fab, fab-t and square in the l-inf, l2
+and l1 norms (l1 runs APGD through the decr-eps schedule by default); EOT
+(`eot_iter`, `model_rng_fn`); the robust-flags bookkeeping (an example is
+attacked by a later stage only while it is still classified correctly),
+per-attack robust accuracy, resumable `EvaluationState`, and the pre-run
+sanity checks, with the Square-vs-white-box check after the cascade.
 
 The data stays on the host; each attack batch is moved to the model's
 device: `cuda` unless the caller passes `device="cpu"` (without a GPU the
-constructor raises, as every entry point of the port does). PyTorch runs eagerly, so batches are not padded to one static
-shape. Seeds follow the JAX package's integers: the attack's base seed is
+constructor raises, as every entry point of the port does). PyTorch runs
+eagerly, so batches are not padded to one static shape. Seeds follow the
+JAX package's integers: the attack's base seed is
 `seed + crc32(attack) % 2**16`, folded with the batch start, the target
 class (APGD-T) and the restart (`attacks.apgd.fold_in`).
-
-Ported: apgd-ce, apgd-dlr, apgd-t. Square, FAB and the EOT ('rand')
-version raise NotImplementedError naming their ROADMAP queue item.
 """
 
 from __future__ import annotations
@@ -21,30 +23,30 @@ from __future__ import annotations
 import logging
 import time
 import zlib
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from robustvlm_tpu_torch.attacks.apgd import apgd_restarts, fold_in
+from robustvlm_tpu_torch.attacks.fab import fab_attack
+from robustvlm_tpu_torch.attacks.square import square_attack_l1, square_attack_l2, square_attack_linf
 from robustvlm_tpu_torch.device import resolve_device
 from robustvlm_tpu_torch.eval import checks
 from robustvlm_tpu_torch.eval.state import EvaluationState
 from robustvlm_tpu_torch.ops.losses import ce_loss, dlr_loss, dlr_loss_targeted
+from robustvlm_tpu_torch.ops.projections import canonical_norm
 
 log = logging.getLogger("robustvlm_tpu_torch.autoattack")
 
 VERSIONS = {
     "standard": ["apgd-ce", "apgd-t", "fab-t", "square"],
     "plus": ["apgd-ce", "apgd-dlr", "fab", "square", "apgd-t", "fab-t"],
+    "rand": ["apgd-ce", "apgd-dlr"],
     "custom": None,
 }
-PORTED = ("apgd-ce", "apgd-dlr", "apgd-t")
-NOT_PORTED = {
-    "square": "ROADMAP queue A5 (attacks/square.py)",
-    "fab": "ROADMAP queue A5 (attacks/fab.py)",
-    "fab-t": "ROADMAP queue A5 (attacks/fab.py)",
-}
+ATTACKS = ("apgd-ce", "apgd-dlr", "apgd-t", "fab", "fab-t", "square")
+SQUARE = {"linf": square_attack_linf, "l2": square_attack_l2, "l1": square_attack_l1}
 
 
 def _ce_criterion(o, yy):
@@ -64,43 +66,63 @@ class AutoAttack:
         n_iter: int = 100,
         n_restarts: int = 1,
         n_target_classes: int = 9,
+        square_n_queries: int = 5000,
         alpha: Optional[float] = None,
         use_rs: bool = True,
+        use_largereps: Optional[bool] = None,
         verbose: bool = True,
+        eot_iter: int = 1,
+        model_rng_fn: Optional[Callable] = None,
         device=None,
     ):
-        if norm.lower() != "linf":
-            raise NotImplementedError(
-                f"AutoAttack: norm {norm} is not ported yet (ROADMAP queue A3); l-inf only"
-            )
+        """`model_rng_fn(x, seed)` runs a randomized model with an integer
+        seed (see `attacks.apgd.eot_loss_grad`)."""
+        norm = canonical_norm(norm)
+        if norm not in SQUARE:
+            raise ValueError(f"AutoAttack: unsupported norm {norm}")
         if version not in VERSIONS:
-            raise NotImplementedError(
-                f"AutoAttack version {version!r} is not ported (EOT 'rand' is ROADMAP queue A5)"
-            )
+            raise ValueError(f"unknown AutoAttack version {version!r}")
         self.logits_fn = logits_fn
-        self.norm = "linf"
+        self.norm = norm
         self.eps = eps
         self.seed = seed
         self.n_iter = n_iter
         self.n_restarts = n_restarts
         self.n_target_classes = n_target_classes
+        self.square_n_queries = square_n_queries
         self.alpha = alpha
         self.use_rs = use_rs
+        # the decr-eps schedule is the reference default for l1
+        self.use_largereps = (norm == "l1") if use_largereps is None else use_largereps
         self.verbose = verbose
+        self.eot_iter = eot_iter
+        self.model_rng_fn = model_rng_fn
         self.device = resolve_device(device)
         if version != "custom":
             if attacks_to_run:
                 raise ValueError("attacks_to_run requires version='custom'")
             attacks_to_run = VERSIONS[version]
-            self.n_restarts = 5 if version == "plus" else 1
-            self.n_target_classes = 9
+            if version == "standard":
+                self.n_restarts = 5 if norm == "l1" else 1
+                self.n_target_classes = 5 if norm == "l1" else 9
+            elif version == "plus":
+                self.n_restarts = 5
+                self.n_target_classes = 9
+            else:  # rand: EOT against randomized defenses
+                self.n_restarts = 1
+                self.eot_iter = max(eot_iter, 20)
         self.attacks_to_run: List[str] = list(attacks_to_run or [])
         self.version = version
         for a in self.attacks_to_run:
-            if a in NOT_PORTED:
-                raise NotImplementedError(f"attack {a!r} is not ported yet: {NOT_PORTED[a]}")
-            if a not in PORTED:
+            if a not in ATTACKS:
                 raise ValueError(f"unknown attack: {a}")
+        if version == "rand" and model_rng_fn is None:
+            log.warning(
+                "version='rand' runs EOT (eot_iter=%d) but no model_rng_fn "
+                "was given — a deterministic logits_fn makes EOT a no-op; "
+                "pass model_rng_fn=(lambda x, seed: logits) for randomized "
+                "defenses", self.eot_iter,
+            )
 
     # ---------------------------------------------------------------- helpers
     def _to_device(self, a) -> torch.Tensor:
@@ -116,14 +138,23 @@ class AutoAttack:
 
     def _run_attack(self, attack: str, xb: torch.Tensor, yb: torch.Tensor, rng: int) -> torch.Tensor:
         """Run one cascade stage on a batch; return candidate adversarials."""
-        common = dict(eps=self.eps, n_iter=self.n_iter, norm=self.norm,
-                      alpha=self.alpha, use_rs=self.use_rs, n_restarts=self.n_restarts)
+        common = dict(eps=self.eps, n_iter=self.n_iter, norm=self.norm, alpha=self.alpha,
+                      use_rs=self.use_rs, n_restarts=self.n_restarts,
+                      use_largereps=self.use_largereps, eot_iter=self.eot_iter,
+                      model_rng_fn=self.model_rng_fn)
         if attack == "apgd-ce":
             return apgd_restarts(self.logits_fn, xb, yb, criterion=_ce_criterion,
                                  rng=rng, **common).x_best_adv
         if attack == "apgd-dlr":
             return apgd_restarts(self.logits_fn, xb, yb, criterion=dlr_loss,
                                  rng=rng, **common).x_best_adv
+        if attack in ("fab", "fab-t"):
+            return fab_attack(self.logits_fn, xb, yb, norm=self.norm, n_iter=self.n_iter,
+                              n_restarts=self.n_restarts, eps=self.eps, targeted=attack == "fab-t",
+                              n_target_classes=self.n_target_classes, rng=rng).x_adv
+        if attack == "square":
+            return SQUARE[self.norm](self.logits_fn, xb, yb, eps=self.eps,
+                                     n_queries=self.square_n_queries, rng=rng).x_adv
         # apgd-t: cycle over the 2nd..(n+1)-th most likely classes
         with torch.no_grad():
             logits = self.logits_fn(xb)

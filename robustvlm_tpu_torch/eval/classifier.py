@@ -1,7 +1,7 @@
 """Zero-shot classification wrappers: the threat-model adapter layer.
 
-Counterpart of `robustvlm_tpu/eval/classifier.py`. Logits are
-`logit_scale * normalize(encode_image(normalize_clip(resize(x)))) @ T`, with
+Counterpart of `robustvlm_tpu/eval/classifier.py` (the wrappers and
+`accuracy`). Logits are `logit_scale * normalize(encode_image(normalize_clip(resize(x)))) @ T`, with
 T the (D, C) matrix of (optionally template-ensembled) class text
 embeddings. The returned modules take raw [0,1] pixels: attacks see pixels,
 and differentiation flows through resize and normalization.
@@ -53,19 +53,20 @@ class ZeroShotClassifier(nn.Module):
     """x01 (B, 3, H, W) -> (B, C) logits; resize and normalize inside."""
 
     def __init__(self, model: CLIP, text_embedding: torch.Tensor, scale: torch.Tensor,
-                 resize_to: Optional[int], compute_dtype):
+                 resize_to: Optional[int], compute_dtype, remat: bool = False):
         super().__init__()
         self.model = model
         self.register_buffer("text_embedding", text_embedding)
         self.register_buffer("scale", scale)
         self.resize_to = resize_to
         self.compute_dtype = compute_dtype
+        self.remat = remat
 
     def forward(self, x):
         if self.resize_to is not None:
             x = resize_bicubic(x, self.resize_to)
         e = self.model.encode_image(normalize_clip(x), normalize=True,
-                                    compute_dtype=self.compute_dtype)
+                                    compute_dtype=self.compute_dtype, remat=self.remat)
         return (e @ self.text_embedding) * self.scale
 
 
@@ -76,9 +77,11 @@ def make_zero_shot_classifier(
     logit_scale: Optional[float] = 100.0,
     resize_to: Optional[int] = None,
     compute_dtype=torch.float32,
+    remat: bool = False,
 ) -> ZeroShotClassifier:
     """logit_scale=None multiplies by exp(model.logit_scale); a float
-    multiplies the logits directly (0 would zero them and is rejected)."""
+    multiplies the logits directly (0 would zero them and is rejected).
+    remat recomputes each vision block in the backward."""
     if logit_scale == 0:
         raise ValueError("logit_scale=0 zeroes all logits; use 1.0 for unscaled")
     device = model.logit_scale.device
@@ -86,7 +89,7 @@ def make_zero_shot_classifier(
         scale = torch.exp(model.logit_scale.detach().float())
     else:
         scale = torch.tensor(logit_scale, dtype=torch.float32, device=device)
-    return ZeroShotClassifier(model, text_embedding.float(), scale, resize_to, compute_dtype)
+    return ZeroShotClassifier(model, text_embedding.float(), scale, resize_to, compute_dtype, remat)
 
 
 class EmbeddingModel(nn.Module):
@@ -107,3 +110,14 @@ class EmbeddingModel(nn.Module):
 def make_embedding_fn(model: CLIP, *, output_normalize: bool = False,
                       compute_dtype=torch.float32) -> EmbeddingModel:
     return EmbeddingModel(model, output_normalize, compute_dtype)
+
+
+@torch.no_grad()
+def accuracy(logits_fn, x, y, batch_size: int = 256) -> float:
+    """Batched top-1 accuracy of `logits_fn` on (x, y) tensors."""
+    n = x.shape[0]
+    correct = 0
+    for i in range(0, n, batch_size):
+        out = logits_fn(x[i : i + batch_size])
+        correct += int((out.argmax(dim=-1) == y[i : i + batch_size]).sum())
+    return correct / n

@@ -64,8 +64,8 @@ class CLIPConfig:
         return self.grid * self.grid + 1
 
 
-# the ViT configurations of the JAX package's CLIP_CONFIGS (ConvNeXt towers
-# are not ported)
+# the ViT configurations of the JAX package's CLIP_CONFIGS except ViT-g-14;
+# no ConvNeXt tower (both ROADMAP A.3)
 CLIP_CONFIGS: Dict[str, CLIPConfig] = {
     "ViT-B-32": CLIPConfig(
         "ViT-B-32", 512, 224, 32,
@@ -245,6 +245,22 @@ class TextTower(nn.Module):
         eot = tokens.argmax(dim=-1)
         x = x[torch.arange(x.shape[0], device=x.device), eot]
         return (x @ self.text_projection.to(cd)).float()
+
+
+@torch.no_grad()
+def cast_matrices_(module: nn.Module, dtype) -> nn.Module:
+    """Hold `module`'s parameters of two or more dimensions (the matrices,
+    the patch embedding, the positional embeddings) in `dtype`, in place;
+    1-D parameters (LayerNorm gains and biases, the biases, the class
+    embedding) stay float32. The forward casts every weight at use, so the
+    module gives, bit for bit, what the float32 module gives at
+    `compute_dtype=dtype`: the matrices' casts are made once instead of at
+    every call, and LayerNorm still reads float32 gains and biases."""
+    for mod in module.modules():
+        for name, prm in list(mod._parameters.items()):
+            if prm is not None and prm.dim() >= 2 and prm.dtype != dtype:
+                mod._parameters[name] = nn.Parameter(prm.to(dtype), requires_grad=prm.requires_grad)
+    return module
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:

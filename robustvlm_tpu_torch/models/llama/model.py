@@ -228,7 +228,7 @@ def llama_forward(
     runs the decode path and returns (logits, cache), the cache updated in
     place. `kv_mask` (B, Tk) marks valid key slots (left-padded batches)."""
     if remat:
-        raise NotImplementedError("llama_forward: remat is not ported (ROADMAP A7, training)")
+        raise NotImplementedError("llama_forward: remat is not ported (ROADMAP A.2, training)")
     if unroll_blocks:
         raise NotImplementedError(
             "llama_forward: unroll_blocks is JAX scan machinery; the port's blocks are a Python loop")
@@ -245,7 +245,7 @@ def llama_forward(
     if cache is not None:
         if "ks" in cache:
             raise NotImplementedError(
-                "llama_forward: the int8 KV cache is not ported (ROADMAP A13, serving)")
+                "llama_forward: the int8 KV cache is not ported (ROADMAP A.5, serving)")
         cache_len = cache["k"].shape[3]
         if kv_mask is not None and kv_mask.shape[1] < cache_len:
             # unwritten slots are invalid keys (also excluded by position)
@@ -269,7 +269,7 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
                dtype=torch.bfloat16, kv_bits: int = 0, device=None) -> Dict[str, torch.Tensor]:
     """Stacked per-layer KV buffers (L, B, Hkv, N, hd)."""
     if kv_bits:
-        raise NotImplementedError("init_cache: the int8 KV cache is not ported (ROADMAP A13, serving)")
+        raise NotImplementedError("init_cache: the int8 KV cache is not ported (ROADMAP A.5, serving)")
     n = max_len or cfg.max_seq_len
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, n, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

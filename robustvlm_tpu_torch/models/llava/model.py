@@ -229,7 +229,7 @@ def make_llava_decode_fns(model: Llava, pixels01, pre_tokens, *, max_total_len: 
     if kv_bits and cfg.lm_family != "llama":
         raise ValueError("kv_bits is llama-family only")
     if kv_bits:
-        raise NotImplementedError("the int8 KV cache is not ported (ROADMAP A13, serving)")
+        raise NotImplementedError("the int8 KV cache is not ported (ROADMAP A.5, serving)")
     img = encode_images(model, pixels01, compute_dtype=compute_dtype)
     t_prefix = pre_tokens.shape[1] + cfg.n_image_tokens
     dev = img.device

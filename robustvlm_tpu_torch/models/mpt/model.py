@@ -217,7 +217,7 @@ def mpt_forward(
     positions on the uncached path; `layer_hook(i, x) -> x` runs before
     block i."""
     if remat:
-        raise NotImplementedError("mpt_forward: remat is not ported (ROADMAP A1, training)")
+        raise NotImplementedError("mpt_forward: remat is not ported (ROADMAP A.2, training)")
     cfg = model.cfg
     if inputs_embeds is None:
         inputs_embeds = model.tok_embedding[tokens]

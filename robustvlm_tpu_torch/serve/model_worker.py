@@ -14,7 +14,7 @@ place, leaf by leaf (serving-only: the fp weights are dropped); with
 `--quantize-bits 4` every decode-step matmul runs the `q4_matmul` kernel.
 `--batch-window-ms` coalesces concurrent requests into one batched call
 (`_Batcher`). `--continuous`, `--speculate` and `--quantize-kv` are not
-ported (ROADMAP A13) and refuse to start.
+ported (ROADMAP A.5) and refuse to start.
 """
 
 from __future__ import annotations
@@ -288,9 +288,9 @@ def build_parser():
     p.add_argument("--quantize-bits", type=int, default=8, choices=(8, 4),
                    help="width for --quantize-decode: 8 = per-channel int8, 4 = packed int4 with "
                         "group-128 scales (the q4_matmul kernel)")
-    p.add_argument("--continuous", action="store_true", help="not ported (ROADMAP A13)")
-    p.add_argument("--speculate", type=int, default=0, help="not ported (ROADMAP A13)")
-    p.add_argument("--quantize-kv", action="store_true", help="not ported (ROADMAP A13)")
+    p.add_argument("--continuous", action="store_true", help="not ported (ROADMAP A.5)")
+    p.add_argument("--speculate", type=int, default=0, help="not ported (ROADMAP A.5)")
+    p.add_argument("--quantize-kv", action="store_true", help="not ported (ROADMAP A.5)")
     return p
 
 
@@ -301,7 +301,7 @@ def build_worker(args) -> ModelWorker:
     for flag, on in (("--continuous", args.continuous), ("--speculate", args.speculate),
                      ("--quantize-kv", args.quantize_kv)):
         if on:
-            raise NotImplementedError(f"{flag} is not ported (ROADMAP A13, serving)")
+            raise NotImplementedError(f"{flag} is not ported (ROADMAP A.5, serving)")
     if args.quantize_decode and args.model != "llava":
         raise SystemExit(f"--quantize-decode is not supported by the '{args.model}' adapter "
                          "(llava only)")

@@ -19,7 +19,7 @@ metrics on the host); the APGD-50 check prints `[eval]`.
 Checkpoints are `torch.save` state dicts under `<output_dir>/checkpoints/`,
 and the visual tower is exported as `checkpoints/final.pt` in the torch
 layout. Not ported: the native C++ image transform (the PIL one is used)
-and the COCO/SA-1B datasets (ROADMAP A1).
+and the COCO/SA-1B datasets (ROADMAP A.2).
 """
 
 from __future__ import annotations

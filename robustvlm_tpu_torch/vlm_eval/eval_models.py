@@ -17,8 +17,8 @@ Serving: generation can run on weight-only quantized LM weights, built
 lazily beside the fp model (`quantize_decode`) or in place for a
 serving-only process (`quantize_for_serving`), and `stream_tokens` /
 `stream_outputs` yield tokens as they are made. Not ported here: the
-continuous-batching cores and speculative decoding (ROADMAP A13); the
-BLIP-2 adapter (ROADMAP A12).
+continuous-batching cores and speculative decoding (ROADMAP A.5); the
+BLIP-2 adapter (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -140,7 +140,7 @@ class LlavaEvalModel:
     def __init__(self, model: Llava, tokenizer, *, compute_dtype=torch.bfloat16,
                  max_post_len: int = 64, remat: bool = False, quantize_decode=False):
         if remat:
-            raise NotImplementedError("LlavaEvalModel: remat is not ported (ROADMAP A7, training)")
+            raise NotImplementedError("LlavaEvalModel: remat is not ported (ROADMAP A.2, training)")
         self.model = model
         self.cfg = model.cfg
         self.tok = tokenizer
@@ -300,7 +300,7 @@ class FlamingoEvalModel:
     def __init__(self, model: Flamingo, tokenizer, *, compute_dtype=torch.bfloat16,
                  remat: bool = False, max_len: int = 128, pad_to_multiple: Optional[int] = None):
         if remat:
-            raise NotImplementedError("FlamingoEvalModel: remat is not ported (ROADMAP A1, training)")
+            raise NotImplementedError("FlamingoEvalModel: remat is not ported (ROADMAP A.2, training)")
         self.model = model
         self.cfg = model.cfg
         self.tok = tokenizer
@@ -408,7 +408,7 @@ def stream_outputs(model, x01: torch.Tensor, prompt: str, *, max_new_tokens: int
     """Yield the cumulative decoded text of ONE example as greedy tokens
     arrive (the serving stream path), through the adapter's `_decode_fns`."""
     if speculate:
-        raise NotImplementedError("speculative decoding is not ported (ROADMAP A13, serving)")
+        raise NotImplementedError("speculative decoding is not ported (ROADMAP A.5, serving)")
     stops = tuple(stop_strings) if stop_strings is not None else model.DEFAULT_STOPS
     pf, df, toks, n_pad = model._decode_fns(x01, [prompt], max_new_tokens)
     ids: List[int] = []

@@ -252,7 +252,7 @@ def build_models(args, precisions, device) -> Dict[str, object]:
     """The models of --model, one per precision, shared by every dataset
     and trial of a run."""
     if args.model == "blip2":
-        raise NotImplementedError("--model blip2 is not ported (ROADMAP A12, BLIP-2)")
+        raise NotImplementedError("--model blip2 is not ported (ROADMAP A.4, BLIP-2)")
     build = build_flamingo_models if args.model == "open_flamingo" else build_llava_models
     return build(args, precisions, device)
 

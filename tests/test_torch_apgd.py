@@ -119,8 +119,8 @@ def test_random_start_warm_start_and_ball():
         tapgd.apgd_attack(lambda xa: xa - tt, xt, None, use_rs=True, **kw)
     with pytest.raises(ValueError):  # 0-255 pixels break the threat model
         tapgd.apgd_attack(lambda xa: xa - tt, xt * 255, None, **kw)
-    with pytest.raises(NotImplementedError):
-        tapgd.apgd_attack(lambda xa: xa - tt, xt, None, **dict(kw, norm="l2"))
+    with pytest.raises(ValueError):  # l-inf, l2 and l1 only, as in JAX
+        tapgd.apgd_attack(lambda xa: xa - tt, xt, None, **dict(kw, norm="l0"))
 
 
 def test_restarts_keep_first_success_and_best_loss():

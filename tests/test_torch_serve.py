@@ -220,12 +220,12 @@ def test_controller_worker_end_to_end():
 def test_unported_worker_options_raise(flag):
     args = MW.build_parser().parse_args(["--device", "cpu", "--model_size", "test-tiny",
                                          "--controller-address", "", *flag])
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         MW.build_worker(args)
 
 
 def test_stream_outputs_refuses_speculation():
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         next(stream_outputs(None, _image(), "a prompt", speculate=2))
 
 
