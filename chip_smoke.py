@@ -25,8 +25,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 iterations: APGD example-steps/s;
   6. robustbench_breadth - at ViT-L/14 full width, bf16, 8 synthetic images:
                 the card's l1-ball and hyperplane-box projections against the
-                CPU's; `robustbench.main` with FAB-T (20 iterations), l2 and
-                l1 APGD-CE (20 iterations; l1 through the decr-eps schedule)
+                CPU's; `robustbench.main` with FAB-T (10 iterations), l2 and
+                l1 APGD-CE (10 iterations; l1 through the decr-eps schedule)
                 and `--full_benchmark`; Square (500 queries) through
                 `AutoAttack` on the CLI's classifier: x_adv in [0,1] and the
                 ball, every example counted as fooled fooled when run again,
@@ -47,7 +47,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 float32: the per-sample loss and pixel gradient through the
                 kernels on the card against the plain path on the CPU;
  10. llava    - `run_evaluation.main` (the VLM eval CLI) at LLaVA-1.5-7B full
-                width, bf16, 100 APGD iterations on 2 COCO-format images
+                width, bf16, 25 APGD iterations on 2 COCO-format images
                 written under chiprun_out/, captions and CIDEr, with each
                 kernel's launches, ms per APGD iteration and peak memory;
  11. llava_vqa - `run_evaluation.main --eval_vqav2` at LLaVA-1.5-7B full
@@ -82,7 +82,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 the plain path on the CPU;
  18. flamingo - `run_evaluation.main --model open_flamingo` at
                 OpenFlamingo-9B full width (32 MPT layers, 8 gated blocks,
-                ViT-L/14 at 224 px), bf16, 100 APGD iterations on 2 of 4
+                ViT-L/14 at 224 px), bf16, 25 APGD iterations on 2 of 4
                 COCO-format images (2 text-only demos each), the gates
                 opened after the CLI builds the model (a random model with
                 the reference's zero gates ignores its image): ms per APGD
@@ -92,7 +92,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
  19. flamingo_ensemble - the ensemble schedule at OpenFlamingo-9B full width
                 with both precisions held, every stage run: peak memory and
                 the ms of one float32 loss and gradient;
- 20. serve    - the model worker (`build_worker`, its CLI's path) at
+ 20. benchmark_reference - ConvNeXt-B (convnext_base_w) at full width, 256
+                px, and ViT-g/14 widths cut to 2 vision layers (head dim 88:
+                its kernels inside a real tower), float32, batch 2: zero-shot
+                logits and pixel gradient through the card against the CPU;
+ 21. benchmark - `benchmark.cli.main` (the zero-shot benchmark CLI) at full
+                width on fixtures written under chiprun_out/ (a
+                wds/vtab/cifar10-layout webdataset of 2 tar shards of 16 PNGs
+                at 224 px, a COCO-style captions fixture): ViT-L/14 (bf16,
+                AutoAttack 20 iterations on 16 images, then retrieval,
+                caption selection, linear probe and caption scores),
+                ViT-g/14 (bf16, AutoAttack 5 iterations on 8: the head dim 88
+                rows' launches), ConvNeXt-B (bf16, AutoAttack 5 iterations)
+                and ja_clip ViT-B/16 (clean); metrics in range, adv <= clean,
+                x_adv in [0,1] and the ball, `linf_step` launches equal to
+                the cascade's APGD iterations, the C++ image transform
+                taken, no ViT kernel in the ConvNeXt run; ms per APGD
+                iteration, seconds and peak memory per model;
+ 22. serve    - the model worker (`build_worker`, its CLI's path) at
                 LLaVA-1.5-7B full width with int4 LM weights behind the
                 port's controller on local ports: captions, VQA, a stream,
                 the shift body and a batch-4 micro-batch over HTTP, with ms
@@ -131,9 +148,15 @@ ATTN_NS = (50, 257, 577)              # ViT-B/32, ViT-L/14, ViT-L/14-336
 ATTN_D = 64
 # (n, head dim, extreme scores): the three towers' lengths, every scaled
 # score far below exp's underflow point, a ragged length (one key past a
-# 64-row tile), and head dim 80 (ViT-H/14), whose shared rows are padded
+# 64-row tile), and head dims 80 (ViT-H/14) and 88 (ViT-g/14), whose shared
+# rows are padded
 ATTN_CASES = ([(n, ATTN_D, False) for n in ATTN_NS] + [(257, ATTN_D, True), (129, ATTN_D, False)]
-              + [(129, 80, False), (257, 80, False)])
+              + [(129, 80, False), (257, 80, False), (129, 88, False), (257, 88, False)])
+# The timed ViT rows: ViT-L/14's head dim (launches from the CLI's main
+# runs) and ViT-g/14's (launches from the benchmark phases' ViT-g-14 runs:
+# the float32 2-layer cut of `benchmark_reference`, the bf16 CLI run)
+ATTN_TIMED = {ATTN_D: None,
+              88: {"float32": "benchmark_reference[ViT-g-14]", "bfloat16": "benchmark[ViT-g-14]"}}
 # Attention against its plain version, per output tensor: float32 within
 # 1e-5 abs; bf16 within 2e-2 of the reference's largest magnitude; lse is
 # float32 in both dtypes and held to 1e-5 abs + 1e-6 of its value.
@@ -462,14 +485,14 @@ def _attn_source(pass_: str, dname: str, launcher: str) -> dict:
 
 def check_attention(peaks: dict) -> list:
     import torch
-    import torch.nn.functional as F
 
     from robustvlm_tpu_torch.ops.kernels import vit_attention as A
 
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        worst = {"fwd": 0.0, "bwd": 0.0}
+        # worst errors: the D = 64 rows take every case's, the D = 88 rows those at 88
+        worst = {d: {"fwd": 0.0, "bwd": 0.0} for d in ATTN_TIMED}
         for n, d, extreme in ATTN_CASES:
             q, k, v, do = _qkv(n, dtype, seed=n + d, extreme=extreme, d=d)
             o, lse = A.attention_fwd_cuda(q, k, v)
@@ -490,7 +513,7 @@ def check_attention(peaks: dict) -> list:
                     "bwd_bitwise_repeatable": repeatable,
                     "tol": {"outputs": ATTN_TOL[dname], "relative_to_max_ref": dname != "float32",
                             "lse": LSE_TOL}, "ok": ok}
-            if (n, d, extreme) == (257, ATTN_D, False):
+            if n == 257 and d in ATTN_TIMED and not extreme:
                 line["controls_caught"] = _attn_controls(dname, q, k, v, do, got, ref)
                 ok = ok and all(line["controls_caught"].values())
             emit(line)
@@ -498,43 +521,60 @@ def check_attention(peaks: dict) -> list:
                 raise AssertionError(f"vit_attention {dname} n={n} d={d} extreme={extreme}: "
                                      "disagrees, is not repeatable, or a planted fault passed "
                                      "the check")
-            worst["fwd"] = max(worst["fwd"], res["o"][0])
-            worst["bwd"] = max(worst["bwd"], res["dq"][0], res["dk"][0], res["dv"][0])
+            for w in (worst[key] for key in {ATTN_D, d} & worst.keys()):
+                w["fwd"] = max(w["fwd"], res["o"][0])
+                w["bwd"] = max(w["bwd"], res["dq"][0], res["dk"][0], res["dv"][0])
 
-        # times at the main path's shape: ViT-L/14, batch 8; kernels and the
-        # library forward by CUDA-graph replay (TIMED_BY)
-        n = 257
-        q, k, v, do = _qkv(n, dtype, seed=1)
-        o, lse = A.attention_fwd_cuda(q, k, v)
-        fwd_ms = time_graph_ms(lambda: A.attention_fwd_cuda(q, k, v))
-        fwd_plain = time_ms(lambda: A.attention_fwd_plain(q, k, v))
-        bwd_ms = time_graph_ms(lambda: A.attention_bwd_cuda(q, k, v, o, lse, do))
-        bwd_plain = time_ms(lambda: A.attention_bwd_plain(q, k, v, o, lse, do))
-        q4, k4, v4 = (t.view(8, 16, n, ATTN_D) for t in (q, k, v))
-        lib_fwd = time_graph_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
-        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
-        do4 = do.view(8, 16, n, ATTN_D)
-        lib_bwd = time_graph_fwd_bwd_ms(F.scaled_dot_product_attention, (ql, kl, vl), do4)
-        lib_bwd.update(sdpa_backend(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(ql, kl, vl), (ql, kl, vl), do4)))
-        itm = q.element_size()
-        elems = ATTN_BH * n * ATTN_D
-        fb, fby = bound_ms(4 * elems * itm + ATTN_BH * n * 4, 4 * ATTN_BH * n * n * ATTN_D, dname, peaks)
-        bb, bby = bound_ms(8 * elems * itm + ATTN_BH * n * 4, 10 * ATTN_BH * n * n * ATTN_D, dname, peaks)
-        common = {"route": "cuda", "dtype": dname, "shape": [ATTN_BH, n, ATTN_D]}
-        results.append({"name": f"vit_attention_fwd[{dname}]", **common,
-                        **_attn_source("fwd", dname, "vit_attention.cu"),
-                        "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:157",
-                        "max_abs_err": worst["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
-                        "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
-                        "timed_by": TIMED_BY["fwd"]})
-        results.append({"name": f"vit_attention_bwd[{dname}]", **common,
-                        **_attn_source("bwd", dname, "vit_attention.cu"),
-                        "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:181",
-                        "max_abs_err": worst["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
-                        "bound_ms": bb, "bound_by": bby, **lib_bwd,
-                        "timed_by": TIMED_BY["bwd"]})
+        # times at the main paths' shapes: ViT-L/14 and ViT-g/14, batch 8;
+        # kernels and the library forward by CUDA-graph replay (TIMED_BY)
+        for d, sources in ATTN_TIMED.items():
+            results += _attn_timed_rows(peaks, dtype, d, worst[d], sources and sources[dname])
     return results
+
+
+def _attn_timed_rows(peaks: dict, dtype, d: int, worst: dict, launches_from) -> list:
+    """The forward and backward rows of the ViT kernels at (B*H = 128, 257,
+    d): graph-timed ms, plain ms, bound and SDPA's ms and backend."""
+    import torch
+    import torch.nn.functional as F
+
+    from robustvlm_tpu_torch.ops.kernels import vit_attention as A
+
+    dname = str(dtype).split(".")[-1]
+    n = 257
+    q, k, v, do = _qkv(n, dtype, seed=1, d=d)
+    o, lse = A.attention_fwd_cuda(q, k, v)
+    fwd_ms = time_graph_ms(lambda: A.attention_fwd_cuda(q, k, v))
+    fwd_plain = time_ms(lambda: A.attention_fwd_plain(q, k, v))
+    bwd_ms = time_graph_ms(lambda: A.attention_bwd_cuda(q, k, v, o, lse, do))
+    bwd_plain = time_ms(lambda: A.attention_bwd_plain(q, k, v, o, lse, do))
+    q4, k4, v4 = (t.view(8, 16, n, d) for t in (q, k, v))
+    lib_fwd = time_graph_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
+    do4 = do.view(8, 16, n, d)
+    lib_bwd = time_graph_fwd_bwd_ms(F.scaled_dot_product_attention, (ql, kl, vl), do4)
+    lib_bwd.update(sdpa_backend(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(ql, kl, vl), (ql, kl, vl), do4)))
+    itm = q.element_size()
+    elems = ATTN_BH * n * d
+    fb, fby = bound_ms(4 * elems * itm + ATTN_BH * n * 4, 4 * ATTN_BH * n * n * d, dname, peaks)
+    bb, bby = bound_ms(8 * elems * itm + ATTN_BH * n * 4, 10 * ATTN_BH * n * n * d, dname, peaks)
+    tag = dname if d == ATTN_D else f"{dname},d{d}"
+    common = {"route": "cuda", "dtype": dname, "shape": [ATTN_BH, n, d]}
+    if launches_from:
+        common["launches_from"] = launches_from
+    return [{"name": f"vit_attention_fwd[{tag}]", **common,
+             **_attn_source("fwd", dname, "vit_attention.cu"),
+             "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:157",
+             "max_abs_err": worst["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
+             "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
+             "timed_by": TIMED_BY["fwd"]},
+            {"name": f"vit_attention_bwd[{tag}]", **common,
+             **_attn_source("bwd", dname, "vit_attention.cu"),
+             "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:181",
+             "max_abs_err": worst["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
+             "bound_ms": bb, "bound_by": bby, **lib_bwd,
+             "timed_by": TIMED_BY["bwd"]}]
 
 
 # Flash attention at the main paths' shapes: the LLaVA-1.5-7B LM layer
@@ -1163,11 +1203,11 @@ def phase_timed() -> None:
 # the card's l1 and hyperplane projections against the CPU's, FAB-T, Square,
 # l2 and l1 APGD-CE (decr-eps) and `--full_benchmark`. Random weights are
 # fooled at once, so a cascade stops after its first stage; each stage is
-# also driven on its own, where it sees every example. Cuts: 20 iterations
-# (FAB-T, APGD, the cascade) and 500 Square queries, of the default 100 and
-# 5000.
+# also driven on its own, where it sees every example. Cuts: 10 iterations
+# (FAB-T, APGD, the cascade; 20 until PR 12) and 500 Square queries, of the
+# default 100 and 5000.
 BREADTH_N = 8
-BREADTH_ITERS = 20
+BREADTH_ITERS = 10  # cut from 20 for the smoke's time (PR 12)
 BREADTH_QUERIES = 500
 BREADTH_EPS = {"linf": 2.0, "l2": 127.5, "l1": 3060.0}  # /255: 2/255, 0.5, 12
 # The projections sum 150,528 float32 entries a row, as in JAX, and the card
@@ -1637,10 +1677,13 @@ def _coco_fixture(root: Path, captions=LLAVA_IMAGES) -> tuple:
     return img_dir, ann
 
 
+LLAVA_ITERS = 25  # cut from 100 for the smoke's time (PR 12)
+
+
 def phase_llava() -> dict:
     """`run_evaluation.main` at LLaVA-1.5-7B full width (32 LM layers, the
     336 px tower), random weights from seed 0, bf16 APGD (--attack apgd, the
-    half-precision untargeted run), eps 2/255, 100 iterations, 2 images.
+    half-precision untargeted run), eps 2/255, LLAVA_ITERS iterations, 2 images.
     PIL imports on the card, so the CLI reads a COCO-format fixture written
     here. Then the loss at x_adv is recomputed against the clean loss."""
     import gc
@@ -1659,7 +1702,7 @@ def phase_llava() -> dict:
     out_dir = root / "out"
     argv = ["--device", "cuda", "--model", "llava", "--model_size", "7b", "--eval_coco",
             "--coco_image_dir", str(img_dir), "--coco_annotations", str(ann),
-            "--attack", "apgd", "--eps", str(LLAVA_EPS), "--n_iter", "100", "--num_samples", "2",
+            "--attack", "apgd", "--eps", str(LLAVA_EPS), "--n_iter", str(LLAVA_ITERS), "--num_samples", "2",
             "--max_new_tokens", "32", "--out_base_path", str(out_dir), "--verbose"]
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -1703,7 +1746,7 @@ def phase_llava() -> dict:
         "captions": all(isinstance(r["caption"], str) for r in per_image),
         "cider": isinstance(result["cider"], float) and math.isfinite(result["cider"]),
         "launched": _launched(launches, LLAVA_KERNELS),
-        "iterations": result["attack_iters"] == 100 * len(per_image),
+        "iterations": result["attack_iters"] == LLAVA_ITERS * len(per_image),
     }
     emit({"phase": "llava", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation.main",
           "argv": argv, "model": cfg.name, "dtype": "bfloat16", "seq_len": adapter_seq_len(cfg, LLAVA_POST_LEN),
@@ -2005,7 +2048,7 @@ def phase_llava_vqa() -> dict:
 
 
 # ------------------------------------------------------------------ phase 13
-ROB_ITERS = 100
+ROB_ITERS = 25  # cut from 100 for the smoke's time (PR 12)
 ROB_QUESTIONS = VQA_QUESTIONS[:1]
 ROB_SHARD_LAYERS = 4  # LM layers a shard: 8 shards of about 1.6 GB + one of the rest
 
@@ -2597,11 +2640,14 @@ def flamingo_prompt_lens() -> list:
 
 
 # ------------------------------------------------------------------ phase 18
+FLAMINGO_ITERS = 25  # cut from 100 for the smoke's time (PR 12)
+
+
 def phase_flamingo() -> dict:
     """`run_evaluation.main` at OpenFlamingo-9B full width (32 MPT layers, 8
     gated blocks, ViT-L/14 at 224 px), random weights from seed 0 with the
     gates opened after the CLI builds the model (`open_gates_in_cli`), bf16
-    APGD (--attack apgd), eps 2/255, 100 iterations, 2 of 4 COCO-format
+    APGD (--attack apgd), eps 2/255, FLAMINGO_ITERS iterations, 2 of 4 COCO-format
     images, each with 2 text-only demos of the others. Then the loss at
     x_adv is recomputed against the clean loss on the CLI's own bf16 model.
     Returns the kernels' launches."""
@@ -2618,7 +2664,7 @@ def phase_flamingo() -> dict:
     root = OUT / "flamingo-coco"
     img_dir, ann = _coco_fixture(root, FLAMINGO_IMAGES)
     out_dir = root / "out"
-    argv = flamingo_argv(img_dir, ann, out_dir, "--attack", "apgd", "--n_iter", "100",
+    argv = flamingo_argv(img_dir, ann, out_dir, "--attack", "apgd", "--n_iter", str(FLAMINGO_ITERS),
                          "--num_samples", "2")
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -2659,10 +2705,10 @@ def phase_flamingo() -> dict:
         "captions": all(isinstance(r["caption"], str) for r in per_image),
         "cider": isinstance(result["cider"], float) and math.isfinite(result["cider"]),
         "launched": _launched(launches, FLAMINGO_KERNELS),
-        "linf_step_100_per_image": launches["linf_step"] == 100 * len(per_image),
+        "linf_step_per_iteration": launches["linf_step"] == FLAMINGO_ITERS * len(per_image),
         # the ALiBi kernel rows were checked and timed at this length
         "prompt_tokens_as_kernel_rows": [r["prompt_tokens"] for r in per_image] == flamingo_prompt_lens(),
-        "iterations": result["attack_iters"] == 100 * len(per_image) == 200,
+        "iterations": result["attack_iters"] == FLAMINGO_ITERS * len(per_image) == 2 * FLAMINGO_ITERS,
     }
     lens = [r["prompt_tokens"] for r in per_image]
     emit({"phase": "flamingo", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation.main",
@@ -2860,7 +2906,290 @@ def check_flash_alibi(peaks: dict, n: int, case: str = "alibi_openflamingo", tag
     return rows
 
 
-# ------------------------------------------------------------------ phase 20
+# ------------------------------------------------------------------ phases 20-21
+# The zero-shot benchmark suite. `benchmark_reference`: ConvNeXt-B
+# (convnext_base_w) at full width and ViT-g/14 widths cut to 2 vision
+# layers (the head dim 88 kernels inside a real tower), float32, card
+# against CPU, at the limits of `reference` (logits 1e-3 abs and 1e-4 of the
+# largest, pixel gradient 1e-3 relative). The text towers are cut to one
+# layer: these checks feed a random class matrix, not the text tower.
+BENCH_REF_TOL = {"logits_abs": 1e-3, "logits_rel": 1e-4, "grad_rel": 1e-3}
+BENCH_REF_CASES = (("convnext_base_w", None), ("ViT-g-14", 2))
+
+
+def _cut_config(name: str, vision_layers):
+    import dataclasses
+
+    from robustvlm_tpu_torch.models.clip import CLIP_CONFIGS
+
+    cfg = CLIP_CONFIGS[name]
+    vision = cfg.vision if vision_layers is None else dataclasses.replace(cfg.vision, layers=vision_layers)
+    return dataclasses.replace(cfg, vision=vision, text=dataclasses.replace(cfg.text, layers=1))
+
+
+def phase_benchmark_reference() -> dict:
+    """Returns the kernels' launches of the ViT-g/14 cut (its float32 D = 88
+    rows' source)."""
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.eval.classifier import make_zero_shot_classifier
+    from robustvlm_tpu_torch.models.clip import CLIP
+
+    launches = {}
+    for name, layers in BENCH_REF_CASES:
+        cfg = _cut_config(name, layers)
+        npr = np.random.RandomState(0)
+        x = torch.from_numpy(npr.rand(2, 3, cfg.image_size, cfg.image_size).astype(np.float32))
+        temb = torch.from_numpy(npr.randn(cfg.embed_dim, 10).astype(np.float32))
+        temb = temb / temb.norm(dim=0, keepdim=True)
+        cpu = CLIP(cfg, device="cpu").init_random_(0)
+        gpu = CLIP(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        out = {}
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            if dev == "cuda":
+                _reset_launches()
+            fn = make_zero_shot_classifier(model, temb.to(dev))
+            xa = x.to(dev).requires_grad_(True)
+            logits = fn(xa)
+            (grad,) = torch.autograd.grad(logits[:, 0].sum(), xa)
+            out[dev] = (logits.detach().cpu(), grad.cpu())
+        launches[name] = _launches()
+        lg_err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        lg_rel = lg_err / float(out["cpu"][0].abs().max())
+        g_rel = float((out["cuda"][1] - out["cpu"][1]).norm() / out["cpu"][1].norm())
+        vit = launches[name]["vit_attention_fwd"] > 0 and launches[name]["vit_attention_bwd"] > 0
+        checks = {"logits_abs": lg_err <= BENCH_REF_TOL["logits_abs"],
+                  "logits_rel": lg_rel <= BENCH_REF_TOL["logits_rel"],
+                  "grad_rel": g_rel <= BENCH_REF_TOL["grad_rel"],
+                  "finite": bool(torch.isfinite(out["cuda"][1]).all()),
+                  # the ConvNeXt tower has no attention; the ViT-g/14 cut runs the D = 88 kernels
+                  "vit_kernels": vit if cfg.vision_arch == "vit" else not vit}
+        emit({"phase": "benchmark_reference", "model": name, "batch": 2, "image_size": cfg.image_size,
+              "cut": ("full vision width and depth" if layers is None else f"{layers} of 40 vision layers")
+              + ", 1 text layer (unused)", "head_dim": None if cfg.vision_arch != "vit"
+              else cfg.vision.width // cfg.vision.heads, "logits_max_abs_err": lg_err,
+              "logits_rel_err": lg_rel, "grad_rel_err": g_rel, "tol": BENCH_REF_TOL,
+              "launches": launches[name], "checks": checks, "ok": all(checks.values())})
+        if not all(checks.values()):
+            raise AssertionError(f"benchmark_reference {name}: {checks}")
+        del cpu, gpu
+        _free()
+    return launches["ViT-g-14"]
+
+
+# `benchmark`: the benchmark CLI (`benchmark.cli.main`) at full width on
+# fixtures the phase writes under chiprun_out/: a wds/vtab/cifar10-layout
+# webdataset (2 tar shards of 16 PNGs at 224 px, nshards.txt, the CIFAR-10
+# classnames, two templates; the train split is the same shards) and a
+# COCO-style captions fixture (8 images, 2 captions each, and a predictions
+# json). Random weights from seed 0, the hash tokenizer, eps 2/255; under
+# attack the labels are the model's clean predictions (_AttackProbe).
+BENCH_SHARDS, BENCH_PER_SHARD = 2, 16
+BENCH_RUNS = {  # name -> (model, compute dtype, extra argv)
+    "ViT-L-14": ("ViT-L-14", "bfloat16", ["--attack", "aa", "--n_iter", "20", "--n_samples", "16"]),
+    "ViT-g-14": ("ViT-g-14", "bfloat16", ["--attack", "aa", "--n_iter", "5", "--n_samples", "8"]),
+    "convnext_base_w": ("convnext_base_w", "bfloat16", ["--attack", "aa", "--n_iter", "5", "--n_samples", "8"]),
+    "ja_clip-vit-b-16": ("ja_clip-vit-b-16", "float32", ["--n_samples", "16"]),
+}
+BENCH_EPS = 2.0  # /255
+BENCH_TASK_MODEL = "ViT-L-14"  # runs the four other tasks
+
+
+def _bench_fixture(root):
+    import io
+    import json
+    import shutil
+    import tarfile
+
+    import numpy as np
+    from PIL import Image
+
+    from robustvlm_tpu_torch.benchmark.templates import get_classnames
+
+    npr = np.random.RandomState(0)
+
+    def png(h, w):
+        buf = io.BytesIO()
+        Image.fromarray(npr.randint(0, 256, (h, w, 3), np.uint8)).save(buf, "PNG")
+        return buf.getvalue()
+
+    wds = root / "wds"
+    (wds / "test").mkdir(parents=True)
+    idx = 0
+    for s in range(BENCH_SHARDS):
+        with tarfile.open(wds / "test" / f"{s}.tar", "w") as tf:
+            for _ in range(BENCH_PER_SHARD):
+                for ext, data in (("png", png(224, 224)), ("cls", str(idx % 10).encode())):
+                    info = tarfile.TarInfo(f"{idx:06d}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+                idx += 1
+    (wds / "test" / "nshards.txt").write_text(str(BENCH_SHARDS))
+    shutil.copytree(wds / "test", wds / "train")  # the linear probe trains on the same shards
+    (wds / "classnames.txt").write_text("\n".join(get_classnames("cifar10")) + "\n")
+    (wds / "zeroshot_classification_templates.txt").write_text("a photo of a {c}.\na blurry photo of a {c}.\n")
+    cap = root / "captions"
+    (cap / "img").mkdir(parents=True)
+    images, anns, preds = [], [], []
+    for i in range(8):
+        (cap / "img" / f"{i}.png").write_bytes(png(240, 320))
+        images.append({"id": i, "file_name": f"{i}.png"})
+        anns += [{"image_id": i, "id": 2 * i + j, "caption": c}
+                 for j, c in enumerate((f"a photo of object {i} on a table", f"picture number {i}"))]
+        preds.append({"image_id": i, "caption": f"a photo of object {i}"})
+    (cap / "ann.json").write_text(json.dumps({"images": images, "annotations": anns}))
+    (cap / "preds.json").write_text(json.dumps(preds))
+    return wds, cap
+
+
+class _AttackProbe:
+    """Around `benchmark.cli.main`: each AutoAttack run's x and x_adv and its
+    seconds, and the APGD runs (each `apgd_attack` call launches `linf_step`
+    n_iter times). Under attack the labels are the model's own
+    clean predictions, as `main`'s `--labels predicted`: a random model is
+    right on few images, and AutoAttack attacks only those, so every image
+    is attacked (a smoke setting; the adversarial accuracy is then not
+    robust accuracy)."""
+
+    def __init__(self):
+        from robustvlm_tpu_torch.attacks import apgd
+        from robustvlm_tpu_torch.benchmark import zeroshot
+        from robustvlm_tpu_torch.eval import autoattack
+
+        self.mods = (apgd, zeroshot, autoattack.AutoAttack)
+        self.real = (apgd.apgd_attack, zeroshot.run_classification,
+                     autoattack.AutoAttack.run_standard_evaluation)
+        self.reset()
+
+    def reset(self):
+        self.adv, self.apgd_iters, self.attack_s = [], 0, 0.0
+
+    def __enter__(self):
+        apgd, zeroshot, aa = self.mods
+        real_apgd, real_rc, real_rse = self.real
+
+        def apgd_attack(*a, n_iter=100, **kw):
+            self.apgd_iters += n_iter
+            return real_apgd(*a, n_iter=n_iter, **kw)
+
+        def run_classification(logits_fn, data, **kw):
+            import torch
+
+            def predicted():
+                for xb, _ in data:
+                    with torch.no_grad():
+                        yield xb, logits_fn(torch.as_tensor(xb).to(kw["device"])).argmax(-1).cpu().numpy()
+
+            return real_rc(logits_fn, predicted() if kw.get("attack") else data, **kw)
+
+        def run_standard_evaluation(inner, x, y, **kw):
+            import torch
+
+            t0 = time.perf_counter()
+            x_adv = real_rse(inner, x, y, **kw)
+            torch.cuda.synchronize()
+            self.attack_s += time.perf_counter() - t0
+            self.adv.append((x_adv.numpy(), x))
+            return x_adv
+
+        apgd.apgd_attack, zeroshot.run_classification = apgd_attack, run_classification
+        aa.run_standard_evaluation = run_standard_evaluation
+        return self
+
+    def __exit__(self, *exc):
+        apgd, zeroshot, aa = self.mods
+        apgd.apgd_attack, zeroshot.run_classification, aa.run_standard_evaluation = self.real
+
+
+def _metrics_in_range(metrics: dict) -> bool:
+    """Finite and in [0, 1]; CIDEr in [0, 10] (pycocoevalcap's scale)."""
+    return all(math.isfinite(v) and 0.0 <= v <= (10.0 if k == "CIDEr" else 1.0) for k, v in metrics.items())
+
+
+def phase_benchmark() -> dict:
+    """Returns {f"benchmark[{model}]": launches} of each classification run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.benchmark import builder, cli
+    from robustvlm_tpu_torch.data import native
+
+    root = OUT / "benchmark"
+    shutil.rmtree(root, ignore_errors=True)
+    wds, cap = _bench_fixture(root)
+    native_ok = native.available() and getattr(builder.WdsShardDataset([], size=224).transform, "native", False)
+    common = ["--device", "cuda", "--pretrained", "random", "--eps", str(BENCH_EPS), "--batch_size", "16"]
+    runs = {}
+    with _AttackProbe() as probe:
+        for name, (model, dtype, extra) in BENCH_RUNS.items():
+            probe.reset()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            res = cli.main(["eval", "--model", model, "--dataset", "wds/vtab/cifar10", "--dataset_root", str(wds),
+                            "--compute_dtype", dtype, "--output", str(root / "{model}_{task}.json"), *common,
+                            *extra])[0]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = _launches()
+            runs[f"benchmark[{name}]"] = launches
+            m = res["metrics"]
+            checks = {"metrics_in_range": _metrics_in_range(m), "native_transform": bool(native_ok),
+                      "flash_text_tower": launches["flash_attention_fwd"] > 0 or name.startswith("ja_clip")}
+            line = {"phase": "benchmark", "model": model, "task": "zeroshot_classification",
+                    "compute_dtype": dtype, "argv_extra": extra, "metrics": m, "seconds": secs,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches}
+            if "--attack" in extra:
+                (x_adv, x), = probe.adv
+                linf = float(np.abs(x_adv.astype(np.float64) - x).max())
+                checks.update({
+                    "adv_le_clean": m["adv_acc1"] <= m["acc1"],
+                    "x_adv_in_box": bool(np.isfinite(x_adv).all() and x_adv.min() >= 0 and x_adv.max() <= 1),
+                    "x_adv_in_ball": linf <= BENCH_EPS / 255.0 + 1e-6,
+                    "linf_step_is_the_cascades": launches["linf_step"] == probe.apgd_iters,
+                })
+                line.update({"linf_max": linf, "apgd_iterations": probe.apgd_iters,
+                             "attack_s": probe.attack_s,
+                             "ms_per_apgd_iteration": (1e3 * probe.attack_s / probe.apgd_iters
+                                                       if probe.apgd_iters else None)})
+            if "convnext" in model:
+                checks["no_vit_attention"] = launches["vit_attention_fwd"] == launches["vit_attention_bwd"] == 0
+            else:  # the ViT towers (ja_clip's is ViT-B/16)
+                checks["vit_attention"] = launches["vit_attention_fwd"] > 0 and (
+                    "--attack" not in extra or launches["vit_attention_bwd"] > 0)
+            line.update({"checks": checks, "ok": all(checks.values())})
+            emit(line)
+            if not all(checks.values()):
+                raise AssertionError(f"benchmark {name}: {checks}")
+            _free()
+    # the other four tasks at ViT-L/14, float32 (the CLI's dtype for them, as in JAX)
+    model = BENCH_TASK_MODEL
+    for task, extra in (("zeroshot_retrieval", ["--dataset_root", str(cap / "img"), "--retrieval_annotations",
+                                                str(cap / "ann.json")]),
+                        ("image_caption_selection", ["--dataset_root", str(cap / "img"),
+                                                     "--retrieval_annotations", str(cap / "ann.json")]),
+                        ("linear_probe", ["--dataset_root", str(wds)]),
+                        ("captioning", ["--predictions", str(cap / "preds.json"), "--retrieval_annotations",
+                                        str(cap / "ann.json")])):
+        t0 = time.perf_counter()
+        dataset = "wds/vtab/cifar10" if task == "linear_probe" else "mscoco_captions"
+        res = cli.main(["eval", "--model", model, "--dataset", dataset, "--task", task,
+                        "--output", str(root / "{model}_{task}.json"), *common, *extra])[0]
+        torch.cuda.synchronize()
+        checks = {"metrics_in_range": _metrics_in_range(res["metrics"]) and bool(res["metrics"])}
+        emit({"phase": "benchmark", "model": model, "task": task, "metrics": res["metrics"],
+              "seconds": time.perf_counter() - t0, "checks": checks, "ok": all(checks.values())})
+        if not all(checks.values()):
+            raise AssertionError(f"benchmark {model} {task}: {checks}")
+    _free()
+    return runs
+
+
+# ------------------------------------------------------------------ phase 22
 SERVE_ARGV = ["--device", "cuda", "--model", "llava", "--model_size", "7b", "--quantize-decode",
               "--quantize-bits", "4", "--host", "127.0.0.1", "--port", "0", "--controller-address", ""]
 SERVE_NEW_TOKENS = 32
@@ -3194,13 +3523,16 @@ def main() -> int:
     runs["flamingo_reference"] = phase_flamingo_reference()
     runs["flamingo"] = phase_flamingo()
     runs["flamingo_ensemble[float32 stage]"] = phase_flamingo_ensemble()
+    runs["benchmark_reference[ViT-g-14]"] = phase_benchmark_reference()
+    runs.update(phase_benchmark())
     runs["serve"] = phase_serve()
     # Each row takes the launches of the run of its path and dtype: the CLIP
     # kernels from the CLI's CLIP runs; flash in bf16 from the LLaVA eval,
     # in float32 from the ensemble's float32 stage (at head dim 64 from the
     # float32 CLIP run's text tower; at the robust tower's length from
     # `llava_rob`; with ALiBi from the OpenFlamingo runs or LLaVA-MPT's cut,
-    # named in the row); q4_matmul from serving.
+    # named in the row); q4_matmul from serving; the ViT kernels at head dim
+    # 88 from the benchmark phases' ViT-g-14 runs (named in the row).
     for r in rows:
         kernel = r.pop("counter", r["name"].split("[")[0])
         if "launches_from" in r:

@@ -39,10 +39,13 @@
 // warpgroups a block sharing the streamed tiles (slower at both shapes).
 //
 // Head dims: tiles are whole 64-column boxes, DT = 64 or 128. A head dim of
-// 80 (ViT-H/14) is mapped as (80, n, bh) and read as two boxes a row; TMA
-// zero-fills columns 80-127, so the tile has the D = 128 layout: S and dP
-// take ceil(D / 16) = 5 k-steps; dQ, dK and dV run at N = 128 on zero
-// columns, which are not stored.
+// 80 (ViT-H/14) or 88 (ViT-g/14) is mapped as (D, n, bh) and read as two
+// boxes a row; TMA zero-fills columns D-127 of Q, K, V and dO alike, so the
+// tile has the D = 128 layout: S and dP take ceil(D / 16) = 5 or 6 k-steps
+// (at 88 the sixth reads zeros past column 88 in both operands); dQ, dK and
+// dV run at N = 128 on zero columns, which are not stored. A row of 88
+// bf16 is 176 bytes, a multiple of 16, as TMA's strides and the 16-byte
+// loads of delta need.
 
 #pragma once
 
@@ -70,7 +73,7 @@ struct WgBwd : S {
                                  8 * (S::kStages + 1);
   static constexpr int kSmemDkv = 1024 + 2 * kOwnBytes + S::kStages * kDkvStage +
                                   4 * 2 * S::kM * S::kStages + 8 * (S::kStages + 1);
-  static_assert(D % 16 == 0 && D <= 128, "head dims of whole k-steps, up to 128");
+  static_assert(D % 8 == 0 && D <= 128, "head dims of whole 16-byte chunks, up to 128");
   static_assert(S::kN == 32 || S::kN == 64 || S::kN == 128, "key tiles of 32, 64 or 128");
   static_assert(S::kM == 32 || S::kM == 64 || S::kM == 128, "query tiles of 32, 64 or 128");
   static_assert(S::kStages >= 2, "the lse / delta rows of a tile are copied one tile ahead");
@@ -165,16 +168,20 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   // delta of every row (the dK/dV kernel reads it even for a row that sees
   // no key), from device memory while the copies fly: two threads a row,
-  // D / 2 columns each, 16 bytes at a time
+  // 16 bytes (8 columns) at a time, the first ceil(D / 16) chunks of a row
+  // to one and the rest to the other (D / 2 columns each when D / 8 is even;
+  // 48 and 40 at D = 88)
   {
+    constexpr int kChunks = D / 8, kHalf = (kChunks + 1) / 2;
     const int r = threadIdx.x / 2, half = threadIdx.x % 2;
     const int row = r0 + r;
     float part = 0.f;
     if (row < nq) {
-      const uint4* a = reinterpret_cast<const uint4*>(dout + qb + (size_t)row * D + half * (D / 2));
-      const uint4* b = reinterpret_cast<const uint4*>(o + qb + (size_t)row * D + half * (D / 2));
+      const uint4* a = reinterpret_cast<const uint4*>(dout + qb + (size_t)row * D) + half * kHalf;
+      const uint4* b = reinterpret_cast<const uint4*>(o + qb + (size_t)row * D) + half * kHalf;
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
+      for (int c = 0; c < kHalf; ++c) {
+        if (half * kHalf + c >= kChunks) break;
         const uint4 x = a[c], y = b[c];
         part = fmaf(bf16_lo(x.x), bf16_lo(y.x), part);
         part = fmaf(bf16_hi(x.x), bf16_hi(y.x), part);

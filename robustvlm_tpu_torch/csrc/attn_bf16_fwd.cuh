@@ -1,7 +1,7 @@
 // The bfloat16 attention forward on Hopper's tensor cores (wgmma + TMA), for
 // flash_attention.cu (causal or not, ALiBi, key padding; head dims 64 and
-// 128) and vit_attention.cu (non-causal, nq = nk, no slopes; head dims 64
-// and 80). Each launches it with its own tile shape.
+// 128) and vit_attention.cu (non-causal, nq = nk, no slopes; head dims 64,
+// 80 and 88). Each launches it with its own tile shape.
 //
 // The function (flash_attention.cu's header): q scaled in bf16 before
 // S = Q K^T (the exact product rounded once); ALiBi subtracts slope * (row -
@@ -20,17 +20,19 @@
 //   then K and V tiles of kN keys into a ring of kStages stages, each
 //   completing on its mbarrier, so the next tiles land while this one is
 //   computed. 3-D tensor maps over (D, n, bh) let the hardware zero-fill
-//   rows past n and, at head dim 80, columns 80-127; 128-byte boxes with the
-//   128-byte swizzle feed wgmma without bank conflicts. A tile is kDt = 64 or
-//   128 columns wide: one box, or two (D = 80 and 128).
+//   rows past n and, at head dims 80 and 88, columns D-127; 128-byte boxes
+//   with the 128-byte swizzle feed wgmma without bank conflicts. A tile is
+//   kDt = 64 or 128 columns wide: one box, or two (D = 80, 88 and 128).
 // - Per tile: S = (Q scale) K^T with Q and K from shared
-//   memory, D / 16 k-steps (5 at D = 80); one online-softmax update on the
+//   memory, ceil(D / 16) k-steps (5 at D = 80, 6 at D = 88, whose last
+//   one reads the zero fill of both operands past column 88); one
+//   online-softmax update on the
 //   accumulator in registers (two rows a thread, quad shuffles; the mask
 //   only on tiles that cross the diagonal or the key end; exp2 with log2(e)
 //   folded in); P rounded to bf16 and re-packed in registers as the A
-//   operand of O += P V, which runs at N = D (wgmma's n = 80 is a shape of
-//   its own: columns 80-127 are never computed or stored), V read MN-major
-//   with the transpose bit. A stage is refilled only after every warp of
+//   operand of O += P V, which runs at N = D (wgmma's n = 80 and n = 88
+//   are shapes of their own: columns D-127 are never computed or stored), V
+//   read MN-major with the transpose bit. A stage is refilled only after every warp of
 //   the block is done with it.
 // - No branch around a wgmma, and no warp specialisation: the softmax does
 //   not overlap the block's own products, only those of the other blocks on
@@ -61,8 +63,9 @@ struct WgFwd : S {
   // 1 KB of slack to put the tiles on a 1024-byte boundary, then Q, the
   // stages and their mbarriers (one a stage, one for Q)
   static constexpr int kSmem = 1024 + kQBytes + S::kStages * kStageBytes + 8 * (S::kStages + 1);
-  static_assert(D % 16 == 0 && D <= 128 && (D % 64 == 0 || D == 80),
-                "head dims of whole k-steps whose P V has a wgmma: 64, 80, 128");
+  static constexpr int kK = (D + 15) / 16;  // k-steps of S = Q K^T over the head dim
+  static_assert(D % 8 == 0 && D <= 128 && (D % 64 == 0 || D == 80 || D == 88),
+                "head dims whose P V has a wgmma: 64, 80, 88, 128");
   static_assert(S::kN == 32 || S::kN == 64 || S::kN == 128, "key tiles of 32, 64 or 128");
   static_assert(S::kStages >= 1 && kSmem <= 227 * 1024, "a block may take 227 KB of shared memory");
 };
@@ -144,15 +147,16 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t vs = ks + P::kTileBytes;
       mbar_wait(&full[tile % NS], (tile / NS) & 1);
 
-      // S = (Q scale) K^T, both from shared memory, both K-major: D / 16
-      // k-steps, 4 per 128-byte box
+      // S = (Q scale) K^T, both from shared memory, both K-major: ceil(D /
+      // 16) k-steps, 4 per 128-byte box (at D = 88 the sixth one spans
+      // columns 88-95, zero in both Q and K)
       float s[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < P::kK; ++kk) {
         wgmma_ss<BN>(s, kmajor_desc(qaddr, 64, kk), kmajor_desc(ks, BN, kk), kk > 0);
       }
       wgmma_commit();

@@ -35,10 +35,10 @@
 //   shared-memory loads; the streamed tiles (K and V; Q and dO with their
 //   lse and delta rows in dK/dV) come in by cp.async while the tile before
 //   them is computed; one softmax update a tile in the forward, P and dS
-//   through a padded shared tile within a warp. Head dim 80 is staged into
-//   96-float shared rows, zero-filled past 80. Block shapes (VitF32Tile
-//   below) from scripts/sweep_vit_attention_fp32_torch.py at the ViT-L/14
-//   shape.
+//   through a padded shared tile within a warp. Head dims 80 and 88 are
+//   staged into 96-float shared rows, zero-filled past D. Block shapes
+//   (VitF32Tile below) from scripts/sweep_vit_attention_fp32_torch.py at the
+//   ViT-L/14 shape (and ViT-g/14's for head dim 88).
 // - bfloat16, on the tensor cores: the wgmma + TMA kernels that the flash
 //   attention's bf16 path launches too, non-causal with no slopes. Bound:
 //   bytes (q, k, v, o read or written once: about 16.8 MB forward at B*H =
@@ -46,14 +46,15 @@
 //   - forward: attn_bf16_fwd.cuh. A warpgroup owns 64 query rows; K and V
 //     tiles stream through a TMA ring past its Q; S = (Q scale) K^T takes
 //     both operands from shared memory; P is re-packed in registers as the
-//     A operand of O += P V, which runs at N = D (80 is a wgmma shape of
-//     its own); only the last key tile, the ragged one, is masked.
+//     A operand of O += P V, which runs at N = D (80 and 88 are wgmma
+//     shapes of their own); only the last key tile, the ragged one, is masked.
 //   - backward: attn_bf16_bwd.cuh. K and V (Q and dO) tiles stream through
 //     a TMA ring past a block's Q and dO (K and V); both score products
 //     take their operands from shared memory; dS and P are re-packed in
 //     registers as the A operand of the gradient products.
-//   Head dim 80 is mapped as 80 columns and read as two 64-column boxes,
-//   zero-filled past 80. At N = 257 the ragged tail decides the tile shape
+//   Head dims 80 and 88 are mapped as D columns and read as two 64-column
+//   boxes, zero-filled past D (S and dP take 6 k-steps at 88, the last over
+//   zeros of both operands). At N = 257 the ragged tail decides the tile shape
 //   (VitBf16Fwd, VitBf16Bwd below).
 
 #include <math.h>
@@ -85,13 +86,20 @@ template <>
 struct VitF32Tile<80, kDq> { static constexpr int kRows = 48, kTile = 24, kThreads = 128, kBufs = 2; };
 template <>
 struct VitF32Tile<80, kDkv> { static constexpr int kRows = 48, kTile = 24, kThreads = 128, kBufs = 2; };
+template <>
+struct VitF32Tile<88, kFwd> { static constexpr int kRows = 48, kTile = 48, kThreads = 128, kBufs = 2; };
+template <>
+struct VitF32Tile<88, kDq> { static constexpr int kRows = 48, kTile = 24, kThreads = 128, kBufs = 2; };
+template <>
+struct VitF32Tile<88, kDkv> { static constexpr int kRows = 48, kTile = 24, kThreads = 128, kBufs = 2; };
 
 // ============================================ bfloat16: tensor-core kernels
 // The wgmma + TMA kernels of attn_bf16_fwd.cuh (forward) and
 // attn_bf16_bwd.cuh (backward), non-causal, with their own tile shape per
-// head dim; head dim 80 runs in 128-wide tiles, zero past 80. Forward: kN
+// head dim; head dims 80 and 88 run in 128-wide tiles, zero past D. Forward: kN
 // keys a tile, kStages ring stages (a block is one warpgroup of 64 query
-// rows); chosen on the card at the ViT-L/14 shape by
+// rows); chosen on the card at each head dim's shape (ViT-L/14's; ViT-g/14's
+// for 88, where a third stage takes 7% off) by
 // scripts/sweep_flash_bf16_torch.py --vit, which rewrites these lines.
 template <int D>
 struct VitBf16Fwd;
@@ -99,6 +107,8 @@ template <>
 struct VitBf16Fwd<64> { static constexpr int kN = 64, kStages = 2; };
 template <>
 struct VitBf16Fwd<80> { static constexpr int kN = 32, kStages = 2; };
+template <>
+struct VitBf16Fwd<88> { static constexpr int kN = 32, kStages = 3; };
 
 // Backward: kN keys a tile in dQ, kM queries a tile in dK/dV, kStages ring
 // stages. Chosen on the card by scripts/sweep_attention_bf16_bwd_torch.py,
@@ -109,6 +119,8 @@ template <>
 struct VitBf16Bwd<64> { static constexpr int kN = 32, kM = 64, kStages = 2; };
 template <>
 struct VitBf16Bwd<80> { static constexpr int kN = 64, kM = 64, kStages = 2; };
+template <>
+struct VitBf16Bwd<88> { static constexpr int kN = 64, kM = 64, kStages = 2; };
 
 // ================================================================= launches
 // cudaGetLastError() after the launch; cudaErrorInvalidValue, with no
@@ -153,7 +165,7 @@ int launch_bwd(int dtype, const void* q, const void* k, const void* v, const voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Head dims 64 and 80. All arrays are
+// dtype: 0 = float32, 1 = bfloat16. Head dims 64, 80 and 88. All arrays are
 // contiguous device arrays, 16-byte aligned: q, k, v, o (bh, n, d); lse
 // (bh, n) float32. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for an unsupported dtype or head dim, or a bf16
@@ -166,6 +178,7 @@ extern "C" int vit_attn_fwd(const void* q, const void* k, const void* v, void* o
   switch (d) {
     case 64: return launch_fwd<64>(dtype, q, k, v, o, lse, bh, n, scale, s);
     case 80: return launch_fwd<80>(dtype, q, k, v, o, lse, bh, n, scale, s);
+    case 88: return launch_fwd<88>(dtype, q, k, v, o, lse, bh, n, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -180,6 +193,7 @@ extern "C" int vit_attn_bwd(const void* q, const void* k, const void* v, const v
   switch (d) {
     case 64: return launch_bwd<64>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, bh, n, scale, s);
     case 80: return launch_bwd<80>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, bh, n, scale, s);
+    case 88: return launch_bwd<88>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, bh, n, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

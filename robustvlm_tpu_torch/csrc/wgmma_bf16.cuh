@@ -7,8 +7,8 @@
 // head dim, rows = sequence, planes = heads) as boxes of 64 inner elements
 // (128 bytes) by `box_rows` rows, with the 128-byte swizzle: row r of a box
 // lands at byte 128 r of it, its 16-byte chunk c at chunk c ^ (r % 8). Rows
-// past the array's `rows`, and columns past `inner` (a head dim of 80 read
-// as two boxes), are zero-filled by the hardware, which still counts the
+// past the array's `rows`, and columns past `inner` (a head dim of 80 or 88
+// read as two boxes), are zero-filled by the hardware, which still counts the
 // whole box towards the mbarrier's transaction bytes. Every box
 // starts on a 1024-byte boundary of shared memory, so the swizzle is that
 // of the address and wgmma's descriptors below read it with layout mode
@@ -254,6 +254,28 @@ __device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
 }
 
+// D (64 x 88, float32, fragment d) += A (64 x 16 bf16, registers a) * B (16 x 88
+// bf16, shared memory, descriptor b): O += P V at head dim 88 (ViT-g/14),
+// whose B spans one 64-column box and 24 columns of the next (LBO bytes on).
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n88k16_rs(float (&d)[44], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43}, "
+      "{%44, %45, %46, %47}, %48, p, 1, 1, %50;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
 // D (64 x 128, float32, fragment d) += A (64 x 16 bf16, registers a) * B (16 x 128
 // bf16, shared memory, descriptor b); scale_d = 0 drops D's old value.
 template <int TransB>
@@ -332,15 +354,18 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, 
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// The products for N = 64, 80 or 128 (32, 64 or 128 with A from shared memory).
+// The products for N = 64, 80, 88 or 128 (32, 64 or 128 with A from shared memory).
 template <int N, int TransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 80 || N == 128, "wgmma_rs wrappers exist for N = 64, 80 and 128");
+  static_assert(N == 64 || N == 80 || N == 88 || N == 128,
+                "wgmma_rs wrappers exist for N = 64, 80, 88 and 128");
   if constexpr (N == 64) {
     wgmma_m64n64k16_rs<TransB>(d, a, b, scale_d);
   } else if constexpr (N == 80) {
     wgmma_m64n80k16_rs<TransB>(d, a, b, scale_d);
+  } else if constexpr (N == 88) {
+    wgmma_m64n88k16_rs<TransB>(d, a, b, scale_d);
   } else {
     wgmma_m64n128k16_rs<TransB>(d, a, b, scale_d);
   }

@@ -1,8 +1,8 @@
 """Host-side data: the image transform, an image-folder tree, synthetic
 images, CIFAR-10, and a shuffling, prefetching batch loader.
 
-Counterpart of `default_image_transform` (its PIL path; the native C++
-transform of `robustvlm_tpu/data/native.py` is not ported, ROADMAP A.2),
+Counterpart of `default_image_transform` (the C++ transform of
+`data/native.py` when it builds, PIL otherwise, as in JAX),
 `ImageFolderDataset`, `SyntheticClassificationDataset`, `load_cifar10`,
 `prefetch_iter` and `DataLoader` in `robustvlm_tpu/data/loaders.py`. Images
 are float32 NCHW in [0,1], without CLIP normalization (normalization
@@ -21,9 +21,17 @@ from typing import Callable, Iterator, Optional, Tuple
 import numpy as np
 
 
-def default_image_transform(size: int = 224):
+def default_image_transform(size: int = 224, prefer_native: bool = True):
     """Resize(size, bicubic) + CenterCrop(size) + [0,1] float CHW: the
-    reference preprocessing minus Normalize, through PIL."""
+    reference preprocessing minus Normalize. Through the C++ transform
+    (`data/native.py`) when it is available and `prefer_native`, through
+    PIL otherwise; the two agree within 1/255 a pixel."""
+    if prefer_native:
+        from robustvlm_tpu_torch.data.native import native_image_transform
+
+        tf = native_image_transform(size)
+        if tf is not None:
+            return tf
     from PIL import Image
 
     def tf(img) -> np.ndarray:

@@ -164,9 +164,11 @@ class AutoAttack:
         for tc in range(2, self.n_target_classes + 2):
             if not still.any():
                 break
+            # with fewer than tc classes the index clamps to the least likely
+            # class, as JAX's gather clamps an out-of-range index
             res = apgd_restarts(
                 self.logits_fn, xb, yb, criterion=dlr_loss_targeted,
-                criterion_args=(order[:, -tc],), rng=fold_in(rng, tc), **common,
+                criterion_args=(order[:, max(order.shape[1] - tc, 0)],), rng=fold_in(rng, tc), **common,
             )
             fooled = ~res.acc.cpu().numpy() & still
             mask = torch.as_tensor(fooled, device=xb.device)[:, None, None, None]

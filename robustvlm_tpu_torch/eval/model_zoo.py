@@ -9,9 +9,7 @@ published zero-shot numbers beside the measured ones:
   python -m robustvlm_tpu_torch.eval.model_zoo --ckpt_dir /ckpts/zoo \\
       --dataset imagenet --imagenet_root /data/imagenet --n_ex 1000 --eps 2
 
-A row without a checkpoint is skipped. The two ConvNeXt rows raise
-NotImplementedError when their checkpoint exists: the ConvNeXt tower is
-not ported (ROADMAP A.3).
+A row without a checkpoint is skipped.
 """
 
 from __future__ import annotations
@@ -21,8 +19,6 @@ import dataclasses
 import json
 from pathlib import Path
 from typing import Dict, Optional, Tuple
-
-from robustvlm_tpu_torch.models.clip.model import CLIP_CONFIGS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,9 +81,6 @@ def run_zoo(args) -> Dict[str, Dict]:
         if not ckpt.exists():
             print(f"[zoo] skip {entry.name}: no checkpoint at {ckpt}")
             continue
-        if entry.backbone not in CLIP_CONFIGS:
-            raise NotImplementedError(
-                f"[zoo] {entry.name}: the {entry.backbone} tower is not ported (ROADMAP A.3)")
         base_args = []
         if args.base_ckpt_dir:
             base = Path(args.base_ckpt_dir) / f"{entry.pretrain}_{entry.backbone}.pt"

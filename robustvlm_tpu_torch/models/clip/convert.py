@@ -3,7 +3,8 @@
 Counterpart of `robustvlm_tpu/models/clip/import_torch.py`:
 
 - `params_from_jax` flattens a JAX parameter tree (numpy leaves; stacked
-  per-layer block tensors) into the port's state dict, by name; the JAX
+  per-layer block tensors; lists, such as the ConvNeXt tower's stages, by
+  index) into the port's state dict, by name; the JAX
   package's weight-only quantized leaves (the `QuantizedWeight` (q, s) and
   `PackedQ4Weight` (p, s) named tuples of the LLaMA serving layout) become
   the port's quantized modules (`ops/quant.py`) with their codes as they
@@ -15,7 +16,9 @@ Counterpart of `robustvlm_tpu/models/clip/import_torch.py`:
   openai/open_clip CLIP state dicts (`visual.conv1.weight`, ...),
   visual-only fine-tunes (FARE: `conv1.weight`, ...) overlaid on a base
   model's state dict, TeCoA dicts nested under `vision_encoder_state_dict`,
-  and beta-interpolation of two checkpoints.
+  and beta-interpolation of two checkpoints; ViT towers in the openai layout
+  and ConvNeXt towers in open_clip's TimmModel layout (`trunk.*`,
+  `convnext.py`).
 
 Linear weights are transposed once at import: torch stores (out, in), the
 port (like the JAX package) stores (in, out) for `x @ w`.
@@ -28,6 +31,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from robustvlm_tpu_torch.models.clip.convnext import export_convnext_state_dict, import_convnext_state_dict
 from robustvlm_tpu_torch.models.clip.model import CLIPConfig
 from robustvlm_tpu_torch.ops.quant import PackedQ4Weight, QuantizedWeight
 
@@ -79,6 +83,8 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
                     walk(_index(val, i), f"{name}.{i}.")
             elif isinstance(val, Mapping):
                 walk(val, name + ".")
+            elif isinstance(val, (list, tuple)) and not hasattr(val, "_fields"):
+                walk({str(i): v for i, v in enumerate(val)}, name + ".")
             else:
                 out[name] = _leaf(val)
 
@@ -124,8 +130,11 @@ def _blocks_from_openai(sd: Mapping[str, Any], prefix: str, n_layers: int, out_p
 
 
 def visual_from_openai(sd: Mapping[str, Any], cfg: CLIPConfig, prefix: str = "") -> StateDict:
-    """A torch visual-tower state dict (keys like `conv1.weight`) -> the
-    port's `visual.*` entries."""
+    """A torch visual-tower state dict (keys like `conv1.weight`, or
+    `trunk.stem.0.weight` for a ConvNeXt tower) -> the port's `visual.*`
+    entries."""
+    if cfg.vision_arch == "convnext":
+        return import_convnext_state_dict(sd, cfg.convnext, prefix)
     g = lambda k: sd[prefix + k]
     conv = _to_np(g("conv1.weight"))  # (W, 3, p, p)
     out = {
@@ -145,6 +154,8 @@ def visual_from_openai(sd: Mapping[str, Any], cfg: CLIPConfig, prefix: str = "")
 def export_visual_state_dict(sd: Mapping[str, torch.Tensor], cfg: CLIPConfig) -> StateDict:
     """The port's `visual.*` entries -> a torch visual-tower state dict
     (float32, on the CPU), the inverse of `visual_from_openai`."""
+    if cfg.vision_arch == "convnext":
+        return {k: torch.from_numpy(v) for k, v in export_convnext_state_dict(sd, cfg.convnext).items()}
     g = lambda k: sd["visual." + k].detach().float().cpu()
     w, p = cfg.vision.width, cfg.patch_size
     out = {
@@ -216,9 +227,9 @@ def load_clip_checkpoint(
     sd = _read(path_or_sd)
     if beta is not None and interpolate_with is not None:
         sd = _interpolate(sd, _read(interpolate_with), beta)
-    if "visual.conv1.weight" in sd:
+    if "visual.conv1.weight" in sd or "visual.trunk.stem.0.weight" in sd:
         return clip_from_openai(sd, cfg)
-    if "conv1.weight" in sd:
+    if "conv1.weight" in sd or "trunk.stem.0.weight" in sd:
         if base is None:
             raise ValueError("visual-only checkpoint needs a base state dict for the text tower")
         out = {k: v for k, v in base.items() if not k.startswith("visual.")}

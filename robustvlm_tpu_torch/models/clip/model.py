@@ -1,7 +1,8 @@
 """CLIP (vision + text towers) as PyTorch modules.
 
 Counterpart of `robustvlm_tpu/models/clip/model.py`: the openai-architecture
-ViT vision towers and the causal text tower with argmax-EOT pooling, with
+ViT vision towers (or, with `vision_arch="convnext"`, the ConvNeXt tower of
+`convnext.py`) and the causal text tower with argmax-EOT pooling, with
 the JAX package's parameter names and layouts (linear weights stored
 (in, out) for `x @ w`), so a JAX tree carries across by name
 (`convert.params_from_jax`).
@@ -24,13 +25,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from robustvlm_tpu_torch.models.clip.convnext import ConvNeXtConfig, ConvNeXtTower
 from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from robustvlm_tpu_torch.ops.kernels.vit_attention import vit_attention
 
@@ -40,6 +42,8 @@ class TransformerConfig:
     width: int
     layers: int
     heads: int
+    # hidden = int(width * mlp_ratio): 4.0 everywhere but ViT-g-14's vision
+    # tower (4.3637 -> 6144)
     mlp_ratio: float = 4.0
 
 
@@ -54,6 +58,9 @@ class CLIPConfig:
     vocab_size: int = 49408
     context_length: int = 77
     quick_gelu: bool = True  # openai pretrained models use QuickGELU
+    # vision tower: "vit", or "convnext" (open_clip convnext_base_w family)
+    vision_arch: str = "vit"
+    convnext: Optional[Any] = None  # a ConvNeXtConfig when vision_arch == "convnext"
 
     @property
     def grid(self) -> int:
@@ -64,8 +71,7 @@ class CLIPConfig:
         return self.grid * self.grid + 1
 
 
-# the ViT configurations of the JAX package's CLIP_CONFIGS except ViT-g-14;
-# no ConvNeXt tower (both ROADMAP A.3)
+# the JAX package's CLIP_CONFIGS, field for field
 CLIP_CONFIGS: Dict[str, CLIPConfig] = {
     "ViT-B-32": CLIPConfig(
         "ViT-B-32", 512, 224, 32,
@@ -103,10 +109,31 @@ CLIP_CONFIGS: Dict[str, CLIPConfig] = {
         TransformerConfig(1280, 32, 16), TransformerConfig(1024, 24, 16),
         quick_gelu=False,
     ),
+    # head dim 1408 / 16 = 88
+    "ViT-g-14": CLIPConfig(
+        "ViT-g-14", 1024, 224, 14,
+        TransformerConfig(1408, 40, 16, mlp_ratio=4.3637),
+        TransformerConfig(1024, 24, 16),
+        quick_gelu=False,
+    ),
     "test-tiny": CLIPConfig(
         "test-tiny", 64, 32, 8,
         TransformerConfig(64, 2, 4), TransformerConfig(64, 2, 4),
         vocab_size=512, context_length=16,
+    ),
+    # open_clip convnext_base_w (the zoo's ConvNeXt-B LAION-2B backbone):
+    # 256 px, embed 640, GELU text tower; the vision TransformerConfig is
+    # unused by the ConvNeXt tower
+    "convnext_base_w": CLIPConfig(
+        "convnext_base_w", 640, 256, 4,
+        TransformerConfig(1024, 0, 16), TransformerConfig(640, 12, 10),
+        quick_gelu=False, vision_arch="convnext", convnext=ConvNeXtConfig(),
+    ),
+    "test-tiny-convnext": CLIPConfig(
+        "test-tiny-convnext", 64, 32, 4,
+        TransformerConfig(64, 0, 4), TransformerConfig(64, 2, 4),
+        vocab_size=512, context_length=16, quick_gelu=False, vision_arch="convnext",
+        convnext=ConvNeXtConfig(depths=(1, 1, 2, 1), dims=(8, 16, 32, 64)),
     ),
 }
 
@@ -274,7 +301,12 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.visual = VisionTower(cfg)
+        if cfg.vision_arch == "convnext":
+            self.visual = ConvNeXtTower(cfg.convnext, cfg.embed_dim)
+        elif cfg.vision_arch == "vit":
+            self.visual = VisionTower(cfg)
+        else:
+            raise ValueError(f"unknown vision_arch {cfg.vision_arch!r}")
         self.text = TextTower(cfg)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
         self.requires_grad_(False)
@@ -285,7 +317,8 @@ class CLIP(nn.Module):
                      tokens=False, n_skip_last=0, remat=False):
         """NCHW normalized pixels -> (B, embed_dim) float32 embedding;
         `tokens=True` returns every token's features after the (partial)
-        transformer; `remat` recomputes each block in the backward."""
+        transformer (ViT towers only); `remat` recomputes each block in the
+        backward."""
         out = self.visual(x, compute_dtype=compute_dtype, tokens=tokens, n_skip_last=n_skip_last,
                           remat=remat)
         return _l2_normalize(out) if normalize and not tokens else out
@@ -305,8 +338,12 @@ class CLIP(nn.Module):
         def normal_(t, std):
             t.copy_(torch.randn(t.shape, generator=gen, device=dev) * std)
 
+        if isinstance(self.visual, ConvNeXtTower):
+            self.visual.init_random_(gen)
         for name, prm in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
+            if isinstance(self.visual, ConvNeXtTower) and name.startswith("visual."):
+                continue
             if leaf == "g":
                 prm.fill_(1.0)
             elif leaf in ("b", "qkv_b", "out_b", "fc_b", "proj_b"):

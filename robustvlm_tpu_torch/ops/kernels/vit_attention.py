@@ -35,7 +35,7 @@ from robustvlm_tpu_torch.ops.kernels import _build
 # launch is the dQ kernel followed by the dK/dV kernel
 LAUNCHES = {"vit_attention_fwd": 0, "vit_attention_bwd": 0}
 
-HEAD_DIMS = (64, 80)  # head dims the CUDA kernels are built for (CLIP ViT towers)
+HEAD_DIMS = (64, 80, 88)  # head dims the CUDA kernels are built for (CLIP ViT towers)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -51,6 +51,11 @@ def _parse_caption_annotations(annotations_path: str):
     return caps, files, meta
 
 
+def load_caption_annotations(annotations_path: str) -> Dict[int, List[str]]:
+    """image_id -> reference captions (the metrics' view of the same json)."""
+    return _parse_caption_annotations(annotations_path)[0]
+
+
 class CaptionDataset:
     """COCO/Flickr captioning split from a COCO-style or karpathy-style
     annotations json. `split` 'train' keeps split == 'train' entries,

@@ -17,10 +17,11 @@ one JSON line per case: the max abs error against the float32 product of
 the same bf16 inputs, relative to the reference's largest value. The
 offsets the kernels use must pass, the swapped ones fail. A ragged case (1
 query row, 5 keys: the boxes' other rows are the hardware's zero fill)
-checks the fill and the transaction bytes of a partial box; head dim 80 in
-a 128-wide tile (arrays mapped as 80 columns, read as two boxes, the
-second zero-filled past column 80; S in 5 k-steps; O = P V at N = 128 and
-at wgmma's own n = 80, which the forward runs) checks the fill of
+checks the fill and the transaction bytes of a partial box; head dims 80
+and 88 in a 128-wide tile (arrays mapped as 80 or 88 columns, read as two
+boxes, the second zero-filled past the head dim; S in 5 or 6 k-steps, the
+sixth at 88 over the zero fill of both operands; O = P V at N = 128 and at
+wgmma's own n = 80 or 88, which the forward runs) check the fill of
 columns. S is also run with A from registers, alone and, where D = N,
 right after a product of its own shape with the transpose bit: the fault
 that made the forward take A from shared memory. Then the host cost of
@@ -108,7 +109,7 @@ __global__ void __launch_bounds__(128) probe_s_kernel(const __grid_constant__ CU
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    if (kk >= ksteps) break;  // a head dim of 80 in a 128-wide tile: 5 k-steps
+    if (kk >= ksteps) break;  // a head dim of 80 (88) in a 128-wide tile: 5 (6) k-steps
     const uint64_t b = wgmma_desc(smem_u32(ks) + (kk / 4) * BN * 128 + (kk % 4) * 32, lbo, sbo);
     if constexpr (kSS) {
       wgmma_ss<BN>(acc, wgmma_desc(smem_u32(qs) + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024), b,
@@ -129,8 +130,8 @@ __global__ void __launch_bounds__(128) probe_s_kernel(const __grid_constant__ CU
   }
 }
 
-// O = P V at N = NO: the tile's width D, or a head dim of 80 in a 128-wide
-// tile (wgmma n = 80: one box and 16 columns of the next)
+// O = P V at N = NO: the tile's width D, or a head dim of 80 or 88 in a
+// 128-wide tile (wgmma n = 80 or 88: one box and 16 or 24 columns of the next)
 template <int D, int BN, int NO>
 __global__ void __launch_bounds__(128) probe_pv_kernel(const bf16* p,
                                                        const __grid_constant__ CUtensorMap vmap,
@@ -187,8 +188,8 @@ int launch(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess;
 }
 
-// `inner` is the arrays' head dim: D, or 80 in a 128-wide tile (TMA
-// zero-fills columns 80-127 of the second box)
+// `inner` is the arrays' head dim: D, or 80 or 88 in a 128-wide tile (TMA
+// zero-fills the second box's columns past it)
 template <int D, int BN, bool kSS, bool kAfter>
 int run_s(const void* q, const void* k, float* out, float* sink, int inner, int nq, int nk,
           int lbo, int sbo, cudaStream_t s) {
@@ -229,7 +230,7 @@ int run_pv(const void* p, const void* v, float* out, int inner, int nk, int lbo,
 
 // mode: bit 0 = A from shared memory (else registers), bit 1 = after a
 // product of the same shape with the transpose bit (D == BN only). d is the
-// tile's head dim (64 or 128), inner the arrays' (d, or 80 with d = 128).
+// tile's head dim (64 or 128), inner the arrays' (d, or 80 or 88 with d = 128).
 extern "C" int probe_s(const void* q, const void* k, void* out, void* sink, int d, int inner,
                        int bn, int nq, int nk, int lbo, int sbo, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -244,7 +245,7 @@ extern "C" int probe_s(const void* q, const void* k, void* out, void* sink, int 
   return -2;
 }
 
-// no: the product's N, d or (with d = 128, inner = 80) 80.
+// no: the product's N, d or (with d = 128, inner = 80 or 88) 80 or 88.
 extern "C" int probe_pv(const void* p, const void* v, void* out, int d, int inner, int bn, int nk,
                         int lbo, int sbo, int no, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -253,6 +254,12 @@ extern "C" int probe_pv(const void* p, const void* v, void* out, int d, int inne
     if (bn == 32) return run_pv<128, 32, 80>(p, v, o, inner, nk, lbo, sbo, s);
     if (bn == 64) return run_pv<128, 64, 80>(p, v, o, inner, nk, lbo, sbo, s);
     if (bn == 128) return run_pv<128, 128, 80>(p, v, o, inner, nk, lbo, sbo, s);
+    return -2;
+  }
+  if (no == 88 && d == 128) {
+    if (bn == 32) return run_pv<128, 32, 88>(p, v, o, inner, nk, lbo, sbo, s);
+    if (bn == 64) return run_pv<128, 64, 88>(p, v, o, inner, nk, lbo, sbo, s);
+    if (bn == 128) return run_pv<128, 128, 88>(p, v, o, inner, nk, lbo, sbo, s);
     return -2;
   }
   if (no != d) return -2;
@@ -310,8 +317,9 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     failed = []
-    # (tile head dim, arrays' head dim): 80 is two boxes a row, zero-filled past 80
-    for d, inner in ((64, 64), (128, 128), (128, 80)):
+    # (tile head dim, arrays' head dim): 80 and 88 are two boxes a row,
+    # zero-filled past the head dim
+    for d, inner in ((64, 64), (128, 128), (128, 80), (128, 88)):
         for n in (32, 64, 128):
             for nq, nk in ((64, n), (1, 5)):
                 q = torch.randn(nq, inner, generator=g, device="cuda").bfloat16()
@@ -340,7 +348,7 @@ def main() -> int:
                                       "max_abs_err_rel": rel, "ok": ok}), flush=True)
                     if used and not ok:
                         failed.append(("S", d, inner, n, nq, nk, after))
-            # the product's N: the tile's width, and at head dim 80 also 80
+            # the product's N: the tile's width, and at head dims 80 and 88 also the head dim
             for no in sorted({d, inner}):
                 for nk in (n, 5):
                     pm = (torch.rand(64, n, generator=g, device="cuda")).bfloat16()

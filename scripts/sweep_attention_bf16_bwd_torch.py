@@ -6,7 +6,7 @@
 The bf16 backward of `flash_attention.cu` and of `vit_attention.cu` is the
 wgmma + TMA pair of `csrc/attn_bf16_bwd.cuh`, each launch with its tile
 shape from two lines: `Bf16Bwd<64|128>` in flash_attention.cu,
-`VitBf16Bwd<64|80>` in vit_attention.cu, each (kN keys a tile in dQ, kM
+`VitBf16Bwd<64|80|88>` in vit_attention.cu, each (kN keys a tile in dQ, kM
 queries a tile in dK/dV, kStages TMA stages). This builds one edited copy
 of both sources per entry of VARIANTS (an entry names the head dims whose
 lines it changes, in every file that has them), all nvcc processes at
@@ -15,10 +15,10 @@ plain PyTorch version at every bf16 case of `chip_smoke.py` (the flash
 cases and the ViT cases; each gradient within 2e-2 of its largest value;
 the backward given the plain forward's O and lse) and bitwise repeatable,
 and times it by CUDA-graph replay at the LLaVA-1.5-7B LM layer (32, 665,
-128, causal) and at ViT-L/14 (128, 257, 64), every variant twice in turns.
-One JSON line per variant: registers, spills (ptxas) and dynamic shared
+128, causal), at ViT-L/14 (128, 257, 64), at head dim 80 (128, 257, 80)
+and at ViT-g/14 (128, 257, 88), every variant twice in turns. One JSON line per variant: registers, spills (ptxas) and dynamic shared
 memory per kernel and head dim, max errors (a case that misses names its
-worst tensor), ms. Then SDPA's backward at both shapes by graph replay (as
+worst tensor), ms. Then SDPA's backward at each shape by graph replay (as
 `chip_smoke.py` times it) and the card's name and power limit. Exits 1 if
 the sources as they stand (variant 0) miss a case. Needs a GPU.
 """
@@ -34,17 +34,18 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 LINES = {"flash_attention": r"struct Bf16Bwd<(64|128)> \{ static constexpr int kN = (\d+), kM = (\d+), kStages = (\d+); \};",
-         "vit_attention": r"struct VitBf16Bwd<(64|80)> \{ static constexpr int kN = (\d+), kM = (\d+), kStages = (\d+); \};"}
+         "vit_attention": r"struct VitBf16Bwd<(64|80|88)> \{ static constexpr int kN = (\d+), kM = (\d+), kStages = (\d+); \};"}
 # {head dim: (kN, kM, kStages)}; {} is the sources as they stand
 VARIANTS = [
     {},
     {64: (64, 64, 2)},
     {64: (32, 32, 2)},
-    {128: (64, 32, 2), 80: (64, 32, 2)},
-    {64: (64, 64, 3), 128: (64, 64, 3), 80: (64, 64, 3)},
-    {128: (128, 64, 2), 80: (128, 64, 2)},
+    {128: (64, 32, 2), 80: (64, 32, 2), 88: (64, 32, 2)},
+    {64: (64, 64, 3), 128: (64, 64, 3), 80: (64, 64, 3), 88: (64, 64, 3)},
+    {128: (128, 64, 2), 80: (128, 64, 2), 88: (128, 64, 2)},
 ]
 FLASH, VIT = "flash (32, 665, 128) causal", "vit (128, 257, 64)"
+VIT80, VIT88 = "vit (128, 257, 80)", "vit (128, 257, 88)"
 
 
 def smem_bytes(d: int, n: int, m: int, stages: int) -> dict:
@@ -63,8 +64,8 @@ def build(variants):
     in_source = {}
     for name, pattern in LINES.items():
         found = re.findall(pattern, srcs[name])
-        if len(found) != 2:
-            raise RuntimeError(f"the two tile-shape lines were not found in {name}.cu")
+        if len(found) != pattern.count("|") + 1:
+            raise RuntimeError(f"the tile-shape lines were not found in {name}.cu")
         in_source.update({int(m[0]): tuple(map(int, m[1:])) for m in found})
 
     def edited(name, change):
@@ -189,7 +190,9 @@ def main() -> int:
         print(json.dumps({"variant": i, "change": VARIANTS[i] or "source", "ptxas": report,
                           **results[i], "max_abs_err": errs}), flush=True)
     timing = {FLASH: next(c for c in cases if c[0] == "flash llava_lm"),
-              VIT: next(c for c in cases if c[0] == "vit n=257 d=64")}
+              VIT: next(c for c in cases if c[0] == "vit n=257 d=64"),
+              VIT80: next(c for c in cases if c[0] == "vit n=257 d=80"),
+              VIT88: next(c for c in cases if c[0] == "vit n=257 d=88")}
     for i, (bound, _) in libs.items():
         results[i] = {"ms": {key: [] for key in timing},
                       "kernel_us": {key: kernel_us(launcher(bound[name], name, args)[0])

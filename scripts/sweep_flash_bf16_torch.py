@@ -6,7 +6,7 @@ attention or (with --vit) the ViT attention.
 
 `attn_fwd_wgmma_kernel` (`robustvlm_tpu_torch/csrc/attn_bf16_fwd.cuh`) takes
 its shape from one line per head dim in the source that launches it:
-`Bf16Fwd<64|128>` in `flash_attention.cu`, `VitBf16Fwd<64|80>` in
+`Bf16Fwd<64|128>` in `flash_attention.cu`, `VitBf16Fwd<64|80|88>` in
 `vit_attention.cu` (--vit). A line holds kN keys per tile (the N of
 S = Q K^T) and kStages stages of the TMA ring (a block is one warpgroup
 of 64 query rows). This builds one edited copy of the source per entry of
@@ -18,8 +18,8 @@ value, lse 1e-5 abs + 1e-6 rel; a case that misses names its first wrong
 rows), and times it by CUDA-graph replay, every variant twice in turns:
 flash at the LLaVA-1.5-7B LM layer (32, 665, 128, causal) and the CLIP text
 tower (96, 77, 64, causal); ViT at ViT-L/14 (128, 257, 64), the shape that
-chooses its lines, ViT-L/14-336 (128, 577, 64) and head dim 80 (128, 257,
-80). One JSON line per variant: registers, spills (ptxas) and dynamic
+chooses its lines, ViT-L/14-336 (128, 577, 64), head dim 80 (128, 257,
+80) and ViT-g/14's head dim 88 (128, 257, 88). One JSON line per variant: registers, spills (ptxas) and dynamic
 shared memory per head dim, max errors, ms. Then SDPA's forward at every
 timed shape and the card's name and power limit. Exits 1 if the source as
 it stands (variant 0) misses a case. Needs a GPU.
@@ -50,13 +50,13 @@ TARGETS = {
         ],
     },
     "vit": {
-        "source": "vit_attention.cu", "struct": "VitBf16Fwd", "dims": (64, 80),
+        "source": "vit_attention.cu", "struct": "VitBf16Fwd", "dims": (64, 80, 88),
         "variants": [
             {},
-            {64: (32, 2), 80: (32, 2)},
-            {64: (32, 3), 80: (32, 3)},
-            {64: (64, 3), 80: (64, 3)},
-            {64: (128, 2), 80: (128, 2)},
+            {64: (32, 2), 80: (32, 2), 88: (32, 2)},
+            {64: (32, 3), 80: (32, 3), 88: (32, 3)},
+            {64: (64, 3), 80: (64, 3), 88: (64, 3)},
+            {64: (128, 2), 80: (128, 2), 88: (128, 2)},
         ],
     },
 }
@@ -194,7 +194,7 @@ def main(argv=None) -> int:
     libs = build(target)
     if args.vit:
         shapes = {"vit_l14 (128, 257, 64)": (128, 257, 64), "vit_l14_336 (128, 577, 64)": (128, 577, 64),
-                  "d80 (128, 257, 80)": (128, 257, 80)}
+                  "d80 (128, 257, 80)": (128, 257, 80), "d88 (128, 257, 88)": (128, 257, 88)}
         data = {label: C._qkv(n, torch.bfloat16, seed=1, d=d)[:3] for label, (_, n, d) in shapes.items()}
         causal = False
     else:

@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
 """Sweep the float32 ViT attention kernels' block shapes on one GPU.
 
-    python3 scripts/sweep_vit_attention_fp32_torch.py
+    python3 scripts/sweep_vit_attention_fp32_torch.py [--head_dim 88]
 
 The float32 forward and backward of `robustvlm_tpu_torch/csrc/vit_attention.cu`
 are the register-tiled kernels of `csrc/attn_f32_tile.cuh` launched
-non-causal, each with its block shape from the six lines `VitF32Tile<head
+non-causal, each with its block shape from the nine lines `VitF32Tile<head
 dim, kFwd | kDq | kDkv>`: kRows rows of the block's own side, kTile rows
 of the streamed side per shared-memory tile, kThreads threads, kBufs
 cp.async buffers. This builds one edited copy of the source per entry of
-VARIANTS (an entry names the kernels whose lines it changes, at both head
-dims), all nvcc processes at once, under `build/sweep/`, holds each
+VARIANTS (an entry names the kernels whose lines it changes, at every head
+dim), all nvcc processes at once, under `build/sweep/`, holds each
 against the plain PyTorch versions (O, dQ, dK, dV within 1e-5, lse 1e-5
 abs + 1e-6 rel) at N = 50, 129, 257, 577 for head dim 64 and N = 129, 257
-for 80, and times the forward and the backward (dQ then dK/dV, one
+for 80 and 88, and times the forward and the backward (dQ then dK/dV, one
 launch) by CUDA-graph replay at the ViT-L/14 main path's shape (B*H =
-128, N = 257, D = 64), every variant twice in turns. At N = 257 the ragged
+128, N = 257, D = 64; `--head_dim 88`: ViT-g/14's, D = 88), every variant
+twice in turns. At N = 257 the ragged
 tail decides much: 32- or 48-row tiles cover 288 rows, 64-row tiles 320.
 One JSON line per variant: registers, spills (ptxas) and dynamic shared
 memory per kernel and head dim, max errors, ms. Then SDPA's forward and
@@ -34,7 +35,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-SHAPE_LINE = (r"struct VitF32Tile<(64|80), (kFwd|kDq|kDkv)> \{ static constexpr int kRows = (\d+), "
+SHAPE_LINE = (r"struct VitF32Tile<(64|80|88), (kFwd|kDq|kDkv)> \{ static constexpr int kRows = (\d+), "
               r"kTile = (\d+), kThreads = (\d+), kBufs = (\d+); \};")
 KERNELS = {"kFwd": "fwd", "kDq": "bwd_dq", "kDkv": "bwd_dkv"}
 # {kind: (kRows, kTile, kThreads, kBufs)} for both head dims; {} is the source as it stands
@@ -46,7 +47,7 @@ VARIANTS = [
     {"kDkv": (48, 24, 128, 2)}, {"kDkv": (48, 40, 128, 2)}, {"kDkv": (48, 32, 128, 1)},
 ]
 BH, N, D = 128, 257, 64
-CASES = [(50, 64), (129, 64), (257, 64), (577, 64), (129, 80), (257, 80)]
+CASES = [(50, 64), (129, 64), (257, 64), (577, 64), (129, 80), (257, 80), (129, 88), (257, 88)]
 
 
 def smem_bytes(d: int, kind: str, rows: int, tile: int, bufs: int) -> int:
@@ -63,8 +64,8 @@ def build(variants):
 
     src = (_build.CSRC / "vit_attention.cu").read_text()
     in_source = {(int(m[0]), m[1]): tuple(map(int, m[2:])) for m in re.findall(SHAPE_LINE, src)}
-    if len(in_source) != 6:
-        raise RuntimeError("the six VitF32Tile<...> lines were not found in vit_attention.cu")
+    if len(in_source) != 9:
+        raise RuntimeError("the nine VitF32Tile<...> lines were not found in vit_attention.cu")
 
     def edited(change):
         def line(m):
@@ -80,7 +81,7 @@ def build(variants):
         lines = log.splitlines()
         report = {}
         for k, ln in enumerate(lines):
-            m = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_tile_kernelILi(64|80)E", ln)
+            m = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_tile_kernelILi(64|80|88)E", ln)
             if m and "Compiling entry" in ln:
                 text = " ".join(lines[k + 1:k + 4])
                 d = int(m.group(2))
@@ -136,6 +137,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--head_dim", type=int, default=D, choices=(64, 80, 88),
+                    help="the head dim of the timed shape (B*H = 128, N = 257)")
+    d_timed = ap.parse_args().head_dim
     use_full_fp32()
     libs = build(VARIANTS)
     data = {}
@@ -155,7 +162,7 @@ def main() -> int:
             errs[f"{n},{d}"] = {name: e for name, (e, _) in res.items()}
             within &= all(ok for _, ok in res.values())
         results[i] = {"ptxas": report, "max_abs_err": errs, "within": within, "fwd_ms": [], "bwd_ms": []}
-    q, k, v, do, _ = data[(N, D)]
+    q, k, v, do, _ = data[(N, d_timed)]
     for _ in range(2):  # every variant twice, in turns
         for i, (lib, _) in libs.items():
             fwd, bwd, _ = launchers(lib, q, k, v, do)
@@ -164,9 +171,9 @@ def main() -> int:
             results[i]["bwd_ms"].append(C.time_graph_ms(bwd))
     for i, r in results.items():
         print(json.dumps({"variant": i, "change": VARIANTS[i] or "source", **r}), flush=True)
-    q4, k4, v4, do4 = (t.view(8, BH // 8, N, D) for t in (q, k, v, do))
+    q4, k4, v4, do4 = (t.view(8, BH // 8, N, d_timed) for t in (q, k, v, do))
     ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
-    print(json.dumps({"library": "scaled_dot_product_attention", "shape": [BH, N, D],
+    print(json.dumps({"library": "scaled_dot_product_attention", "shape": [BH, N, d_timed],
                       "fwd_ms": C.time_graph_ms(lambda: Fn.scaled_dot_product_attention(q4, k4, v4)),
                       "bwd": C.time_graph_fwd_bwd_ms(Fn.scaled_dot_product_attention, (ql, kl, vl), do4)}))
     print(C.card_line())

@@ -10,7 +10,7 @@ the model zoo against the JAX package.
   three the port adds: `labels`, `compute_dtype`, `device`).
 - `model_zoo.run_zoo` and `format_table` give JAX's results and table on a
   directory holding one written test-tiny checkpoint; a ConvNeXt row with a
-  checkpoint raises.
+  checkpoint runs.
 """
 
 import json
@@ -164,10 +164,22 @@ def test_model_zoo_matches_jax(tmp_path, monkeypatch):
                                                                      for e in jzoo.ZOO]
 
 
-def test_model_zoo_convnext_row_raises(tmp_path):
-    (tmp_path / "tecoa4-convnextb-laion2b.pt").write_bytes(b"")
-    args = tzoo.build_parser().parse_args(["--ckpt_dir", str(tmp_path), "--device", "cpu",
-                                           "--models", "tecoa4-convnextb-laion2b,fare4-vitb32-openai"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        tzoo.run_zoo(args)
+def test_model_zoo_convnext_row_raises(tmp_path, monkeypatch):
+    """A ConvNeXt row with a written checkpoint runs (the tower is ported;
+    the row no longer raises): at tiny size the entry's backbone is
+    test-tiny-convnext, its checkpoint an open_clip TimmModel-layout state
+    dict written from a JAX tree."""
+    cfg = JAX_CONFIGS["test-tiny-convnext"]
+    tree = jax.tree.map(np.asarray, init_clip_params(jax.random.PRNGKey(5), cfg))
+    torch.save(openai_state_dict(tree, cfg), tmp_path / "tecoa4-convnextb-laion2b.pt")
+    row = next(e for e in tzoo.ZOO if e.name == "tecoa4-convnextb-laion2b")
+    assert row.backbone == "convnext_base_w"
+    monkeypatch.setattr(tzoo, "ZOO", [tzoo.ZooEntry(row.name, "test-tiny-convnext", row.pretrain,
+                                                    row.published)])
+    args = tzoo.build_parser().parse_args(
+        ["--ckpt_dir", str(tmp_path), "--device", "cpu", "--dataset", "synthetic", "--n_ex", "4",
+         "--batch_size", "4", "--n_iter", "2", "--eps", "2", "--output_dir", str(tmp_path / "out")])
+    res = tzoo.run_zoo(args)["tecoa4-convnextb-laion2b"]
+    assert 0.0 <= res["robust_acc"] <= res["clean_acc"] <= 1.0
+    assert "tecoa4-convnextb-laion2b" in tzoo.format_table({row.name: res}, 2.0)
     assert tzoo.run_zoo(tzoo.build_parser().parse_args(["--ckpt_dir", str(tmp_path / "none")])) == {}

@@ -87,11 +87,16 @@ def _png(path, seed=0, size=32):
 
 @pytest.fixture()
 def jax_pil_transform(monkeypatch):
-    """JAX's POPE and ScienceQA loops on their PIL transform, the one the port has."""
+    """Both packages' POPE and ScienceQA loops on their PIL transforms (the
+    same code), whether or not a C++ compiler is at hand."""
     from robustvlm_tpu.data import loaders
+    from robustvlm_tpu_torch.data import loaders as port_loaders
 
     real = loaders.default_image_transform
     monkeypatch.setattr(loaders, "default_image_transform", lambda size: real(size, prefer_native=False))
+    port = port_loaders.default_image_transform
+    monkeypatch.setattr(port_loaders, "default_image_transform",
+                        lambda size: port(size, prefer_native=False))
 
 
 def _pope_fixture(tmp_path):

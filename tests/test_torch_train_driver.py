@@ -122,7 +122,8 @@ def test_image_folder_dataset_matches_jax_pil_path(tmp_path):
         for i, (h, w) in enumerate(shapes):
             Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(tmp_path / cls / f"{i}.png")
     (tmp_path / "dog" / "notes.txt").write_text("not an image")
-    ours = loaders.ImageFolderDataset(str(tmp_path), size=16)
+    ours = loaders.ImageFolderDataset(
+        str(tmp_path), transform=loaders.default_image_transform(16, prefer_native=False))
     theirs = jax_loaders.ImageFolderDataset(
         str(tmp_path), transform=jax_loaders.default_image_transform(16, prefer_native=False))
     assert ours.class_to_idx == theirs.class_to_idx == {"cat": 0, "dog": 1}

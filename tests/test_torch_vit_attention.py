@@ -19,7 +19,7 @@ from robustvlm_tpu_torch.ops.kernels import vit_attention as A
 
 torch.set_num_threads(1)
 
-SHAPES = [(2, 4, 57, 64), (1, 2, 64, 32), (2, 2, 50, 64), (1, 4, 130, 64)]
+SHAPES = [(2, 4, 57, 64), (1, 2, 64, 32), (2, 2, 50, 64), (1, 4, 130, 64), (1, 2, 57, 88)]
 
 
 def _qkv(rng, b, h, n, d):
@@ -75,8 +75,9 @@ def test_extreme_scores_stay_finite():
         assert torch.isfinite(g).all()
 
 
-def test_bf16_matches_jax():
-    q, k, v = _qkv(np.random.RandomState(4), 1, 2, 57, 64)
+@pytest.mark.parametrize("d", [64, 88])
+def test_bf16_matches_jax(d):
+    q, k, v = _qkv(np.random.RandomState(4), 1, 2, 57, d)
     ref = jax_vit_attention(*[jnp.asarray(t).astype(jnp.bfloat16) for t in (q, k, v)], interpret=True)
     out = A.vit_attention(*[torch.from_numpy(t).bfloat16() for t in (q, k, v)])
     assert out.dtype == torch.bfloat16
@@ -86,7 +87,7 @@ def test_bf16_matches_jax():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [50, 57])
-@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("d", [64, 80, 88])
 def test_plain_forward_is_the_flash_plain_forward_noncausal(n, d, dtype):
     """On the card the ViT forward is the flash forward kernel launched
     non-causal: in float32 csrc/attn_f32_tile.cuh, in bf16
@@ -110,7 +111,7 @@ def test_plain_forward_is_the_flash_plain_forward_noncausal(n, d, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [50, 57])
-@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("d", [64, 80, 88])
 def test_plain_backward_is_the_flash_plain_backward_noncausal(d, n, dtype):
     """On the card the float32 ViT backward is the flash dQ and dK/dV
     kernels launched non-causal (csrc/attn_f32_tile.cuh). That rests on the
@@ -144,7 +145,7 @@ def test_cpu_counts_no_launch():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 2e-2, 2e-2)])
-@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("d", [64, 80, 88])
 @pytest.mark.parametrize("n", [50, 257, 577])
 def test_cuda_kernels_match_plain(dtype, atol, rtol, n, d):
     if not torch.cuda.is_available():
@@ -168,11 +169,12 @@ def test_cuda_kernels_match_plain(dtype, atol, rtol, n, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("bh,n,d", [(128, 257, 64), (16, 577, 80)])
+@pytest.mark.parametrize("bh,n,d", [(128, 257, 64), (16, 577, 80), (128, 257, 88)])
 def test_cuda_backward_bitwise_repeatable(dtype, bh, n, d):
     """The backward at the ViT-L/14 main path's shape (batch 8 x 16 heads)
-    and at ViT-H/14-like head dim 80 and the longest sequence: no atomics,
-    so two launches on the same inputs give the same bits."""
+    and at ViT-H/14-like head dim 80 and the longest sequence, and at
+    ViT-g/14's (head dim 88, batch 8): no atomics, so two launches on the
+    same inputs give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(bh + n + d)
@@ -201,4 +203,52 @@ def test_cuda_bf16_forward_head_dim_80(bh, n):
     assert A.LAUNCHES["vit_attention_fwd"] == before + 1
     o_ref, lse_ref = A.attention_fwd_plain(q, k, v)
     assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2 * float(o_ref.float().abs().max())
+    assert bool(((lse - lse_ref).abs() <= 1e-5 + 1e-6 * lse_ref.abs()).all())
+
+
+def test_bf16_gradients_head_dim_88_match_jax():
+    """ViT-g/14's head dim in bf16, backward: the port's autograd path
+    against the JAX kernel's vjp in interpret mode, within 2e-2 (the bf16
+    tolerance of this file)."""
+    rng = np.random.RandomState(8)
+    q, k, v = _qkv(rng, 1, 2, 57, 88)
+    g = rng.randn(1, 2, 57, 88).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jax_vit_attention(q, k, v, interpret=True),
+                     *(jnp.asarray(t).astype(jnp.bfloat16) for t in (q, k, v)))
+    ref = vjp(jnp.asarray(g).astype(jnp.bfloat16))
+    tq, tk, tv = (torch.from_numpy(t).bfloat16().requires_grad_(True) for t in (q, k, v))
+    A.vit_attention(tq, tk, tv).backward(torch.from_numpy(g).bfloat16())
+    for name, got, r in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(r.astype(jnp.float32)),
+                                   atol=2e-2, rtol=2e-2, err_msg=name)
+
+
+def test_head_dim_88_is_built():
+    """ViT-g/14 (width 1408, 16 heads) runs at head dim 88: the CUDA kernels
+    are built for it."""
+    assert 88 in A.HEAD_DIMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bh,n", [(128, 257), (16, 129)])
+def test_cuda_head_dim_88(dtype, bh, n):
+    """Head dim 88 (ViT-g/14) forward and backward, at chip_smoke.py's
+    limits: float32 within 1e-5 abs; bf16 within 2e-2 of each tensor's
+    largest value; lse within 1e-5 + 1e-6 relative. In bf16 the tensor
+    maps' second box is zero-filled past column 88, S and dP take 6 k-steps
+    (the sixth over zeros of both operands) and O = P V runs at wgmma's
+    n = 88."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(bh + n)
+    q, k, v, do = ((torch.randn(bh, n, 88, generator=g, device="cuda") * 0.5).to(dtype) for _ in range(4))
+    o, lse = A.attention_fwd(q, k, v)
+    grads = A.attention_bwd(q, k, v, o, lse, do)
+    o_ref, lse_ref = A.attention_fwd_plain(q, k, v)
+    refs = (o_ref, *A.attention_bwd_plain(q, k, v, o_ref, lse_ref, do))
+    for got, ref in zip((o, *grads), refs):
+        err = float((got.float() - ref.float()).abs().max())
+        lim = 1e-5 if dtype == torch.float32 else 2e-2 * float(ref.float().abs().max())
+        assert err <= lim
     assert bool(((lse - lse_ref).abs() <= 1e-5 + 1e-6 * lse_ref.abs()).all())

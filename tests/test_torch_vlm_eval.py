@@ -89,7 +89,7 @@ def test_image_transform_equals_jax_pil_path():
     arr = np.random.RandomState(2).randint(0, 255, (45, 61, 3), np.uint8)
     for mode in ("RGB", "L"):
         img = Image.fromarray(arr).convert(mode)
-        np.testing.assert_array_equal(default_image_transform(32)(img),
+        np.testing.assert_array_equal(default_image_transform(32, prefer_native=False)(img),
                                       jax_transform(32, prefer_native=False)(img))
 
 

@@ -41,12 +41,19 @@ ROOT = Path(__file__).resolve().parents[1]
 
 @pytest.fixture(autouse=True)
 def jax_pil_transform(monkeypatch):
-    """The JAX datasets on their PIL transform, the one the port has (the
-    native C++ resize is not ported: ROADMAP A1)."""
+    """Both packages' datasets on their PIL transforms (the same code):
+    these tests hold answers and images of the two equal whether or not
+    a C++ compiler is at hand (tests/test_torch_native_image.py holds the
+    C++ transforms equal)."""
     from robustvlm_tpu.data.loaders import default_image_transform
+    from robustvlm_tpu_torch.data import loaders as port_loaders
+    from robustvlm_tpu_torch.vlm_eval import datasets as port_datasets
 
     monkeypatch.setattr(JD, "default_image_transform",
                         lambda size: default_image_transform(size, prefer_native=False))
+    port_pil = port_loaders.default_image_transform
+    monkeypatch.setattr(port_datasets, "default_image_transform",
+                        lambda size: port_pil(size, prefer_native=False))
 
 WORDS = ["a", "an", "the", "two", "Ten", "none", "dont", "cant", "isnt", "Im", "dog's", "3,000", "1.5",
          "yes.", "no!", "U.S.", "red-ish", "(blue)", "cats;", "running", "jumped", "boxes", "it's",
