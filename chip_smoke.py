@@ -45,11 +45,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 exported visual tower checked;
   9. llava_reference - LLaVA-1.5-7B widths cut to 2 LM and 2 vision layers,
                 float32: the per-sample loss and pixel gradient through the
-                kernels on the card against the plain path on the CPU;
+                kernels on the card against the plain path on the CPU, and
+                on the card with `remat=True` bit-equal to without;
  10. llava    - `run_evaluation.main` (the VLM eval CLI) at LLaVA-1.5-7B full
                 width, bf16, 25 APGD iterations on 2 COCO-format images
                 written under chiprun_out/, captions and CIDEr, with each
                 kernel's launches, ms per APGD iteration and peak memory;
+                then one iteration's loss and pixel gradient with
+                `LlavaEvalModel(remat=True)` against without: both peaks,
+                the flash forward's launches doubled;
  11. llava_vqa - `run_evaluation.main --eval_vqav2` at LLaVA-1.5-7B full
                 width, bf16, a targeted APGD run ('maybe', 10 iterations) on
                 3 questions of a VQAv2-layout fixture (2 on one image): the
@@ -74,7 +78,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 the card (the ALiBi rows' launches at this length);
  15. llava_qualitative - `run_evaluation_qualitative.main` at full width, 10
                 iterations on one image: the target's loss fell;
- 16. llava_aux  - POPE's and ScienceQA's `main` at full width on 2 items each;
+ 16. llava_aux  - POPE's, ScienceQA's and MMBench's `main` at full width on
+                2 items each (MMBench in every rotation of its options), and
+                `gpt_review` over POPE's answers against the labels;
+ 16a. blip2_reference - BLIP-2 (blip2-opt-2.7b) widths cut to 2 vision, 2
+                Q-Former and 2 OPT layers, float32: the per-sample loss,
+                pixel gradient and greedy tokens on the card against the CPU;
+ 16b. blip2   - `run_evaluation.main --model blip2 --model_size 7b
+                --blip2_ckpt` at full width (39 + 12 + 32 layers), bf16, on
+                an HF-layout fp16 checkpoint it writes under chiprun_out/
+                (deleted after): APGD on 2 COCO-format images and one VQAv2
+                question, ms per iteration, peak memory, write and load
+                seconds, the texts; no attention kernel launched (BLIP-2's
+                attention is plain, as in JAX), `linf_step` once an
+                iteration;
  17. flamingo_reference - OpenFlamingo-9B widths cut to 4 MPT layers (one
                 gated cross-attention block) and 2 vision layers, the whole
                 Perceiver, float32, gates opened to 0.5: the per-sample loss
@@ -1590,7 +1607,10 @@ def phase_llava_reference() -> dict:
     """The LLaVA loss path through the kernels on the card against the plain
     path on the CPU: full widths, 2 LM and 2 vision layers, float32, batch
     1, max_post_len 16; the per-sample CE (1e-4 rel) and its pixel gradient
-    (1e-3 rel). Returns the kernels' launches of the card's run."""
+    (1e-3 rel). On the card the same loss and gradient with `remat=True`
+    (each block recomputed in the backward, the flash forward run again)
+    must equal them bit for bit. Returns the kernels' launches of the
+    card's run without remat."""
     import numpy as np
     import torch
 
@@ -1616,6 +1636,14 @@ def phase_llava_reference() -> dict:
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = _launches()
+            adapter.remat = True
+            _reset_launches()
+            loss_r = adapter(xa)
+            (grad_r,) = torch.autograd.grad(loss_r.sum(), xa)
+            torch.cuda.synchronize()
+            remat = {"loss_bit_equal": bool(torch.equal(loss_r, loss)),
+                     "grad_bit_equal": bool(torch.equal(grad_r, grad)),
+                     "grad_max_abs_diff": float((grad_r - grad).abs().max()), "launches": _launches()}
         out[dev] = (loss.detach().cpu().double(), grad.cpu().double())
         del model, adapter
     loss_rel = float(((out["cuda"][0] - out["cpu"][0]).abs() / out["cpu"][0].abs()).max())
@@ -1623,11 +1651,17 @@ def phase_llava_reference() -> dict:
     checks = {"loss_rel": loss_rel <= 1e-4, "grad_rel": g_rel <= 1e-3,
               "finite": bool(torch.isfinite(out["cuda"][1]).all()),
               "launched": _launched(launches, ("vit_attention_fwd", "vit_attention_bwd",
-                                               "flash_attention_fwd", "flash_attention_bwd"))}
+                                               "flash_attention_fwd", "flash_attention_bwd")),
+              "remat_loss_bit_equal": remat["loss_bit_equal"], "remat_grad_bit_equal": remat["grad_bit_equal"],
+              # recompute: each block's flash forward once more, the backward once
+              "remat_flash_recomputed": (remat["launches"]["flash_attention_fwd"]
+                                         == 2 * launches["flash_attention_fwd"]
+                                         and remat["launches"]["flash_attention_bwd"]
+                                         == launches["flash_attention_bwd"])}
     emit({"phase": "llava_reference", "model": cfg.name, "dtype": "float32", "batch": 1,
           "seq_len": int(adapter_seq_len(cfg)), "loss": float(out["cpu"][0][0]),
           "loss_rel_err": loss_rel, "grad_rel_err": g_rel, "tol": {"loss_rel": 1e-4, "grad_rel": 1e-3},
-          "launches": launches, "wall_s": time.perf_counter() - t0,
+          "launches": launches, "remat": remat, "card": card_line(), "wall_s": time.perf_counter() - t0,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "checks": checks,
           "ok": all(checks.values())})
     if not all(checks.values()):
@@ -1685,7 +1719,9 @@ def phase_llava() -> dict:
     336 px tower), random weights from seed 0, bf16 APGD (--attack apgd, the
     half-precision untargeted run), eps 2/255, LLAVA_ITERS iterations, 2 images.
     PIL imports on the card, so the CLI reads a COCO-format fixture written
-    here. Then the loss at x_adv is recomputed against the clean loss."""
+    here. Then the loss at x_adv is recomputed against the clean loss, and
+    `llava_remat_iteration` takes one iteration's loss and pixel gradient
+    with `LlavaEvalModel(remat=True)` and without."""
     import gc
 
     import numpy as np
@@ -1735,6 +1771,7 @@ def phase_llava() -> dict:
                 "in_box": bool(x_adv.min() >= 0.0 and x_adv.max() <= 1.0),
                 "caption": state["best_outputs"][str(item["image_id"])],
             })
+    remat = llava_remat_iteration(model, ds[0], out_dir)
     del model, adapter
     gc.collect()
     torch.cuda.empty_cache()
@@ -1747,16 +1784,57 @@ def phase_llava() -> dict:
         "cider": isinstance(result["cider"], float) and math.isfinite(result["cider"]),
         "launched": _launched(launches, LLAVA_KERNELS),
         "iterations": result["attack_iters"] == LLAVA_ITERS * len(per_image),
+        "remat_loss_equal": remat["loss"][True] == remat["loss"][False],
+        "remat_grad_within_bf16_tol": remat["grad_max_abs_diff"] <= ATTN_TOL["bfloat16"] * remat["grad_max_abs"],
+        "remat_flash_recomputed": remat["flash_attention_fwd"][True] == 2 * remat["flash_attention_fwd"][False],
     }
     emit({"phase": "llava", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation.main",
           "argv": argv, "model": cfg.name, "dtype": "bfloat16", "seq_len": adapter_seq_len(cfg, LLAVA_POST_LEN),
           "wall_s": wall, "attack_s": result["attack_s"], "attack_iters": result["attack_iters"],
           "ms_per_apgd_iter": ms_per_iter, "peak_mem_gib": peak_run, "cider": result["cider"],
-          "per_image": per_image, "eps": LLAVA_EPS / 255.0, "launches": launches,
+          "per_image": per_image, "eps": LLAVA_EPS / 255.0, "launches": launches, "remat": remat,
           "card": card_line(), "checks": checks, "ok": all(checks.values())})
     if not all(checks.values()):
         raise AssertionError(f"llava checks failed: {checks}")
     return launches
+
+
+def llava_remat_iteration(model, item, out_dir: Path) -> dict:
+    """The loss and pixel gradient of one APGD iteration (its forward and
+    backward) at `item`'s x_adv, bf16, full width, through
+    `LlavaEvalModel(remat=False)` and `(remat=True)` on the same weights, in
+    turns (without, with, with, without): each one's loss, peak memory above
+    what is held, ms (both turns) and flash launches (keyed by remat), and
+    the gradients' max abs difference."""
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.vlm_eval.eval_models import LlavaEvalModel, WordTokenizer
+
+    x = torch.from_numpy(np.load(out_dir / "coco" / "adv" / f"{item['image_id']}.npy")[None]).cuda()
+    res = {k: {} for k in ("loss", "peak_gib", "ms", "flash_attention_fwd", "flash_attention_bwd")}
+    grads = {}
+    for remat in (False, True, True, False):
+        adapter = LlavaEvalModel(model, WordTokenizer(), compute_dtype=torch.bfloat16, remat=remat)
+        adapter.set_inputs([adapter.get_caption_prompt(item["all_captions"][0])])
+        xa = x.clone().requires_grad_(True)
+        _free()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t = time.perf_counter()
+        loss = adapter(xa)
+        (grads[remat],) = torch.autograd.grad(loss.sum(), xa)
+        torch.cuda.synchronize()
+        res["ms"].setdefault(remat, []).append((time.perf_counter() - t) * 1e3)
+        res["peak_gib"][remat] = (torch.cuda.max_memory_allocated() - held) / 2**30
+        res["loss"][remat] = float(loss.detach()[0])
+        for k in ("flash_attention_fwd", "flash_attention_bwd"):
+            res[k][remat] = _launches()[k]
+    res["grad_max_abs_diff"] = float((grads[True] - grads[False]).abs().max())
+    res["grad_max_abs"] = float(grads[False].abs().max())
+    res["grad_bit_equal"] = bool(torch.equal(grads[True], grads[False]))
+    return res
 
 
 # ------------------------------------------------------------------ phase 12
@@ -2403,14 +2481,22 @@ def phase_llava_qualitative() -> dict:
 
 # ------------------------------------------------------------------ phase 16
 def phase_llava_aux() -> dict:
-    """POPE's and ScienceQA's `main` at LLaVA-1.5-7B full width (the float32
-    adapter each CLI builds, random weights from seed 0) on 2 fixture items
-    each (one ScienceQA problem text-only): finite metrics."""
+    """POPE's, ScienceQA's and MMBench's `main` at LLaVA-1.5-7B full width
+    (the float32 adapter each CLI builds, random weights from seed 0) on 2
+    fixture items each (one ScienceQA problem text-only; MMBench a 2-row TSV
+    asked in every rotation of its options): finite metrics, 7 MMBench
+    answer records. Then `gpt_review` with its offline judge over POPE's
+    answers against the labels as a second answer file: one review row a
+    question, the summary's counts."""
+    import base64
+    import csv
+    import io
+
     import numpy as np
     import torch
     from PIL import Image
 
-    from robustvlm_tpu_torch.vlm_eval import pope, science_qa
+    from robustvlm_tpu_torch.vlm_eval import gpt_review, mmbench, pope, science_qa
 
     _free()
     root = OUT / "llava-aux"
@@ -2418,6 +2504,18 @@ def phase_llava_aux() -> dict:
     rng = np.random.RandomState(4)
     for path in (root / "pope.jpg", root / "sqa" / "q1" / "image.png"):
         Image.fromarray(rng.randint(0, 255, (360, 400, 3), np.uint8)).save(path)
+    tsv = root / "mmbench.tsv"
+    with open(tsv, "w", newline="") as fh:
+        w = csv.DictWriter(fh, fieldnames=["index", "question", "hint", "answer", "A", "B", "C", "D", "image"],
+                           delimiter="\t")
+        w.writeheader()
+        for i, (q, hint, ans, opts) in enumerate([("What is the main object?", "", "B", ("a car", "a wave", "a cup", "")),
+                                                  ("How many people are there?", "Count them.", "A",
+                                                   ("one", "two", "three", "four"))]):
+            buf = io.BytesIO()
+            Image.fromarray(rng.randint(0, 255, (360, 400, 3), np.uint8)).save(buf, format="PNG")
+            w.writerow({"index": str(i), "question": q, "hint": hint, "answer": ans, **dict(zip("ABCD", opts)),
+                        "image": base64.b64encode(buf.getvalue()).decode()})
     qfile = root / "pope.jsonl"
     qfile.write_text("".join(json.dumps({"question_id": i, "image": "pope.jpg", "text": t, "label": lab}) + "\n"
                              for i, (t, lab) in enumerate([("Is there a surfboard in the image?", "yes"),
@@ -2430,13 +2528,24 @@ def phase_llava_aux() -> dict:
     common = ["--device", "cuda", "--model", "llava", "--model_size", "7b", "--max_new_tokens", "8"]
     _reset_launches()
     t0 = time.perf_counter()
-    m_pope = pope.main([*common, "--pope_questions", str(qfile), "--image_root", str(root)])
+    m_pope = pope.main([*common, "--pope_questions", str(qfile), "--image_root", str(root),
+                        "--answers_path", str(root / "pope_answers.jsonl")])
     t1 = time.perf_counter()
     _free()
     m_sqa = science_qa.main([*common, "--problems", str(pfile), "--image_root", str(root / "sqa")])
     t2 = time.perf_counter()
+    _free()
+    m_mmb = mmbench.main([*common, "--mmbench_tsv", str(tsv), "--answers_file", str(root / "mmbench.jsonl")])
+    t3 = time.perf_counter()
     launches = _launches()
     _free()
+    questions = pope.load_pope_questions(str(qfile))
+    labels = [{"question_id": q["question_id"], "text": q["label"]} for q in questions]
+    reviews = gpt_review.review_answers(
+        [{**q, "category": "pope"} for q in questions], pope.load_pope_questions(str(root / "pope_answers.jsonl")),
+        labels, output_path=str(root / "review.jsonl"))
+    summary = gpt_review.summarize_reviews(reviews)
+    n_records = len((root / "mmbench.jsonl").read_text().splitlines())
 
     def finite(m):
         return all(math.isfinite(v) for v in m.values() if isinstance(v, (int, float)))
@@ -2445,15 +2554,323 @@ def phase_llava_aux() -> dict:
     # and decode are masked plain attention, as in JAX)
     checks = {"pope_metrics": finite(m_pope) and {"precision", "recall", "f1", "accuracy", "yes_ratio"} <= set(m_pope),
               "science_qa_metrics": finite(m_sqa) and m_sqa["total"] == 2,
+              "mmbench_metrics": finite(m_mmb) and m_mmb["n_questions"] == 2 and n_records == 3 + 4,
+              "review_rows": len(reviews) == 2 and (root / "review.jsonl").is_file()
+              and all(r["tuple"][0] >= 1 for r in reviews) and summary["all"]["n"] == 2,
               "launched": _launched(launches, ("vit_attention_fwd",))}
     emit({"phase": "llava_aux", "entry": ["robustvlm_tpu_torch.vlm_eval.pope.main",
-                                          "robustvlm_tpu_torch.vlm_eval.science_qa.main"],
+                                          "robustvlm_tpu_torch.vlm_eval.science_qa.main",
+                                          "robustvlm_tpu_torch.vlm_eval.mmbench.main",
+                                          "robustvlm_tpu_torch.vlm_eval.gpt_review.review_answers"],
           "model": "llava-1.5-7b", "dtype": "float32", "pope": m_pope, "science_qa": m_sqa,
-          "pope_wall_s": t1 - t0, "science_qa_wall_s": t2 - t1, "launches": launches,
+          "mmbench": m_mmb, "review_summary": summary,
+          "pope_wall_s": t1 - t0, "science_qa_wall_s": t2 - t1, "mmbench_wall_s": t3 - t2, "launches": launches,
           "card": card_line(), "checks": checks, "ok": all(checks.values())})
     if not all(checks.values()):
         raise AssertionError(f"llava_aux checks failed: {checks}")
     return launches
+
+
+# ------------------------------------------------------------------ phases 17-18
+# BLIP-2 (EVA ViT-g/14, Q-Former, OPT-2.7B). Its attention is plain PyTorch,
+# as in JAX, where BLIP-2 reaches no Pallas kernel: only the l-inf step of
+# APGD launches a kernel of the port on this path.
+BLIP2_LAYERS = 2
+BLIP2_CUT = [f"{BLIP2_LAYERS} of 39 vision layers", f"{BLIP2_LAYERS} of 12 Q-Former layers",
+             f"{BLIP2_LAYERS} of 32 OPT-2.7B layers", "random weights (seed 0)"]
+BLIP2_NEW_TOKENS = 8
+BLIP2_ITERS = 25
+BLIP2_SHARD_LAYERS = 8  # OPT layers a shard
+ATTN_KERNELS = ("vit_attention_fwd", "vit_attention_bwd", "flash_attention_fwd", "flash_attention_bwd")
+
+
+def _blip2_cut(n_layers: int = BLIP2_LAYERS):
+    """blip2-opt-2.7b at full widths with the vision tower, the Q-Former and
+    OPT cut to `n_layers` layers each."""
+    import dataclasses
+
+    from robustvlm_tpu_torch.models.blip2.model import BLIP2_CONFIGS
+
+    cfg = BLIP2_CONFIGS["blip2-opt-2.7b"]
+    return dataclasses.replace(
+        cfg, name=f"blip2-opt-2.7b-{n_layers}l", vision=dataclasses.replace(cfg.vision, layers=n_layers),
+        qformer=dataclasses.replace(cfg.qformer, layers=n_layers), opt=dataclasses.replace(cfg.opt, n_layers=n_layers))
+
+
+def phase_blip2_reference() -> dict:
+    """BLIP-2 on the card against the CPU: full widths (vision 1408, Q-Former
+    768, OPT 2560), 2 layers each, float32, random weights from seed 0: the
+    adapter's per-sample CE of a caption (1e-4 relative), its pixel gradient
+    (1e-3 of its largest element, not 0), and the greedy tokens of a
+    left-padded batch of 2 prompts of different lengths (equal). Returns the
+    card's launches (the attention kernels' none)."""
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.models.blip2 import Blip2, init_random_state
+    from robustvlm_tpu_torch.models.generation import greedy_generate
+    from robustvlm_tpu_torch.vlm_eval.eval_models import Blip2EvalModel, WordTokenizer
+
+    _free()
+    t0 = time.perf_counter()
+    cfg = _blip2_cut()
+    state = init_random_state(cfg, 0, "cpu")
+    size = cfg.vision.image_size
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 3, size, size).astype(np.float32))
+    out, tokens, launches, n_pad = {}, {}, None, None
+    torch.cuda.reset_peak_memory_stats()
+    for dev in ("cpu", "cuda"):
+        model = Blip2.from_state(cfg, {k: v.to(dev) for k, v in state.items()})
+        adapter = Blip2EvalModel(model, WordTokenizer(), compute_dtype=torch.float32)
+        adapter.set_inputs([adapter.get_caption_prompt("two dogs play with a red ball on the grass")])
+        xa = x[:1].to(dev).requires_grad_(True)
+        _reset_launches()
+        loss = adapter(xa)
+        (grad,) = torch.autograd.grad(loss.sum(), xa)
+        prompts = [adapter.get_vqa_prompt("what is in the picture and what color is it?"),
+                   adapter.get_caption_prompt()]
+        pf, df, toks, n_pad = adapter._decode_fns(x.to(dev), prompts, BLIP2_NEW_TOKENS)
+        res = greedy_generate(pf, df, toks, n_pad, max_new_tokens=BLIP2_NEW_TOKENS,
+                              eos_id=adapter.tok.eos_token_id, pad_id=adapter.tok.pad_token_id)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = _launches()
+        tokens[dev] = res.tokens.cpu().tolist()
+        n_pad = n_pad.cpu().tolist()
+        out[dev] = (loss.detach().cpu().double(), grad.cpu().double())
+        del model, adapter, pf, df
+    del state
+    _free()
+    ref, card = out["cpu"], out["cuda"]
+    loss_rel = float(((card[0] - ref[0]).abs() / ref[0].abs()).max())
+    g_max, g_err = float(ref[1].abs().max()), float((card[1] - ref[1]).abs().max())
+    checks = {"loss_rel": loss_rel <= 1e-4, "grad": g_err <= 1e-3 * g_max,
+              "grad_nonzero": g_max > 0 and float(card[1].abs().max()) > 0,
+              "finite": bool(torch.isfinite(card[1]).all()),
+              "greedy_tokens_equal": tokens["cpu"] == tokens["cuda"],
+              "left_padded_batch": len(set(n_pad)) == 2,
+              "no_attention_kernel": all(launches[k] == 0 for k in ATTN_KERNELS)}
+    emit({"phase": "blip2_reference", "model": cfg.name, "dtype": "float32", "batch": 1,
+          "loss": float(ref[0][0]), "loss_rel_err": loss_rel, "grad_max_abs_err": g_err, "grad_max_abs": g_max,
+          "tol": {"loss_rel": 1e-4, "grad_of_largest": 1e-3}, "greedy_tokens": tokens, "n_pad": n_pad,
+          "launches": launches, "cuts": BLIP2_CUT, "wall_s": time.perf_counter() - t0,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card_line(), "checks": checks,
+          "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"blip2_reference checks failed: {checks}")
+    return launches
+
+
+def hf_blip2_names(cfg) -> dict:
+    """The port's BLIP-2 names -> (HF `Blip2ForConditionalGeneration` key,
+    transposed), written out independently of the importer, which inverts
+    it. OPT's LM head is the embedding (tied): not written."""
+    names = {"visual.patch_bias": ("vision_model.embeddings.patch_embedding.bias", False),
+             "visual.ln_post.g": ("vision_model.post_layernorm.weight", False),
+             "visual.ln_post.b": ("vision_model.post_layernorm.bias", False),
+             "qformer.ln_embed.g": ("qformer.layernorm.weight", False),
+             "qformer.ln_embed.b": ("qformer.layernorm.bias", False),
+             "language_projection.w": ("language_projection.weight", True),
+             "language_projection.b": ("language_projection.bias", False)}
+    vis = {"ln_1.g": "layer_norm1.weight", "ln_1.b": "layer_norm1.bias", "attn.qkv_w": "self_attn.qkv.weight",
+           "attn.qkv_b": "self_attn.qkv.bias", "attn.out_w": "self_attn.projection.weight",
+           "attn.out_b": "self_attn.projection.bias", "ln_2.g": "layer_norm2.weight",
+           "ln_2.b": "layer_norm2.bias", "mlp.fc_w": "mlp.fc1.weight", "mlp.fc_b": "mlp.fc1.bias",
+           "mlp.proj_w": "mlp.fc2.weight", "mlp.proj_b": "mlp.fc2.bias"}
+    for i in range(cfg.vision.layers):
+        for ours, theirs in vis.items():
+            names[f"visual.blocks.{i}.{ours}"] = (f"vision_model.encoder.layers.{i}.{theirs}", ours.endswith("_w"))
+    att = {"q_w": "attention.query.weight", "q_b": "attention.query.bias", "k_w": "attention.key.weight",
+           "k_b": "attention.key.bias", "v_w": "attention.value.weight", "v_b": "attention.value.bias",
+           "out_w": "output.dense.weight", "out_b": "output.dense.bias", "ln_g": "output.LayerNorm.weight",
+           "ln_b": "output.LayerNorm.bias"}
+    ffn = {"fc_w": "intermediate_query.dense.weight", "fc_b": "intermediate_query.dense.bias",
+           "proj_w": "output_query.dense.weight", "proj_b": "output_query.dense.bias",
+           "ln_g": "output_query.LayerNorm.weight", "ln_b": "output_query.LayerNorm.bias"}
+    for i in range(cfg.qformer.layers):
+        lay = f"qformer.encoder.layer.{i}."
+        subs = [("self_attn", "attention.", att), ("ffn", "", ffn)]
+        if i % cfg.qformer.xattn_every == 0:
+            subs.append(("cross", "crossattention.", att))
+        for ours, pre, table in subs:
+            for leaf, theirs in table.items():
+                names[f"qformer.layers.{i}.{ours}.{leaf}"] = (lay + pre + theirs, leaf.endswith("_w"))
+    dec = "language_model.model.decoder."
+    names.update({"opt.tok_embedding": (dec + "embed_tokens.weight", False),
+                  "opt.pos_embedding": (dec + "embed_positions.weight", False),
+                  "opt.final_norm.g": (dec + "final_layer_norm.weight", False),
+                  "opt.final_norm.b": (dec + "final_layer_norm.bias", False)})
+    opt = {"ln1.g": "self_attn_layer_norm.weight", "ln1.b": "self_attn_layer_norm.bias",
+           "ln2.g": "final_layer_norm.weight", "ln2.b": "final_layer_norm.bias",
+           "mlp.fc1": "fc1.weight", "mlp.b1": "fc1.bias", "mlp.fc2": "fc2.weight", "mlp.b2": "fc2.bias"}
+    for n, proj in zip("qkvo", ("q_proj", "k_proj", "v_proj", "out_proj")):
+        opt[f"attn.w{n}"], opt[f"attn.b{n}"] = f"self_attn.{proj}.weight", f"self_attn.{proj}.bias"
+    for i in range(cfg.opt.n_layers):
+        for ours, theirs in opt.items():
+            leaf = ours.rsplit(".", 1)[-1]
+            names[f"opt.blocks.{i}.{ours}"] = (f"{dec}layers.{i}.{theirs}", leaf in ("fc1", "fc2") or
+                                               leaf.startswith("w"))
+    return names
+
+
+def write_blip2_checkpoint(root: Path) -> tuple:
+    """An HF-layout blip2-opt-2.7b directory of fp16 `.bin` shards from the
+    seed-0 random weights drawn on the card (the patch embedding as a conv
+    weight, the class and position embeddings and the query tokens with
+    their leading axes). Returns (directory, the bf16 state a `Blip2` built
+    straight from the written values holds, seconds to write)."""
+    import torch
+
+    from robustvlm_tpu_torch.models.blip2 import BLIP2_CONFIGS, half_state, init_random_state
+
+    cfg = BLIP2_CONFIGS["blip2-opt-2.7b"]
+    vc = cfg.vision
+    t0 = time.perf_counter()
+    state = init_random_state(cfg, 0, "cuda")
+    ckpt = root / "blip2-opt-2.7b-hf"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    names = hf_blip2_names(cfg)
+    shaped = {"visual.patch_embed": ("vision_model.embeddings.patch_embedding.weight",
+                                     lambda v: v.T.reshape(vc.width, 3, vc.patch_size, vc.patch_size)),
+              "visual.class_embedding": ("vision_model.embeddings.class_embedding",
+                                         lambda v: v.reshape(1, 1, vc.width)),
+              "visual.positional_embedding": ("vision_model.embeddings.position_embedding",
+                                              lambda v: v.reshape(1, vc.n_tokens, vc.width)),
+              "query_tokens": ("query_tokens", lambda v: v.reshape(1, *v.shape))}
+    n_shards = cfg.opt.n_layers // BLIP2_SHARD_LAYERS + 1
+    shards = [{} for _ in range(n_shards)]
+    ref = {}
+    del state["opt.lm_head"]
+    for ours in list(state):
+        v16 = state.pop(ours).to(torch.float16)
+        ref.update(half_state({ours: v16.float()}))  # the values as the checkpoint holds them
+        if ours in shaped:
+            theirs, shape = shaped[ours]
+            out = shape(v16)
+        else:
+            theirs, transpose = names[ours]
+            out = v16.T if transpose else v16
+        shard = int(ours.split(".")[2]) // BLIP2_SHARD_LAYERS if ours.startswith("opt.blocks.") else n_shards - 1
+        shards[shard][theirs] = out.contiguous().cpu()
+    ref["opt.lm_head"] = ref["opt.tok_embedding"].T.contiguous()
+    for k, part in enumerate(shards):
+        torch.save(part, ckpt / f"pytorch_model-{k + 1:05d}-of-{n_shards:05d}.bin")
+    return ckpt, ref, time.perf_counter() - t0
+
+
+def phase_blip2() -> dict:
+    """`run_evaluation.main --model blip2 --model_size 7b --blip2_ckpt DIR` at
+    blip2-opt-2.7b full width (39 + 12 + 32 layers), bf16: --eval_coco
+    --attack apgd on 2 images, then one VQAv2 question, BLIP2_ITERS iterations
+    each, on the HF-layout checkpoint `write_blip2_checkpoint` writes under
+    chiprun_out/ (deleted at the end). The CLI's model against a `Blip2`
+    built straight from the written values (logits bit-equal), x_adv in the
+    box and the eps-ball, the loss at x_adv above clean; ms per APGD
+    iteration, the run's peak memory above what the phase held before it,
+    write and load seconds, the texts and the
+    launches: `linf_step` once an iteration, no attention kernel (BLIP-2's
+    attention is plain, as in JAX). Returns the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.models.blip2 import Blip2, blip2_forward
+    from robustvlm_tpu_torch.vlm_eval import run_evaluation as R
+    from robustvlm_tpu_torch.vlm_eval.datasets import CaptionDataset
+
+    _free()
+    root = OUT / "blip2"
+    try:
+        ckpt, ref_state, write_s = write_blip2_checkpoint(root)
+        ckpt_gb = sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9
+        _free()
+        img_dir, ann = _coco_fixture(root / "coco")
+        vimg, qf, af = _vqa_fixture(root / "vqav2", "vqav2", ROB_QUESTIONS)
+        out_dir = root / "out"
+        argv = ["--device", "cuda", "--model", "blip2", "--model_size", "7b", "--blip2_ckpt", str(ckpt),
+                "--eval_coco", "--coco_image_dir", str(img_dir), "--coco_annotations", str(ann),
+                "--eval_vqav2", "--vqav2_image_dir", str(vimg), "--vqav2_questions", str(qf),
+                "--vqav2_annotations", str(af), "--attack", "apgd", "--eps", str(LLAVA_EPS),
+                "--n_iter", str(BLIP2_ITERS), "--num_samples", "2", "--max_new_tokens", "16",
+                "--out_base_path", str(out_dir), "--verbose"]
+        load = {}
+        real_build = R.build_blip2_models
+
+        def timed_build(*a):
+            t = time.perf_counter()
+            out = real_build(*a)
+            torch.cuda.synchronize()
+            load["s"] = time.perf_counter() - t
+            return out
+
+        held = torch.cuda.memory_allocated()  # the written values' bf16 copy, kept for the check below
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        R.build_blip2_models = timed_build
+        try:
+            with adapters_of_cli(R, {}) as seen:
+                result = R.main(argv)
+        finally:
+            R.build_blip2_models = real_build
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+
+        adapter = seen["half"]
+        cfg = adapter.cfg
+        direct = Blip2.from_state(cfg, ref_state)
+        size = R._image_size(R.build_parser().parse_args(argv))
+        ds = CaptionDataset(str(img_dir), str(ann), size=size, split="val")
+        per_image = []
+        with torch.no_grad():
+            toks = torch.tensor([[adapter.tok.bos_token_id, *adapter.tok.encode("a photo of two dogs")]],
+                                device="cuda")
+            xr = torch.from_numpy(np.random.RandomState(1).rand(1, 3, size, size).astype(np.float32)).cuda()
+            logits = [blip2_forward(m, xr, toks, compute_dtype=torch.bfloat16) for m in (adapter.model, direct)]
+            for i in range(len(ds)):
+                item = ds[i]
+                x = np.asarray(item["image"], np.float32)
+                x_adv = np.load(out_dir / "coco" / "adv" / f"{item['image_id']}.npy")
+                adapter.set_inputs([adapter.get_caption_prompt(item["all_captions"][0])])
+                losses = [float(adapter(torch.from_numpy(a[None]).cuda())[0]) for a in (x, x_adv)]
+                per_image.append({"image_id": item["image_id"], "loss_clean": losses[0], "loss_adv": losses[1],
+                                  "linf": float(np.abs(x_adv.astype(np.float64) - x).max()),
+                                  "in_box": bool(x_adv.min() >= 0.0 and x_adv.max() <= 1.0)})
+        del adapter, seen, direct, ref_state
+        _free()
+        captions = json.loads((out_dir / "coco" / "ensemble_state.json").read_text())["best_outputs"]
+        answers = json.loads((out_dir / "vqav2" / "ensemble_state.json").read_text())["best_outputs"]
+        iters = result["coco"]["attack_iters"] + result["vqav2"]["attack_iters"]
+        checks = {
+            "logits_bit_equal_direct": bool(torch.equal(logits[0], logits[1])),
+            "in_box": all(r["in_box"] for r in per_image),
+            "in_ball": all(r["linf"] <= LLAVA_EPS / 255.0 + 1e-6 for r in per_image),
+            "loss_raised": all(r["loss_adv"] > r["loss_clean"] for r in per_image),
+            "texts": all(isinstance(t, str) for t in [*captions.values(), *answers.values()]),
+            "iterations": result["coco"]["attack_iters"] == 2 * BLIP2_ITERS
+            and result["vqav2"]["attack_iters"] == BLIP2_ITERS,
+            "linf_step_once_an_iteration": launches["linf_step"] == iters,
+            "no_attention_kernel": all(launches[k] == 0 for k in ATTN_KERNELS),
+            "metrics": math.isfinite(result["coco"]["cider"]) and math.isfinite(result["vqav2"]["vqa_accuracy"]),
+        }
+        emit({"phase": "blip2", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation.main", "argv": argv,
+              "model": cfg.name, "dtype": "bfloat16", "checkpoint_gb": ckpt_gb, "write_s": write_s,
+              "load_s": load["s"], "wall_s": wall, "attack_s": {k: result[k]["attack_s"] for k in ("coco", "vqav2")},
+              "attack_iters": iters,
+              "ms_per_apgd_iter": result["coco"]["attack_s"] / result["coco"]["attack_iters"] * 1e3,
+              "ms_per_apgd_iter_vqa": result["vqav2"]["attack_s"] / result["vqav2"]["attack_iters"] * 1e3,
+              "peak_mem_gib": peak, "held_before_gib": held / 2**30,
+              "cider": result["coco"]["cider"], "vqa_accuracy": result["vqav2"]["vqa_accuracy"],
+              "captions": captions, "answers": answers, "per_image": per_image, "eps": LLAVA_EPS / 255.0,
+              "launches": launches, "card": card_line(), "checks": checks, "ok": all(checks.values())})
+        if not all(checks.values()):
+            raise AssertionError(f"blip2 checks failed: {checks}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ phase 17
@@ -3520,6 +3937,8 @@ def main() -> int:
     runs.update(phase_llava_mpt_reference())
     runs["llava_qualitative"] = phase_llava_qualitative()
     runs["llava_aux"] = phase_llava_aux()
+    runs["blip2_reference"] = phase_blip2_reference()
+    runs["blip2"] = phase_blip2()
     runs["flamingo_reference"] = phase_flamingo_reference()
     runs["flamingo"] = phase_flamingo()
     runs["flamingo_ensemble[float32 stage]"] = phase_flamingo_ensemble()

@@ -4,7 +4,8 @@ images, CIFAR-10, and a shuffling, prefetching batch loader.
 Counterpart of `default_image_transform` (the C++ transform of
 `data/native.py` when it builds, PIL otherwise, as in JAX),
 `ImageFolderDataset`, `SyntheticClassificationDataset`, `load_cifar10`,
-`prefetch_iter` and `DataLoader` in `robustvlm_tpu/data/loaders.py`. Images
+`prefetch_iter`, `DataLoader`, `COCOFlickrDataset` and `SamData` in
+`robustvlm_tpu/data/loaders.py`. Images
 are float32 NCHW in [0,1], without CLIP normalization (normalization
 happens inside the model). `DataLoader` yields numpy batches in the JAX
 loader's order from the same seed.
@@ -203,3 +204,51 @@ class DataLoader:
                 yield self._load_batch(order[b * self.bs: (b + 1) * self.bs])
 
         return prefetch_iter(batches(), self.prefetch)
+
+
+class COCOFlickrDataset:
+    """The images of a COCO-format caption file (`images` with id/file_name
+    or cocoid/filename, `annotations` with image_id), one item an
+    annotation, for FARE-style unsupervised training: yields (image, 0),
+    since the fine-tune reads only the images."""
+
+    def __init__(self, image_dir: str, annotations_path: str, transform: Optional[Callable] = None,
+                 size: int = 224, prefix: str = ""):
+        import json
+
+        self.image_dir = Path(image_dir)
+        self.transform = transform or default_image_transform(size)
+        with open(annotations_path) as f:
+            data = json.load(f)
+        files = {im.get("id", im.get("cocoid")): im.get("file_name", im.get("filename"))
+                 for im in data.get("images", [])}
+        self.samples = [(self.image_dir / (prefix + files[a["image_id"]]), a.get("caption", ""))
+                        for a in data.get("annotations", []) if a["image_id"] in files]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i) -> Tuple[np.ndarray, int]:
+        from PIL import Image
+
+        with Image.open(self.samples[i][0]) as img:
+            return self.transform(img), 0
+
+
+class SamData:
+    """A directory tree of SA-1B images (every image file under it, sorted by
+    path): yields (image, 0)."""
+
+    def __init__(self, data_dir: str, transform: Optional[Callable] = None, size: int = 224):
+        self.paths = sorted(p for p in Path(data_dir).rglob("*")
+                            if p.suffix.lower() in ImageFolderDataset.EXTS)
+        self.transform = transform or default_image_transform(size)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i) -> Tuple[np.ndarray, int]:
+        from PIL import Image
+
+        with Image.open(self.paths[i]) as img:
+            return self.transform(img), 0

@@ -11,8 +11,10 @@ for `x @ w`), so a JAX tree carries across by name (`convert.py`).
   port's `flash_attention` (CUDA kernels on the card); the cached decode
   path stays masked plain attention, as in JAX.
 - Layers are an `nn.ModuleList` walked by a Python loop (JAX scans stacked
-  blocks). The KV cache is one (L, B, Hkv, N, hd) buffer per k and v,
-  written in place.
+  blocks); `remat` wraps each block of the full-sequence path in
+  `torch.utils.checkpoint` (JAX: `jax.checkpoint` around the scan body).
+  The KV cache is one (L, B, Hkv, N, hd) buffer per k and v, written in
+  place.
 - Every block matmul and the LM head go through `ops/quant.qmatmul`: a
   plain weight is cast to the compute dtype (a model already held in that
   dtype casts nothing); a quantized leaf (serving) takes its int8 or packed
@@ -29,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from robustvlm_tpu_torch.ops.quant import qmatmul
@@ -226,9 +229,9 @@ def llama_forward(
 
     Exactly one of `tokens` / `inputs_embeds`. With `cache` + `cache_pos`,
     runs the decode path and returns (logits, cache), the cache updated in
-    place. `kv_mask` (B, Tk) marks valid key slots (left-padded batches)."""
-    if remat:
-        raise NotImplementedError("llama_forward: remat is not ported (ROADMAP A.2, training)")
+    place. `kv_mask` (B, Tk) marks valid key slots (left-padded batches).
+    `remat` recomputes each block in the backward (`torch.utils.checkpoint`;
+    the flash forward runs again there); the cached path takes none."""
     if unroll_blocks:
         raise NotImplementedError(
             "llama_forward: unroll_blocks is JAX scan machinery; the port's blocks are a Python loop")
@@ -258,7 +261,10 @@ def llama_forward(
         return qmatmul(h, model.lm_head).float(), cache
 
     for blk in model.blocks:
-        x = blk(x, cos, sin, kv_mask=kv_mask)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(blk, x, cos, sin, kv_mask=kv_mask, use_reentrant=False)
+        else:
+            x = blk(x, cos, sin, kv_mask=kv_mask)
     x = rms_norm(x, model.norm, cfg.norm_eps)
     if return_hidden:
         return x

@@ -162,15 +162,18 @@ def to_half_layout_(model: Llava) -> Llava:
     return model
 
 
-def encode_images(model: Llava, pixels01: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+def encode_images(model: Llava, pixels01: torch.Tensor, *, compute_dtype=torch.bfloat16,
+                  remat: bool = False) -> torch.Tensor:
     """[0,1] NCHW pixels -> (B, n_image_tokens, lm_dim) float32 projected
-    patch features; CLIP normalization and resize inside."""
+    patch features; CLIP normalization and resize inside. `remat`
+    recomputes each tower block in the backward."""
     cfg = model.cfg
     x = pixels01
     if x.shape[-1] != cfg.vision.image_size or x.shape[-2] != cfg.vision.image_size:
         x = resize_bicubic(x, cfg.vision.image_size)
     # penultimate-layer features: the tower's last block is skipped
-    feats = model.vision(normalize_clip(x), compute_dtype=compute_dtype, tokens=True, n_skip_last=1)
+    feats = model.vision(normalize_clip(x), compute_dtype=compute_dtype, tokens=True, n_skip_last=1,
+                         remat=remat)
     return model.projector(feats[:, 1:])  # CLS dropped
 
 
@@ -189,15 +192,17 @@ def _lm_forward(model: Llava, **kw):
 
 
 def llava_forward(model: Llava, pixels01, pre_tokens, post_tokens, *,
-                  compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Multimodal forward -> float32 logits (B, T_pre + P + T_post, V)."""
-    img = encode_images(model, pixels01, compute_dtype=compute_dtype)
+                  compute_dtype=torch.bfloat16, remat: bool = False) -> torch.Tensor:
+    """Multimodal forward -> float32 logits (B, T_pre + P + T_post, V).
+    `remat` recomputes each tower and LM block in the backward."""
+    img = encode_images(model, pixels01, compute_dtype=compute_dtype, remat=remat)
     embeds = splice_embeddings(model, img, pre_tokens, post_tokens)
-    return _lm_forward(model, inputs_embeds=embeds, compute_dtype=compute_dtype)
+    return _lm_forward(model, inputs_embeds=embeds, compute_dtype=compute_dtype, remat=remat)
 
 
 def llava_per_sample_loss(model: Llava, pixels01, pre_tokens, post_tokens, labels, label_mask, *,
-                          compute_dtype=torch.bfloat16, reduction_per_token: str = "mean") -> torch.Tensor:
+                          compute_dtype=torch.bfloat16, reduction_per_token: str = "mean",
+                          remat: bool = False) -> torch.Tensor:
     """Teacher-forced per-sample CE over the answer span, (B,). labels and
     label_mask are (B, T_post): only post tokens carry loss. 'mean' is HF's
     CE (mean over unmasked tokens), 'sum' the summed CE. Refuses a model with
@@ -205,7 +210,8 @@ def llava_per_sample_loss(model: Llava, pixels01, pre_tokens, post_tokens, label
     if has_quantized(model):
         raise ValueError("llava_per_sample_loss: the model holds quantized weights (serving-only); "
                          "the loss path needs the fp model")
-    logits = llava_forward(model, pixels01, pre_tokens, post_tokens, compute_dtype=compute_dtype)
+    logits = llava_forward(model, pixels01, pre_tokens, post_tokens, compute_dtype=compute_dtype,
+                           remat=remat)
     t_post = post_tokens.shape[1]
     pred = logits[:, -t_post - 1:-1]  # logits predicting post_tokens[t]
     lp = torch.log_softmax(pred, dim=-1)

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from robustvlm_tpu_torch.models.llama.model import _cache_write
 from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
@@ -215,9 +216,8 @@ def mpt_forward(
     (logits, cache), the cache updated in place. `kv_mask` (B, Tk) marks
     valid keys (left-padded batches); `positions` are the queries' true
     positions on the uncached path; `layer_hook(i, x) -> x` runs before
-    block i."""
-    if remat:
-        raise NotImplementedError("mpt_forward: remat is not ported (ROADMAP A.2, training)")
+    block i. `remat` recomputes each block (not the hook) in the backward
+    (`torch.utils.checkpoint`); the cached path takes none."""
     cfg = model.cfg
     if inputs_embeds is None:
         inputs_embeds = model.tok_embedding[tokens]
@@ -238,7 +238,11 @@ def mpt_forward(
         return qmatmul(h, model.tok_embedding.T).float(), cache
 
     for i, blk in enumerate(model.blocks):
-        x = blk(hook(i, x), slopes, kv_mask=kv_mask, positions=positions)
+        x = hook(i, x)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(blk, x, slopes, kv_mask=kv_mask, positions=positions, use_reentrant=False)
+        else:
+            x = blk(x, slopes, kv_mask=kv_mask, positions=positions)
     x = layer_norm(x, model.norm_f, cfg.norm_eps)
     if return_hidden:
         return x

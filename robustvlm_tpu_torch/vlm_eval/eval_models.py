@@ -2,7 +2,7 @@
 the VLM attacks.
 
 Counterpart of `WordTokenizer`, `truncate_at_stops`, `LlavaEvalModel`,
-`FlamingoEvalModel` and `make_frame_mask` in
+`FlamingoEvalModel`, `Blip2EvalModel` and `make_frame_mask` in
 `robustvlm_tpu/vlm_eval/eval_models.py`: each adapter holds the model and a tokenizer,
 builds prompts, caches the tokenized teacher-forcing targets (`set_inputs`),
 exposes `__call__(x01) -> (B,) per-sample loss` for the attack loop and
@@ -17,8 +17,10 @@ Serving: generation can run on weight-only quantized LM weights, built
 lazily beside the fp model (`quantize_decode`) or in place for a
 serving-only process (`quantize_for_serving`), and `stream_tokens` /
 `stream_outputs` yield tokens as they are made. Not ported here: the
-continuous-batching cores and speculative decoding (ROADMAP A.5); the
-BLIP-2 adapter (ROADMAP A.4).
+continuous-batching cores and speculative decoding (ROADMAP A.5).
+
+`remat=True` recomputes each vision and LM block in the backward
+(`torch.utils.checkpoint`); the loss and its gradient are those without it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from robustvlm_tpu_torch.models.blip2.model import Blip2, blip2_per_sample_loss, make_blip2_decode_fns
 from robustvlm_tpu_torch.models.flamingo.model import (
     Flamingo,
     flamingo_per_sample_loss,
@@ -115,6 +118,21 @@ def _pad_right(seqs: Sequence[Sequence[int]], pad: int, length: int):
     return out, mask
 
 
+def _generate_texts(adapter, x, prompts, max_new_tokens: int, num_beams: int,
+                    length_penalty: float, stop_strings) -> List[str]:
+    """Greedy (num_beams 1) or beam decode through the adapter's
+    `_decode_fns`, each text cut after EOS and at the first stop string."""
+    pf, df, toks, n_pad = adapter._decode_fns(x, prompts, max_new_tokens)
+    tok = adapter.tok
+    kw = dict(max_new_tokens=max_new_tokens, eos_id=tok.eos_token_id, pad_id=tok.pad_token_id)
+    if num_beams == 1:
+        res = greedy_generate(pf, df, toks, n_pad, **kw)
+    else:
+        res = beam_generate(pf, df, toks, n_pad, num_beams=num_beams, length_penalty=length_penalty, **kw)
+    return [truncate_at_stops(tok.decode(ids), stop_strings)
+            for ids in strip_after_eos(res.tokens, tok.eos_token_id, tok.pad_token_id)]
+
+
 @dataclasses.dataclass
 class _CachedInputs:
     pre: torch.Tensor         # (B, T_pre) prompt tokens before the image
@@ -139,13 +157,12 @@ class LlavaEvalModel:
 
     def __init__(self, model: Llava, tokenizer, *, compute_dtype=torch.bfloat16,
                  max_post_len: int = 64, remat: bool = False, quantize_decode=False):
-        if remat:
-            raise NotImplementedError("LlavaEvalModel: remat is not ported (ROADMAP A.2, training)")
         self.model = model
         self.cfg = model.cfg
         self.tok = tokenizer
         self.compute_dtype = compute_dtype
         self.max_post_len = max_post_len
+        self.remat = remat
         self._cached: Optional[_CachedInputs] = None
         self.quantize_decode = quantize_decode
         self._decode_model = None  # (bits, Llava) once built
@@ -215,7 +232,7 @@ class LlavaEvalModel:
         if c is None:
             raise RuntimeError("LlavaEvalModel: call set_inputs first")
         return llava_per_sample_loss(self.model, x01, c.pre, c.post, c.labels, c.label_mask,
-                                     compute_dtype=self.compute_dtype)
+                                     compute_dtype=self.compute_dtype, remat=self.remat)
 
     def _gen_params(self) -> Llava:
         """The model generation runs on: the fp one, or the (cached) weight-only
@@ -271,17 +288,8 @@ class LlavaEvalModel:
     def get_outputs(self, x01: torch.Tensor, prompts: Sequence[str], *, max_new_tokens: int = 32,
                     num_beams: int = 1, length_penalty: float = 0.0,
                     stop_strings: Sequence[str] = DEFAULT_STOPS) -> List[str]:
-        pf, df, toks, n_pad = self._decode_fns(x01, prompts, max_new_tokens)
-        kw = dict(max_new_tokens=max_new_tokens, eos_id=self.tok.eos_token_id,
-                  pad_id=self.tok.pad_token_id)
-        if num_beams == 1:
-            res = greedy_generate(pf, df, toks, n_pad, **kw)
-        else:
-            res = beam_generate(pf, df, toks, n_pad, num_beams=num_beams,
-                                length_penalty=length_penalty, **kw)
-        return [truncate_at_stops(self.tok.decode(ids), stop_strings)
-                for ids in strip_after_eos(res.tokens, self.tok.eos_token_id,
-                                           self.tok.pad_token_id)]
+        return _generate_texts(self, x01, prompts, max_new_tokens, num_beams, length_penalty,
+                               stop_strings)
 
 
 class FlamingoEvalModel:
@@ -299,13 +307,12 @@ class FlamingoEvalModel:
 
     def __init__(self, model: Flamingo, tokenizer, *, compute_dtype=torch.bfloat16,
                  remat: bool = False, max_len: int = 128, pad_to_multiple: Optional[int] = None):
-        if remat:
-            raise NotImplementedError("FlamingoEvalModel: remat is not ported (ROADMAP A.2, training)")
         self.model = model
         self.cfg = model.cfg
         self.tok = tokenizer
         self.compute_dtype = compute_dtype
         self.max_len = max_len
+        self.remat = remat
         self.pad_to_multiple = pad_to_multiple
         self._lang = self._labels = self._mask = None
 
@@ -373,7 +380,7 @@ class FlamingoEvalModel:
         if vision_x.dim() == 4:  # (B, C, H, W) -> (B, T=1, F=1, C, H, W)
             vision_x = vision_x[:, None, None]
         return flamingo_per_sample_loss(self.model, vision_x, self._lang, self._labels, self._mask,
-                                        compute_dtype=self.compute_dtype)
+                                        compute_dtype=self.compute_dtype, remat=self.remat)
 
     def _decode_fns(self, vision_x, prompts, max_new_tokens):
         """(prefill_fn, decode_fn, left-padded tokens, n_pad) of a generation."""
@@ -390,17 +397,105 @@ class FlamingoEvalModel:
     def get_outputs(self, vision_x: torch.Tensor, prompts: Sequence[str], *, max_new_tokens: int = 32,
                     num_beams: int = 1, length_penalty: float = 0.0,
                     stop_strings: Sequence[str] = DEFAULT_STOPS) -> List[str]:
-        pf, df, toks, n_pad = self._decode_fns(vision_x, prompts, max_new_tokens)
-        kw = dict(max_new_tokens=max_new_tokens, eos_id=self.tok.eos_token_id,
-                  pad_id=self.tok.pad_token_id)
-        if num_beams == 1:
-            res = greedy_generate(pf, df, toks, n_pad, **kw)
-        else:
-            res = beam_generate(pf, df, toks, n_pad, num_beams=num_beams,
-                                length_penalty=length_penalty, **kw)
-        return [truncate_at_stops(self.tok.decode(ids), stop_strings)
-                for ids in strip_after_eos(res.tokens, self.tok.eos_token_id,
-                                           self.tok.pad_token_id)]
+        return _generate_texts(self, vision_x, prompts, max_new_tokens, num_beams, length_penalty,
+                               stop_strings)
+
+
+class Blip2EvalModel:
+    """BLIP-2 adapter. The reference wraps BLIP-2 for generation only; this
+    adapter also gives the adversarial protocol (`set_inputs` + the
+    per-sample mean CE over the answer), so BLIP-2 is attacked like the
+    other families. One image per example. `model` holds its weights in the
+    compute dtype's layout (`models/blip2/model.half_state` for bfloat16).
+
+    `pure(model, tokens, labels, mask, x01)` is the loss as a function of
+    its operands and `bound_args` the operands held here, so
+    `pure(*bound_args, x01)` is `__call__(x01)`."""
+
+    DEFAULT_STOPS = ("Question:", "\n")
+
+    def __init__(self, model: Blip2, tokenizer, *, compute_dtype=torch.float32,
+                 remat: bool = False, max_len: int = 64):
+        self.model = model
+        self.cfg = model.cfg
+        self.tok = tokenizer
+        self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.max_len = max_len
+        self._cached = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def get_caption_prompt(self, caption: Optional[str] = None) -> str:
+        return f"A photo of {caption if caption is not None else ''}"
+
+    def get_vqa_prompt(self, question: str, answer: Optional[str] = None) -> str:
+        return f"Question:{question} Short answer:{answer if answer is not None else ''}"
+
+    @staticmethod
+    def _answer_split(prompt: str):
+        """(context, answer), split at the prompt's MARKER and not at any
+        colon: answers like '4:30' and captions with a ':' stay whole."""
+        vqa_marker = " Short answer:"
+        i = prompt.rfind(vqa_marker)
+        if i >= 0:
+            cut = i + len(vqa_marker)
+            return prompt[:cut], prompt[cut:]
+        cap_marker = "A photo of "
+        if prompt.startswith(cap_marker):
+            return cap_marker, prompt[len(cap_marker):]
+        return "", prompt
+
+    def set_inputs(self, full_prompts: Sequence[str]) -> None:
+        """BOS + context + answer + EOS, right-padded to `max_len`, the loss
+        mask over the answer and EOS."""
+        bos = getattr(self.tok, "bos_token_id", None)
+        toks, masks = [], []
+        for p in full_prompts:
+            ctx, ans = self._answer_split(p)
+            ctx_ids = ([bos] if bos is not None else []) + _encode_plain(self.tok, ctx)
+            ans_ids = _encode_plain(self.tok, ans) + [self.tok.eos_token_id]
+            toks.append(ctx_ids + ans_ids)
+            masks.append([0.0] * len(ctx_ids) + [1.0] * len(ans_ids))
+        arr, _ = _pad_right(toks, self.tok.pad_token_id, self.max_len)
+        mask_arr = np.zeros(arr.shape, np.float32)
+        for i, m in enumerate(masks):
+            m = m[: self.max_len]
+            mask_arr[i, : len(m)] = m
+        tokens = torch.from_numpy(arr).long().to(self.device)
+        self._cached = (tokens, tokens, torch.from_numpy(mask_arr).to(self.device))
+
+    def pure(self, model: Blip2, tokens, labels, mask, x01: torch.Tensor) -> torch.Tensor:
+        return blip2_per_sample_loss(model, x01, tokens, labels, mask,
+                                     compute_dtype=self.compute_dtype, remat=self.remat)
+
+    @property
+    def bound_args(self) -> tuple:
+        if self._cached is None:
+            raise RuntimeError("Blip2EvalModel: call set_inputs first")
+        return (self.model, *self._cached)
+
+    def __call__(self, x01: torch.Tensor) -> torch.Tensor:
+        return self.pure(*self.bound_args, x01)
+
+    def _decode_fns(self, x01, prompts, max_new_tokens):
+        """(prefill_fn, decode_fn, left-padded tokens, n_pad) of a generation."""
+        bos = getattr(self.tok, "bos_token_id", None)
+        seqs = [([bos] if bos is not None else []) + _encode_plain(self.tok, p) for p in prompts]
+        toks, n_pad = left_pad(seqs, self.tok.pad_token_id)
+        pf, df = make_blip2_decode_fns(self.model, x01, max_total_len=toks.shape[1] + max_new_tokens,
+                                       compute_dtype=self.compute_dtype)
+        dev = self.device
+        return pf, df, torch.from_numpy(toks).long().to(dev), torch.from_numpy(n_pad).long().to(dev)
+
+    @torch.no_grad()
+    def get_outputs(self, x01: torch.Tensor, prompts: Sequence[str], *, max_new_tokens: int = 32,
+                    num_beams: int = 1, length_penalty: float = 0.0,
+                    stop_strings: Sequence[str] = DEFAULT_STOPS) -> List[str]:
+        return _generate_texts(self, x01, prompts, max_new_tokens, num_beams, length_penalty,
+                               stop_strings)
 
 
 def stream_outputs(model, x01: torch.Tensor, prompt: str, *, max_new_tokens: int = 32,

@@ -1,5 +1,5 @@
-"""VLM adversarial evaluation CLI: LLaVA and OpenFlamingo captioning and VQA
-on the card.
+"""VLM adversarial evaluation CLI: LLaVA, OpenFlamingo and BLIP-2 captioning
+and VQA on the card.
 
 Counterpart of `robustvlm_tpu/vlm_eval/run_evaluation.py`, with the same
 flags and `--device` (default cuda):
@@ -14,6 +14,8 @@ flags and `--device` (default cuda):
       --vqav2_annotations ... --attack ensemble [--targeted --target_str maybe]
   python -m robustvlm_tpu_torch.vlm_eval.run_evaluation --model open_flamingo \\
       --eval_coco ... --attack apgd --shots 0 4 [--mask_out context]
+  python -m robustvlm_tpu_torch.vlm_eval.run_evaluation --model blip2 \\
+      --blip2_ckpt /ckpt/blip2-opt-2.7b --eval_coco ... --attack apgd
 
 eps in /255 units. --attack none = clean eval; apgd = one untargeted run
 (half precision); ensemble = the full worst-case schedule (VQA adds the
@@ -24,19 +26,19 @@ official leave-one-out accuracy (OK-VQA's answers stemmed), per question.
 Weights: LLaVA loads --llava_ckpt (an HF directory of shards or one file),
 with --vision_encoder_pretrained a robust 224 px tower in place of its own
 (the `llava-1.5-7b-rob` config); OpenFlamingo takes --of_ckpt with
---mpt_ckpt and --clip_ckpt (or a robust tower). Without a checkpoint the
+--mpt_ckpt and --clip_ckpt (or a robust tower); BLIP-2 takes --blip2_ckpt
+(an HF `Blip2ForConditionalGeneration` directory of shards or one file;
+--model_size 7b is blip2-opt-2.7b). Without a checkpoint the
 weights are random from seed 0, made once per run on the device (OpenFlamingo's
 gates at 0, as the reference initialises them). Either way one float32 set
 of weights is shared by the bf16 and float32 adapters. --tokenizer_path
 loads an HF tokenizer through `transformers` (an optional import); without
-it the hash tokenizer stands in. --model_size test-tiny runs the tiny
-configs (tests). --shots N stacks N demo images before the query
+it the hash tokenizer stands in (for BLIP-2 rebuilt at OPT's vocabulary when
+that is the smaller: an id past the embedding table raises in torch). --model_size
+test-tiny runs the tiny configs (tests). --shots N stacks N demo images before the query
 (OpenFlamingo; 2 text-only demos at 0 shots), drawn from the train files
 (or, warned, the eval files); --mask_out masks the context or the query
 frames' gradient.
-
-Not ported yet, raising NotImplementedError with its ROADMAP item:
---model blip2.
 """
 
 from __future__ import annotations
@@ -167,17 +169,39 @@ def _llava_config(args):
     return LLAVA_CONFIGS["llava-1.5-7b-rob" if args.vision_encoder_pretrained else "llava-1.5-7b"]
 
 
+def models_per_precision(model_cls, cfg, half_state, init_random_state, precisions, device,
+                         full=None) -> Dict[str, object]:
+    """One `model_cls` per precision ('half' bf16, 'full' float32) from ONE
+    set of weights: `full`, a float32 state on the CPU (a loaded checkpoint),
+    or random from seed 0 drawn once on the device. The bf16 model holds one
+    bf16 copy of the matrices (`half_state`, made once) and shares the rest
+    with the float32 one; with no 'full' stage no float32 matrix is ever
+    held on the device."""
+    if full is not None:
+        if "full" not in precisions:  # bf16 alone: cast on the device, one tensor at a time
+            half = {}
+            for k in list(full):
+                half.update(half_state({k: full.pop(k).to(device)}))
+            return {"half": model_cls.from_state(cfg, half)}
+        full = {k: v.to(device) for k, v in full.items()}
+    elif "full" in precisions:
+        full = init_random_state(cfg, 0, device)
+    else:
+        return {"half": model_cls.from_state(cfg, init_random_state(cfg, 0, device, torch.bfloat16))}
+    models = {"full": model_cls.from_state(cfg, full)}
+    if "half" in precisions:
+        models["half"] = model_cls.from_state(cfg, half_state(full))
+    return models
+
+
 def build_llava_models(args, precisions, device) -> Dict[str, object]:
-    """One `Llava` per precision ('half' bf16, 'full' float32) from ONE set
-    of weights: --llava_ckpt (with --vision_encoder_pretrained's tower and
-    the checkpoint's own projector type), loaded once in float32, or random from seed 0, drawn once on the device.
-    The bf16 model holds one bf16 copy of the matrices (made once) and
-    shares the rest with the float32 one; with no 'full' stage no float32
-    matrix is ever held on the device."""
+    """`models_per_precision` of `Llava`: --llava_ckpt (with
+    --vision_encoder_pretrained's tower and the checkpoint's own projector
+    type), loaded once in float32, or random from seed 0."""
     from robustvlm_tpu_torch.models.llava.convert import init_random_state
     from robustvlm_tpu_torch.models.llava.model import Llava, half_state
 
-    cfg = _llava_config(args)
+    cfg, full = _llava_config(args), None
     if args.llava_ckpt:
         from robustvlm_tpu_torch.models.llava.import_torch import checkpoint_config, load_llava_checkpoint
         from robustvlm_tpu_torch.models.mpt.import_torch import load_state
@@ -186,23 +210,10 @@ def build_llava_models(args, precisions, device) -> Dict[str, object]:
         cfg = checkpoint_config(sd, cfg)
         full = load_llava_checkpoint(sd, cfg, robust_vision_path=args.vision_encoder_pretrained or None)
         del sd
-        if "full" not in precisions:  # bf16 alone: cast on the device, one tensor at a time
-            half = {}
-            for k in list(full):
-                half.update(half_state({k: full.pop(k).to(device)}))
-            return {"half": Llava.from_state(cfg, half)}
-        full = {k: v.to(device) for k, v in full.items()}
     elif args.vision_encoder_pretrained:
         raise ValueError("--vision_encoder_pretrained replaces the tower of --llava_ckpt's model; "
                          "pass --llava_ckpt with it")
-    elif "full" in precisions:
-        full = init_random_state(cfg, 0, device)
-    else:
-        return {"half": Llava.from_state(cfg, init_random_state(cfg, 0, device, torch.bfloat16))}
-    models = {"full": Llava.from_state(cfg, full)}
-    if "half" in precisions:
-        models["half"] = Llava.from_state(cfg, half_state(full))
-    return models
+    return models_per_precision(Llava, cfg, half_state, init_random_state, precisions, device, full)
 
 
 def flamingo_config(args, tok):
@@ -219,10 +230,9 @@ def flamingo_config(args, tok):
 
 
 def build_flamingo_models(args, precisions, device) -> Dict[str, object]:
-    """One `Flamingo` per precision from ONE set of weights, shared as
-    `build_llava_models` shares them: the three checkpoints of --of_ckpt,
-    --mpt_ckpt and --clip_ckpt (or --vision_encoder_pretrained), else random
-    from seed 0 with the reference's zero gates."""
+    """`models_per_precision` of `Flamingo`: the three checkpoints of
+    --of_ckpt, --mpt_ckpt and --clip_ckpt (or --vision_encoder_pretrained),
+    else random from seed 0 with the reference's zero gates."""
     from robustvlm_tpu_torch.models.flamingo import (
         Flamingo,
         half_state,
@@ -230,30 +240,53 @@ def build_flamingo_models(args, precisions, device) -> Dict[str, object]:
         load_flamingo_checkpoint,
     )
 
-    cfg = flamingo_config(args, _tokenizer(args))
+    cfg, full = flamingo_config(args, _tokenizer(args)), None
     if args.of_ckpt:
-        full = {k: v.to(device) for k, v in load_flamingo_checkpoint(
-            args.of_ckpt, cfg, mpt_path=args.mpt_ckpt, visual_path=args.clip_ckpt,
-            robust_visual_path=args.vision_encoder_pretrained or None).items()}
+        full = load_flamingo_checkpoint(args.of_ckpt, cfg, mpt_path=args.mpt_ckpt, visual_path=args.clip_ckpt,
+                                        robust_visual_path=args.vision_encoder_pretrained or None)
     elif args.vision_encoder_pretrained:
         raise ValueError("--vision_encoder_pretrained replaces the tower of --of_ckpt's model; "
                          "pass --of_ckpt, --mpt_ckpt and --clip_ckpt with it")
-    elif "full" in precisions:
-        full = init_random_state(cfg, 0, device)
-    else:
-        return {"half": Flamingo.from_state(cfg, init_random_state(cfg, 0, device, torch.bfloat16))}
-    models = {"full": Flamingo.from_state(cfg, full)} if "full" in precisions else {}
-    if "half" in precisions:
-        models["half"] = Flamingo.from_state(cfg, half_state(full))
-    return models
+    return models_per_precision(Flamingo, cfg, half_state, init_random_state, precisions, device, full)
+
+
+def blip2_config(args):
+    """blip2-opt-2.7b for --model_size 7b, else test-tiny."""
+    from robustvlm_tpu_torch.models.blip2.model import BLIP2_CONFIGS
+
+    return BLIP2_CONFIGS["blip2-opt-2.7b" if args.model_size == "7b" else "test-tiny"]
+
+
+def build_blip2_models(args, precisions, device) -> Dict[str, object]:
+    """`models_per_precision` of `Blip2`: --blip2_ckpt loaded once in
+    float32, or random from seed 0."""
+    from robustvlm_tpu_torch.models.blip2 import Blip2, half_state, init_random_state
+
+    cfg, full = blip2_config(args), None
+    if args.blip2_ckpt:
+        from robustvlm_tpu_torch.models.blip2.import_torch import load_blip2_checkpoint
+
+        full = load_blip2_checkpoint(args.blip2_ckpt, cfg)
+    return models_per_precision(Blip2, cfg, half_state, init_random_state, precisions, device, full)
+
+
+def blip2_tokenizer(args, cfg):
+    """`_tokenizer(args)`; the hash tokenizer rebuilt at OPT's vocabulary when
+    that is smaller than its own (test-tiny's 128), so every id it makes
+    indexes the embedding table."""
+    tok = _tokenizer(args)
+    if not args.tokenizer_path and getattr(tok, "vocab_size", 0) > cfg.opt.vocab_size:
+        from robustvlm_tpu_torch.vlm_eval.eval_models import WordTokenizer
+
+        tok = WordTokenizer(vocab_size=cfg.opt.vocab_size)
+    return tok
 
 
 def build_models(args, precisions, device) -> Dict[str, object]:
     """The models of --model, one per precision, shared by every dataset
     and trial of a run."""
-    if args.model == "blip2":
-        raise NotImplementedError("--model blip2 is not ported (ROADMAP A.4, BLIP-2)")
-    build = build_flamingo_models if args.model == "open_flamingo" else build_llava_models
+    build = {"open_flamingo": build_flamingo_models, "blip2": build_blip2_models}.get(
+        args.model, build_llava_models)
     return build(args, precisions, device)
 
 
@@ -265,7 +298,7 @@ def build_eval_model(args, precision: str, models: Optional[Dict[str, object]] =
     `quantize_for_serving` quantizes the float32 draws (the JAX worker
     quantizes its float32 tree) and then holds the rest in the precision's
     layout; else in the precision's layout directly."""
-    from robustvlm_tpu_torch.vlm_eval.eval_models import FlamingoEvalModel, LlavaEvalModel
+    from robustvlm_tpu_torch.vlm_eval.eval_models import Blip2EvalModel, FlamingoEvalModel, LlavaEvalModel
 
     dtype = torch.bfloat16 if precision == "half" else torch.float32
     if models is None:
@@ -273,13 +306,15 @@ def build_eval_model(args, precision: str, models: Optional[Dict[str, object]] =
         model = build_models(args, {drawn}, resolve_device(args.device))[drawn]
     else:
         model = models[precision]
+    if args.model == "blip2":
+        return Blip2EvalModel(model, blip2_tokenizer(args, model.cfg), compute_dtype=dtype)
     adapter = FlamingoEvalModel if args.model == "open_flamingo" else LlavaEvalModel
     return adapter(model, _tokenizer(args), compute_dtype=dtype)
 
 
 def _image_size(args) -> int:
-    """336 px for LLaVA-1.5's tower, 224 for OpenFlamingo's ViT-L/14, 32 for
-    the tiny configs."""
+    """336 px for LLaVA-1.5's tower, 224 for OpenFlamingo's ViT-L/14 and
+    BLIP-2's ViT-g/14, 32 for the tiny configs."""
     if args.model == "llava" and args.model_size == "7b" and not args.vision_encoder_pretrained:
         return 336
     return 224 if args.model_size == "7b" else 32

@@ -225,7 +225,8 @@ def test_ensemble_every_stage_one_copy_per_precision(tmp_path):
     # a robust tower replaces the tower of a loaded checkpoint: without one
     # it would be silently dropped for random weights
     (["--vision_encoder_pretrained", "x", "--eval_coco"], ValueError, "--llava_ckpt"),
-    (["--model", "blip2", "--eval_coco"], NotImplementedError, "ROADMAP"),
+    # BLIP-2 reads --blip2_ckpt (it raised NotImplementedError before it was ported)
+    (["--model", "blip2", "--blip2_ckpt", "x", "--eval_coco"], FileNotFoundError, "no checkpoint"),
     # few-shot demo images need the interleaved-media model, as in JAX
     (["--shots", "2", "--eval_coco"], ValueError, "open_flamingo"),
     (["--llava_ckpt", "x", "--eval_coco"], FileNotFoundError, "no checkpoint")])
