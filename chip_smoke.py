@@ -13,8 +13,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 heads of 128, causal) at OpenFlamingo's prompt length (the
                 flamingo phase's) and at LLaVA-MPT's sequence length
                 (`llava_mpt_reference`'s), against SDPA with the bias as a
-                float mask; planted faults show that the attention and
-                q4_matmul checks can fail;
+                float mask; the bf16 ViT forward at one 336 px image (16,
+                577, 64), the serving towers' shape; q4_matmul at 1, 4, 8, 9
+                and 32 rows (8: a row bit-equal inside another batch of 8),
+                with decode-step rows at 1, 4 and 8 rows; planted faults
+                show that the attention and q4_matmul checks can fail;
   3. reference - ViT-B/32 logits and pixel gradient through the kernels
                 on the card against the plain path on the CPU;
   4. main     - `robustbench.main` (the CLI entry point) at CLIP ViT-L/14
@@ -132,7 +135,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 the shift body and a batch-4 micro-batch over HTTP, with ms
                 per decode step, tokens/s, held and peak memory, launches,
                 and one decode step's logits through the kernel against the
-                kernel's plain version.
+                kernel's plain version;
+ 23. serve_continuous - on the serve phase's adapter, `ModelWorker` with a
+                `ContinuousEngine` (4 lanes, width 32, 32 new tokens) behind
+                the controller: 8 caption/VQA streams 0.25 s apart (and 4
+                short ones through the shift body): each request's tokens
+                against its solo batch-1 stream (equal, or a first
+                divergence at a near tie), a request admitted while another
+                decodes, q4_matmul only at 4 rows, 225 a step; lane isolation
+                bit for bit (tokens and lane logits beside two sets of
+                neighbours); a lane cancelled on a stop string freeing its
+                slot; aggregate tokens/s, latencies, peak memory, a
+                dispatch's wall and a step's device time (graph replay);
+ 24. serve_continuous[int8 kv] - the same with `quantize_kv`: int8 lanes
+                with float32 scales, held against the solo int8 stream, with
+                the cache's bytes and the step beside the bf16 one;
+ 25. serve_speculate - `ModelWorker(speculate=7)`: a 32-token caption by
+                /worker_generate_stream against the solo stream (same rule),
+                q4_matmul only at 8 rows, 225 a verify step, the stats
+                against the tokens streamed; accept rate, tokens per verify
+                step, tokens/s against the plain stream.
 Then the `kernels` JSON line, the card's name and power limit as nvidia-smi
 reports them, and last the device line. Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -594,6 +616,48 @@ def _attn_timed_rows(peaks: dict, dtype, d: int, worst: dict, launches_from) -> 
              "timed_by": TIMED_BY["bwd"]}]
 
 
+# The bf16 ViT forward at one 336 px image through ViT-L/14-336 (16 heads, 577
+# tokens, head dim 64): the tower of every admission and speculative prefill
+# in the serving phases.
+VIT_SERVE_SHAPE = (16, 577, 64)
+
+
+def check_vit_serve_row(peaks: dict) -> dict:
+    """The ViT forward kernel at VIT_SERVE_SHAPE in bf16 against its plain
+    version (ATTN_TOL, LSE_TOL), then timed: the kernel and SDPA by graph
+    replay, the plain version by events."""
+    import torch
+    import torch.nn.functional as F
+
+    from robustvlm_tpu_torch.ops.kernels import vit_attention as A
+
+    bh, n, d = VIT_SERVE_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(577)
+    q, k, v = ((torch.randn(bh, n, d, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+               for _ in range(3))
+    got = A.attention_fwd_cuda(q, k, v)
+    res = _attn_check("bfloat16", got, A.attention_fwd_plain(q, k, v), False, names=("o", "lse"))
+    ok = all(w for _, w in res.values())
+    emit({"phase": "kernels", "kernel": "vit_attention", "dtype": "bfloat16", "n": n, "d": d, "bh": bh,
+          "max_abs_err": {name: e for name, (e, _) in res.items()},
+          "within": {name: w for name, (_, w) in res.items()}, "ok": ok})
+    if not ok:
+        raise AssertionError(f"vit_attention bf16 at {VIT_SERVE_SHAPE} disagrees with its plain version")
+    q4d, k4d, v4d = (t.view(1, bh, n, d) for t in (q, k, v))
+    elems = bh * n * d
+    bnd, by = bound_ms(4 * elems * 2 + bh * n * 4, 4 * bh * n * n * d, "bfloat16", peaks)
+    return {"name": "vit_attention_fwd[bfloat16,336px]", "route": "cuda", "dtype": "bfloat16",
+            "shape": list(VIT_SERVE_SHAPE), **_attn_source("fwd", "bfloat16", "vit_attention.cu"),
+            "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:157", "counter": "vit_attention_fwd",
+            "launches_from": "serve_continuous", "max_abs_err": res["o"][0],
+            "ms": time_graph_ms(lambda: A.attention_fwd_cuda(q, k, v)),
+            "plain_ms": time_ms(lambda: A.attention_fwd_plain(q, k, v)),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": time_graph_ms(lambda: F.scaled_dot_product_attention(q4d, k4d, v4d)),
+            "timed_by": TIMED_BY["fwd"]}
+
+
 # Flash attention at the main paths' shapes: the LLaVA-1.5-7B LM layer
 # (32 heads, the `llava` phase's teacher-forced sequence at batch 1, head
 # dim 128) and the CLIP text tower (96 = 8 prompts x 12 heads, 77 tokens,
@@ -819,11 +883,19 @@ def _flash_clip_text_row(max_abs_err: float, peaks: dict) -> dict:
 
 # q4_matmul at the LLaVA-1.5-7B decode step's weights: (K, N) and the number
 # of launches of each in one step (32 layers x wq/wk/wv/wo, w_gate/w_up,
-# w_down; the LM head), batches 1, 4 (the batcher's) and 32 (the most the
+# w_down; the LM head), batches 1 (a stream step), 4 (the batcher's and a
+# continuous step's 4 lanes), 8 (a speculative verify step at k = 7), 9 (an
+# odd count: a verify at k = 8; checked, not timed) and 32 (the most the
 # kernel takes). Limits as tests/test_torch_q4_matmul.py: bf16 x within
 # 2^-7 |ref| + 1e-5 max|ref| per element, float32 x within 1e-5 max|ref|.
+# At 8 rows each row must also equal, bit for bit, the same row inside
+# another 8-row batch (lane isolation rests on it).
 Q4_SHAPES = ((4096, 4096, 128), (4096, 11008, 64), (11008, 4096, 32), (4096, 32000, 1))
-Q4_BATCHES = (1, 4, 32)
+Q4_BATCHES = (1, 4, 8, 9, 32)
+Q4_UNTIMED = (9,)
+# the decode steps that get a row: rows per launch -> the phase whose run
+# gives the row its launches
+Q4_STEP_ROWS = {1: "serve", 4: "serve_continuous", 8: "serve_speculate"}
 Q4_GROUP = 128
 L2_BYTES = 50 * 2**20  # H100 L2: timing cycles through more weight copies than this
 
@@ -935,8 +1007,10 @@ def check_q4_matmul(peaks: dict) -> list:
     kernel and both yardsticks are timed by CUDA-graph replay (device time),
     each launch reading its weight from device memory;
     `ms_eager_back_to_back` is the same launch from Python in a loop, which
-    the host paces. One row per body: a batch-1 decode step, each term
-    summed over its 225 launches (library_ms None if any shape has none)."""
+    the host paces. Rows per body: a decode step at 1, 4 and 8 rows (a
+    stream step, a continuous step of 4 lanes, a verify step at k = 7), each
+    term summed over its 225 launches (library_ms None if any shape has
+    none)."""
     import torch
 
     from robustvlm_tpu_torch.ops.kernels import q4_matmul as Q
@@ -948,9 +1022,9 @@ def check_q4_matmul(peaks: dict) -> list:
     library = {}  # (k, n, b) -> the library's line fields, shared by both bodies
     for body in ("group", "shift"):
         group = body == "group"
-        step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "yardstick_bf16_matmul_ms": 0.0,
-                "library_ms": 0.0}
-        library_errors = []
+        steps = {b: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "yardstick_bf16_matmul_ms": 0.0,
+                     "library_ms": 0.0} for b in Q4_STEP_ROWS}
+        library_errors = {b: [] for b in Q4_STEP_ROWS}
         worst = 0.0
         for k, n, count in Q4_SHAPES:
             w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
@@ -975,6 +1049,20 @@ def check_q4_matmul(peaks: dict) -> list:
                 line = {"phase": "kernels", "kernel": "q4_matmul", "body": body, "dtype": dname,
                         "shape": {"x": [b, k], "packed": [k // 2, n], "scales": list(s.shape)},
                         "max_abs_err": err, "within": ok, "bitwise_repeatable": repeatable}
+                if b == 8:  # row 0 inside another batch of 8: bit-equal
+                    other = x.clone()
+                    other[1:] = (torch.randn(b - 1, k, generator=gen, device=dev) * 0.5).to(dtype)
+                    line["rows_independent"] = torch.equal(
+                        Q.q4_matmul_cuda(other, p, s, group=group)[0], got[0])
+                    repeatable = repeatable and line["rows_independent"]
+                if b in Q4_UNTIMED:
+                    line["ok"] = ok and repeatable
+                    emit(line)
+                    if not line["ok"]:
+                        raise AssertionError(f"q4_matmul {body} x {b}x{k}, W {k}x{n}: disagrees or "
+                                             "is not repeatable")
+                    worst = max(worst, err)
+                    continue
                 if (k, n, b, dtype) == (4096, 11008, 4, torch.bfloat16):
                     swapped = Q.q4_matmul_reference(x, (p >> 4) | (p << 4), s, group=group)
                     shifted = s.clone()
@@ -1005,27 +1093,34 @@ def check_q4_matmul(peaks: dict) -> list:
                     raise AssertionError(f"q4_matmul {body} {dname} x {b}x{k}, W {k}x{n}: disagrees, "
                                          "is not repeatable, or a planted fault passed the check")
                 worst = max(worst, err)
-                if b == 1:
+                if b in Q4_STEP_ROWS and dtype == torch.bfloat16:
                     for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bnd),
                                    ("yardstick_bf16_matmul_ms", yard),
                                    ("library_ms", lib["library_ms"] or 0.0)):
-                        step[key] += count * v
+                        steps[b][key] += count * v
                     if lib["library_ms"] is None:
-                        library_errors.append(f"{k}x{n}: {lib['library_error']}")
+                        library_errors[b].append(f"{k}x{n}: {lib['library_error']}")
             del copies, w16s, p, s, w16
             torch.cuda.empty_cache()
-        rows.append({"name": f"q4_matmul[{body}]", "route": "cuda",
-                     "source": "robustvlm_tpu_torch/csrc/q4_matmul.cu",
-                     "replaces": "robustvlm_tpu/ops/pallas/q4_matmul.py:168 ("
-                                 + ("_kernel_group :103" if group else "_kernel :66, Q4_KERNEL=shift") + ")",
-                     "dtype": "bfloat16", "counter": f"q4_matmul_{body}",
-                     "shape": "LLaVA-1.5-7B decode step at batch 1: 225 launches, 32 x (4 x 4096x4096, "
-                              "2 x 4096x11008, 11008x4096) + 4096x32000, group 128; each time summed",
-                     "max_abs_err": worst, **step, "bound_by": "bytes",
-                     "library": "torch._weight_int4pack_mm (zeros 0, bf16 scales; the shift "
-                                "body's function), CUDA-graph replay"})
-        if library_errors:
-            rows[-1].update({"library_ms": None, "library_error": "; ".join(library_errors)})
+        for b, phase in Q4_STEP_ROWS.items():
+            what = {1: "a stream step at batch 1", 4: "a continuous step of 4 lanes",
+                    8: "a speculative verify step at k = 7"}[b]
+            rows.append({"name": f"q4_matmul[{body}]" if b == 1 else f"q4_matmul[{body},{b} rows]",
+                         "route": "cuda", "source": "robustvlm_tpu_torch/csrc/q4_matmul.cu",
+                         "replaces": "robustvlm_tpu/ops/pallas/q4_matmul.py:168 ("
+                                     + ("_kernel_group :103" if group else "_kernel :66, Q4_KERNEL=shift")
+                                     + ")",
+                         "dtype": "bfloat16",
+                         "counter": f"q4_matmul_{body}" if b == 1 else f"q4_matmul_{body}@{b}",
+                         "launches_from": phase,
+                         "shape": f"LLaVA-1.5-7B decode, {what}: 225 launches of x ({b}, K), 32 x (4 x "
+                                  "4096x4096, 2 x 4096x11008, 11008x4096) + 4096x32000, group 128; "
+                                  "each time summed",
+                         "max_abs_err": worst, **steps[b], "bound_by": "bytes",
+                         "library": "torch._weight_int4pack_mm (zeros 0, bf16 scales; the shift "
+                                    "body's function), CUDA-graph replay"})
+            if library_errors[b]:
+                rows[-1].update({"library_ms": None, "library_error": "; ".join(library_errors[b])})
     return rows
 
 
@@ -1040,6 +1135,7 @@ def phase_kernels(peaks: dict) -> list:
     rows += check_flash(peaks, "llava-1.5-7b-rob", ("bfloat16",), tag="llava-rob", launches_from="llava_rob")
     rows += check_flash_alibi(peaks, llava_mpt_seq_len(), case="alibi_llava_mpt", tag="llava-mpt",
                               launches_from=LLAVA_MPT_RUNS, launches_cut=LLAVA_MPT_CUT)
+    rows.append(check_vit_serve_row(peaks))
     rows += check_q4_matmul(peaks)
     return rows
 
@@ -1047,7 +1143,8 @@ def phase_kernels(peaks: dict) -> list:
 def _counters() -> list:
     from robustvlm_tpu_torch.ops.kernels import attack_step, flash_attention, q4_matmul, vit_attention
 
-    return [attack_step.LAUNCHES, vit_attention.LAUNCHES, flash_attention.LAUNCHES, q4_matmul.LAUNCHES]
+    return [attack_step.LAUNCHES, vit_attention.LAUNCHES, flash_attention.LAUNCHES, q4_matmul.LAUNCHES,
+            q4_matmul.LAUNCHES_BY_ROWS]
 
 
 def _reset_launches() -> None:
@@ -3666,15 +3763,6 @@ def _png_b64(arr) -> str:
     return base64.b64encode(buf.getvalue()).decode()
 
 
-def _stream(url: str, payload: dict) -> list:
-    import urllib.request
-
-    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
-                                 headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=600) as r:
-        return [json.loads(line) for line in r]
-
-
 def _held_bytes(model) -> int:
     return sum({t.data_ptr(): t.numel() * t.element_size() for t in model.state_dict().values()}.values())
 
@@ -3719,7 +3807,7 @@ def _decode_logits_check(adapter, x, prompt) -> dict:
             "same_argmax": bool(torch.equal(kernel.argmax(-1), plain.argmax(-1)))}
 
 
-def phase_serve() -> dict:
+def phase_serve() -> tuple:
     """The model worker at LLaVA-1.5-7B full width (32 LM layers, the 336 px
     tower), random weights from seed 0, built as its CLI builds it
     (`build_worker`): float32 draws quantized in place to int4 (group 128),
@@ -3729,11 +3817,11 @@ def phase_serve() -> dict:
     the shift body, and 4 concurrent captions to a second worker around the
     same model with a 20 ms window (one batch-4 decode); then, outside the
     counted requests, the timed caption straight from `get_outputs`. Returns
-    the requests' launches."""
+    the requests' launches and the adapter (the serving phases after it
+    reuse the 7B build)."""
     import gc
     import os
     import threading
-    import urllib.request
 
     import numpy as np
     import torch
@@ -3776,12 +3864,6 @@ def phase_serve() -> dict:
     worker.worker_address = f"http://127.0.0.1:{wsrv.server_address[1]}"
     batch_addr = f"http://127.0.0.1:{bsrv.server_address[1]}"
 
-    def post(url, payload):
-        req = urllib.request.Request(url, data=json.dumps(payload).encode(),
-                                     headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=600) as r:
-            return json.loads(r.read())
-
     rng = np.random.RandomState(0)
     images = [_png_b64(rng.randint(0, 255, (360, 400, 3), np.uint8)) for _ in range(SERVE_BATCH)]
     cap = {"model": worker.model_name, "image_b64": images[0], "task": "caption",
@@ -3790,24 +3872,24 @@ def phase_serve() -> dict:
     eval_models.make_llava_decode_fns = timer
     responses = {}
     try:
-        registered = post(ctrl_addr + "/register_worker",
+        registered = _post_json(ctrl_addr + "/register_worker",
                            {"worker_name": worker.worker_address, "check_heart_beat": False})["exist"]
-        responses["warmup"] = post(ctrl_addr + "/worker_generate", {**cap, "max_new_tokens": 4})
+        responses["warmup"] = _post_json(ctrl_addr + "/worker_generate", {**cap, "max_new_tokens": 4})
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
         n_runs = len(timer.runs)
         t1 = time.perf_counter()
-        responses["caption"] = post(ctrl_addr + "/worker_generate", cap)
+        responses["caption"] = _post_json(ctrl_addr + "/worker_generate", cap)
         torch.cuda.synchronize()
         caption_s = time.perf_counter() - t1
         timed = timer.runs[n_runs]
-        responses["vqa"] = post(ctrl_addr + "/worker_generate",
+        responses["vqa"] = _post_json(ctrl_addr + "/worker_generate",
                                 {**cap, "task": "vqa", "question": "What is in the image?"})
-        chunks = _stream(ctrl_addr + "/worker_generate_stream", cap)
+        chunks = _timed_stream(ctrl_addr + "/worker_generate_stream", cap)["chunks"]
         os.environ["Q4_KERNEL"] = "shift"
         try:
-            responses["caption_shift_body"] = post(ctrl_addr + "/worker_generate", cap)
+            responses["caption_shift_body"] = _post_json(ctrl_addr + "/worker_generate", cap)
         finally:
             del os.environ["Q4_KERNEL"]
         n_runs = len(timer.runs)
@@ -3816,7 +3898,7 @@ def phase_serve() -> dict:
 
         def send(i):
             go.wait()
-            results[i] = post(batch_addr + "/worker_generate", {**cap, "image_b64": images[i]})
+            results[i] = _post_json(batch_addr + "/worker_generate", {**cap, "image_b64": images[i]})
 
         threads = [threading.Thread(target=send, args=(i,)) for i in range(SERVE_BATCH)]
         t2 = time.perf_counter()
@@ -3859,7 +3941,7 @@ def phase_serve() -> dict:
         "decode_logits_same_argmax": logits["same_argmax"],
     }
     cfg = model.cfg
-    del worker, batch_worker, adapter, model
+    del batch_worker, model
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "serve", "entry": "robustvlm_tpu_torch.serve.model_worker.build_worker",
@@ -3881,7 +3963,468 @@ def phase_serve() -> dict:
           "checks": checks, "ok": all(checks.values())})
     if not all(checks.values()):
         raise AssertionError(f"serve checks failed: {checks}")
-    return launches
+    return launches, adapter
+
+
+# ------------------------------------------------------------------ phases 23-25
+# `--continuous --cb-slots 4 --cb-width 32 --cb-max-new 32`, and the 8
+# requests' max_new_tokens (lanes free at different times, so requests join
+# a batch that is decoding), sent CB_STAGGER_S apart
+CB_ARGS = {"n_slots": 4, "width": 32, "max_new": 32}
+CB_NEW_TOKENS = (32, 24, 32, 16, 32, 24, 16, 32)
+CB_QUESTIONS = (None, "What is in the image?", None, "What color is the sky?", None,
+                "How many people are there?", None, "Is it raining?")
+CB_STAGGER_S = 0.25
+SPEC_K = 7  # the JAX package's own setting (scripts/bench_spec.py)
+SPEC_NEW_TOKENS = 32
+# Token equality with the batch-1 stream on the card: a batched or wider step
+# rounds in other orders (other GEMM shapes, other key lengths), and
+# LOGIT_TOL bounds how far a step's bf16 logits move, relative to the
+# largest |logit|, under a change of rounding order through the 32 layers
+# (`_decode_logits_check`: the kernel against its plain version). Two logits
+# that each move by up to that much can swap only where they are within
+# twice it: a divergence is accepted only where, at the first divergent
+# token, the solo path's logit of the token the other path chose is within
+# NEAR_TIE x that step's largest |logit| of the solo path's top logit.
+NEAR_TIE = 2 * LOGIT_TOL
+
+
+def _solo_trace(adapter, x, prompt: str, n: int) -> tuple:
+    """The batch-1 greedy stream (`stream_tokens`'s path: `_decode_fns` and
+    `greedy_generate_stream`): its token ids and the float32 logits (on the
+    host) that each came from."""
+    import torch
+
+    from robustvlm_tpu_torch.models.generation import greedy_generate_stream
+
+    rows = []
+
+    def prefill(*a, **k):
+        logits, carry = pf(*a, **k)
+        rows.append(logits[0].float().cpu())
+        return logits, carry
+
+    def decode(*a, **k):
+        logits, carry = df(*a, **k)
+        rows.append(logits[0, -1].float().cpu())
+        return logits, carry
+
+    tok = adapter.tok
+    ids = []
+    with torch.no_grad():
+        pf, df, toks, n_pad = adapter._decode_fns(x, [prompt], n)
+        for t in greedy_generate_stream(prefill, decode, toks, n_pad, max_new_tokens=n,
+                                        eos_id=tok.eos_token_id, pad_id=tok.pad_token_id):
+            if int(t[0]) in (tok.eos_token_id, tok.pad_token_id):
+                break
+            ids.append(int(t[0]))
+    return ids, rows
+
+
+def _near_tie(got: list, ref: list, rows: list, eos: int) -> dict:
+    """Equal tokens, or a first divergence where the token the other path
+    chose (EOS where it stopped) is within the NEAR_TIE bound of the solo
+    path's top logit."""
+    if got == ref:
+        return {"equal": True, "ok": True}
+    i = next((j for j, (a, b) in enumerate(zip(got, ref)) if a != b), min(len(got), len(ref)))
+    if i >= len(rows):
+        return {"equal": False, "first_divergence": i, "ok": False}
+    row = rows[i]
+    other = got[i] if i < len(got) else eos
+    top, top_abs = float(row.max()), float(row.abs().max())
+    gap = top - float(row[other])
+    return {"equal": False, "first_divergence": i, "token": other, "solo_token": int(row.argmax()),
+            "gap_to_top": gap, "max_abs_logit": top_abs, "bound": NEAR_TIE * top_abs,
+            "ok": gap <= NEAR_TIE * top_abs}
+
+
+def _timed_stream(url: str, payload: dict) -> dict:
+    """/worker_generate_stream with the host times of submission, first and
+    last chunk."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    chunks, times = [], []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            chunks.append(json.loads(line))
+            times.append(time.perf_counter())
+    return {"chunks": chunks, "t_submit": t0, "t_first": times[0] if times else math.nan,
+            "t_last": times[-1] if times else math.nan}
+
+
+def _hash_ids(text: str) -> list:
+    """Token ids back from the hash tokenizer's text ("tok<id>" words)."""
+    return [int(w[3:]) for w in text.split()]
+
+
+def _serving_stack(worker):
+    """The port's controller and `worker` on ephemeral 127.0.0.1 ports, the
+    worker registered: (controller address, servers)."""
+    import threading
+    import urllib.request
+
+    from robustvlm_tpu_torch.serve import controller as C
+    from robustvlm_tpu_torch.serve import model_worker as MW
+
+    ctrl = C.serve("127.0.0.1", 0)
+    wsrv = MW.serve_worker(worker, "127.0.0.1", 0)
+    for srv in (ctrl, wsrv):
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    addr = f"http://127.0.0.1:{ctrl.server_address[1]}"
+    worker.worker_address = f"http://127.0.0.1:{wsrv.server_address[1]}"
+    req = urllib.request.Request(addr + "/register_worker", data=json.dumps(
+        {"worker_name": worker.worker_address, "check_heart_beat": False}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        if not json.loads(r.read())["exist"]:
+            raise AssertionError("the worker did not register")
+    return addr, (ctrl, wsrv)
+
+
+def _post_json(url: str, payload: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def _wait_idle(eng, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while any(s is not None for s in eng._slots) or eng._queue:
+        if time.monotonic() > deadline:
+            raise AssertionError("the continuous engine did not go idle")
+        time.sleep(0.01)
+
+
+def _step_graph_ms(eng) -> dict:
+    """One engine step of all lanes (at post slot width + 16) by CUDA-graph
+    replay: its device time without the host's pace. A measurement only: if
+    the step cannot be captured, the error is reported instead."""
+    import numpy as np
+    import torch
+
+    step = eng._cores[1]
+    ops = np.stack([eng._nxt, np.full_like(eng._pos, eng.width + 16), eng._npad])
+    nxt, pos, npad = torch.from_numpy(ops).to(eng.model.device)
+    try:
+        with torch.no_grad():
+            return {"step_device_ms": time_graph_ms(lambda: step(nxt, eng._bcaches, pos, npad),
+                                                    iters=4, replays=3)}
+    except Exception as e:  # noqa: BLE001 - reported, not a correctness check
+        return {"step_device_ms": None, "step_graph_error": f"{type(e).__name__}: {e}"[:300]}
+
+
+def phase_serve_continuous(adapter, quantize_kv: bool = False, bf16_kv: dict = None) -> tuple:
+    """`--continuous` on the adapter the `serve` phase built (LLaVA-1.5-7B
+    full width, int4 LM weights, bf16): an engine of 4 lanes, width 32, 32
+    new tokens at most, behind the port's controller on 127.0.0.1; 8
+    caption/VQA streams sent CB_STAGGER_S apart (and, in bf16 KV, 4 short
+    requests through the shift body). Held: each request's tokens against
+    its solo batch-1 stream (NEAR_TIE rule), a request admitted while
+    another decodes, q4_matmul only at 4 rows and a multiple of 225 a step,
+    the tower's ViT forward once a layer an admission; outside the counted
+    requests, lane isolation (one request in lane 0 beside two sets of
+    neighbours: bit-equal tokens and lane logits) and a lane cancelled on a
+    stop string freeing its slot. Returns (launches, the step's numbers)."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.serve import model_worker as MW
+    from robustvlm_tpu_torch.serve.continuous import ContinuousEngine
+    from robustvlm_tpu_torch.vlm_eval import eval_models
+
+    name = "serve_continuous[int8 kv]" if quantize_kv else "serve_continuous"
+    adapter.quantize_kv = quantize_kv
+    cfg = adapter.cfg
+    tower_layers = cfg.vision.vision.layers - 1  # LLaVA drops the tower's last block
+    eng = ContinuousEngine(adapter, **CB_ARGS)
+    worker = MW.ModelWorker(adapter, "llava-7b", worker_address="", image_size=cfg.vision.image_size,
+                            continuous=eng)
+    walls = []
+    real_dispatch = eng._dispatch
+
+    def timed_dispatch():
+        t = time.perf_counter()
+        real_dispatch()
+        walls.append(time.perf_counter() - t)
+
+    eng._dispatch = timed_dispatch
+    rng = np.random.RandomState(1)
+    images = [_png_b64(rng.randint(0, 255, (360, 400, 3), np.uint8)) for _ in CB_NEW_TOKENS]
+    payloads = [{"model": "llava-7b", "image_b64": img, "max_new_tokens": n,
+                 **({"task": "vqa", "question": q} if q else {"task": "caption"})}
+                for img, n, q in zip(images, CB_NEW_TOKENS, CB_QUESTIONS)]
+    addr, servers = _serving_stack(worker)
+    stream_url = addr + "/worker_generate_stream"
+    real_step = eval_models.llava_decode_step
+    try:
+        warm = _post_json(addr + "/worker_generate", {**payloads[0], "max_new_tokens": 4})
+        _wait_idle(eng)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        walls.clear()
+        results = [None] * len(payloads)
+
+        def send(i):
+            results[i] = _timed_stream(stream_url, payloads[i])
+
+        threads = []
+        for i in range(len(payloads)):
+            threads.append(threading.Thread(target=send, args=(i,)))
+            threads[-1].start()
+            time.sleep(CB_STAGGER_S)
+        for th in threads:
+            th.join()
+        admissions = len(payloads)
+        shift = []
+        if not quantize_kv:  # the shift body at 4 rows
+            _wait_idle(eng)
+            os.environ["Q4_KERNEL"] = "shift"
+            try:
+                shift = [None] * 4
+
+                def send_shift(i):
+                    shift[i] = _post_json(addr + "/worker_generate", {**payloads[i], "max_new_tokens": 4})
+
+                ths = [threading.Thread(target=send_shift, args=(i,)) for i in range(4)]
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join()
+                _wait_idle(eng)
+            finally:
+                del os.environ["Q4_KERNEL"]
+            admissions += 4
+        torch.cuda.synchronize()
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_walls_ms = [w * 1e3 for w in walls]
+
+        # lane isolation: request 0 in lane 0, beside requests 1-3 and then 4-6
+        rec = {"on": False, "logits": []}
+
+        def recording_step(*a, **kw):
+            logits, cache = real_step(*a, **kw)
+            if rec["on"]:
+                rec["logits"].append(logits[0, -1].clone())
+            return logits, cache
+
+        eval_models.llava_decode_step = recording_step
+        lane0 = []
+        for neighbours in ((1, 2, 3), (4, 5, 6)):
+            _wait_idle(eng)
+            rec["logits"], rec["on"] = [], True
+            r = eng.submit(worker.decode_image(payloads[0]), worker._prompt(payloads[0]), 32)
+            others = [eng.submit(worker.decode_image(payloads[j]), worker._prompt(payloads[j]), 32)
+                      for j in neighbours]
+            ids = r.wait_ids()
+            for o in others:
+                o.wait_ids()
+            rec["on"] = False
+            lane0.append((ids, torch.stack(rec["logits"][:max(len(ids) - 1, 0)] or [torch.zeros(1)])))
+        eval_models.llava_decode_step = real_step
+        isolation = {"tokens_equal": lane0[0][0] == lane0[1][0] and len(lane0[0][0]) > 1,
+                     "logits_bit_equal": torch.equal(lane0[0][1], lane0[1][1]),
+                     "steps_compared": int(lane0[0][1].shape[0]) if lane0[0][1].dim() == 2 else 0}
+
+        # a lane cancelled on a stop string frees its slot: every hash token
+        # holds "tok", so the stream stops at its first token
+        _wait_idle(eng)
+        long_done = {}
+
+        def send_long(j):
+            _post_json(addr + "/worker_generate", {**payloads[j], "max_new_tokens": 32})
+            long_done[j] = time.perf_counter()
+
+        adapter.DEFAULT_STOPS = ("tok",)
+        try:
+            ths = [threading.Thread(target=send_long, args=(j,)) for j in (1, 2, 3)]
+            for th in ths:
+                th.start()
+            cancelled = _timed_stream(stream_url, {**payloads[0], "max_new_tokens": 32})
+        finally:
+            del adapter.DEFAULT_STOPS
+        nxt_req = eng.submit(worker.decode_image(payloads[4]), worker._prompt(payloads[4]), 4)
+        next(iter(nxt_req.token_stream()))
+        t_next_first = time.perf_counter()
+        nxt_req.wait_ids()
+        for th in ths:
+            th.join()
+        cancel = {"stream_text": cancelled["chunks"][-1]["text"] if cancelled["chunks"] else None,
+                  "next_first_token_before_long_end_s": min(long_done.values()) - t_next_first}
+        step = _step_graph_ms(eng)
+        caches = eng._bcaches
+        cache_bytes = sum(t.numel() * t.element_size() for t in caches.values())
+        cache_dtypes = {k: str(t.dtype).split(".")[-1] for k, t in caches.items()}
+    finally:
+        eval_models.llava_decode_step = real_step
+        eng.shutdown()
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+
+    # the solo batch-1 streams, outside the counted requests
+    compare = []
+    for payload, res in zip(payloads, results):
+        x = torch.from_numpy(worker.decode_image(payload))[None].to(adapter.device)
+        ref, rows = _solo_trace(adapter, x, worker._prompt(payload), payload["max_new_tokens"])
+        got = _hash_ids(res["chunks"][-1]["text"]) if res["chunks"] else []
+        compare.append({"tokens": len(got), **_near_tie(got, ref, rows, adapter.tok.eos_token_id)})
+    adapter.quantize_kv = False
+    t0 = min(r["t_submit"] for r in results)
+    mid_decode = any(any(results[j]["t_first"] < results[i]["t_first"] < results[j]["t_last"]
+                         for j in range(i)) for i in range(1, len(results)))
+    total_tokens = sum(c["tokens"] for c in compare)
+    wall = max(r["t_last"] for r in results) - t0
+    per_step = LAUNCHES_PER_STEP
+    checks = {
+        "error_code_0": warm.get("error_code") == 0 and all(
+            c.get("error_code") == 0 for r in results for c in r["chunks"])
+        and all(r is not None and r.get("error_code") == 0 for r in shift),
+        "tokens_equal_solo_or_near_tie": all(c["ok"] for c in compare),
+        "admitted_while_another_decodes": mid_decode,
+        "q4_only_at_4_rows": (launches.get("q4_matmul_group@4", 0) > 0
+                              and launches.get("q4_matmul_group@4", 0) % per_step == 0
+                              and launches["q4_matmul_group"] == launches["q4_matmul_group@4"]),
+        "vit_forward_per_admission": launches["vit_attention_fwd"] == tower_layers * admissions,
+        "lane_isolation_bitwise": isolation["tokens_equal"] and isolation["logits_bit_equal"],
+        "cancel_frees_the_lane": cancel["stream_text"] == ""
+                                 and cancel["next_first_token_before_long_end_s"] > 0,
+    }
+    if quantize_kv:
+        checks["int8_caches"] = cache_dtypes == {"k": "int8", "v": "int8", "ks": "float32", "vs": "float32"}
+    else:
+        checks["q4_shift_at_4_rows"] = (launches.get("q4_matmul_shift@4", 0) > 0
+                                        and launches["q4_matmul_shift@4"] % per_step == 0
+                                        and launches["q4_matmul_shift"] == launches["q4_matmul_shift@4"])
+    numbers = {"dispatch_wall_ms_mean": float(np.mean(step_walls_ms)) if step_walls_ms else None,
+               "dispatch_wall_ms_median": float(np.median(step_walls_ms)) if step_walls_ms else None,
+               "dispatches": len(step_walls_ms), **step, "cache_bytes": cache_bytes,
+               "cache_dtypes": cache_dtypes}
+    line = {"phase": name, "entry": "robustvlm_tpu_torch.serve.model_worker.ModelWorker(continuous=)",
+            "engine": {**CB_ARGS, "chunk": 1}, "model": "llava-1.5-7b",
+            "weights": "the serve phase's: int4 LM (group 128), bf16", "kv": "int8" if quantize_kv else "bf16",
+            "requests": len(payloads), "new_tokens": total_tokens, "wall_s": wall,
+            "aggregate_tok_per_s": total_tokens / wall,
+            "latency_s": [r["t_last"] - r["t_submit"] for r in results],
+            "first_token_s": [r["t_first"] - r["t_submit"] for r in results],
+            "peak_gib": peak, **numbers, "vs_solo": compare, "lane_isolation": isolation,
+            "cancel": cancel, "near_tie_rel_to_max_logit": NEAR_TIE, "launches": launches,
+            "card": card_line(), "checks": checks, "ok": all(checks.values())}
+    if bf16_kv is not None:
+        line["bf16_kv_same_engine"] = bf16_kv
+    emit(line)
+    if not all(checks.values()):
+        raise AssertionError(f"{name} checks failed: {checks}")
+    return launches, numbers
+
+
+def phase_serve_speculate(adapter) -> dict:
+    """`--speculate 7` on the `serve` phase's adapter: /worker_generate_stream
+    through the port's controller, a 32-token caption by speculation (and an
+    8-token one through the shift body), then the same caption by the plain
+    stream. Held: the text's tokens against the solo batch-1 stream
+    (NEAR_TIE rule), q4_matmul only at 8 rows and 225 launches a verify
+    step, the stats consistent with the tokens streamed. Returns the
+    speculative caption's launches."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from robustvlm_tpu_torch.serve import model_worker as MW
+    from robustvlm_tpu_torch.serve import speculative
+
+    adapter.quantize_kv = False
+    worker = MW.ModelWorker(adapter, "llava-7b", worker_address="",
+                            image_size=adapter.cfg.vision.image_size, speculate=SPEC_K)
+    rng = np.random.RandomState(2)
+    payload = {"model": "llava-7b", "image_b64": _png_b64(rng.randint(0, 255, (360, 400, 3), np.uint8)),
+               "task": "caption", "max_new_tokens": SPEC_NEW_TOKENS}
+    record = []
+    real = speculative.spec_stream_tokens
+
+    def recorded(*a, **kw):
+        entry = {"stats": {}, "ids": []}
+        record.append(entry)
+        gen = real(*a, **{**kw, "stats": entry["stats"]})
+        try:
+            for t in gen:
+                entry["ids"].append(int(t[0]))
+                yield t
+        finally:
+            gen.close()
+
+    speculative.spec_stream_tokens = recorded
+    addr, servers = _serving_stack(worker)
+    url = addr + "/worker_generate_stream"
+    try:
+        warm = _timed_stream(url, {**payload, "max_new_tokens": 4})
+        torch.cuda.synchronize()
+        _reset_launches()
+        spec = _timed_stream(url, payload)
+        torch.cuda.synchronize()
+        launches = _launches()
+        stats = record[-1]["stats"]
+        streamed = record[-1]["ids"]
+        os.environ["Q4_KERNEL"] = "shift"
+        try:
+            spec_shift = _timed_stream(url, {**payload, "max_new_tokens": 8})
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["Q4_KERNEL"]
+        shift_launches = {k: v - launches.get(k, 0) for k, v in _launches().items()}
+        worker.speculate = 0
+        plain = _timed_stream(url, payload)
+    finally:
+        speculative.spec_stream_tokens = real
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+    x = torch.from_numpy(worker.decode_image(payload))[None].to(adapter.device)
+    ref, rows = _solo_trace(adapter, x, worker._prompt(payload), SPEC_NEW_TOKENS)
+    got = _hash_ids(spec["chunks"][-1]["text"]) if spec["chunks"] else []
+    plain_ids = _hash_ids(plain["chunks"][-1]["text"]) if plain["chunks"] else []
+    compare = _near_tie(got, ref, rows, adapter.tok.eos_token_id)
+    steps = stats.get("verify_steps", 0)
+    per_step = LAUNCHES_PER_STEP
+    every = [warm, spec, spec_shift, plain]
+    checks = {
+        "error_code_0": all(c.get("error_code") == 0 for r in every for c in r["chunks"]),
+        "tokens_equal_solo_or_near_tie": compare["ok"],
+        "plain_stream_equals_solo": plain_ids == ref,
+        "q4_only_at_8_rows": (steps > 0 and launches.get("q4_matmul_group@8", 0) == per_step * steps
+                              and launches["q4_matmul_group"] == launches["q4_matmul_group@8"]),
+        "q4_shift_at_8_rows": (shift_launches.get("q4_matmul_shift@8", 0) > 0
+                               and shift_launches["q4_matmul_shift@8"] % per_step == 0),
+        "stats_consistent": (stats.get("emitted") == len(streamed) and 0 < steps <= stats["emitted"]
+                             and 0.0 <= stats["accept_rate"] <= 1.0
+                             and streamed[:len(got)] == got),
+    }
+    spec_s = spec["t_last"] - spec["t_submit"]
+    plain_s = plain["t_last"] - plain["t_submit"]
+    emit({"phase": "serve_speculate", "entry": "robustvlm_tpu_torch.serve.model_worker.ModelWorker(speculate=)",
+          "k": SPEC_K, "model": "llava-1.5-7b", "weights": "the serve phase's: int4 LM (group 128), bf16",
+          "new_tokens": len(got), "stats": stats,
+          "tokens_per_verify_step": (stats["emitted"] - 1) / steps if steps else None,
+          "spec_s": spec_s, "plain_s": plain_s, "spec_tok_per_s": len(got) / spec_s,
+          "plain_tok_per_s": len(plain_ids) / plain_s, "speedup": plain_s / spec_s,
+          "vs_solo": compare, "shift_body": {"stats": record[2]["stats"],
+                                             "launches": shift_launches.get("q4_matmul_shift@8", 0)},
+          "launches": launches, "card": card_line(), "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"serve_speculate checks failed: {checks}")
+    return {**launches, "q4_matmul_shift@8": shift_launches.get("q4_matmul_shift@8", 0)}
 
 
 def card_line() -> str:
@@ -3944,14 +4487,23 @@ def main() -> int:
     runs["flamingo_ensemble[float32 stage]"] = phase_flamingo_ensemble()
     runs["benchmark_reference[ViT-g-14]"] = phase_benchmark_reference()
     runs.update(phase_benchmark())
-    runs["serve"] = phase_serve()
+    runs["serve"], adapter = phase_serve()
+    # the rest of serving on the serve phase's 7B build
+    runs["serve_continuous"], bf16_kv = phase_serve_continuous(adapter)
+    runs["serve_continuous[int8 kv]"], _ = phase_serve_continuous(adapter, quantize_kv=True,
+                                                                  bf16_kv=bf16_kv)
+    runs["serve_speculate"] = phase_serve_speculate(adapter)
+    del adapter
+    _free()
     # Each row takes the launches of the run of its path and dtype: the CLIP
     # kernels from the CLI's CLIP runs; flash in bf16 from the LLaVA eval,
     # in float32 from the ensemble's float32 stage (at head dim 64 from the
     # float32 CLIP run's text tower; at the robust tower's length from
     # `llava_rob`; with ALiBi from the OpenFlamingo runs or LLaVA-MPT's cut,
-    # named in the row); q4_matmul from serving; the ViT kernels at head dim
-    # 88 from the benchmark phases' ViT-g-14 runs (named in the row).
+    # named in the row); q4_matmul from serving (a batch-1 step from `serve`,
+    # 4 rows from `serve_continuous`, 8 from `serve_speculate`); the ViT
+    # kernels at head dim 88 from the benchmark phases' ViT-g-14 runs and at
+    # the 336 px tower from `serve_continuous` (named in the row).
     for r in rows:
         kernel = r.pop("counter", r["name"].split("[")[0])
         if "launches_from" in r:
@@ -3962,7 +4514,7 @@ def main() -> int:
             src = "llava" if r["dtype"] == "bfloat16" else "llava_ensemble[float32 stage]"
         else:
             src = f"main[{r['dtype']}]"
-        r["launches"] = runs[src][kernel]
+        r["launches"] = runs[src].get(kernel, 0)
         r["launches_from"] = src
     emit({"kernels": rows})
     print(card_line(), flush=True)

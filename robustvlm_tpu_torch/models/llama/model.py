@@ -10,11 +10,17 @@ for `x @ w`), so a JAX tree carries across by name (`convert.py`).
 - Full-sequence causal attention (no cache, no key mask) goes through the
   port's `flash_attention` (CUDA kernels on the card); the cached decode
   path stays masked plain attention, as in JAX.
+- The cache holds the compute dtype, or int8 codes with float32 scales per
+  (batch, head, token) (`init_cache(kv_bits=8)`, `_quantize_kv`): the
+  scales are applied to the score columns and the softmax probabilities,
+  never to the cached elements, in JAX's order of operations.
 - Layers are an `nn.ModuleList` walked by a Python loop (JAX scans stacked
   blocks); `remat` wraps each block of the full-sequence path in
   `torch.utils.checkpoint` (JAX: `jax.checkpoint` around the scan body).
-  The KV cache is one (L, B, Hkv, N, hd) buffer per k and v, written in
-  place.
+  The KV cache is one (L, B, Hkv, N, hd) buffer per k and v (and one (L, B,
+  Hkv, N) per scale), written in place; a (B,) vector of offsets writes each
+  row of the batch at its own depth (continuous batching) without leaving
+  the device.
 - Every block matmul and the LM head go through `ops/quant.qmatmul`: a
   plain weight is cast to the compute dtype (a model already held in that
   dtype casts nothing); a quantized leaf (serving) takes its int8 or packed
@@ -98,18 +104,40 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x[:, :, None].expand(b, h, n_rep, t, d).reshape(b, h * n_rep, t, d)
 
 
-def _attn(q, k, v, *, q_positions=None, kv_mask=None) -> torch.Tensor:
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, head, token) absmax int8 quantization of new K/V rows:
+    (B, H, T, hd) -> (int8 codes, float32 scales (B, H, T)). Rounds half to
+    even and clips to +-127, so the codes are JAX's on the same input."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _attn(q, k, v, *, q_positions=None, kv_mask=None, k_scale=None, v_scale=None) -> torch.Tensor:
     """Causal attention: q (B, Hq, Tq, hd), k/v (B, Hkv, Tk, hd). A full
     sequence without key mask takes `flash_attention`; otherwise (cached
     decode: Tq < Tk) key j is visible from query position p when j <= p
     (q_positions (Tq,) or (B, Tq), default the last Tq slots) and kv_mask
-    (B, Tk) marks it valid."""
+    (B, Tk) marks it valid. k_scale/v_scale (B, Hkv, Tk) dequantize an int8
+    cache: the codes are cast to q's dtype, k's scale multiplies the float32
+    score columns and v's the float32 probabilities before their cast."""
     n_rep = q.shape[1] // k.shape[1]
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    if k_scale is not None:
+        b_, h_, t_ = k_scale.shape
+
+        def rep3(sc):
+            return sc[:, :, None].expand(b_, h_, n_rep, t_).reshape(b_, h_ * n_rep, t_)
+
+        k_scale, v_scale = rep3(k_scale), rep3(v_scale)
+        k, v = k.to(q.dtype), v.to(q.dtype)
     tq, tk = q.shape[2], k.shape[2]
     if tq == tk and kv_mask is None and q_positions is None:
         return flash_attention(q, k, v, causal=True)
     s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * (1.0 / math.sqrt(q.shape[-1]))
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, :]
     qpos = torch.arange(tq, device=q.device) + (tk - tq) if q_positions is None else q_positions
     jj = torch.arange(tk, device=q.device)
     if qpos.dim() == 1:
@@ -119,21 +147,26 @@ def _attn(q, k, v, *, q_positions=None, kv_mask=None) -> torch.Tensor:
     if kv_mask is not None:
         mask = mask & kv_mask[:, None, :]
     s = torch.where(mask[:, None], s, -1e30)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+    p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, :]
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
 
 
 def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     """Write `new` (B, H, T, ...) into `buf` at token offset `pos`, in place.
     pos: an int or 0-dim tensor (one offset for the batch), or a (B,) tensor
-    of per-slot offsets (continuous batching)."""
+    of per-slot offsets (continuous batching), written by one indexed copy
+    on the buffer's device: no offset is read back to the host."""
     t = new.shape[2]
     if not torch.is_tensor(pos) or pos.dim() == 0:
         p = int(pos)
         buf[:, :, p:p + t] = new
         return buf
-    for i, p in enumerate(pos.tolist()):
-        buf[i, :, p:p + t] = new[i]
+    pos = pos.to(buf.device)
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]          # (B, 1)
+    slots = pos[:, None] + torch.arange(t, device=buf.device)[None, :]     # (B, T)
+    buf[rows, :, slots] = new.transpose(1, 2)  # (B, T, H, ...) at [b, :, slot]
     return buf
 
 
@@ -165,9 +198,10 @@ class Block(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x, cos, sin, *, cache=None, pos=None, kv_mask=None):
-        """One decoder layer. cache: (k, v) buffers (B, Hkv, N, hd) written
-        in place at `pos` (int, or (B,) per-slot offsets); kv_mask (B, N)
-        marks valid key slots."""
+        """One decoder layer. cache: (k, v) buffers (B, Hkv, N, hd), or (k, v,
+        ks, vs) of an int8 cache with its (B, Hkv, N) scales, written in
+        place at `pos` (int, or (B,) per-slot offsets); kv_mask (B, N) marks
+        valid key slots."""
         cfg = self.cfg
         b, t, _ = x.shape
         cd = x.dtype
@@ -183,9 +217,15 @@ class Block(nn.Module):
         if cache is not None:
             qpos = (pos[:, None] if torch.is_tensor(pos) and pos.dim() == 1 else pos) + \
                 torch.arange(t, device=x.device)
-            ck = _cache_write(cache[0], k.to(cache[0].dtype), pos)
-            cv = _cache_write(cache[1], v.to(cache[1].dtype), pos)
-            att = _attn(q, ck, cv, q_positions=qpos, kv_mask=kv_mask)
+            if len(cache) == 4:  # int8 KV cache (see _quantize_kv)
+                (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+                ck, cv, cks, cvs = (_cache_write(buf, new, pos)
+                                    for buf, new in zip(cache, (kq, vq, ks, vs)))
+                att = _attn(q, ck, cv, q_positions=qpos, kv_mask=kv_mask, k_scale=cks, v_scale=cvs)
+            else:
+                ck = _cache_write(cache[0], k.to(cache[0].dtype), pos)
+                cv = _cache_write(cache[1], v.to(cache[1].dtype), pos)
+                att = _attn(q, ck, cv, q_positions=qpos, kv_mask=kv_mask)
         else:
             att = _attn(q, k, v, kv_mask=kv_mask)
         att = att.transpose(1, 2).reshape(b, t, cfg.dim)
@@ -246,16 +286,14 @@ def llama_forward(
     cos, sin = rope_freqs(cfg, positions)
 
     if cache is not None:
-        if "ks" in cache:
-            raise NotImplementedError(
-                "llama_forward: the int8 KV cache is not ported (ROADMAP A.5, serving)")
         cache_len = cache["k"].shape[3]
         if kv_mask is not None and kv_mask.shape[1] < cache_len:
             # unwritten slots are invalid keys (also excluded by position)
             pad = torch.zeros(b, cache_len - kv_mask.shape[1], dtype=torch.bool, device=x.device)
             kv_mask = torch.cat([kv_mask, pad], dim=1)
+        keys = ("k", "v", "ks", "vs") if "ks" in cache else ("k", "v")
         for i, blk in enumerate(model.blocks):
-            x = blk(x, cos, sin, cache=(cache["k"][i], cache["v"][i]), pos=cache_pos,
+            x = blk(x, cos, sin, cache=tuple(cache[key][i] for key in keys), pos=cache_pos,
                     kv_mask=kv_mask)
         h = rms_norm(x, model.norm, cfg.norm_eps)
         return qmatmul(h, model.lm_head).float(), cache
@@ -273,10 +311,17 @@ def llama_forward(
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
                dtype=torch.bfloat16, kv_bits: int = 0, device=None) -> Dict[str, torch.Tensor]:
-    """Stacked per-layer KV buffers (L, B, Hkv, N, hd)."""
-    if kv_bits:
-        raise NotImplementedError("init_cache: the int8 KV cache is not ported (ROADMAP A.5, serving)")
+    """Stacked per-layer KV buffers (L, B, Hkv, N, hd). kv_bits=8 holds int8
+    codes with float32 scales (L, B, Hkv, N) per layer, batch, head and
+    token (`_quantize_kv`)."""
     n = max_len or cfg.max_seq_len
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, n, cfg.head_dim)
+    if kv_bits:
+        if kv_bits != 8:
+            raise ValueError(f"kv_bits must be 0 or 8, got {kv_bits}")
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                "vs": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -222,26 +222,42 @@ def llava_per_sample_loss(model: Llava, pixels01, pre_tokens, post_tokens, label
     return -masked.sum(dim=-1)
 
 
+def llava_decode_step(model: Llava, tok, cache, pos, kv_mask, qpos, *, t_prefix: int,
+                      compute_dtype=torch.bfloat16):
+    """One cached LLaMA-family decode step after a [pre | image] prefix of
+    `t_prefix` slots: tok (B, Tq) post tokens written at post slot `pos` (an
+    int, or a (B,) tensor of per-lane slots), kv_mask (B, N_post) the valid
+    post slots, qpos (B, Tq) the tokens' true post positions. Runs the LM
+    only, so the continuous engine and the speculative verifier step without
+    the tower. -> (logits (B, Tq, V) float32, cache)."""
+    b = tok.shape[0]
+    ones = torch.ones(b, t_prefix, dtype=torch.bool, device=kv_mask.device)
+    return llama_forward(model.llama, tokens=tok, positions=t_prefix + qpos,
+                         compute_dtype=compute_dtype, cache=cache, cache_pos=t_prefix + pos,
+                         kv_mask=torch.cat([ones, kv_mask], dim=1))
+
+
 def make_llava_decode_fns(model: Llava, pixels01, pre_tokens, *, max_total_len: int,
                           compute_dtype=torch.bfloat16, kv_bits: int = 0):
     """(prefill_fn, decode_fn) for models/generation.py: prefill runs the
     vision tower and the splice once, decode steps run the LM only, on fp or
     quantized LM weights alike. The cache is the stacked (L, B, ...) layout
     in both of the JAX package's param layouts (the module's layers are
-    separate either way). The MPT family's carry is (cache, kv_positions),
-    the true position of every cache slot, and `prefill_fn.reorder_carry`
+    separate either way); kv_bits=8 makes it the int8 cache (llama family,
+    `models/llama/model._quantize_kv`). The llama prefill takes `cache=`,
+    buffers to fill in place instead of fresh ones (a lane of the continuous
+    engine's batch). The MPT family's carry is (cache, kv_positions), the
+    true position of every cache slot, and `prefill_fn.reorder_carry`
     gathers both along the batch for beam search."""
     cfg = model.cfg
     if kv_bits and cfg.lm_family != "llama":
         raise ValueError("kv_bits is llama-family only")
-    if kv_bits:
-        raise NotImplementedError("the int8 KV cache is not ported (ROADMAP A.5, serving)")
     img = encode_images(model, pixels01, compute_dtype=compute_dtype)
     t_prefix = pre_tokens.shape[1] + cfg.n_image_tokens
     dev = img.device
     use_kvpos = cfg.lm_family == "mpt"
 
-    def prefill_fn(tokens, kv_valid, positions):
+    def prefill_fn(tokens, kv_valid, positions, cache=None):
         # tokens are the POST tokens; the prompt is pre + image + post
         b = tokens.shape[0]
         n_rep = b // img.shape[0]
@@ -257,27 +273,27 @@ def make_llava_decode_fns(model: Llava, pixels01, pre_tokens, *, max_total_len: 
             cache = init_mpt_cache(cfg.mpt, b, max_len=max_len, dtype=compute_dtype, device=dev)
             fill = torch.zeros(b, max_total_len - tokens.shape[1], dtype=pos_full.dtype, device=dev)
             kw["kv_positions"] = torch.cat([pos_full, fill], dim=1)
-        else:
-            cache = init_cache(cfg.llama, b, max_len=max_len, dtype=compute_dtype, device=dev)
+        elif cache is None:
+            cache = init_cache(cfg.llama, b, max_len=max_len, dtype=compute_dtype, kv_bits=kv_bits,
+                               device=dev)
         logits, cache = _lm_forward(model, inputs_embeds=embeds, positions=pos_full,
                                     compute_dtype=compute_dtype, cache=cache, cache_pos=0,
                                     kv_mask=kv_valid_full, **kw)
         return logits[:, -1], ((cache, kw["kv_positions"]) if use_kvpos else cache)
 
     def decode_fn(tok, carry, pos, kv_mask, qpos):
-        b = tok.shape[0]
+        if not use_kvpos:
+            return llava_decode_step(model, tok, carry, pos, kv_mask, qpos, t_prefix=t_prefix,
+                                     compute_dtype=compute_dtype)
+        b, t = tok.shape
         kv_mask_full = torch.cat([torch.ones(b, t_prefix, dtype=torch.bool, device=dev), kv_mask], dim=1)
-        kw = {}
-        if use_kvpos:
-            cache, kv_pos = carry
-            kv_pos[:, t_prefix + int(pos)] = t_prefix + qpos[:, 0]
-            kw["kv_positions"] = kv_pos
-        else:
-            cache = carry
+        cache, kv_pos = carry
+        start = t_prefix + int(pos)
+        kv_pos[:, start:start + t] = t_prefix + qpos
         logits, cache = _lm_forward(model, tokens=tok, positions=t_prefix + qpos,
                                     compute_dtype=compute_dtype, cache=cache,
-                                    cache_pos=t_prefix + pos, kv_mask=kv_mask_full, **kw)
-        return logits, ((cache, kw["kv_positions"]) if use_kvpos else cache)
+                                    cache_pos=t_prefix + pos, kv_mask=kv_mask_full, kv_positions=kv_pos)
+        return logits, (cache, kv_pos)
 
     if use_kvpos:
         def reorder_carry(carry, gather):

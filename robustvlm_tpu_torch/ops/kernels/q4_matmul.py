@@ -30,14 +30,17 @@ import ctypes
 import functools
 import math
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from robustvlm_tpu_torch.ops.kernels import _build
 
-# launches of the CUDA kernel (not of the plain version), per body
+# launches of the CUDA kernel (not of the plain version), per body, and per
+# body and row count ("q4_matmul_group@4": a continuous-batching step of 4
+# lanes; "@8": a speculative verify step at k = 7)
 LAUNCHES = {"q4_matmul_group": 0, "q4_matmul_shift": 0}
+LAUNCHES_BY_ROWS: Dict[str, int] = {}
 
 MAX_ROWS = 32  # decode-sized activations; larger batches take the split dot
 KERNEL_COLS = 128  # N must be a multiple of this (every N that pick_strip admits is)
@@ -148,7 +151,9 @@ def q4_matmul_cuda(x: torch.Tensor, p: torch.Tensor, s: torch.Tensor, *,
                             p.shape[0], n, s.shape[0] // 2, int(x.dtype == torch.bfloat16),
                             int(not group), stream)
     _build.check_launch(err, "q4_matmul")
-    LAUNCHES["q4_matmul_group" if group else "q4_matmul_shift"] += 1
+    name = "q4_matmul_group" if group else "q4_matmul_shift"
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_ROWS[f"{name}@{b}"] = LAUNCHES_BY_ROWS.get(f"{name}@{b}", 0) + 1
     return out
 
 

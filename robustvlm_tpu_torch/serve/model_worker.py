@@ -7,14 +7,20 @@ as base64 PNG or raw float lists in [0,1]). One worker process per card:
 
     python -m robustvlm_tpu_torch.serve.model_worker --model llava --model_size 7b \\
         --quantize-decode --quantize-bits 4 [--batch-window-ms W --max-batch B]
+        [--continuous --cb-slots 4 --cb-width 32 --cb-max-new 64 --cb-chunk 1]
+        [--speculate K] [--quantize-kv]
 
 `--device` defaults to cuda (`--device cpu --model_size test-tiny` runs the
 tiny model on the CPU). `--quantize-decode` quantizes the LM at startup, in
 place, leaf by leaf (serving-only: the fp weights are dropped); with
 `--quantize-bits 4` every decode-step matmul runs the `q4_matmul` kernel.
 `--batch-window-ms` coalesces concurrent requests into one batched call
-(`_Batcher`). `--continuous`, `--speculate` and `--quantize-kv` are not
-ported (ROADMAP A.5) and refuse to start.
+(`_Batcher`). `--continuous` admits greedy requests into a running decode
+batch of `--cb-slots` lanes at step boundaries (`serve/continuous.py`);
+`--speculate k` serves /worker_generate_stream by prompt-lookup speculative
+decoding, up to k + 1 tokens a step (`serve/speculative.py`); `--quantize-kv`
+keeps an int8 KV cache. `--speculate` and `--continuous` together are
+refused (the JAX worker ignores `--speculate` there without a word).
 """
 
 from __future__ import annotations
@@ -113,16 +119,23 @@ class _Batcher:
 class ModelWorker:
     def __init__(self, eval_model, model_name: str, *, worker_address: str,
                  controller_address: Optional[str] = None, image_size: int = 224,
-                 batch_window_ms: float = 0.0, max_batch: int = 8):
+                 batch_window_ms: float = 0.0, max_batch: int = 8, continuous=None,
+                 speculate: int = 0):
         self.model = eval_model
         self.model_name = model_name
         self.worker_address = worker_address
         self.controller_address = controller_address
         self.image_size = image_size
-        self.device = getattr(eval_model, "device", torch.device("cpu"))
+        self.device = eval_model.device
         self.queue_length = 0
         self.lock = threading.Lock()
         self.batcher = _Batcher(self, batch_window_ms, max_batch) if batch_window_ms > 0 else None
+        # continuous: a serve.continuous.ContinuousEngine; greedy requests
+        # join its running decode batch instead of queueing behind it
+        self.continuous = continuous
+        # speculate: k > 0 serves /worker_generate_stream by prompt-lookup
+        # speculative decoding (serve/speculative.py)
+        self.speculate = speculate
         if controller_address:
             self.register()
             threading.Thread(target=self._heartbeat_loop, daemon=True).start()
@@ -188,10 +201,19 @@ class ModelWorker:
     def _pixels(self, payload) -> torch.Tensor:
         return torch.from_numpy(self.decode_image(payload))[None].to(self.device)
 
+    def _submit(self, payload: dict):
+        return self.continuous.submit(self.decode_image(payload), self._prompt(payload),
+                                      int(payload.get("max_new_tokens", 32)))
+
     def generate(self, payload: dict) -> dict:
+        from robustvlm_tpu_torch.vlm_eval.eval_models import truncate_at_stops
+
         with self.lock:
             self.queue_length += 1
         try:
+            if self.continuous is not None and int(payload.get("num_beams", 1)) == 1:
+                text = self.model.tok.decode(self._submit(payload).wait_ids())
+                return {"text": truncate_at_stops(text, self.model.DEFAULT_STOPS), "error_code": 0}
             if self.batcher is not None:
                 return self.batcher.submit(payload)
             text = self.model.get_outputs(
@@ -206,14 +228,33 @@ class ModelWorker:
                 self.queue_length -= 1
 
     def generate_stream(self, payload: dict):
-        """Yield {"text": cumulative, "error_code": 0} dicts as tokens arrive."""
-        from robustvlm_tpu_torch.vlm_eval.eval_models import stream_outputs
+        """Yield {"text": cumulative, "error_code": 0} dicts as tokens arrive.
+        Under --continuous the request's lane is cancelled when a stop
+        string lands or the stream is closed early, which frees it for the
+        next request."""
+        from robustvlm_tpu_torch.vlm_eval.eval_models import stream_outputs, truncate_at_stops
 
         with self.lock:
             self.queue_length += 1
         try:
+            if self.continuous is not None:
+                req = self._submit(payload)
+                stops = self.model.DEFAULT_STOPS
+                ids = []
+                try:
+                    for t in req.token_stream():
+                        ids.append(t)
+                        raw = self.model.tok.decode(ids)
+                        if any(st in raw for st in stops):
+                            yield {"text": truncate_at_stops(raw, stops), "error_code": 0}
+                            return
+                        yield {"text": raw.strip(), "error_code": 0}
+                finally:
+                    req.cancel()  # a stop string or a closed stream frees the lane
+                return
             for text in stream_outputs(self.model, self._pixels(payload), self._prompt(payload),
-                                       max_new_tokens=int(payload.get("max_new_tokens", 32))):
+                                       max_new_tokens=int(payload.get("max_new_tokens", 32)),
+                                       speculate=self.speculate):
                 yield {"text": text, "error_code": 0}
         except Exception as e:  # pragma: no cover
             yield {"text": "", "error_code": 1, "error": str(e)}
@@ -288,33 +329,59 @@ def build_parser():
     p.add_argument("--quantize-bits", type=int, default=8, choices=(8, 4),
                    help="width for --quantize-decode: 8 = per-channel int8, 4 = packed int4 with "
                         "group-128 scales (the q4_matmul kernel)")
-    p.add_argument("--continuous", action="store_true", help="not ported (ROADMAP A.5)")
-    p.add_argument("--speculate", type=int, default=0, help="not ported (ROADMAP A.5)")
-    p.add_argument("--quantize-kv", action="store_true", help="not ported (ROADMAP A.5)")
+    p.add_argument("--continuous", action="store_true",
+                   help="continuous batching (serve/continuous.py): admit greedy requests into "
+                        "the running decode batch at step boundaries (--cb-slots lanes)")
+    p.add_argument("--cb-slots", type=int, default=4, help="decode lanes for --continuous")
+    p.add_argument("--cb-width", type=int, default=32,
+                   help="static post-prompt token width for --continuous (longer prompts are "
+                        "rejected)")
+    p.add_argument("--cb-max-new", type=int, default=64,
+                   help="per-lane generation cap for --continuous (a request's max_new_tokens "
+                        "clamps to it)")
+    p.add_argument("--cb-chunk", type=int, default=1,
+                   help="decode steps per dispatch for --continuous (admission waits up to "
+                        "chunk-1 steps)")
+    p.add_argument("--speculate", type=int, default=0,
+                   help="k > 0: serve /worker_generate_stream by prompt-lookup speculative "
+                        "decoding (serve/speculative.py), up to k+1 tokens a step; not with "
+                        "--continuous")
+    p.add_argument("--quantize-kv", action="store_true",
+                   help="int8 KV cache with per-token scales (llama family)")
     return p
 
 
 def build_worker(args) -> ModelWorker:
     """The worker `main` serves, built from parsed arguments: the adapter
     (`run_evaluation.build_eval_model`, bf16), quantized at startup under
-    --quantize-decode. Raises on the options that are not ported."""
-    for flag, on in (("--continuous", args.continuous), ("--speculate", args.speculate),
-                     ("--quantize-kv", args.quantize_kv)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported (ROADMAP A.5, serving)")
-    if args.quantize_decode and args.model != "llava":
-        raise SystemExit(f"--quantize-decode is not supported by the '{args.model}' adapter "
-                         "(llava only)")
+    --quantize-decode, with its int8 KV cache, continuous engine and
+    speculation as the flags ask."""
+    if args.speculate and args.continuous:
+        raise SystemExit("--speculate and --continuous cannot be combined: the continuous "
+                         "engine serves every greedy request, so --speculate would never run")
+    for flag, on in (("--quantize-decode", args.quantize_decode), ("--quantize-kv", args.quantize_kv),
+                     ("--continuous", args.continuous)):
+        if on and args.model != "llava":
+            raise SystemExit(f"{flag} is not supported by the '{args.model}' adapter (llava only)")
     from robustvlm_tpu_torch.vlm_eval.run_evaluation import build_eval_model
 
     model = build_eval_model(args, "half")
     if args.quantize_decode:
         model.quantize_for_serving(args.quantize_bits)
+    if args.quantize_kv:
+        model.quantize_kv = True
+    engine = None
+    if args.continuous:
+        from robustvlm_tpu_torch.serve.continuous import ContinuousEngine
+
+        engine = ContinuousEngine(model, n_slots=args.cb_slots, width=args.cb_width,
+                                  max_new=args.cb_max_new, chunk=args.cb_chunk)
     return ModelWorker(model, f"{args.model}-{args.model_size}",
                        worker_address=args.worker_address,
                        controller_address=args.controller_address or None,
                        image_size=model.cfg.vision.image_size,
-                       batch_window_ms=args.batch_window_ms, max_batch=args.max_batch)
+                       batch_window_ms=args.batch_window_ms, max_batch=args.max_batch,
+                       continuous=engine, speculate=args.speculate)
 
 
 def main(argv=None):

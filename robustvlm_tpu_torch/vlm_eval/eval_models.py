@@ -16,8 +16,11 @@ stand-in used without a HF tokenizer.
 Serving: generation can run on weight-only quantized LM weights, built
 lazily beside the fp model (`quantize_decode`) or in place for a
 serving-only process (`quantize_for_serving`), and `stream_tokens` /
-`stream_outputs` yield tokens as they are made. Not ported here: the
-continuous-batching cores and speculative decoding (ROADMAP A.5).
+`stream_outputs` yield tokens as they are made, one token a step or, with
+`speculate=k`, in bursts verified by one step of width k + 1
+(`serve/speculative.py`). `quantize_kv` makes generation keep an int8 KV
+cache. `LlavaEvalModel._continuous_cores` are the admission and step of the
+continuous-batching engine (`serve/continuous.py`).
 
 `remat=True` recomputes each vision and LM block in the backward
 (`torch.utils.checkpoint`); the loss and its gradient are those without it.
@@ -52,8 +55,10 @@ from robustvlm_tpu_torch.models.llava.conversation import (
     get_vqa_prompt,
     split_at_image,
 )
+from robustvlm_tpu_torch.models.llama.model import init_cache
 from robustvlm_tpu_torch.models.llava.model import (
     Llava,
+    llava_decode_step,
     llava_per_sample_loss,
     make_llava_decode_fns,
     to_half_layout_,
@@ -151,7 +156,9 @@ class LlavaEvalModel:
     scales) makes generation run on a weight-only quantized copy of the LM,
     built at the first generation and kept beside the fp model, which the
     loss path goes on using. A serving-only process calls
-    `quantize_for_serving` instead: in place, the fp LM weights dropped."""
+    `quantize_for_serving` instead: in place, the fp LM weights dropped.
+    `quantize_kv` (llama family) makes every generation keep an int8 KV
+    cache with per-token scales (`models/llama/model._quantize_kv`)."""
 
     DEFAULT_STOPS = ("</s>", "USER:")
 
@@ -165,6 +172,7 @@ class LlavaEvalModel:
         self.remat = remat
         self._cached: Optional[_CachedInputs] = None
         self.quantize_decode = quantize_decode
+        self.quantize_kv = False
         self._decode_model = None  # (bits, Llava) once built
         self._fp_dropped = False
 
@@ -272,8 +280,65 @@ class LlavaEvalModel:
         pre = torch.tensor([pre_ids] * x01.shape[0], dtype=torch.long, device=dev)
         pf, df = make_llava_decode_fns(self._gen_params(), x01, pre,
                                        max_total_len=toks.shape[1] + max_new_tokens,
-                                       compute_dtype=self.compute_dtype)
+                                       compute_dtype=self.compute_dtype,
+                                       kv_bits=8 if self.quantize_kv else 0)
         return pf, df, toks, n_pad
+
+    def _continuous_cores(self, n_slots: int, width: int, max_new: int, chunk: int = 1):
+        """(admit, step, lanes) of the continuous-batching engine
+        (serve/continuous.py): `n_slots` decode lanes, post tokens
+        left-padded to `width`, a lane cache of `width + max_new` post slots,
+        `chunk` greedy steps a dispatch. Every tensor is made on the
+        adapter's device; the caches are stacked (L, B, ...), lanes on axis 1.
+
+        lanes(pre) -> the zeroed batched caches, at the prefill's cache
+            length and dtype (int8 under `quantize_kv`).
+        admit(x01, pre, toks, n_pad, bcaches, slot) -> first token (1,)
+            a batch-1 prefill at the static width whose KV rows are written
+            straight into lane `slot` (zeroed first, so no row of an earlier
+            occupant stays).
+        step(nxt, bcaches, pos, n_pad) -> (n_slots, chunk) tokens
+            `chunk` greedy steps of every lane at its own depth `pos` (n_slots,);
+            key masks and positions are made on the device from the three
+            (n_slots,) operands, and the tokens stay there until the caller
+            copies them. A write past the last slot (a lane that is idle or
+            past its cap) lands on the last slot, as JAX's clamped update."""
+        model, cfg, dtype = self._gen_params(), self.cfg, self.compute_dtype
+        kv_bits = 8 if self.quantize_kv else 0
+        total = width + max_new
+        dev = self.device
+        sl = torch.arange(total, device=dev)[None, :]
+        ar = sl[:, :width]
+
+        def lanes(pre):
+            t_prefix = pre.shape[1] + cfg.n_image_tokens
+            return init_cache(cfg.llama, n_slots, max_len=t_prefix + total, dtype=dtype,
+                              kv_bits=kv_bits, device=dev)
+
+        def admit(x01, pre, toks, n_pad, bcaches, slot):
+            pf, _ = make_llava_decode_fns(model, x01, pre, max_total_len=total, compute_dtype=dtype,
+                                          kv_bits=kv_bits)
+            lane = {key: buf[:, slot:slot + 1] for key, buf in bcaches.items()}
+            for buf in lane.values():
+                buf.zero_()
+            logits, _ = pf(toks, ar >= n_pad[:, None], torch.clamp(ar - n_pad[:, None], min=0),
+                           cache=lane)
+            return torch.argmax(logits, dim=-1)
+
+        def step(nxt, bcaches, pos, n_pad):
+            t_prefix = bcaches["k"].shape[3] - total
+            cur, out = nxt, []
+            for j in range(chunk):
+                p = torch.clamp(pos + j, max=total - 1)
+                kv_mask = (sl >= n_pad[:, None]) & (sl <= p[:, None])
+                logits, bcaches = llava_decode_step(model, cur[:, None], bcaches, p, kv_mask,
+                                                    (p - n_pad)[:, None], t_prefix=t_prefix,
+                                                    compute_dtype=dtype)
+                cur = torch.argmax(logits[:, -1], dim=-1)
+                out.append(cur)
+            return torch.stack(out, dim=1)
+
+        return admit, step, lanes
 
     @torch.no_grad()
     def stream_tokens(self, x01: torch.Tensor, prompts: Sequence[str], max_new_tokens: int):
@@ -501,25 +566,30 @@ class Blip2EvalModel:
 def stream_outputs(model, x01: torch.Tensor, prompt: str, *, max_new_tokens: int = 32,
                    stop_strings: Optional[Sequence[str]] = None, speculate: int = 0):
     """Yield the cumulative decoded text of ONE example as greedy tokens
-    arrive (the serving stream path), through the adapter's `_decode_fns`."""
-    if speculate:
-        raise NotImplementedError("speculative decoding is not ported (ROADMAP A.5, serving)")
+    arrive (the serving stream path), through the adapter's `_decode_fns`.
+    speculate=k > 0 routes an adapter with `stream_tokens` through
+    prompt-lookup speculative decoding (`serve/speculative.py`: greedy
+    verification, 1 to k + 1 tokens a step)."""
     stops = tuple(stop_strings) if stop_strings is not None else model.DEFAULT_STOPS
-    pf, df, toks, n_pad = model._decode_fns(x01, [prompt], max_new_tokens)
+    if speculate and hasattr(model, "stream_tokens"):
+        from robustvlm_tpu_torch.serve.speculative import spec_stream_tokens
+
+        gen = spec_stream_tokens(model, x01, [prompt], max_new_tokens, k=speculate)
+    else:
+        pf, df, toks, n_pad = model._decode_fns(x01, [prompt], max_new_tokens)
+        gen = greedy_generate_stream(pf, df, toks, n_pad, max_new_tokens=max_new_tokens,
+                                     eos_id=model.tok.eos_token_id, pad_id=model.tok.pad_token_id)
     ids: List[int] = []
-    with torch.no_grad():
-        for step in greedy_generate_stream(pf, df, toks, n_pad, max_new_tokens=max_new_tokens,
-                                           eos_id=model.tok.eos_token_id,
-                                           pad_id=model.tok.pad_token_id):
-            t_id = int(step[0])
-            if t_id in (model.tok.eos_token_id, model.tok.pad_token_id):
-                break
-            ids.append(t_id)
-            raw = model.tok.decode(ids)
-            if any(st in raw for st in stops):
-                yield truncate_at_stops(raw, stops)
-                return
-            yield raw.strip()
+    for step in gen:
+        t_id = int(step[0])
+        if t_id in (model.tok.eos_token_id, model.tok.pad_token_id):
+            break
+        ids.append(t_id)
+        raw = model.tok.decode(ids)
+        if any(st in raw for st in stops):
+            yield truncate_at_stops(raw, stops)
+            return
+        yield raw.strip()
 
 
 def make_frame_mask(vision_x_shape, mask_out: str = "context") -> torch.Tensor:

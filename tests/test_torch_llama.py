@@ -94,5 +94,7 @@ def test_unported_options_raise():
     # remat is ported: the same logits (tests/test_torch_vlm_remat.py holds
     # its gradient against JAX's)
     assert torch.equal(llama_forward(model, tok, remat=True), llama_forward(model, tok))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(model.cfg, 1, kv_bits=8)
+    # the int8 KV cache is ported (tests/test_torch_kv_int8.py holds it against JAX)
+    c = init_cache(model.cfg, 1, max_len=5, kv_bits=8)
+    assert c["k"].dtype == torch.int8 and tuple(c["k"].shape) == (2, 1, 4, 5, 16)
+    assert c["vs"].dtype == torch.float32 and tuple(c["vs"].shape) == (2, 1, 4, 5)

@@ -11,7 +11,7 @@ decode against the JAX package's.
   the port from the same weights; greedy tokens equal to JAX's, prefill and
   first-step logits within 1e-4 of their largest magnitude (float32 on the
   CPU, the split dot in both packages).
-- The serving-only errors and the options that are not ported."""
+- The serving-only errors, and the serving options that build their worker."""
 
 import json
 import threading
@@ -218,15 +218,29 @@ def test_controller_worker_end_to_end():
 
 @pytest.mark.parametrize("flag", [["--continuous"], ["--speculate", "2"], ["--quantize-kv"]])
 def test_unported_worker_options_raise(flag):
+    """The three serving options that once refused to start now build their
+    worker: a continuous engine, speculation at k, an int8 KV cache
+    (tests/test_torch_continuous.py and test_torch_speculative.py hold what
+    they serve against JAX)."""
     args = MW.build_parser().parse_args(["--device", "cpu", "--model_size", "test-tiny",
                                          "--controller-address", "", *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        MW.build_worker(args)
+    w = MW.build_worker(args)
+    try:
+        assert (w.continuous is not None) == (flag == ["--continuous"])
+        assert w.speculate == (2 if flag[0] == "--speculate" else 0)
+        assert w.model.quantize_kv == (flag == ["--quantize-kv"])
+    finally:
+        if w.continuous is not None:
+            w.continuous.shutdown()
 
 
-def test_stream_outputs_refuses_speculation():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        next(stream_outputs(None, _image(), "a prompt", speculate=2))
+def test_stream_outputs_refuses_speculation(jax_side):
+    """Speculation is ported: stream_outputs(speculate=2) streams the text of
+    speculate=0, chunk for chunk."""
+    m = _adapter(jax_side)
+    x, prompt = _image(), m.get_caption_prompt()
+    plain = list(stream_outputs(m, x, prompt, max_new_tokens=6))
+    assert plain and list(stream_outputs(m, x, prompt, max_new_tokens=6, speculate=2)) == plain
 
 
 def test_worker_cli_rejects_unsupported_adapter():
@@ -275,6 +289,8 @@ class TestMicroBatcher:
     different configs split; window 0 is one request per call."""
 
     class _FakeModel:
+        device = torch.device("cpu")  # as every adapter has one
+
         def __init__(self):
             self.calls = []
 
