@@ -155,6 +155,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 q4_matmul only at 8 rows, 225 a verify step, the stats
                 against the tokens streamed; accept rate, tokens per verify
                 step, tokens/s against the plain stream.
+ 26. parallel - `robustvlm_tpu_torch.parallel` over a world-size-1 NCCL
+                process group: `driver.main` with train[tecoa2]'s argv for 2
+                steps in the group against without it (parameters
+                bit-equal, one gradient all-reduce a step); LLaVA-1.5-7B
+                bf16 under `shard_params` against the same model unsharded
+                (loss and pixel gradient at 665 tokens on 2 images, 5 APGD
+                iterations, to llava_reference's limits, bitwise status
+                reported) and the continuous engine on both (near-tie
+                rule); the eval merge over NCCL; ms, peaks and launches.
 Then the `kernels` JSON line, the card's name and power limit as nvidia-smi
 reports them, and last the device line. Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -4427,6 +4436,235 @@ def phase_serve_speculate(adapter) -> dict:
     return {**launches, "q4_matmul_shift@8": shift_launches.get("q4_matmul_shift@8", 0)}
 
 
+# ------------------------------------------------------------------ phase 26
+PARALLEL_TRAIN_STEPS = 2
+PARALLEL_APGD_ITERS = 5
+PARALLEL_NEW_TOKENS = 8
+PARALLEL_ENGINE = {"n_slots": 2, "width": 32, "max_new": PARALLEL_NEW_TOKENS}
+# llava_reference's limits: the sharded model against the same model unsharded
+PARALLEL_TOL = {"loss_rel": 1e-4, "grad_rel_to_max": 1e-3}
+
+
+def _parallel_train(argv: list) -> dict:
+    """`driver.main(argv)`: its parameters (a device copy), step losses,
+    gradient all-reduces, kernel launches and wall seconds."""
+    import torch
+
+    from robustvlm_tpu_torch.parallel.mesh import COLLECTIVES
+    from robustvlm_tpu_torch.train import driver
+
+    _free()
+    COLLECTIVES["grad_all_reduce"] = 0
+    _reset_launches()
+    t0 = time.perf_counter()
+    run = driver.main(argv)
+    torch.cuda.synchronize()
+    out = {"wall_s": time.perf_counter() - t0, "launches": _launches(),
+           "all_reduces": COLLECTIVES["grad_all_reduce"],
+           "params": {n: p.detach().clone() for n, p in run.model.named_parameters()},
+           "loss": [r["loss"] for r in (json.loads(ln) for ln in
+                                        (Path(argv[argv.index("--output_dir") + 1]) / "metrics.jsonl")
+                                        .read_text().splitlines()) if "loss" in r],
+           "eval": run.eval_metrics}
+    del run
+    return out
+
+
+def _parallel_llava(adapter, x, prompt: str) -> dict:
+    """On `adapter`'s model as it stands (sharded or not): the per-sample
+    loss and pixel gradient at 665 tokens on 2 images, PARALLEL_APGD_ITERS
+    APGD iterations (bf16, eps 2/255), and the continuous engine's tokens
+    for 2 requests of PARALLEL_NEW_TOKENS; with launches, ms and peaks."""
+    import torch
+
+    from robustvlm_tpu_torch.attacks.apgd import apgd_attack
+    from robustvlm_tpu_torch.serve.continuous import ContinuousEngine
+
+    out = {}
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    xa = x.clone().requires_grad_(True)
+    t = time.perf_counter()
+    loss = adapter(xa)
+    (grad,) = torch.autograd.grad(loss.sum(), xa)
+    torch.cuda.synchronize()
+    out["loss_grad_ms"] = (time.perf_counter() - t) * 1e3
+    out["loss"], out["grad"] = loss.detach(), grad
+    out["launches_loss_grad"] = _launches()
+
+    _reset_launches()
+    t = time.perf_counter()
+    res = apgd_attack(adapter, x, None, criterion=lambda o, y: o, eps=LLAVA_EPS / 255.0,
+                      n_iter=PARALLEL_APGD_ITERS, norm="linf", rng=0)
+    torch.cuda.synchronize()
+    out["ms_per_apgd_iter"] = (time.perf_counter() - t) * 1e3 / PARALLEL_APGD_ITERS
+    out["launches_apgd"] = _launches()
+    out["apgd_loss_best"], out["apgd_x_best"] = res.loss_best.detach(), res.x_best.detach()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    eng = ContinuousEngine(adapter, **PARALLEL_ENGINE)
+    try:
+        t = time.perf_counter()
+        reqs = [eng.submit(x[i].float().cpu().numpy(), prompt, PARALLEL_NEW_TOKENS) for i in range(x.shape[0])]
+        out["engine"] = [r.wait_ids() for r in reqs]
+        out["engine_s"] = time.perf_counter() - t
+    finally:
+        eng.shutdown()
+    return out
+
+
+def phase_parallel() -> dict:
+    """The parallel layer (`robustvlm_tpu_torch.parallel`) over a world-size-1
+    NCCL process group (a FileStore under chiprun_out/; the card is one
+    GPU): real collectives and FSDP2's gathers on the device at full width.
+      (a) `driver.main` with train[tecoa2]'s argv, 2 steps, in the group
+          (data parallel: the rows split, one gradient all-reduce a step)
+          against the same argv with no group: parameters bit-equal, losses
+          equal;
+      (b) LLaVA-1.5-7B, bf16, random weights (seed 0) unsharded and then
+          under `shard_params`: the per-sample loss and pixel gradient at
+          665 tokens on 2 images, and 5 APGD iterations through
+          `LlavaEvalModel`, held to llava_reference's limits (bitwise
+          status reported), ms and peaks of both;
+      (c) `ContinuousEngine` on both (2 requests of 8 tokens): the sharded
+          engine's tokens against the unsharded engine's under
+          serve_continuous's near-tie rule, with solo rows;
+      (d) `all_gather_results` and `process_shard_indices` over NCCL.
+    The group is destroyed before the next phase."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from robustvlm_tpu_torch.models.llava.convert import init_random_state
+    from robustvlm_tpu_torch.models.llava.model import LLAVA_CONFIGS, Llava
+    from robustvlm_tpu_torch.parallel import (
+        all_gather_results,
+        make_mesh,
+        process_shard_indices,
+        shard_params,
+    )
+    from robustvlm_tpu_torch.vlm_eval.eval_models import LlavaEvalModel, WordTokenizer
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="parallel-"))
+    common = list(TRAIN_COMMON)
+    common[common.index("--steps") + 1] = str(PARALLEL_TRAIN_STEPS)
+    argv = common + TRAIN_RUNS["tecoa2"] + ["--save_checkpoints", "false"]
+    try:
+        # (a) without the group first, then in it
+        single = _parallel_train(argv + ["--output_dir", str(tmp / "single")])
+        store = OUT / "parallel-store"
+        store.unlink(missing_ok=True)
+        dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+                                timeout=datetime.timedelta(minutes=5))
+        try:
+            mesh = make_mesh()
+            grouped = _parallel_train(argv + ["--output_dir", str(tmp / "grouped")])
+            train_bit_equal = all(torch.equal(grouped["params"][n], p) for n, p in single["params"].items())
+            del single["params"], grouped["params"]
+
+            # (b), (c): one 7B model, unsharded, then sharded in place
+            cfg = LLAVA_CONFIGS["llava-1.5-7b"]
+            model = Llava.from_state(cfg, init_random_state(cfg, 0, "cuda", torch.bfloat16))
+            adapter = LlavaEvalModel(model, WordTokenizer(), compute_dtype=torch.bfloat16)
+            size = cfg.vision.image_size
+            x = torch.from_numpy(np.random.RandomState(0).rand(2, 3, size, size).astype(np.float32)).cuda()
+            caps = [c[0] for c in LLAVA_IMAGES]
+            adapter.set_inputs([adapter.get_caption_prompt(c) for c in caps])
+            prompt = adapter.get_caption_prompt()
+            solo = [_solo_trace(adapter, x[i:i + 1], prompt, PARALLEL_NEW_TOKENS) for i in range(2)]
+            plain = _parallel_llava(adapter, x, prompt)
+            held_gib = torch.cuda.memory_allocated() / 2**30
+            t = time.perf_counter()
+            shard_params(model, mesh)
+            torch.cuda.synchronize()
+            shard_s = time.perf_counter() - t
+            sharded_params = sum(type(p).__name__ == "DTensor" for p in model.parameters())
+            n_params = sum(1 for _ in model.parameters())
+            sharded = _parallel_llava(adapter, x, prompt)
+            del adapter, model
+            _free()
+
+            # (d) the eval merge over NCCL
+            payload = {"rank": dist.get_rank(), "ids": process_shard_indices(5), "text": "x" * 40}
+            merged = all_gather_results(payload)
+        finally:
+            dist.destroy_process_group()
+            store.unlink(missing_ok=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    loss_rel = float(((sharded["loss"].double() - plain["loss"].double()).abs()
+                      / plain["loss"].double().abs()).max())
+    g_max = float(plain["grad"].abs().max())
+    g_diff = float((sharded["grad"] - plain["grad"]).abs().max())
+    apgd_rel = float(((sharded["apgd_loss_best"].double() - plain["apgd_loss_best"].double()).abs()
+                      / plain["apgd_loss_best"].double().abs()).max())
+    eos = WordTokenizer().eos_token_id
+    engine = [_near_tie(got, ref, rows, eos)
+              for got, ref, (_, rows) in zip(sharded["engine"], plain["engine"], solo)]
+    engine_vs_solo = [_near_tie(got, ids, rows, eos) for got, (ids, rows) in zip(plain["engine"], solo)]
+    kernels_b = ("vit_attention_fwd", "vit_attention_bwd", "flash_attention_fwd", "flash_attention_bwd")
+    checks = {
+        "train_params_bit_equal": train_bit_equal,
+        "train_losses_equal": grouped["loss"] == single["loss"],
+        "train_one_all_reduce_a_step": (grouped["all_reduces"] == PARALLEL_TRAIN_STEPS
+                                        and single["all_reduces"] == 0),
+        "train_launched": (_launched(grouped["launches"], CLIP_KERNELS)
+                           and grouped["launches"]["linf_step"] == TRAIN_LINF_LAUNCHES["tecoa2"]),
+        "llava_sharded": sharded_params == n_params,
+        "llava_loss_rel": loss_rel <= PARALLEL_TOL["loss_rel"],
+        "llava_grad": g_diff <= PARALLEL_TOL["grad_rel_to_max"] * g_max and g_max > 0.0,
+        "llava_apgd_loss_rel": apgd_rel <= PARALLEL_TOL["loss_rel"],
+        "llava_launched": (_launched(sharded["launches_loss_grad"], kernels_b)
+                           and _launched(sharded["launches_apgd"], LLAVA_KERNELS)),
+        "engine_near_tie": all(e["ok"] for e in engine) and any(plain["engine"]),
+        "merge": merged == [{"rank": 0, "ids": [0, 1, 2, 3, 4], "text": "x" * 40}],
+    }
+    launch_keys = ("linf_step",) + kernels_b
+
+    def pick(launches):
+        return {k: launches.get(k, 0) for k in launch_keys}
+
+    emit({"phase": "parallel", "entry": "robustvlm_tpu_torch.parallel (make_mesh, shard_params, sharded_call) "
+          "under torch.distributed (NCCL, world size 1)", "mesh": mesh.shape,
+          "train": {"argv": argv, "steps": PARALLEL_TRAIN_STEPS, "loss": grouped["loss"],
+                    "loss_single": single["loss"], "params_bit_equal": train_bit_equal,
+                    "grad_all_reduces": grouped["all_reduces"], "wall_s": grouped["wall_s"],
+                    "wall_s_single": single["wall_s"], "launches": pick(grouped["launches"])},
+          "llava": {"model": cfg.name, "dtype": "bfloat16", "batch": 2,
+                    "seq_len": adapter_seq_len(cfg, LLAVA_POST_LEN), "loss": sharded["loss"].float().tolist(),
+                    "loss_rel_err": loss_rel, "grad_max_abs_diff": g_diff, "grad_max_abs": g_max,
+                    "loss_bit_equal": bool(torch.equal(sharded["loss"], plain["loss"])),
+                    "grad_bit_equal": bool(torch.equal(sharded["grad"], plain["grad"])),
+                    "apgd_iters": PARALLEL_APGD_ITERS, "apgd_loss_best_rel_err": apgd_rel,
+                    "apgd_x_best_bit_equal": bool(torch.equal(sharded["apgd_x_best"], plain["apgd_x_best"])),
+                    "ms_loss_grad": {"sharded": sharded["loss_grad_ms"], "unsharded": plain["loss_grad_ms"]},
+                    "ms_per_apgd_iter": {"sharded": sharded["ms_per_apgd_iter"],
+                                         "unsharded": plain["ms_per_apgd_iter"]},
+                    "peak_gib": {"sharded": sharded["peak_gib"], "unsharded": plain["peak_gib"]},
+                    "held_gib_unsharded": held_gib, "shard_params_s": shard_s,
+                    "dtensor_params": sharded_params, "params": n_params,
+                    "launches_loss_grad": pick(sharded["launches_loss_grad"]),
+                    "launches_apgd": pick(sharded["launches_apgd"]),
+                    "launches_apgd_unsharded": pick(plain["launches_apgd"]), "tol": PARALLEL_TOL},
+          "engine": {**PARALLEL_ENGINE, "sharded": sharded["engine"], "unsharded": plain["engine"],
+                     "vs_unsharded": engine, "unsharded_vs_solo": engine_vs_solo,
+                     "equal": sharded["engine"] == plain["engine"],
+                     "s": {"sharded": sharded["engine_s"], "unsharded": plain["engine_s"]}},
+          "merge": merged, "card": card_line(),
+          "phase_s": time.perf_counter() - t_phase, "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"parallel checks failed: {checks}")
+    return {k: grouped["launches"].get(k, 0) + sharded["launches_apgd"].get(k, 0)
+            + sharded["launches_loss_grad"].get(k, 0) for k in launch_keys}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4495,6 +4733,7 @@ def main() -> int:
     runs["serve_speculate"] = phase_serve_speculate(adapter)
     del adapter
     _free()
+    runs["parallel"] = phase_parallel()
     # Each row takes the launches of the run of its path and dtype: the CLIP
     # kernels from the CLI's CLIP runs; flash in bf16 from the LLaVA eval,
     # in float32 from the ensemble's float32 stage (at head dim 64 from the

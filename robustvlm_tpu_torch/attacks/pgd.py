@@ -23,6 +23,14 @@ from robustvlm_tpu_torch.attacks._validate import check_image_range
 from robustvlm_tpu_torch.ops.projections import normalize_grad, project_perturbation
 
 
+def pgd_random_start(shape, eps: float, seed: int, device, dtype) -> torch.Tensor:
+    """PGD's random start: U(-eps, eps) of `shape` drawn from the integer
+    seed `seed`."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand(shape, generator=gen, device=device, dtype=dtype)
+    return -eps + 2.0 * eps * u
+
+
 def pgd_attack(
     loss_fn: Callable[[torch.Tensor], torch.Tensor],
     x: torch.Tensor,
@@ -53,9 +61,7 @@ def pgd_attack(
         if random_start:
             if rng is None:
                 raise ValueError("random_start=True requires rng")
-            gen = torch.Generator(device=x.device).manual_seed(rng)
-            u = torch.rand(x.shape, generator=gen, device=x.device, dtype=x.dtype)
-            perturbation = -eps + 2.0 * eps * u
+            perturbation = pgd_random_start(x.shape, eps, rng, x.device, x.dtype)
         else:
             perturbation = torch.zeros_like(x)
     pert = perturbation.detach()

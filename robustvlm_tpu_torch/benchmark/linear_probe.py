@@ -6,7 +6,8 @@ betas 0.9, 0.999, eps 1e-8, decay on every parameter) on softmax cross
 entropy at `cosine_warmup_lr(lr, min(total // 20, 100), total)`, over the
 same minibatches in the same order (`np.random.RandomState(seed)`
 permutations, one an epoch). The optimizer is the trainer's
-`ScheduledOptimizer`, the schedule `train/schedules.py`'s.
+`ScheduledOptimizer`, the schedule `train/schedules.py`'s. `device` is
+`cuda` unless `cpu` is asked for (`device.resolve_device`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from robustvlm_tpu_torch.device import resolve_device
 from robustvlm_tpu_torch.train.trainer import ScheduledOptimizer, TrainConfig
 
 
@@ -24,10 +26,11 @@ def extract_features(
     embed_fn: Callable[[torch.Tensor], torch.Tensor],
     data: Iterable[Tuple[np.ndarray, np.ndarray]],
     cache_path: Optional[str] = None,
-    device="cpu",
+    device=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Run the frozen encoder over a dataset; with `cache_path`, read the
     features from that `.npz` if it is there and write them to it if not."""
+    device = resolve_device(device)
     if cache_path:
         try:
             z = np.load(cache_path)
@@ -55,10 +58,11 @@ def train_linear_probe(
     batch_size: int = 256,
     wd: float = 0.0,
     seed: int = 0,
-    device="cpu",
+    device=None,
 ) -> Dict[str, torch.Tensor]:
     """AdamW logistic regression on (N, D) features; returns {'w', 'b'}
     (w is (D, C), as `features @ w + b`)."""
+    device = resolve_device(device)
     n, d = features.shape
     steps_per_epoch = max(n // batch_size, 1)
     total = epochs * steps_per_epoch
@@ -86,9 +90,10 @@ def evaluate_linear_probe(
     n_classes: int,
     *,
     cache_dir: Optional[str] = None,
-    device="cpu",
+    device=None,
     **train_kw,
 ) -> Dict[str, float]:
+    device = resolve_device(device)
     f_tr, y_tr = extract_features(
         embed_fn, train_data, cache_path=f"{cache_dir}/train.npz" if cache_dir else None, device=device)
     f_te, y_te = extract_features(

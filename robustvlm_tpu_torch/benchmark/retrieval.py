@@ -6,7 +6,7 @@ and caption, score all pairs, and report recall@k both ways with the
 top k); and the SugarCrepe-style forced choice, where captions[0] of an
 image is the right one among hard negatives. The metrics are numpy on the
 host; `image_fn` and `text_fn` take and return torch tensors on their
-model's device.
+model's device, `device`: `cuda` unless `cpu` is asked for.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from robustvlm_tpu_torch.device import resolve_device
 
 
 def _normalize(a: np.ndarray) -> np.ndarray:
@@ -63,10 +65,11 @@ def encode_corpus(
     data: Iterable[Tuple[np.ndarray, List[List[str]]]],
     tokenize,
     batch_size: int = 128,
-    device="cpu",
+    device=None,
 ) -> Tuple[np.ndarray, np.ndarray, List[int]]:
     """Stream (images, per-image caption lists) -> stacked image and caption
     embeddings and the caption -> image index map."""
+    device = resolve_device(device)
     im_embs, tx_embs, t2i = [], [], []
     img_idx = 0
     for images, caption_lists in data:
@@ -87,10 +90,11 @@ def evaluate_image_caption_selection(
     text_fn: Callable,
     data: Iterable[Tuple[np.ndarray, List[List[str]]]],
     tokenize,
-    device="cpu",
+    device=None,
 ) -> Dict[str, float]:
     """Per image, captions[0] is right and the rest are hard negatives:
     acc = the share of images whose right caption scores highest."""
+    device = resolve_device(device)
     correct, total = 0, 0
     for images, caption_lists in data:
         embs = _normalize(_np(image_fn, torch.as_tensor(images).to(device)))

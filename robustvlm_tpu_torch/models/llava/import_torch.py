@@ -86,9 +86,17 @@ def _root(cfg: LlavaConfig) -> str:
 def checkpoint_config(sd: Mapping[str, Any], cfg: LlavaConfig) -> LlavaConfig:
     """`cfg` with the checkpoint's projector type: LLaVA-1.5's `mlp2x_gelu`
     stores `mm_projector.{0,2}`, the `linear` projector `mm_projector.0`
-    alone."""
+    alone (the JAX package's naming) or LLaVA's own `mm_projector`
+    (`nn.Linear` unwrapped)."""
     two = _root(cfg) + "mm_projector.2.weight" in sd
     return dataclasses.replace(cfg, projector_type="mlp2x_gelu" if two else "linear")
+
+
+def _first_projector(sd: Mapping[str, Any], base: str) -> str:
+    """The key prefix of the projector's first linear: `mm_projector.0.`
+    (a Sequential) or `mm_projector.` (LLaVA's bare linear projector)."""
+    seq = base + "mm_projector.0."
+    return seq if seq + "weight" in sd else base + "mm_projector."
 
 
 def import_llava_state_dict(sd: Mapping[str, Any], cfg: LlavaConfig,
@@ -97,8 +105,9 @@ def import_llava_state_dict(sd: Mapping[str, Any], cfg: LlavaConfig,
     `robust_vision_sd`, an open_clip visual state dict (`conv1.weight`, ...),
     replaces the checkpoint's HF tower."""
     base = _root(cfg)
-    out = {"projector.w1": _t(sd[base + "mm_projector.0.weight"], True),
-           "projector.b1": _t(sd[base + "mm_projector.0.bias"])}
+    first = _first_projector(sd, base)
+    out = {"projector.w1": _t(sd[first + "weight"], True),
+           "projector.b1": _t(sd[first + "bias"])}
     if cfg.projector_type != "linear":
         out["projector.w2"] = _t(sd[base + "mm_projector.2.weight"], True)
         out["projector.b2"] = _t(sd[base + "mm_projector.2.bias"])

@@ -26,6 +26,16 @@ lane's tokens do not depend on what its neighbours decode. Token equality
 with the batch-1 stream is exact on the CPU in float32; on the card the
 batched step can round differently from the batch-1 step (other GEMM
 shapes, other key lengths), so an argmax can flip at a near-tie.
+
+Under a process group (a model sharded by `parallel/mesh.shard_params`)
+the engine runs SPMD, one engine a rank: every rank submits the same
+requests in the same order, and the collectives inside a sharded forward
+need every rank to run the same steps. So rank 0 decides each loop's
+admissions, cancellations and stop and broadcasts them, and its tokens
+(the first of an admission, each dispatch's) are broadcast too; every rank
+then emits and retires alike. A rank enters the loop's broadcast only once
+it has work of its own (or is shutting down), so an idle server waits in
+no collective.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class CBRequest:
@@ -82,12 +93,13 @@ class _DeviceFailure(RuntimeError):
 
 
 class _Slot:
-    __slots__ = ("req", "emitted", "cap")
+    __slots__ = ("req", "emitted", "cap", "cancelled")
 
     def __init__(self, req: CBRequest, cap: int):
         self.req = req
         self.emitted = 0
         self.cap = cap
+        self.cancelled = False  # SPMD: rank 0's cancellation, as broadcast
 
 
 class ContinuousEngine:
@@ -114,6 +126,7 @@ class ContinuousEngine:
         self._pad = int(model.tok.pad_token_id)
         self._eos = int(model.tok.eos_token_id)
 
+        self._spmd = dist.is_available() and dist.is_initialized()
         self._queue: deque = deque()
         self._cv = threading.Condition()
         self._slots: List[Optional[_Slot]] = [None] * n_slots
@@ -189,7 +202,8 @@ class ContinuousEngine:
         emitted."""
         st = self._slots[slot]
         req = st.req
-        if (req.cancelled or tok == self._eos or tok == self._pad
+        cancelled = st.cancelled if self._spmd else req.cancelled
+        if (cancelled or tok == self._eos or tok == self._pad
                 or st.emitted >= st.cap):
             self._retire(slot)
             return
@@ -216,7 +230,7 @@ class ContinuousEngine:
             self._bcaches = self._cores[2](self._pre_dev)
         admit = self._cores[0]
         try:
-            first = admit(x01, self._pre_dev, toks, n_pad, self._bcaches, slot)
+            first = self._agree(admit(x01, self._pre_dev, toks, n_pad, self._bcaches, slot))
             tok = int(first[0])
         except Exception as e:
             raise _DeviceFailure(f"{type(e).__name__}: {e}") from e
@@ -232,7 +246,7 @@ class ContinuousEngine:
         # one host-to-device copy of the three per-lane operands
         nxt, pos, npad = torch.from_numpy(
             np.stack([self._nxt, self._pos, self._npad])).to(self.model.device)
-        t = step(nxt, self._bcaches, pos, npad).cpu().numpy()  # (n_slots, chunk)
+        t = self._agree(step(nxt, self._bcaches, pos, npad)).cpu().numpy()  # (n_slots, chunk)
         for j in range(self.chunk):
             for i in active_before:
                 if self._slots[i] is not None:  # may retire mid-chunk
@@ -248,19 +262,51 @@ class ContinuousEngine:
                 # zeroes and rewrites the lane, so nothing leaks across reuse
                 self._pos[i] = min(self._pos[i] + self.chunk, self._total - 1)
 
+    def _agree(self, t: torch.Tensor) -> torch.Tensor:
+        """SPMD: rank 0's values of `t` on every rank."""
+        if self._spmd:
+            t = t.contiguous()
+            dist.broadcast(t, src=0)
+        return t
+
+    def _plan(self):
+        """This loop's admissions [(slot, request)], or None to stop. SPMD:
+        rank 0's plan (the slots it fills from its queue, the lanes it
+        cancels, whether it stops), broadcast; the other ranks take their
+        own next requests, submitted in the same order, for those slots."""
+        with self._cv:
+            leader = not self._spmd or dist.get_rank() == 0
+            stop = self._stop if leader else None
+            free = [i for i in range(self.n_slots) if self._slots[i] is None]
+            slots = free[:len(self._queue)] if leader else None
+            cancels = ([i for i, st in enumerate(self._slots) if st is not None and st.req.cancelled]
+                       if leader else None)
+        if self._spmd:
+            msg = [(stop, slots, cancels)]
+            dist.broadcast_object_list(msg, src=0)
+            stop, slots, cancels = msg[0]
+            for i in cancels:
+                self._slots[i].cancelled = True
+        if stop:
+            return None
+        with self._cv:
+            while len(self._queue) < len(slots):  # a request not yet submitted here
+                self._cv.wait()
+            return [(i, self._queue.popleft()) for i in slots]
+
     def _loop(self):
+        dev = self.model.device
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)  # the thread's current card (NCCL's broadcasts)
         with torch.no_grad():
             while True:
                 with self._cv:
                     while (not self._stop and not self._queue
                            and not any(s is not None for s in self._slots)):
                         self._cv.wait()
-                    if self._stop:
-                        return
-                    admits = []
-                    for i in range(self.n_slots):
-                        if self._slots[i] is None and self._queue:
-                            admits.append((i, self._queue.popleft()))
+                admits = self._plan()
+                if admits is None:
+                    return
                 for slot, req in admits:
                     try:
                         self._admit(slot, req)

@@ -20,6 +20,15 @@ Checkpoints are `torch.save` state dicts under `<output_dir>/checkpoints/`,
 and the visual tower is exported as `checkpoints/final.pt` in the torch
 layout. Not ported: the native C++ image transform (the PIL one is used)
 and the COCO/SA-1B datasets (ROADMAP A.2).
+
+Data parallel: started by `torchrun --nproc_per_node N` (WORLD_SIZE > 1),
+it opens the process group itself (NCCL on cuda, one card a rank by
+LOCAL_RANK; gloo on cpu); it also runs inside a group its caller opened. Every rank
+loads the same global batch of `--batch_size` (the same seeded shuffle)
+and trains on its rows; the parameters stay replicated (`TrainStep`
+averages the gradients), the logged metrics and `imgs_per_sec` are the
+global batch's, and rank 0 alone writes the logs, `args.json`, the
+checkpoints and the export.
 """
 
 from __future__ import annotations
@@ -27,13 +36,16 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import datetime
 import json
+import os
 import time
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from robustvlm_tpu_torch.attacks.apgd import fold_in
 from robustvlm_tpu_torch.benchmark import templates as T
@@ -46,6 +58,7 @@ from robustvlm_tpu_torch.device import resolve_device, use_full_fp32
 from robustvlm_tpu_torch.eval.classifier import build_text_classifier
 from robustvlm_tpu_torch.models.clip import CLIP, CLIP_CONFIGS, load_clip_checkpoint
 from robustvlm_tpu_torch.models.clip.tokenizer import get_tokenizer
+from robustvlm_tpu_torch.parallel.mesh import batch_mean, batch_sharding, make_mesh, replicate
 from robustvlm_tpu_torch.train.trainer import TrainConfig, TrainStep, make_eval_step
 from robustvlm_tpu_torch.utils.checkpoint import CheckpointManager
 from robustvlm_tpu_torch.utils.logging import MetricLogger
@@ -147,23 +160,53 @@ def train_config(args) -> TrainConfig:
     )
 
 
+# a collective that waits longer than this fails the run instead of hanging it
+DIST_TIMEOUT = datetime.timedelta(minutes=30)
+
+
+def init_distributed(device: str) -> bool:
+    """Open the process group when started by torchrun (WORLD_SIZE > 1) and
+    none is open: NCCL on cuda (this rank's card from LOCAL_RANK), gloo on
+    cpu. Returns whether it opened one."""
+    if (dist.is_available() and dist.is_initialized()) or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    if device == "cuda":
+        resolve_device("cuda")
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if device == "cuda" else "gloo", timeout=DIST_TIMEOUT)
+    return True
+
+
 def main(argv=None) -> TrainRun:
     args = build_parser().parse_args(argv)
+    opened = init_distributed(args.device)
+    try:
+        return train(args)
+    finally:
+        if opened:
+            dist.destroy_process_group()
+
+
+def train(args) -> TrainRun:
     device = resolve_device(args.device)
     use_full_fp32()
     clip_cfg = CLIP_CONFIGS[args.clip_model_name]
     cfg = train_config(args)
+    mesh = make_mesh(device=device)  # data parallel over the process group, if any
+    lead = not mesh.distributed or dist.get_rank() == 0
 
     out = Path(args.output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "args.json").write_text(json.dumps(vars(args), indent=2))
-    logger = MetricLogger(str(out), run_name=args.experiment_name or "train",
-                          use_wandb=args.wandb, config=vars(args))
+    if lead:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "args.json").write_text(json.dumps(vars(args), indent=2))
+    logger = MetricLogger(str(out) if lead else None, run_name=args.experiment_name or "train",
+                          use_wandb=args.wandb and lead, config=vars(args))
 
     # the trainable model and the frozen original
     model = CLIP(clip_cfg, device=device).init_random_(0)
     if args.pretrained:
         model.load_state_dict(load_clip_checkpoint(args.pretrained, clip_cfg, base=model.state_dict()))
+    replicate(model, mesh)
     model_orig = copy.deepcopy(model)
     text_embedding = text_embedding_for(args, model, device)
 
@@ -176,20 +219,25 @@ def main(argv=None) -> TrainRun:
     loader = DataLoader(ds, args.batch_size, shuffle=True, drop_last=True)
     loader_eval = DataLoader(ds_eval, args.batch_size, shuffle=True, drop_last=True)
 
-    train_step = TrainStep(cfg, model, model_orig, text_embedding)
+    train_step = TrainStep(cfg, model, model_orig, text_embedding, mesh=mesh)
     eval_step = None
     if text_embedding is not None:
         eval_step = make_eval_step(cfg, model, text_embedding,
                                    initial_stepsize=0.05 * cfg.eps if args.clean_weight > 0 else None)
 
-    ckpt = CheckpointManager(str(out), args.steps) if args.save_checkpoints or args.resume else None
+    ckpt = (CheckpointManager(str(out), args.steps)
+            if (args.save_checkpoints and lead) or args.resume else None)
     if args.resume:
         ckpt.restore(args.resume, model, train_step.optimizer)
         print(f"resumed from {args.resume} at step {args.start_step}")
     meters = {k: AverageMeter(k) for k in ["loss", "cos_sim", "acc", "racc"]}
 
-    def on_device(x_np, y_np):
-        return torch.from_numpy(x_np).to(device), torch.from_numpy(y_np).to(device)
+    def on_device(x_np, y_np, chunks=1):
+        """This rank's rows of a global batch (all of it on one process)."""
+        x, y = torch.from_numpy(x_np), torch.from_numpy(y_np)
+        if mesh.distributed:
+            x, y = batch_sharding(mesh, x, chunks), batch_sharding(mesh, y, chunks)
+        return x.to(device), y.to(device)
 
     step = start_step = args.start_step
     epoch = 0
@@ -199,7 +247,7 @@ def main(argv=None) -> TrainRun:
     while step < args.steps:
         for x_np, y_np in loader:
             t_step = time.time()
-            x, y = on_device(x_np, y_np)
+            x, y = on_device(x_np, y_np, chunks=max(cfg.grad_accum, 1))
             metrics = train_step(x, y, fold_in(1, step))
             step += 1
 
@@ -208,10 +256,11 @@ def main(argv=None) -> TrainRun:
                 m["step_s"] = time.time() - t_step
                 for k in meters:
                     if k in m:
-                        meters[k].update(m[k], x.shape[0])
+                        meters[k].update(m[k], args.batch_size)
                 m["imgs_per_sec"] = args.batch_size * (step - start_step) / max(time.time() - t_start, 1e-9)
                 logger.log(m, step=step)
-                print(f"[step] {step} " + " ".join(f"[{k}] {v:.4f}" for k, v in m.items()), flush=True)
+                if lead:
+                    print(f"[step] {step} " + " ".join(f"[{k}] {v:.4f}" for k, v in m.items()), flush=True)
 
             if eval_step is not None and (step - 1) % args.eval_freq == 0:
                 # one persistent iterator, so one prefetch thread
@@ -220,18 +269,20 @@ def main(argv=None) -> TrainRun:
                 except StopIteration:
                     eval_iter = iter(loader_eval)
                     xe, ye = next(eval_iter)
-                em = {k: float(v) for k, v in eval_step(*on_device(xe, ye)).items()}
+                em = {k: float(v) for k, v in batch_mean(eval_step(*on_device(xe, ye)), mesh).items()}
                 logger.log(em, step=step)
-                print(f"[eval] {em}", flush=True)
+                if lead:
+                    print(f"[eval] {em}", flush=True)
 
-            if ckpt is not None:
+            if ckpt is not None and lead:
                 ckpt.maybe_save(step, model, train_step.optimizer)
             if step >= args.steps:
                 break
         epoch += 1
-        print(f"Epoch {epoch} done.")
+        if lead:
+            print(f"Epoch {epoch} done.")
 
-    if ckpt is not None:
+    if ckpt is not None and lead:
         ckpt.save_final(model, train_step.optimizer)
         ckpt.export_torch_visual(model, clip_cfg)
     wall = time.time() - t_start

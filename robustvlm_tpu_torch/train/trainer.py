@@ -21,6 +21,15 @@ Differences from the JAX step that change no result:
 - Random starts draw from `torch.Generator`s seeded with integers: step
   seed `fold_in(1, step)`, chunk `i`'s `fold_in(seed, i)`, where JAX folds
   and splits PRNG keys.
+- Data parallel (`mesh` over a process group): each rank holds its rows of
+  every chunk (`parallel/mesh.batch_sharding(..., chunks=grad_accum)`),
+  PGD's random start is drawn at the global chunk's shape and sliced to the
+  rank's rows, the gradients are averaged by one all-reduce after the chunk
+  loop and the metrics by another: the step computes what the
+  single-process step computes on the global batch, as JAX's replicated
+  parameters with a sharded batch do. FSDP-sharded parameters
+  (`shard_params`) are reduced by FSDP itself, and the forwards go through
+  `sharded_call`.
 
 Like JAX, the optimizer holds every parameter of the CLIP model, text tower
 and `logit_scale` included: their gradients are zero, and AdamW's decoupled
@@ -37,10 +46,17 @@ from typing import Dict, Optional
 import torch
 
 from robustvlm_tpu_torch.attacks.apgd import apgd_attack, fold_in
-from robustvlm_tpu_torch.attacks.pgd import pgd_attack
+from robustvlm_tpu_torch.attacks.pgd import pgd_attack, pgd_random_start
 from robustvlm_tpu_torch.models.clip.model import CLIP
 from robustvlm_tpu_torch.ops.image import normalize_clip
 from robustvlm_tpu_torch.ops.losses import ce_loss, l2_embedding_loss
+from robustvlm_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_grads_,
+    batch_mean,
+    batch_slice,
+    sharded_call,
+)
 from robustvlm_tpu_torch.train.schedules import cosine_warmup_lr
 
 
@@ -152,11 +168,14 @@ def _l2n(e: torch.Tensor) -> torch.Tensor:
 class TrainStep:
     """One TeCoA/FARE training step on `model`, in place. `model_orig` is
     the frozen original (no gradients); `text_embedding` the (D, classes)
-    normalized class-text matrix (TeCoA, and the racc/acc metrics)."""
+    normalized class-text matrix (TeCoA, and the racc/acc metrics). `mesh`
+    (data parallel over a process group) makes the step take this rank's
+    rows and return global metrics."""
 
     def __init__(self, cfg: TrainConfig, model: CLIP, model_orig: CLIP,
-                 text_embedding: Optional[torch.Tensor] = None):
+                 text_embedding: Optional[torch.Tensor] = None, mesh: Optional[Mesh] = None):
         self.cfg = cfg
+        self.mesh = mesh
         self.model = model.requires_grad_(True)
         self.model_orig = model_orig.requires_grad_(False)
         self.text_embedding = text_embedding
@@ -164,8 +183,18 @@ class TrainStep:
         self.optimizer = ScheduledOptimizer(cfg, model.parameters())
 
     def embed(self, model: CLIP, x01: torch.Tensor, output_normalize: bool) -> torch.Tensor:
-        return model.encode_image(normalize_clip(x01), normalize=output_normalize,
-                                  compute_dtype=self.compute_dtype, remat=self.cfg.remat)
+        return sharded_call(model, model.encode_image, normalize_clip(x01), normalize=output_normalize,
+                            compute_dtype=self.compute_dtype, remat=self.cfg.remat)
+
+    def pgd_start(self, x: torch.Tensor, seed: int) -> torch.Tensor:
+        """PGD's random start for this rank's rows `x` of a chunk: drawn at
+        the global chunk's shape from `seed` and sliced to the rank's rows
+        (the draw of the single-process step)."""
+        mesh = self.mesh
+        shards = mesh.batch_shards if mesh is not None else 1
+        n = x.shape[0] * shards
+        full = pgd_random_start((n, *x.shape[1:]), self.cfg.eps, seed, x.device, x.dtype)
+        return full if shards == 1 else full[batch_slice(mesh, n)]
 
     def inner_loss(self, xa, y, emb_orig) -> torch.Tensor:
         """The batch-mean loss the inner attack maximizes, at xa (APGD always
@@ -231,7 +260,8 @@ class TrainStep:
         """Attack and backward for one chunk: adds its gradients into the
         weights' `.grad` and returns its metrics."""
         emb_orig = self.frozen_embedding(x)
-        x_adv = self.inner_attack(x, y, emb_orig, seed).detach()
+        start = self.pgd_start(x, seed) if self.cfg.attack == "pgd" else None
+        x_adv = self.inner_attack(x, y, emb_orig, seed, perturbation=start).detach()
         total, metrics = self.outer_loss(x, y, x_adv, emb_orig)
         total.backward()
         return metrics
@@ -256,6 +286,9 @@ class TrainStep:
             for p in self.optimizer.params:
                 if p.grad is not None:
                     p.grad.div_(k)
+        if self.mesh is not None:
+            all_reduce_grads_(self.optimizer.params, self.mesh)
+            metrics = batch_mean(metrics, self.mesh)
         self.optimizer.step()
         return metrics
 

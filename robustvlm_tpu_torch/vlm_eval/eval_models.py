@@ -24,6 +24,11 @@ continuous-batching engine (`serve/continuous.py`).
 
 `remat=True` recomputes each vision and LM block in the backward
 (`torch.utils.checkpoint`); the loss and its gradient are those without it.
+
+A model sharded by `parallel/mesh.shard_params` works in every adapter: the
+loss, the decode functions and the continuous engine's cores run through
+`sharded_call`, which gathers the root's parameters (a plain call on an
+unsharded model).
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ from robustvlm_tpu_torch.ops.quant import (
     quantize_decode_params_inplace,
     quantize_llama_decode_params,
 )
+from robustvlm_tpu_torch.parallel.mesh import is_sharded, sharded_call
 
 
 class WordTokenizer:
@@ -144,6 +150,25 @@ class _CachedInputs:
     post: torch.Tensor        # (B, T_post) tokens after the image (incl. answer)
     labels: torch.Tensor      # (B, T_post)
     label_mask: torch.Tensor  # (B, T_post) 1.0 on answer tokens
+
+
+def _decode_fns_of(model, make_fns, *args, **kwargs):
+    """`make_fns(model, *args, **kwargs)` -> (prefill_fn, decode_fn), built
+    and called through `sharded_call(model, ...)` (the builders run the
+    vision side at once); `reorder_carry` is kept."""
+    pf, df = sharded_call(model, make_fns, model, *args, **kwargs)
+    if not is_sharded(model):
+        return pf, df
+
+    def prefill_fn(*a, **k):
+        return sharded_call(model, pf, *a, **k)
+
+    def decode_fn(*a, **k):
+        return sharded_call(model, df, *a, **k)
+
+    if hasattr(pf, "reorder_carry"):
+        prefill_fn.reorder_carry = pf.reorder_carry
+    return prefill_fn, decode_fn
 
 
 class LlavaEvalModel:
@@ -239,8 +264,8 @@ class LlavaEvalModel:
         c = self._cached
         if c is None:
             raise RuntimeError("LlavaEvalModel: call set_inputs first")
-        return llava_per_sample_loss(self.model, x01, c.pre, c.post, c.labels, c.label_mask,
-                                     compute_dtype=self.compute_dtype, remat=self.remat)
+        return sharded_call(self.model, llava_per_sample_loss, self.model, x01, c.pre, c.post, c.labels,
+                            c.label_mask, compute_dtype=self.compute_dtype, remat=self.remat)
 
     def _gen_params(self) -> Llava:
         """The model generation runs on: the fp one, or the (cached) weight-only
@@ -278,10 +303,9 @@ class LlavaEvalModel:
         toks = torch.from_numpy(toks).long().to(dev)
         n_pad = torch.from_numpy(n_pad).long().to(dev)
         pre = torch.tensor([pre_ids] * x01.shape[0], dtype=torch.long, device=dev)
-        pf, df = make_llava_decode_fns(self._gen_params(), x01, pre,
-                                       max_total_len=toks.shape[1] + max_new_tokens,
-                                       compute_dtype=self.compute_dtype,
-                                       kv_bits=8 if self.quantize_kv else 0)
+        pf, df = _decode_fns_of(self._gen_params(), make_llava_decode_fns, x01, pre,
+                                max_total_len=toks.shape[1] + max_new_tokens,
+                                compute_dtype=self.compute_dtype, kv_bits=8 if self.quantize_kv else 0)
         return pf, df, toks, n_pad
 
     def _continuous_cores(self, n_slots: int, width: int, max_new: int, chunk: int = 1):
@@ -315,7 +339,7 @@ class LlavaEvalModel:
             return init_cache(cfg.llama, n_slots, max_len=t_prefix + total, dtype=dtype,
                               kv_bits=kv_bits, device=dev)
 
-        def admit(x01, pre, toks, n_pad, bcaches, slot):
+        def admit_(x01, pre, toks, n_pad, bcaches, slot):
             pf, _ = make_llava_decode_fns(model, x01, pre, max_total_len=total, compute_dtype=dtype,
                                           kv_bits=kv_bits)
             lane = {key: buf[:, slot:slot + 1] for key, buf in bcaches.items()}
@@ -325,7 +349,7 @@ class LlavaEvalModel:
                            cache=lane)
             return torch.argmax(logits, dim=-1)
 
-        def step(nxt, bcaches, pos, n_pad):
+        def step_(nxt, bcaches, pos, n_pad):
             t_prefix = bcaches["k"].shape[3] - total
             cur, out = nxt, []
             for j in range(chunk):
@@ -337,6 +361,12 @@ class LlavaEvalModel:
                 cur = torch.argmax(logits[:, -1], dim=-1)
                 out.append(cur)
             return torch.stack(out, dim=1)
+
+        def admit(*a):
+            return sharded_call(model, admit_, *a)
+
+        def step(*a):
+            return sharded_call(model, step_, *a)
 
         return admit, step, lanes
 
@@ -444,8 +474,8 @@ class FlamingoEvalModel:
             raise RuntimeError("FlamingoEvalModel: call set_inputs first")
         if vision_x.dim() == 4:  # (B, C, H, W) -> (B, T=1, F=1, C, H, W)
             vision_x = vision_x[:, None, None]
-        return flamingo_per_sample_loss(self.model, vision_x, self._lang, self._labels, self._mask,
-                                        compute_dtype=self.compute_dtype, remat=self.remat)
+        return sharded_call(self.model, flamingo_per_sample_loss, self.model, vision_x, self._lang,
+                            self._labels, self._mask, compute_dtype=self.compute_dtype, remat=self.remat)
 
     def _decode_fns(self, vision_x, prompts, max_new_tokens):
         """(prefill_fn, decode_fn, left-padded tokens, n_pad) of a generation."""
@@ -453,9 +483,9 @@ class FlamingoEvalModel:
             vision_x = vision_x[:, None, None]
         toks, n_pad = left_pad([self._encode(p) for p in prompts], self.tok.pad_token_id)
         dev = self.device
-        pf, df = make_flamingo_decode_fns(self.model, vision_x,
-                                          max_total_len=toks.shape[1] + max_new_tokens,
-                                          compute_dtype=self.compute_dtype)
+        pf, df = _decode_fns_of(self.model, make_flamingo_decode_fns, vision_x,
+                                max_total_len=toks.shape[1] + max_new_tokens,
+                                compute_dtype=self.compute_dtype)
         return pf, df, torch.from_numpy(toks).long().to(dev), torch.from_numpy(n_pad).long().to(dev)
 
     @torch.no_grad()
@@ -533,8 +563,8 @@ class Blip2EvalModel:
         self._cached = (tokens, tokens, torch.from_numpy(mask_arr).to(self.device))
 
     def pure(self, model: Blip2, tokens, labels, mask, x01: torch.Tensor) -> torch.Tensor:
-        return blip2_per_sample_loss(model, x01, tokens, labels, mask,
-                                     compute_dtype=self.compute_dtype, remat=self.remat)
+        return sharded_call(model, blip2_per_sample_loss, model, x01, tokens, labels, mask,
+                            compute_dtype=self.compute_dtype, remat=self.remat)
 
     @property
     def bound_args(self) -> tuple:
@@ -550,8 +580,8 @@ class Blip2EvalModel:
         bos = getattr(self.tok, "bos_token_id", None)
         seqs = [([bos] if bos is not None else []) + _encode_plain(self.tok, p) for p in prompts]
         toks, n_pad = left_pad(seqs, self.tok.pad_token_id)
-        pf, df = make_blip2_decode_fns(self.model, x01, max_total_len=toks.shape[1] + max_new_tokens,
-                                       compute_dtype=self.compute_dtype)
+        pf, df = _decode_fns_of(self.model, make_blip2_decode_fns, x01,
+                                max_total_len=toks.shape[1] + max_new_tokens, compute_dtype=self.compute_dtype)
         dev = self.device
         return pf, df, torch.from_numpy(toks).long().to(dev), torch.from_numpy(n_pad).long().to(dev)
 

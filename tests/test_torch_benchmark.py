@@ -365,7 +365,7 @@ def test_linear_probe_matches_optax():
     y = (f @ rng.randn(8, 3)).argmax(-1)
     kw = dict(lr=0.05, epochs=3, batch_size=16, wd=0.01, seed=4)
     ref = jlp.train_linear_probe(f, y, 3, **kw)
-    got = linear_probe.train_linear_probe(f, y, 3, **kw)
+    got = linear_probe.train_linear_probe(f, y, 3, device="cpu", **kw)
     for k in ("w", "b"):
         r = np.asarray(ref[k])
         assert np.abs(got[k].numpy() - r).max() <= 1e-5 * np.abs(r).max(), k
@@ -375,17 +375,35 @@ def test_linear_probe_learns_and_caches(tmp_path):
     rng = np.random.RandomState(1)
     f = rng.randn(200, 8).astype(np.float32)
     y = (f @ rng.randn(8, 3)).argmax(-1)
-    probe = linear_probe.train_linear_probe(f, y, 3, epochs=150, lr=0.1, batch_size=64)
+    probe = linear_probe.train_linear_probe(f, y, 3, epochs=150, lr=0.1, batch_size=64, device="cpu")
     assert float(((torch.from_numpy(f) @ probe["w"] + probe["b"]).argmax(-1).numpy() == y).mean()) > 0.9
 
     def embed(x):
         return x.reshape(len(x), -1)
 
     data = [(f[:100].reshape(100, 2, 4), y[:100]), (f[100:].reshape(100, 2, 4), y[100:])]
-    out = linear_probe.evaluate_linear_probe(embed, data, data, 3, cache_dir=str(tmp_path), epochs=20)
+    out = linear_probe.evaluate_linear_probe(embed, data, data, 3, cache_dir=str(tmp_path), epochs=20,
+                                             device="cpu")
     assert (tmp_path / "train.npz").exists() and 0.0 <= out["lp_acc1"] <= 1.0
-    cached, _ = linear_probe.extract_features(lambda x: 1 / 0, [], cache_path=str(tmp_path / "train.npz"))
+    cached, _ = linear_probe.extract_features(lambda x: 1 / 0, [], cache_path=str(tmp_path / "train.npz"),
+                                              device="cpu")
     assert np.array_equal(cached, f)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: linear_probe.extract_features(lambda x: x, []),
+    lambda: linear_probe.train_linear_probe(np.zeros((4, 2), np.float32), np.zeros(4, int), 2),
+    lambda: linear_probe.evaluate_linear_probe(lambda x: x, [], [], 2),
+    lambda: retrieval.encode_corpus(lambda x: x, lambda t: t, [], lambda c: c),
+    lambda: retrieval.evaluate_image_caption_selection(lambda x: x, lambda t: t, [], lambda c: c),
+], ids=["extract_features", "train_linear_probe", "evaluate_linear_probe", "encode_corpus",
+        "evaluate_image_caption_selection"])
+def test_library_functions_default_to_cuda(call, monkeypatch):
+    """Without `device=`, the benchmark's library functions take `cuda` and
+    raise with no GPU; they never run on the CPU in silence."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
 
 
 def test_native_transform_is_the_readers_default():

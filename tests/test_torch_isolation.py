@@ -15,6 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "robustvlm_tpu")
 PORT_FILES = sorted((ROOT / "robustvlm_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("*_torch.py")),
+    ROOT / "tests" / "_torch_parallel_workers.py",  # what the parallel tests' spawned ranks import
 ]
 
 

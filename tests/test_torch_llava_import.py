@@ -226,3 +226,21 @@ def test_cli_loader_reads_projector_type_bit_equal_jax(tmp_path, proj):
     model = build_llava_models(args, ("full",), torch.device("cpu"))["full"]
     assert model.cfg.projector_type == proj == PI.checkpoint_config(sd, LLAVA_CONFIGS["test-tiny"]).projector_type
     _assert_bit_equal(dict(model.state_dict()), JI.import_llava_state_dict(sd, jcfg))
+
+
+def test_linear_projector_upstream_keys_load_the_same_weights():
+    """LLaVA names its `linear` projector's keys `mm_projector.{weight,bias}`
+    (a bare `nn.Linear`); the JAX naming is `mm_projector.0.*`. Both load
+    the same weights, and both read as a linear projector."""
+    jcfg, pcfg = _cfgs("test-tiny", "linear")
+    sd, _ = _hf_llava(jcfg, seed=3)
+    upstream = {("model.mm_projector." + k[len("model.mm_projector.0."):]
+                 if k.startswith("model.mm_projector.0.") else k): v for k, v in sd.items()}
+    assert "model.mm_projector.weight" in upstream and "model.mm_projector.0.weight" not in upstream
+    base = LLAVA_CONFIGS["test-tiny"]
+    assert PI.checkpoint_config(upstream, base).projector_type == "linear"
+    got = PI.import_llava_state_dict(_as_torch(upstream), pcfg)
+    ref = PI.import_llava_state_dict(_as_torch(sd), pcfg)
+    assert got.keys() == ref.keys()
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
+    Llava.from_state(pcfg, got)  # every parameter present, none extra
