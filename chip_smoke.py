@@ -164,6 +164,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 iterations, to llava_reference's limits, bitwise status
                 reported) and the continuous engine on both (near-tie
                 rule); the eval merge over NCCL; ms, peaks and launches.
+ 27. parallel_tp - Megatron tensor parallelism over `model`: two ranks
+                spawned on the one card in a gloo group (NCCL refuses two
+                ranks on one device), mesh (1, 1, 2), LLaVA-1.5-7B (seed 0)
+                at full width, its LM cut to 8 of 32 layers, split by
+                `shard_params`: in bf16 the loss and pixel
+                gradient at 665 tokens on 2 images, 5 APGD iterations, a
+                2-lane engine of 8 tokens and a k = 3 speculative stream;
+                in float32 the loss and pixel gradient; each rank's against
+                rank 0's unsplit run before the group (float32:
+                PARALLEL_TOL; bf16: 4x the unsplit bf16 model's own error
+                against float32 plus PARALLEL_TOL, and the near-tie rule);
+                the attention kernels (both dtypes) and `linf_step`
+                launched on each rank's heads, (B*16/2, 577, 64) and
+                (B*32/2, 665, 128); each rank's parameter GiB and peak, ms
+                per APGD iteration split and unsplit.
 Then the `kernels` JSON line, the card's name and power limit as nvidia-smi
 reports them, and last the device line. Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -4665,6 +4680,289 @@ def phase_parallel() -> dict:
             + sharded["launches_loss_grad"].get(k, 0) for k in launch_keys}
 
 
+# ------------------------------------------------------------------ phase 27
+PARALLEL_TP_MESH = (1, 1, 2)
+PARALLEL_TP_SPEC_K = 3
+# the LM cut to 8 of its 32 layers in the whole smoke (full width, the whole
+# tower): each layer's four float32 all-reduces through the host set the
+# phase's time; `phase_parallel_tp(lm_layers=32)` runs it at full depth
+PARALLEL_TP_LM_LAYERS = 8
+PARALLEL_TP_TIMEOUT_S = 900
+# bf16: the split may stray from the float32 model by 4x what the unsplit
+# bf16 model strays, plus PARALLEL_TOL (a reordered float32 sum moves bf16
+# roundings, and one ulp of a target logit, 2^-6 at |logit| 4, moves a
+# per-sample CE over a few answer tokens by about 2e-4 relative); its APGD
+# loss from the unsplit one's by (4 + 1)x plus PARALLEL_TOL
+PARALLEL_TP_BF16_FACTOR = 4.0
+
+
+def _parallel_tp_rank(rank: int, world: int, store: str, out_dir: str, lm_layers: int) -> None:
+    """One rank of phase_parallel_tp, in its own process on cuda:0. Rank 0
+    first runs the unsplit model alone, before the group exists (so that its
+    engine is not SPMD): the float32 loss and pixel gradient, then in bf16
+    the solo streams, `_parallel_llava` and the speculative stream. Then
+    both ranks join a gloo group, split the bf16 model over `model` and run
+    the same bf16 work, then split the float32 model (built one rank at a
+    time: 28 GB each before the split) for its loss and gradient. Writes
+    rank<r>.pt (the results, or the traceback) into `out_dir`."""
+    import dataclasses
+    import datetime
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from robustvlm_tpu_torch.device import use_full_fp32
+    from robustvlm_tpu_torch.models.clip import model as clip_model
+    from robustvlm_tpu_torch.models.llama import model as llama_model
+    from robustvlm_tpu_torch.models.llava.convert import init_random_state
+    from robustvlm_tpu_torch.models.llava.model import LLAVA_CONFIGS, Llava
+    from robustvlm_tpu_torch.parallel import make_mesh, shard_params
+    from robustvlm_tpu_torch.serve.speculative import spec_stream_tokens
+    from robustvlm_tpu_torch.vlm_eval.eval_models import LlavaEvalModel, WordTokenizer
+
+    use_full_fp32()
+    torch.cuda.set_device(0)
+    cfg = LLAVA_CONFIGS["llava-1.5-7b"]
+    cfg = dataclasses.replace(cfg, llama=dataclasses.replace(cfg.llama, n_layers=lm_layers))
+    size = cfg.vision.image_size
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 3, size, size).astype(np.float32)).cuda()
+    out = {}
+
+    def host(d):
+        return {k: (v.float().cpu() if torch.is_tensor(v) else v) for k, v in d.items()}
+
+    def build(dtype):
+        model = Llava.from_state(cfg, init_random_state(cfg, 0, "cuda", dtype))
+        adapter = LlavaEvalModel(model, WordTokenizer(), compute_dtype=dtype)
+        adapter.set_inputs([adapter.get_caption_prompt(c[0]) for c in LLAVA_IMAGES])
+        return model, adapter
+
+    def loss_grad(adapter):
+        _reset_launches()
+        xa = x.clone().requires_grad_(True)
+        t = time.perf_counter()
+        loss = adapter(xa)
+        (grad,) = torch.autograd.grad(loss.sum(), xa)
+        torch.cuda.synchronize()
+        return {"loss": loss.detach().cpu(), "grad": grad.cpu(), "ms": (time.perf_counter() - t) * 1e3,
+                "launches": _launches()}
+
+    def spec(adapter, prompt):
+        stats = {}
+        _reset_launches()
+        t = time.perf_counter()
+        ids = [int(v[0]) for v in spec_stream_tokens(adapter, x[:1], [prompt], PARALLEL_NEW_TOKENS,
+                                                     k=PARALLEL_TP_SPEC_K, stats=stats)]
+        torch.cuda.synchronize()
+        eos = adapter.tok.eos_token_id
+        ids = ids[:ids.index(eos)] if eos in ids else ids
+        return {"ids": ids, "stats": stats, "s": time.perf_counter() - t, "launches": _launches()}
+
+    shapes = []
+
+    def record_shapes():
+        for mod, name in ((clip_model, "vit_attention"), (llama_model, "flash_attention")):
+            fn = getattr(mod, name)
+
+            def wrapped(q, *a, _fn=fn, _n=name, **k):
+                shapes.append((_n, str(q.dtype).split(".")[-1], tuple(q.shape)))
+                return _fn(q, *a, **k)
+
+            setattr(mod, name, wrapped)
+
+    try:
+        if rank == 0:
+            model, adapter = build(torch.float32)
+            out["f32_unsplit"] = loss_grad(adapter)
+            del model, adapter
+            _free()
+        model, adapter = build(torch.bfloat16)
+        prompt = adapter.get_caption_prompt()
+        if rank == 0:
+            out["solo"] = [_solo_trace(adapter, x[i:i + 1], prompt, PARALLEL_NEW_TOKENS) for i in range(2)]
+            out["plain"] = host(_parallel_llava(adapter, x, prompt))
+            out["plain_spec"] = spec(adapter, prompt)
+            out["held_gib_unsplit"] = torch.cuda.memory_allocated() / 2**30
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=PARALLEL_TP_TIMEOUT_S))
+        try:
+            mesh = make_mesh(*PARALLEL_TP_MESH)
+            _free()
+            t = time.perf_counter()
+            shard_params(model, mesh)
+            torch.cuda.synchronize()
+            out["shard_params_s"] = time.perf_counter() - t
+            out["param_gib"] = sum((p.to_local() if type(p).__name__ == "DTensor" else p).nbytes
+                                   for p in model.parameters()) / 2**30
+            out["split"] = {"vision_blocks": sum(b.tp is not None for b in model.vision.blocks),
+                            "lm_blocks": sum(b.tp is not None for b in model.llama.blocks),
+                            "lm_head": model.llama.tp is not None, "projector": model.projector.tp is not None}
+            record_shapes()
+            out["split_run"] = host(_parallel_llava(adapter, x, prompt))
+            out["split_spec"] = spec(adapter, prompt)
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            del model, adapter
+            _free()
+            # float32: one rank builds (28 GB) and splits at a time
+            for r in range(world):
+                if r == rank:
+                    model, adapter = build(torch.float32)
+                    shard_params(model, mesh)
+                    _free()
+                dist.barrier()
+            out["f32_split"] = loss_grad(adapter)
+            out["attention_shapes"] = sorted(set(shapes))
+            del model, adapter
+        finally:
+            dist.destroy_process_group()
+        record = {"ok": True, "result": out}
+    except Exception:  # noqa: BLE001 - the traceback goes to the parent, which fails the phase
+        record = {"ok": False, "error": traceback.format_exc()}
+    torch.save(record, Path(out_dir) / f"rank{rank}.pt")
+
+
+def phase_parallel_tp(lm_layers: int = PARALLEL_TP_LM_LAYERS) -> dict:
+    """Tensor parallelism over `model` on the one card: two ranks of
+    `_parallel_tp_rank` (spawned; gloo, whose collectives take CUDA tensors
+    through the host), mesh (1, 1, 2), LLaVA-1.5-7B from seed 0 at full
+    width, its LM cut to `lm_layers` layers, split by `shard_params`. In
+    float32 each rank's loss and pixel gradient are held
+    to PARALLEL_TOL against rank 0's unsplit run. In bf16 (where a reordered
+    float32 sum moves roundings) the split's loss and gradient may stray
+    from the float32 model by PARALLEL_TP_BF16_FACTOR times the unsplit bf16
+    model's own error plus PARALLEL_TOL (its APGD loss from the unsplit
+    one's by one more of that error), and the engine's and
+    the speculative stream's tokens are held to the near-tie rule against
+    rank 0's solo rows. The split model must have launched the attention
+    kernels and `linf_step` (counts reset in each rank just before each
+    split run and read just after) on each rank's heads. Fails on any
+    rank's error."""
+    import multiprocessing
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    _free()
+    root = OUT / "parallel-tp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    world = PARALLEL_TP_MESH[0] * PARALLEL_TP_MESH[1] * PARALLEL_TP_MESH[2]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_parallel_tp_rank, args=(r, world, str(root / "store"), str(root), lm_layers))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PARALLEL_TP_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    records = [torch.load(root / f"rank{r}.pt", weights_only=False) if (root / f"rank{r}.pt").exists()
+               else {"ok": False, "error": f"rank {r} left no result (exit code {procs[r].exitcode})"}
+               for r in range(world)]
+    shutil.rmtree(root, ignore_errors=True)
+    errors = [rec["error"] for rec in records if not rec["ok"]]
+    if errors:
+        raise AssertionError(f"parallel_tp: a rank failed:\n{errors[0]}")
+    ranks = [rec["result"] for rec in records]
+    ref, solo, f32 = ranks[0]["plain"], ranks[0]["solo"], ranks[0]["f32_unsplit"]
+    eos = 2  # WordTokenizer's
+
+    def rel(a, b):
+        return float(((a.double() - b.double()).abs() / b.double().abs()).max())
+
+    def diff(a, b):
+        return float((a - b).abs().max())
+
+    g32_max = float(f32["grad"].abs().max())
+    # the unsplit bf16 model's own error against the float32 model
+    bf16_loss_err, bf16_grad_err = rel(ref["loss"], f32["loss"]), diff(ref["grad"], f32["grad"])
+    loss_bound = PARALLEL_TP_BF16_FACTOR * bf16_loss_err + PARALLEL_TOL["loss_rel"]
+    apgd_bound = (PARALLEL_TP_BF16_FACTOR + 1.0) * bf16_loss_err + PARALLEL_TOL["loss_rel"]
+    grad_bound = PARALLEL_TP_BF16_FACTOR * bf16_grad_err + PARALLEL_TOL["grad_rel_to_max"] * g32_max
+    heads = {"vit_attention": 16 // PARALLEL_TP_MESH[2], "flash_attention": 32 // PARALLEL_TP_MESH[2]}
+    kernels_b = ("vit_attention_fwd", "vit_attention_bwd", "flash_attention_fwd", "flash_attention_bwd")
+    per_rank, checks = [], {}
+    for r, res in enumerate(ranks):
+        run, s32 = res["split_run"], res["f32_split"]
+        engine = [_near_tie(got, want, rows, eos)
+                  for got, want, (_, rows) in zip(run["engine"], ref["engine"], solo)]
+        spec_vs_solo = _near_tie(res["split_spec"]["ids"], solo[0][0], solo[0][1], eos)
+        shapes = res["attention_shapes"]
+        rec = {"rank": r,
+               "f32": {"loss": s32["loss"].tolist(), "loss_rel_err": rel(s32["loss"], f32["loss"]),
+                       "grad_max_abs_diff": diff(s32["grad"], f32["grad"]), "grad_max_abs": g32_max,
+                       "ms_loss_grad": s32["ms"], "launches": {k: s32["launches"].get(k, 0) for k in kernels_b}},
+               "bf16": {"loss": run["loss"].tolist(), "loss_rel_err_vs_unsplit": rel(run["loss"], ref["loss"]),
+                        "loss_rel_err_vs_f32": rel(run["loss"], f32["loss"]),
+                        "grad_max_abs_diff_vs_unsplit": diff(run["grad"], ref["grad"]),
+                        "grad_max_abs_diff_vs_f32": diff(run["grad"], f32["grad"]),
+                        "apgd_loss_best_rel_err_vs_unsplit": rel(run["apgd_loss_best"], ref["apgd_loss_best"])},
+               "engine": run["engine"], "engine_vs_unsplit": engine, "spec": res["split_spec"]["ids"],
+               "spec_stats": res["split_spec"]["stats"], "spec_vs_solo": spec_vs_solo,
+               "attention_shapes": shapes, "split": res["split"], "param_gib": res["param_gib"],
+               "peak_gib": res["peak_gib"], "shard_params_s": res["shard_params_s"],
+               "ms_loss_grad": run["loss_grad_ms"], "ms_per_apgd_iter": run["ms_per_apgd_iter"],
+               "engine_s": run["engine_s"], "spec_s": res["split_spec"]["s"],
+               "launches_loss_grad": {k: run["launches_loss_grad"].get(k, 0) for k in kernels_b},
+               "launches_apgd": {k: run["launches_apgd"].get(k, 0) for k in LLAVA_KERNELS}}
+        per_rank.append(rec)
+        checks.update({
+            f"rank{r}_split": (res["split"]["vision_blocks"] == 24 and res["split"]["lm_blocks"] == lm_layers
+                               and res["split"]["lm_head"] and res["split"]["projector"]),
+            f"rank{r}_f32_loss_rel": rec["f32"]["loss_rel_err"] <= PARALLEL_TOL["loss_rel"],
+            f"rank{r}_f32_grad": (rec["f32"]["grad_max_abs_diff"] <= PARALLEL_TOL["grad_rel_to_max"] * g32_max
+                                  and g32_max > 0.0),
+            f"rank{r}_bf16_loss": rec["bf16"]["loss_rel_err_vs_f32"] <= loss_bound,
+            f"rank{r}_bf16_grad": rec["bf16"]["grad_max_abs_diff_vs_f32"] <= grad_bound,
+            f"rank{r}_bf16_apgd_loss": rec["bf16"]["apgd_loss_best_rel_err_vs_unsplit"] <= apgd_bound,
+            f"rank{r}_launched": (_launched(run["launches_loss_grad"], kernels_b)
+                                  and _launched(run["launches_apgd"], LLAVA_KERNELS)
+                                  and _launched(s32["launches"], kernels_b)),
+            f"rank{r}_local_heads": (bool(shapes) and all(q[1] == heads[n] for n, _, q in shapes)
+                                     and {(n, d) for n, d, _ in shapes}
+                                     == {(n, d) for n in heads for d in ("float32", "bfloat16")}),
+            f"rank{r}_engine_near_tie": all(e["ok"] for e in engine) and any(ref["engine"]),
+            f"rank{r}_spec_near_tie": spec_vs_solo["ok"] and res["split_spec"]["stats"]["verify_steps"] > 0,
+        })
+    checks["ranks_agree"] = all(torch.equal(ranks[0][k][v], res[k][v]) for res in ranks[1:]
+                                for k in ("split_run", "f32_split") for v in ("loss", "grad"))
+    plain_spec = _near_tie(ranks[0]["plain_spec"]["ids"], solo[0][0], solo[0][1], eos)
+    emit({"phase": "parallel_tp", "entry": "robustvlm_tpu_torch.parallel (make_mesh, shard_params: Megatron "
+          "split over model) in a 2-rank gloo group on one card", "mesh": dict(zip(("data", "fsdp", "model"),
+                                                                                   PARALLEL_TP_MESH)),
+          "model": "llava-1.5-7b", "lm_layers": lm_layers, "batch": 2, "apgd_iters": PARALLEL_APGD_ITERS,
+          "engine": {**PARALLEL_ENGINE}, "spec_k": PARALLEL_TP_SPEC_K, "tol": PARALLEL_TOL,
+          "bf16_bounds": {"factor": PARALLEL_TP_BF16_FACTOR, "loss_rel_vs_f32": loss_bound,
+                          "grad_max_abs_vs_f32": grad_bound, "apgd_loss_rel_vs_unsplit": apgd_bound},
+          "unsplit": {"f32": {"loss": f32["loss"].tolist(), "ms_loss_grad": f32["ms"]},
+                      "bf16": {"loss": ref["loss"].tolist(), "loss_rel_err_vs_f32": bf16_loss_err,
+                               "grad_max_abs_diff_vs_f32": bf16_grad_err},
+                      "ms_loss_grad": ref["loss_grad_ms"],
+                      "ms_per_apgd_iter": ref["ms_per_apgd_iter"], "peak_gib": ref["peak_gib"],
+                      "held_gib": ranks[0]["held_gib_unsplit"], "engine": ref["engine"],
+                      "engine_s": ref["engine_s"], "spec": ranks[0]["plain_spec"]["ids"],
+                      "spec_vs_solo": plain_spec, "spec_s": ranks[0]["plain_spec"]["s"],
+                      "solo": [ids for ids, _ in solo],
+                      "launches_apgd": {k: ref["launches_apgd"].get(k, 0) for k in LLAVA_KERNELS}},
+          "ranks": per_rank, "card": card_line(), "phase_s": time.perf_counter() - t_phase,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"parallel_tp checks failed: {checks}")
+    return {k: sum(res["split_run"]["launches_loss_grad"].get(k, 0) + res["split_run"]["launches_apgd"].get(k, 0)
+                   for res in ranks) for k in LLAVA_KERNELS}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4734,6 +5032,7 @@ def main() -> int:
     del adapter
     _free()
     runs["parallel"] = phase_parallel()
+    runs["parallel_tp"] = phase_parallel_tp()
     # Each row takes the launches of the run of its path and dtype: the CLIP
     # kernels from the CLI's CLIP runs; flash in bf16 from the LLaVA eval,
     # in float32 from the ensemble's float32 stage (at head dim 64 from the

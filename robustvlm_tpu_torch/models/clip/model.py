@@ -19,6 +19,12 @@ the JAX package's parameter names and layouts (linear weights stored
   it fine-tunes.
 - `remat=True` recomputes each vision block's activations in the backward
   (`torch.utils.checkpoint`), the counterpart of the JAX `remat` flag.
+- A block split over the mesh's `model` axis (`parallel/mesh.shard_params`
+  sets its `tp`) holds this rank's heads of q, k and v (the fused columns
+  [q_r|k_r|v_r]) and ffn columns, runs the attention kernels on its
+  (B, heads/m, N, hd) and adds the out and proj biases once, after the
+  row-parallel sum (`parallel/tensor_parallel.py`). A whole block (`tp`
+  None) computes as before, bit for bit.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from torch import nn
 from robustvlm_tpu_torch.models.clip.convnext import ConvNeXtConfig, ConvNeXtTower
 from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from robustvlm_tpu_torch.ops.kernels.vit_attention import vit_attention
+from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, local, row_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,20 +178,23 @@ class Attention(nn.Module):
         self.out_w = nn.Parameter(torch.zeros(width, width))
         self.out_b = nn.Parameter(torch.zeros(width))
 
-    def forward(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool, tp=None) -> torch.Tensor:
         b, n, w = x.shape
         hd = w // self.heads
+        heads = self.heads // tp.size if tp else self.heads
         cd = x.dtype
-        qkv = x @ self.qkv_w.to(cd) + self.qkv_b.to(cd)
+        qkv = (column_parallel(x, local(self.qkv_w).to(cd), tp) if tp else x @ self.qkv_w.to(cd)) + \
+            local(self.qkv_b).to(cd)
 
         def heads_split(t):
-            return t.reshape(b, n, self.heads, hd).transpose(1, 2)
+            return t.reshape(b, n, heads, hd).transpose(1, 2)
 
-        q, k, v = (heads_split(t) for t in qkv.split(w, dim=-1))
+        q, k, v = (heads_split(t) for t in qkv.split(heads * hd, dim=-1))
         # the CLIP text mask only ever encodes causality (JAX model.py:190-207)
         out = flash_attention(q, k, v, causal=True) if causal else vit_attention(q, k, v)
-        out = out.transpose(1, 2).reshape(b, n, w)
-        return out @ self.out_w.to(cd) + self.out_b.to(cd)
+        out = out.transpose(1, 2).reshape(b, n, heads * hd)
+        out = row_parallel(out, local(self.out_w).to(cd), tp) if tp else out @ self.out_w.to(cd)
+        return out + self.out_b.to(cd)
 
 
 class MLP(nn.Module):
@@ -197,6 +207,8 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    tp = None  # parallel.tensor_parallel.TensorParallel when split over `model`
+
     def __init__(self, tcfg: TransformerConfig, quick: bool):
         super().__init__()
         self.ln_1 = LayerNorm(tcfg.width)
@@ -205,12 +217,25 @@ class Block(nn.Module):
         self.mlp = MLP(tcfg.width, int(tcfg.width * tcfg.mlp_ratio))
         self.act = quick_gelu if quick else F.gelu  # F.gelu is the exact (erf) GELU
 
+    def tp_layout(self, m: int):
+        """{parameter: (split dim, blocks)} over a `model` axis of m, or None
+        when m does not divide the heads or the ffn width (the block stays
+        whole)."""
+        if self.attn.heads % m or self.mlp.fc_w.shape[1] % m:
+            return None
+        return {"attn.qkv_w": (1, 3), "attn.qkv_b": (0, 3), "attn.out_w": (0, 1),
+                "mlp.fc_w": (1, 1), "mlp.fc_b": (0, 1), "mlp.proj_w": (0, 1)}
+
     def forward(self, x, causal: bool = False):
-        x = x + self.attn(self.ln_1(x), causal)
+        tp = self.tp
+        x = x + self.attn(self.ln_1(x), causal, tp)
         cd = x.dtype
         m = self.mlp
-        h = self.act(self.ln_2(x) @ m.fc_w.to(cd) + m.fc_b.to(cd))
-        return x + (h @ m.proj_w.to(cd) + m.proj_b.to(cd))
+        h = self.ln_2(x)
+        h = column_parallel(h, local(m.fc_w).to(cd), tp) if tp else h @ m.fc_w.to(cd)
+        h = self.act(h + local(m.fc_b).to(cd))
+        y = row_parallel(h, local(m.proj_w).to(cd), tp) if tp else h @ m.proj_w.to(cd)
+        return x + (y + m.proj_b.to(cd))
 
 
 class VisionTower(nn.Module):
@@ -312,6 +337,12 @@ class CLIP(nn.Module):
         self.requires_grad_(False)
         if device is not None:
             self.to(device)
+
+    @property
+    def tensor_parallel_ok(self) -> bool:
+        """Whether `parallel/mesh.shard_params` splits this model over
+        `model` (the ViT towers; a ConvNeXt CLIP gathers on use)."""
+        return self.cfg.vision_arch == "vit"
 
     def encode_image(self, x, *, normalize=False, compute_dtype=torch.float32,
                      tokens=False, n_skip_last=0, remat=False):

@@ -41,6 +41,12 @@ from torch.utils.checkpoint import checkpoint
 
 from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from robustvlm_tpu_torch.ops.quant import qmatmul
+from robustvlm_tpu_torch.parallel.tensor_parallel import (
+    column_parallel,
+    gather_from_model,
+    local,
+    row_parallel,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +195,8 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    tp = None  # parallel.tensor_parallel.TensorParallel when split over `model`
+
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.cfg = cfg
@@ -197,23 +205,39 @@ class Block(nn.Module):
         self.attn = Attention(cfg)
         self.mlp = MLP(cfg)
 
+    def tp_layout(self, m: int):
+        """{parameter: (split dim, blocks)} over a `model` axis of m, or None
+        (the block stays whole) when m does not divide the heads, the kv
+        heads or the ffn width, or a weight is quantized."""
+        cfg, a, f = self.cfg, self.attn, self.mlp
+        weights = (a.wq, a.wk, a.wv, a.wo, f.w_gate, f.w_up, f.w_down)
+        if (cfg.n_heads % m or cfg.n_kv_heads % m or cfg.ffn_dim % m
+                or not all(isinstance(w, nn.Parameter) for w in weights)):
+            return None
+        names = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.w_gate", "mlp.w_up", "mlp.w_down")
+        return {n: (0 if n in ("attn.wo", "mlp.w_down") else 1, 1) for n in names}
+
     def forward(self, x, cos, sin, *, cache=None, pos=None, kv_mask=None):
         """One decoder layer. cache: (k, v) buffers (B, Hkv, N, hd), or (k, v,
         ks, vs) of an int8 cache with its (B, Hkv, N) scales, written in
         place at `pos` (int, or (B,) per-slot offsets); kv_mask (B, N) marks
         valid key slots."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         b, t, _ = x.shape
         cd = x.dtype
         a = self.attn
+        n_heads, n_kv = (cfg.n_heads // tp.size, cfg.n_kv_heads // tp.size) if tp else (cfg.n_heads, cfg.n_kv_heads)
 
         def heads(y, n):
             return y.reshape(b, t, n, cfg.head_dim).transpose(1, 2)
 
+        def col(w):  # a split block's column-parallel product, else qmatmul
+            return column_parallel(h, local(w).to(cd), tp) if tp else qmatmul(h, w)
+
         h = rms_norm(x, self.attn_norm, cfg.norm_eps)
-        q = apply_rope(heads(qmatmul(h, a.wq), cfg.n_heads), cos, sin)
-        k = apply_rope(heads(qmatmul(h, a.wk), cfg.n_kv_heads), cos, sin)
-        v = heads(qmatmul(h, a.wv), cfg.n_kv_heads)
+        q = apply_rope(heads(col(a.wq), n_heads), cos, sin)
+        k = apply_rope(heads(col(a.wk), n_kv), cos, sin)
+        v = heads(col(a.wv), n_kv)
         if cache is not None:
             qpos = (pos[:, None] if torch.is_tensor(pos) and pos.dim() == 1 else pos) + \
                 torch.arange(t, device=x.device)
@@ -228,18 +252,21 @@ class Block(nn.Module):
                 att = _attn(q, ck, cv, q_positions=qpos, kv_mask=kv_mask)
         else:
             att = _attn(q, k, v, kv_mask=kv_mask)
-        att = att.transpose(1, 2).reshape(b, t, cfg.dim)
-        x = x + qmatmul(att.to(cd), a.wo)
+        att = att.transpose(1, 2).reshape(b, t, n_heads * cfg.head_dim).to(cd)
+        x = x + (row_parallel(att, local(a.wo).to(cd), tp) if tp else qmatmul(att, a.wo))
 
         m = self.mlp
         h = rms_norm(x, self.ffn_norm, cfg.norm_eps)
-        gate = F.silu(qmatmul(h, m.w_gate))
-        return x + qmatmul(gate * qmatmul(h, m.w_up), m.w_down)
+        gate = F.silu(col(m.w_gate))
+        y = gate * col(m.w_up)
+        return x + (row_parallel(y, local(m.w_down).to(cd), tp) if tp else qmatmul(y, m.w_down))
 
 
 class Llama(nn.Module):
     """Embedding, decoder blocks, final norm and LM head. Parameters are
     created frozen; load a state dict (convert.py) or random weights."""
+
+    tp = None  # set when the LM head is split over `model`
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -249,6 +276,28 @@ class Llama(nn.Module):
         self.norm = nn.Parameter(torch.ones(cfg.dim))
         self.lm_head = nn.Parameter(torch.zeros(cfg.dim, cfg.vocab_size))
         self.requires_grad_(False)
+
+    def tp_layout(self, m: int):
+        """The LM head's vocabulary columns over a `model` axis of m, unless m
+        does not divide the vocabulary or the head is quantized."""
+        if self.cfg.vocab_size % m or not isinstance(self.lm_head, nn.Parameter):
+            return None
+        return {"lm_head": (1, 1)}
+
+
+def local_kv_heads(model: Llama) -> int:
+    """The kv heads a rank's blocks hold (all of them on a whole model): the
+    head count of its KV cache."""
+    tp = model.blocks[0].tp if len(model.blocks) else None
+    return model.cfg.n_kv_heads // tp.size if tp else model.cfg.n_kv_heads
+
+
+def _lm_head(model: Llama, h: torch.Tensor) -> torch.Tensor:
+    """Float32 logits over the whole vocabulary (a split head's gathered)."""
+    tp = model.tp
+    if tp is None:
+        return qmatmul(h, model.lm_head).float()
+    return gather_from_model(column_parallel(h, local(model.lm_head).to(h.dtype), tp).float(), tp)
 
 
 def llama_forward(
@@ -296,7 +345,7 @@ def llama_forward(
             x = blk(x, cos, sin, cache=tuple(cache[key][i] for key in keys), pos=cache_pos,
                     kv_mask=kv_mask)
         h = rms_norm(x, model.norm, cfg.norm_eps)
-        return qmatmul(h, model.lm_head).float(), cache
+        return _lm_head(model, h), cache
 
     for blk in model.blocks:
         if remat and torch.is_grad_enabled():
@@ -306,16 +355,18 @@ def llama_forward(
     x = rms_norm(x, model.norm, cfg.norm_eps)
     if return_hidden:
         return x
-    return qmatmul(x, model.lm_head).float()
+    return _lm_head(model, x)
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
-               dtype=torch.bfloat16, kv_bits: int = 0, device=None) -> Dict[str, torch.Tensor]:
+               dtype=torch.bfloat16, kv_bits: int = 0, device=None,
+               n_kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Stacked per-layer KV buffers (L, B, Hkv, N, hd). kv_bits=8 holds int8
     codes with float32 scales (L, B, Hkv, N) per layer, batch, head and
-    token (`_quantize_kv`)."""
+    token (`_quantize_kv`). `n_kv_heads` is the heads a rank holds
+    (`local_kv_heads`: a split model's n_kv_heads / m), all by default."""
     n = max_len or cfg.max_seq_len
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, n, cfg.head_dim)
+    shape = (cfg.n_layers, batch, n_kv_heads or cfg.n_kv_heads, n, cfg.head_dim)
     if kv_bits:
         if kv_bits != 8:
             raise ValueError(f"kv_bits must be 0 or 8, got {kv_bits}")

@@ -23,6 +23,13 @@ cast at each matmul.
 
 A serving model may hold weight-only quantized LM leaves (`ops/quant.py`):
 generation runs on them, the loss path refuses them.
+
+Split over the mesh's `model` axis (`parallel/mesh.shard_params`, LLaMA
+family): the tower's and the LM's blocks and the LM head as their modules
+say, and the `mlp2x_gelu` projector Megatron-style (w1 column-parallel with
+this rank's slice of the replicated b1, w2 row-parallel, b2 added once after
+the sum over `model`). The decode functions' caches hold the rank's kv heads
+(`models/llama/model.local_kv_heads`).
 """
 
 from __future__ import annotations
@@ -41,10 +48,17 @@ from robustvlm_tpu_torch.models.llama.model import (
     LlamaConfig,
     init_cache,
     llama_forward,
+    local_kv_heads,
 )
 from robustvlm_tpu_torch.models.mpt.model import MPT, MPT_CONFIGS, MPTConfig, init_mpt_cache, mpt_forward
 from robustvlm_tpu_torch.ops.image import normalize_clip, resize_bicubic
 from robustvlm_tpu_torch.ops.quant import has_quantized, install_quantized
+from robustvlm_tpu_torch.parallel.tensor_parallel import (
+    column_parallel,
+    local,
+    row_parallel,
+    split_to_model,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +102,15 @@ LLAVA_CONFIGS: Dict[str, LlavaConfig] = {
 class Projector(nn.Module):
     """`mlp2x_gelu`: linear, exact (erf) GELU, linear; `linear`: one linear."""
 
+    tp = None  # set when split over `model`
+
+    def tp_layout(self, m: int):
+        """w1's columns and w2's rows over a `model` axis of m (mlp2x_gelu
+        whose width m divides; a `linear` projector stays whole)."""
+        if self.linear or self.w1.shape[1] % m:
+            return None
+        return {"w1": (1, 1), "w2": (0, 1)}
+
     def __init__(self, cfg: LlavaConfig):
         super().__init__()
         wv, d = cfg.vision.vision.width, cfg.lm_dim
@@ -99,6 +122,10 @@ class Projector(nn.Module):
             self.b2 = nn.Parameter(torch.zeros(d))
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        tp = self.tp
+        if tp:
+            h = column_parallel(feats.float(), local(self.w1).float(), tp) + split_to_model(self.b1.float(), tp)
+            return row_parallel(F.gelu(h), local(self.w2).float(), tp) + self.b2.float()
         h = feats.float() @ self.w1.float() + self.b1.float()
         if self.linear:
             return h
@@ -124,6 +151,12 @@ class Llava(nn.Module):
     @property
     def lm(self) -> nn.Module:
         return self.llama if self.cfg.lm_family == "llama" else self.mpt
+
+    @property
+    def tensor_parallel_ok(self) -> bool:
+        """Whether `parallel/mesh.shard_params` splits this model over
+        `model` (the LLaMA family; LLaVA-MPT gathers on use)."""
+        return self.cfg.lm_family == "llama"
 
     @classmethod
     def from_state(cls, cfg: LlavaConfig, state: Dict[str, object]) -> "Llava":
@@ -275,7 +308,7 @@ def make_llava_decode_fns(model: Llava, pixels01, pre_tokens, *, max_total_len: 
             kw["kv_positions"] = torch.cat([pos_full, fill], dim=1)
         elif cache is None:
             cache = init_cache(cfg.llama, b, max_len=max_len, dtype=compute_dtype, kv_bits=kv_bits,
-                               device=dev)
+                               device=dev, n_kv_heads=local_kv_heads(model.llama))
         logits, cache = _lm_forward(model, inputs_embeds=embeds, positions=pos_full,
                                     compute_dtype=compute_dtype, cache=cache, cache_pos=0,
                                     kv_mask=kv_valid_full, **kw)

@@ -8,22 +8,47 @@ Counterpart of `robustvlm_tpu/parallel/mesh.py`, with its names:
   * data  - each rank holds its own rows of the batch;
   * fsdp  - parameters sharded at rest and gathered on use (FSDP2's
     `fully_shard`); fsdp doubles as a second batch axis;
-  * model - in this port the parameters are sharded at rest over `model` as
-    over `fsdp` (one flattened fsdp x model shard axis) and gathered on use.
-    JAX's compute split over `model` (Megatron heads, a row-parallel reduce)
-    is not ported: the function, the parameter bytes per device and the
-    batch layout are JAX's.
+  * model - Megatron tensor parallelism (`tensor_parallel.py`) in the
+    families that split: the CLIP ViT towers (vision and text) and LLaVA
+    with a LLaMA LM (its tower, projector, blocks and LM head). A split block
+    holds and computes on this rank's heads and ffn columns; ranks that
+    differ only in `model` hold the same rows of the batch. The other
+    families (MPT and OpenFlamingo, OPT and BLIP-2's Q-Former, ConvNeXt, the
+    BERT/XLM-R towers) shard over `model` at rest as over `fsdp` (one
+    flattened fsdp x model shard axis) and gather on use: the function is
+    JAX's, the compute is not split.
 - `_RULES` are JAX's decisions written on the port's parameter names (the
   blocks are `nn.ModuleList` entries, `visual.blocks.3.attn.qkv_w`, so the
   per-layer case of `_spec_for`, where a rule's leading layer axis drops,
   is the port's case). `param_sharding_rules` is a pure function of the
   parameters' names and shapes and the mesh's shape.
-- `shard_params` applies `fully_shard` to every block (a module of an
-  `nn.ModuleList` with its own `forward`) and then to the root, on the 2-D
-  mesh (data, fsdp x model): replicated over `data`, each parameter sharded
-  over the flattened pair on the dim JAX gives `fsdp` (else `model`) when
-  the pair divides it, else on FSDP2's default dim 0. Scalars, which FSDP2
-  cannot shard and JAX replicates, stay replicated tensors.
+- `shard_params`, in a family that splits, on a mesh with `model` > 1: each
+  module that can split (`tp_layout(m)` names its parameters' split dims
+  when m divides its heads, kv heads and ffn width) gets this rank's share of
+  those parameters as DTensors on the `model` sub-mesh (`Shard(dim)`; the
+  fused [q|k|v] columns `_StridedShard(1, split_factor=3)`, so that each
+  rank holds the q, k and v columns of its own heads and the global view is
+  the unsplit layout) and `tp` set. Then FSDP2 (`fully_shard` on the
+  `fsdp` sub-mesh, or on ("data", "fsdp") for HSDP) on every block and the
+  root shards the dim JAX's spec gives `fsdp`; a parameter whose spec names
+  no `fsdp` dim (JAX's replicated LayerNorms and biases, and the
+  column-parallel biases) is left out of FSDP (`ignored_params`) and stays
+  whole on the `fsdp` axis. So every rank holds JAX's bytes for every
+  parameter at the same mesh shape. FSDP2 takes a non-zero shard dim beside
+  a TP shard (the out and down projections: TP on the rows, FSDP on the
+  columns, JAX's own dims). A block that m does not divide (heads, kv heads
+  or ffn width; a quantized block) stays whole on every rank and takes the
+  flattened placement below, with JAX's replicated parameters left whole.
+  `state_dict()` of a split model is the unsplit layout, in plain tensors
+  (every DTensor gathered, `qkv_w` in [q|k|v] order): a checkpoint or an
+  export of it loads into an unsplit model. A split model loads no state.
+- `shard_params` in the other families (and on any mesh with `model` = 1)
+  applies `fully_shard` to every block (a module of an `nn.ModuleList` with
+  its own `forward`) and then to the root, on the 2-D mesh (data, fsdp x
+  model): replicated over `data`, each parameter sharded over the flattened
+  pair on the dim JAX gives `fsdp` (else `model`) when the pair divides it,
+  else on FSDP2's default dim 0. Scalars, which FSDP2 cannot shard and JAX
+  replicates, stay replicated tensors.
 - FSDP2 gathers a module's parameters only around its own `forward`. The
   root's parameters (embeddings, LM heads, towers' stems and projections)
   are read by free functions, so a sharded model's computations run through
@@ -48,6 +73,7 @@ from torch import nn
 from torch.utils._pytree import tree_flatten, tree_map
 
 from robustvlm_tpu_torch.device import resolve_device
+from robustvlm_tpu_torch.parallel.tensor_parallel import TensorParallel, full_value, head_columns
 
 AXES = ("data", "fsdp", "model")
 
@@ -70,6 +96,21 @@ class Mesh:
     device_mesh: Any = None   # the 3-D DeviceMesh
     shard_mesh: Any = None    # (data, fsdp x model) DeviceMesh for fully_shard
     batch_group: Any = None   # ranks of this rank's `model` index: its batch peers
+
+    @property
+    def fsdp_mesh(self):
+        """The sub-mesh FSDP2 shards a split model over: ("data", "fsdp")
+        (HSDP) when data > 1, else "fsdp"."""
+        dm = self.device_mesh
+        return dm["data", "fsdp"] if self.shape["data"] > 1 else dm["fsdp"]
+
+    @property
+    def tp(self) -> Optional[TensorParallel]:
+        """This rank's `model` group, None when `model` = 1 or without a
+        process group."""
+        if not self.distributed or self.shape["model"] == 1:
+            return None
+        return TensorParallel(self.device_mesh["model"].get_group(), self.shape["model"], self.coords[2])
 
     @property
     def distributed(self) -> bool:
@@ -172,26 +213,30 @@ def all_reduce_grads_(params: Iterable[nn.Parameter], mesh: Mesh) -> None:
     peers: every gradient (zeros where a parameter has none) in one flat
     float32 buffer, the sum divided by the peer count, written back in each
     gradient's dtype. What replicated parameters with a sharded batch
-    compute. FSDP-sharded parameters (DTensors) are left to FSDP's own
-    reduce-scatter. Skipped without a process group."""
+    compute. FSDP-sharded parameters (DTensors on a mesh with an `fsdp`
+    axis) are left to FSDP's own reduce-scatter; a split parameter outside
+    FSDP (a DTensor on the `model` sub-mesh alone) is reduced here, its
+    local shard with the peers' same shard. Skipped without a process
+    group."""
     if not mesh.distributed:
         return
     from torch.distributed.tensor import DTensor
 
-    plain = [p for p in params if not isinstance(p, DTensor)]
+    plain = [p for p in params if not isinstance(p, DTensor) or p.device_mesh.mesh_dim_names == ("model",)]
     if not plain:
         return
     for p in plain:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    flat = torch.cat([p.grad.reshape(-1).float() for p in plain])
+    grads = [p.grad._local_tensor if isinstance(p.grad, DTensor) else p.grad for p in plain]
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
     dist.all_reduce(flat, group=mesh.batch_group)
     COLLECTIVES["grad_all_reduce"] += 1
     flat /= mesh.batch_shards
     off = 0
-    for p in plain:
-        n = p.grad.numel()
-        p.grad.copy_(flat[off:off + n].view_as(p.grad))
+    for g in grads:
+        n = g.numel()
+        g.copy_(flat[off:off + n].view_as(g))
         off += n
 
 
@@ -349,11 +394,14 @@ def _blocks(model: nn.Module) -> list:
 
 def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
     """Shard `model`'s parameters at rest over the mesh by the rules, in
-    place: `fully_shard` on every block, then on the root (see the module
-    docstring). Returns the model; the identity without a process group.
-    Run its computations through `sharded_call`."""
+    place: split over `model` where the family splits, then `fully_shard`
+    on every block and on the root (see the module docstring). Returns the
+    model; the identity without a process group. Run its computations
+    through `sharded_call`."""
     if not mesh.distributed:
         return model
+    if mesh.tp is not None and getattr(model, "tensor_parallel_ok", False):
+        return _shard_split(model, mesh)
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -373,6 +421,97 @@ def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
     fully_shard(model, mesh=mesh.shard_mesh, shard_placement_fn=placement,
                 ignored_params=scalars(model) or None)
     return model
+
+
+def _split_param(p: nn.Parameter, dim: int, parts: int, tp: TensorParallel, model_mesh) -> nn.Parameter:
+    """This rank's share of `p` as a DTensor on the `model` sub-mesh: its
+    1/m of dim `dim`, or with `parts` > 1 its 1/m of each of the `parts`
+    equal blocks of that dim (the fused [q|k|v] columns)."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    with torch.no_grad():
+        if parts > 1:
+            idx = head_columns(p.shape[dim] // parts, tp.size, tp.rank, parts).to(p.device)
+            loc = p.index_select(dim, idx)
+            pl = _StridedShard(dim, split_factor=parts)
+        else:
+            n = p.shape[dim] // tp.size
+            loc = p.narrow(dim, tp.rank * n, n).clone()
+            pl = Shard(dim)
+        dt = DTensor.from_local(loc.contiguous(), model_mesh, [pl], run_check=False, shape=p.shape,
+                                stride=p.stride())
+    return nn.Parameter(dt, requires_grad=p.requires_grad)
+
+
+def _shard_split(model: nn.Module, mesh: Mesh) -> nn.Module:
+    """`shard_params` of a family that splits, on `model` > 1: TP DTensors
+    where `tp_layout` allows, FSDP2 over the `fsdp` sub-mesh on the dim
+    JAX's spec gives `fsdp` (blocks that stay whole: the flattened
+    placement), JAX's replicated parameters left out of FSDP."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    m, tp, model_mesh = mesh.shape["model"], mesh.tp, mesh.device_mesh["model"]
+    split_mods = set()
+    for mod in model.modules():
+        layout = mod.tp_layout(m) if hasattr(mod, "tp_layout") else None
+        if layout is None:
+            continue
+        for pname, (dim, parts) in layout.items():
+            owner, leaf = mod.get_submodule(pname.rpartition(".")[0]), pname.rpartition(".")[2]
+            owner._parameters[leaf] = _split_param(owner._parameters[leaf], dim, parts, tp, model_mesh)
+        mod.tp = tp
+        split_mods.add(mod)
+
+    names = {id(p): n for n, p in model.named_parameters()}
+    shape = mesh.shape
+
+    def spec(p):
+        return param_spec(names[id(p)], tuple(p.shape), shape)
+
+    def split_placement(p):
+        s = spec(p)
+        return Shard(s.index("fsdp"))
+
+    def flat_placement(p):
+        d = shard_dim(names[id(p)], tuple(p.shape), shape)
+        return None if d is None else Shard(d)
+
+    def whole(mod, split: bool):
+        """Parameters FSDP leaves alone: JAX's replicated ones (and scalars);
+        in a split module (and the root) also those whose spec names no
+        `fsdp` dim (the column-parallel biases)."""
+        return {p for p in mod.parameters()
+                if p.dim() == 0 or all(a is None for a in spec(p)) or (split and "fsdp" not in spec(p))}
+
+    for blk in _blocks(model):
+        if blk in split_mods:
+            fully_shard(blk, mesh=mesh.fsdp_mesh, shard_placement_fn=split_placement,
+                        ignored_params=whole(blk, True) or None)
+        else:
+            fully_shard(blk, mesh=mesh.shard_mesh, shard_placement_fn=flat_placement,
+                        ignored_params=whole(blk, False) or None)
+    # fully_shard put new parameters in the blocks
+    names.update({id(p): n for n, p in model.named_parameters()})
+    fully_shard(model, mesh=mesh.fsdp_mesh, shard_placement_fn=split_placement,
+                ignored_params=whole(model, True) or None)
+    model.register_state_dict_post_hook(_unsplit_state)
+    return model
+
+
+def _unsplit_state(module, state_dict, prefix, local_metadata) -> None:
+    """A split model's state_dict in the unsplit layout: every DTensor
+    gathered into a plain tensor (collective: every rank calls it)."""
+    for k, v in state_dict.items():
+        state_dict[k] = full_value(v)
+
+
+def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """{name: the parameter's or buffer's global value} as plain tensors, in
+    the unsplit layout, whatever the model's sharding (collective on a
+    sharded model)."""
+    return {k: full_value(v) for k, v in model.state_dict().items()}
 
 
 def is_sharded(model) -> bool:

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from robustvlm_tpu_torch.models.llava.model import make_llava_decode_fns
+from robustvlm_tpu_torch.vlm_eval.eval_models import _decode_fns_of
 
 
 def draft_prompt_lookup(ids: Sequence[int], k: int, *, max_ngram: int = 3) -> List[int]:
@@ -63,7 +64,7 @@ def draft_prompt_lookup(ids: Sequence[int], k: int, *, max_ngram: int = 3) -> Li
 
 def _spec_cores(model, x01: torch.Tensor, pre: torch.Tensor, t_prompt: int, max_new: int, k: int):
     """The (prefill, verify) pair of one speculative stream, on the adapter's
-    generation weights (int8 KV cache under `quantize_kv`).
+    generation weights (int8 KV cache under `quantize_kv`), sharded or not.
 
     prefill(toks, n_pad) -> (first token (B,), cache)
         the stream prefill, its cache carrying k spill slots.
@@ -73,9 +74,10 @@ def _spec_cores(model, x01: torch.Tensor, pre: torch.Tensor, t_prompt: int, max_
         token after toks_k1[:, :j + 1]: row 0 checks draft_1, ..., row k - 1
         checks draft_k, row k is the bonus token."""
     total = t_prompt + max_new + k  # k spill slots for the last verify
-    pf, df = make_llava_decode_fns(model._gen_params(), x01, pre, max_total_len=total,
-                                   compute_dtype=model.compute_dtype,
-                                   kv_bits=8 if model.quantize_kv else 0)
+    # through sharded_call, as the plain stream: a sharded model's root
+    # parameters are gathered for the tower, the splice and the LM head
+    pf, df = _decode_fns_of(model._gen_params(), make_llava_decode_fns, x01, pre, max_total_len=total,
+                            compute_dtype=model.compute_dtype, kv_bits=8 if model.quantize_kv else 0)
     dev = pre.device
     sl = torch.arange(total, device=dev)[None, :]
     ar = sl[:, :t_prompt]

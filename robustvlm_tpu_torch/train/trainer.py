@@ -29,7 +29,10 @@ Differences from the JAX step that change no result:
   single-process step computes on the global batch, as JAX's replicated
   parameters with a sharded batch do. FSDP-sharded parameters
   (`shard_params`) are reduced by FSDP itself, and the forwards go through
-  `sharded_call`.
+  `sharded_call`. On a CLIP split over `model` (Megatron heads) each rank
+  holds its share of the split parameters and their gradients; every
+  gradient is reduced over the batch peers only (ranks of one `model`
+  index), since the `model` peers of a replicated parameter already agree.
 
 Like JAX, the optimizer holds every parameter of the CLIP model, text tower
 and `logit_scale` included: their gradients are zero, and AdamW's decoupled

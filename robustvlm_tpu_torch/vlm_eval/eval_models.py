@@ -60,7 +60,7 @@ from robustvlm_tpu_torch.models.llava.conversation import (
     get_vqa_prompt,
     split_at_image,
 )
-from robustvlm_tpu_torch.models.llama.model import init_cache
+from robustvlm_tpu_torch.models.llama.model import init_cache, local_kv_heads
 from robustvlm_tpu_torch.models.llava.model import (
     Llava,
     llava_decode_step,
@@ -337,7 +337,7 @@ class LlavaEvalModel:
         def lanes(pre):
             t_prefix = pre.shape[1] + cfg.n_image_tokens
             return init_cache(cfg.llama, n_slots, max_len=t_prefix + total, dtype=dtype,
-                              kv_bits=kv_bits, device=dev)
+                              kv_bits=kv_bits, device=dev, n_kv_heads=local_kv_heads(model.llama))
 
         def admit_(x01, pre, toks, n_pad, bcaches, slot):
             pf, _ = make_llava_decode_fns(model, x01, pre, max_total_len=total, compute_dtype=dtype,

@@ -91,14 +91,11 @@ def run_world(tmp_path, world: int, fn_name: str, timeout: float = 240.0, **kwar
 
 # ------------------------------------------------------------------ helpers
 def _state(model) -> dict:
-    """name -> full numpy value (DTensors gathered)."""
-    from torch.distributed.tensor import DTensor
+    """name -> full numpy value (DTensors gathered, split ones in the
+    unsplit layout)."""
+    from robustvlm_tpu_torch.parallel.tensor_parallel import full_value
 
-    out = {}
-    for n, p in model.named_parameters():
-        t = p.full_tensor() if isinstance(p, DTensor) else p
-        out[n] = t.detach().cpu().numpy().copy()
-    return out
+    return {n: full_value(p).detach().cpu().numpy().copy() for n, p in model.named_parameters()}
 
 
 def _placements(model) -> dict:
@@ -191,8 +188,10 @@ def driver_world(rank, world, argv_by_rank):
 
 def models_world(rank, world, llava_tree, blip2_tree, mclip_tree, apgd):
     """shard_attack APGD on a data = world mesh, both forms; sharded pixel
-    gradients of tiny LLaVA and BLIP-2 and a sharded mclip text encode on
-    (1, 2, 2), each with the same model unsharded."""
+    gradients of tiny LLaVA (on (1, 4, 1): sharded and gathered on use; on
+    (1, 2, 2) LLaVA splits over `model`, which `tp_world` holds) and BLIP-2
+    and a sharded mclip text encode on (1, 2, 2), each with the same model
+    unsharded."""
     from robustvlm_tpu_torch.attacks.apgd import apgd_attack
     from robustvlm_tpu_torch.models.blip2 import model as PB
     from robustvlm_tpu_torch.models.blip2.convert import params_from_jax as blip2_from_jax
@@ -236,7 +235,7 @@ def models_world(rank, world, llava_tree, blip2_tree, mclip_tree, apgd):
         (g,) = torch.autograd.grad(loss.sum(), xa)
         return loss.detach(), g
 
-    def held(build, loss_fn, xx, *args):
+    def held(build, loss_fn, xx, *args, mesh=mesh):
         """(unsharded loss, grad) on the full batch; (sharded loss, grad)
         from each rank's rows, gathered."""
         ref = pixel_grad(build(), loss_fn, xx, *args)
@@ -250,7 +249,7 @@ def models_world(rank, world, llava_tree, blip2_tree, mclip_tree, apgd):
     lx, ltok, lmask = (torch.from_numpy(a) for a in (llava_tree["x"], llava_tree["tokens"], llava_tree["mask"]))
     out["llava"] = held(lambda: Llava.from_state(lcfg, llava_from_jax(llava_tree["params"])),
                         lambda m, xx, t, mk: llava_per_sample_loss(m, xx, t, t, t, mk, compute_dtype=torch.float32),
-                        lx, ltok, lmask)
+                        lx, ltok, lmask, mesh=make_mesh(data=1, fsdp=4, model=1, device="cpu"))
     bcfg = PB.BLIP2_CONFIGS["test-tiny"]
     bx, btok, bmask = (torch.from_numpy(a) for a in (blip2_tree["x"], blip2_tree["tokens"], blip2_tree["mask"]))
     out["blip2"] = held(lambda: PB.Blip2.from_state(bcfg, blip2_from_jax(blip2_tree["params"])),
@@ -322,3 +321,184 @@ def gather_world(rank, world, sizes):
     merged = all_gather_results(local)
     means = merge_metric_means([{"acc": r["acc"]} for r in merged], [len(r["ids"]) for r in merged])
     return {"merged": merged, "indices": process_shard_indices(n).tolist(), "means": means}
+
+
+# ------------------------------------------------------------------ tensor parallel
+def _record_attention(module, names=("vit_attention", "flash_attention")) -> list:
+    """Wrap the attention entry points a model module calls; returns the list
+    of (name, q shape) each call appends."""
+    seen = []
+    for n in names:
+        if hasattr(module, n):
+            fn = getattr(module, n)
+
+            def wrapped(q, *a, _fn=fn, _n=n, **k):
+                seen.append((_n, tuple(q.shape)))
+                return _fn(q, *a, **k)
+
+            setattr(module, n, wrapped)
+    return seen
+
+
+def _local_bytes(model) -> dict:
+    """name -> bytes this rank holds of the parameter."""
+    from torch.distributed.tensor import DTensor
+
+    return {n: (p.to_local() if isinstance(p, DTensor) else p).detach().nbytes
+            for n, p in model.named_parameters()}
+
+
+def _full(model) -> dict:
+    from robustvlm_tpu_torch.parallel.mesh import full_state_dict
+
+    return {k: v.detach().cpu().numpy().copy() for k, v in full_state_dict(model).items()}
+
+
+def tp_world(rank, world, mesh_shape, clip, llava, train, lm="test-tiny"):
+    """One mesh (data, fsdp, model) with `model` > 1, float32 on the CPU, each
+    computation on the split model (this rank's rows, gathered) beside the
+    same model unsplit on the whole batch:
+      clip   - image and text embeddings, 5 APGD-CE iterations' robust
+               flags (zero-shot logits), per-parameter local bytes, the
+               attention shapes, block 0's local qkv columns, the unsplit
+               state_dict;
+      llava  - the per-sample loss and pixel gradient (LM config `lm`), local
+               bytes, attention shapes, which LM blocks split, state_dict;
+      train  - a TeCoA and a FARE step (SGD, PGD from the given starts):
+               the parameters after the step, in the unsplit layout."""
+    from robustvlm_tpu_torch.attacks.apgd import apgd_attack
+    from robustvlm_tpu_torch.models.clip import model as PC
+    from robustvlm_tpu_torch.models.llama import model as PL
+    from robustvlm_tpu_torch.models.llava import model as PV
+    from robustvlm_tpu_torch.models.llava.convert import params_from_jax as llava_from_jax
+    from robustvlm_tpu_torch.ops.image import normalize_clip
+    from robustvlm_tpu_torch.ops.losses import ce_loss
+    from robustvlm_tpu_torch.parallel.mesh import (
+        batch_sharding,
+        gather_batch,
+        make_mesh,
+        shard_params,
+        sharded_call,
+    )
+    from robustvlm_tpu_torch.parallel.tensor_parallel import head_columns
+    from robustvlm_tpu_torch.train.trainer import TrainConfig, TrainStep
+
+    mesh = make_mesh(*mesh_shape, device="cpu")
+    out = {"coords": mesh.coords}
+    rows = lambda a: batch_sharding(mesh, torch.from_numpy(a))  # noqa: E731
+
+    # --- CLIP
+    x, tok, temb, y = (torch.from_numpy(clip[k]) for k in ("x", "tokens", "temb", "y"))
+
+    def encode(model):
+        img = sharded_call(model, model.encode_image, normalize_clip(batch_sharding(mesh, x)), normalize=True)
+        txt = sharded_call(model, model.encode_text, batch_sharding(mesh, tok), normalize=True)
+        return gather_batch((img, txt), mesh)
+
+    def flags(model):
+        def logits(xa):
+            return sharded_call(model, model.encode_image, normalize_clip(xa), normalize=True) @ (100.0 * temb)
+
+        res = apgd_attack(logits, batch_sharding(mesh, x), batch_sharding(mesh, y),
+                          criterion=lambda o, t: ce_loss(o, t, reduction="none"), eps=8 / 255,
+                          n_iter=5, norm="linf")
+        return gather_batch(res.acc, mesh)
+
+    ref = _clip(clip["tree"])
+    with torch.no_grad():
+        ref_img, ref_txt = encode(ref)
+    ref_flags = flags(ref)
+    model = shard_params(_clip(clip["tree"]), mesh)
+    seen = _record_attention(PC)
+    with torch.no_grad():
+        img, txt = encode(model)
+    got_flags = flags(model)
+    qkv = model.visual.blocks[0].attn.qkv_w
+    want = torch.from_numpy(_full(ref)["visual.blocks.0.attn.qkv_w"])
+    f, fi = mesh.shape["fsdp"], mesh.coords[1]
+    want = want.chunk(f, 0)[fi][:, head_columns(want.shape[0], mesh.shape["model"], mesh.coords[2])]
+    out["clip"] = {"img": img.numpy(), "txt": txt.numpy(), "ref_img": ref_img.numpy(), "ref_txt": ref_txt.numpy(),
+                   "flags": got_flags.numpy(), "ref_flags": ref_flags.numpy(), "bytes": _local_bytes(model),
+                   "attention": sorted(set(seen)), "qkv_local_equal": bool(torch.equal(qkv.to_local(), want)),
+                   "split_blocks": [b.tp is not None for b in list(model.visual.blocks) + list(model.text.blocks)],
+                   "state": _full(model)}
+
+    # --- LLaVA
+    cfg = PV.LLAVA_CONFIGS["test-tiny"]
+    if lm != cfg.llama.name:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, name=f"test-tiny-{lm}", llama=PL.LLAMA_CONFIGS[lm])
+    lx, ltok, lmask = rows(llava["x"]), rows(llava["tokens"]), rows(llava["mask"])
+
+    def loss_grad(model, xx, t, mk):
+        xa = xx.clone().requires_grad_(True)
+        loss = sharded_call(model, PV.llava_per_sample_loss, model, xa, t, t, t, mk,
+                            compute_dtype=torch.float32)
+        (g,) = torch.autograd.grad(loss.sum(), xa)
+        return loss.detach(), g
+
+    full_in = [torch.from_numpy(llava[k]) for k in ("x", "tokens", "mask")]
+    ref_loss, ref_grad = loss_grad(PV.Llava.from_state(cfg, llava_from_jax(llava["tree"])), *full_in)
+    model = shard_params(PV.Llava.from_state(cfg, llava_from_jax(llava["tree"])), mesh)
+    seen_v, seen_l = _record_attention(PC), _record_attention(PL)
+    loss, grad = gather_batch(loss_grad(model, lx, ltok, lmask), mesh)
+    out["llava"] = {"loss": loss.numpy(), "grad": grad.numpy(), "ref_loss": ref_loss.numpy(),
+                    "ref_grad": ref_grad.numpy(), "bytes": _local_bytes(model),
+                    "attention": sorted(set(seen_v) | set(seen_l)),
+                    "lm_blocks_split": [b.tp is not None for b in model.llama.blocks],
+                    "head_split": model.llama.tp is not None, "projector_split": model.projector.tp is not None,
+                    "state": _full(model)}
+
+    # --- TeCoA and FARE steps
+    if train is not None:
+        _patch_pgd_starts(train["starts"])
+        xt, yt = torch.from_numpy(train["x"]), torch.from_numpy(train["y"])
+        out["train"] = {}
+        for name, kw in train["configs"].items():
+            model = shard_params(_clip(train["tree"]), mesh)
+            step = TrainStep(TrainConfig(**kw), model, _clip(train["tree_orig"]), torch.from_numpy(train["temb"]),
+                             mesh=mesh)
+            metrics = step(batch_sharding(mesh, xt), batch_sharding(mesh, yt), train["seed"])
+            out["train"][name] = {"loss": float(metrics["loss"]), "params": _full(model)}
+    return out
+
+
+def tp_serve_world(rank, world, mesh_shape, tree, imgs, max_new, k):
+    """Tiny LLaVA, float32, sharded over `mesh_shape` (split when `model` >
+    1): each image's plain stream and k-draft speculative stream, and the
+    continuous engine (2 lanes, width 8) on all of them; every rank runs
+    the same requests in the same order (SPMD)."""
+    from robustvlm_tpu_torch.models.llava.convert import params_from_jax
+    from robustvlm_tpu_torch.models.llava.model import LLAVA_CONFIGS, Llava
+    from robustvlm_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from robustvlm_tpu_torch.serve.continuous import ContinuousEngine
+    from robustvlm_tpu_torch.serve.speculative import spec_stream_tokens
+    from robustvlm_tpu_torch.vlm_eval.eval_models import LlavaEvalModel, WordTokenizer
+
+    cfg = LLAVA_CONFIGS["test-tiny"]
+    model = shard_params(Llava.from_state(cfg, params_from_jax(tree)), make_mesh(*mesh_shape, device="cpu"))
+    m = LlavaEvalModel(model, WordTokenizer(cfg.llama.vocab_size), compute_dtype=torch.float32, max_post_len=16)
+    prompt = m.get_caption_prompt()
+
+    def ids(gen):
+        out = []
+        for t in gen:
+            if int(t[0]) in (m.tok.eos_token_id, m.tok.pad_token_id):
+                break
+            out.append(int(t[0]))
+        return out
+
+    x = [torch.from_numpy(img)[None] for img in imgs]
+    solo = [ids(m.stream_tokens(xi, [prompt], max_new)) for xi in x]
+    stats = {}
+    spec = [ids(spec_stream_tokens(m, xi, [prompt], max_new, k=k, stats=stats)) for xi in x]
+    eng = ContinuousEngine(m, n_slots=2, width=8, max_new=max_new)
+    try:
+        rs = [eng.submit(img, prompt, max_new) for img in imgs]
+        engine = [r.wait_ids() for r in rs]
+    finally:
+        eng.shutdown()
+    return {"solo": solo, "spec": spec, "engine": engine, "verify_steps": stats["verify_steps"],
+            "sharded": sorted(_placements(model)),
+            "split": [b.tp is not None for b in model.llama.blocks] + [model.llama.tp is not None]}

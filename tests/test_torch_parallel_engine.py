@@ -1,6 +1,7 @@
 """The continuous engine on sharded parameters (the counterpart of
 tests/test_continuous.py::test_fsdp_sharded_params_engine_parity): tiny
-LLaVA sharded over a (1, 2, 2) mesh in a 4-rank gloo world, one engine a
+LLaVA sharded over a (1, 2, 2) mesh (split over `model` = 2, FSDP2 over
+`fsdp` = 2) in a 4-rank gloo world, one engine a
 rank (SPMD: rank 0's admissions, cancellations and tokens broadcast), 2
 requests of 8 tokens on 2 lanes. Float32 on the CPU: the engine's tokens
 and the sharded solo stream's equal the single-process solo stream's

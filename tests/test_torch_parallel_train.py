@@ -128,26 +128,31 @@ def test_dp_step_matches_single_process_and_jax(world, k):
 
 
 def test_hsdp_step_matches_single_process(world):
-    """Parameters sharded over model = 2 and replicated over data = 2: FSDP2
-    reduce-scatters and all-reduces the gradients itself; the step is the
-    single-process one."""
+    """Parameters split over model = 2 (Megatron heads) and replicated over
+    data = 2: FSDP2 all-reduces the sharded gradients over data itself, the
+    trainer the replicated ones; the step is the single-process one."""
     lr = CFG_KW["lr"]
     pm, pp = _single_port(world, 1)
     for r in world["ranks"]:
         h = r["hsdp"]
-        assert h["placements"]["visual.blocks.0.attn.qkv_w"] == ((None, 1), (64, 96))
+        # (data: replicated, fsdp: dim 0 of size 1, model: the qkv columns of 2 of the 4 heads)
+        assert h["placements"]["visual.blocks.0.attn.qkv_w"] == ((None, 0, 1), (64, 96))
         assert h["metrics"]["loss"] == pytest.approx(pm["loss"], rel=1e-6)
         for n, v in h["params"].items():
             assert np.abs(v - pp[n]).max() < 2 * lr, n
 
 
 def test_tp_fsdp_step_keeps_its_sharding(world):
+    from robustvlm_tpu_torch.parallel.mesh import param_sharding_rules
+
+    specs = param_sharding_rules(CLIP(CLIP_CONFIGS["test-tiny"]), {"data": 1, "fsdp": 2, "model": 2})
     for r in world["ranks"]:
         tp = r["tp_fsdp"]
         assert np.isfinite(tp["loss"]) and tp["finite"]
         assert tp["before"] == tp["after"]
-        # JAX's (fsdp, model) and (model, fsdp): sharded on the fsdp dim over fsdp x model = 4
-        assert tp["after"]["visual.blocks.0.attn.qkv_w"] == ((0,), (16, 192))
-        assert tp["after"]["visual.blocks.0.attn.out_w"] == ((1,), (64, 16))
-        # every parameter but the scalar logit_scale is sharded at rest
-        assert set(tp["after"]) == set(world["ranks"][0]["dp1"]["params"]) - {"logit_scale"}
+        # JAX's (fsdp, model) and (model, fsdp): FSDP2 on the fsdp dim, the
+        # `model` split on the heads' columns and the out projection's rows
+        assert tp["after"]["visual.blocks.0.attn.qkv_w"] == ((0, 1), (32, 96))
+        assert tp["after"]["visual.blocks.0.attn.out_w"] == ((1, 0), (32, 32))
+        # the parameters JAX shards are DTensors; JAX's replicated ones stay whole
+        assert set(tp["after"]) == {n for n, s in specs.items() if any(a is not None for a in s)}
