@@ -178,7 +178,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 the attention kernels (both dtypes) and `linf_step`
                 launched on each rank's heads, (B*16/2, 577, 64) and
                 (B*32/2, 665, 128); each rank's parameter GiB and peak, ms
-                per APGD iteration split and unsplit.
+                per APGD iteration split and unsplit. Then, on the same
+                ranks, the other families split the same way, each held
+                against rank 0's unsplit run by the same rules:
+                OpenFlamingo-9B (MPT-7B cut to 8 of 32 layers, 2 gated
+                cross-attention blocks; tower and Perceiver whole; gates
+                0.5): bf16 loss, pixel gradient and 2 APGD iterations,
+                float32 loss and gradient, the ALiBi flash kernels at
+                (B*16, T, 128) with each rank's slopes and the ViT kernels
+                at (B*8, 257, 64); blip2-opt-2.7b (EVA cut to 4 of 39
+                layers, OPT to 4 of 32, Q-Former whole): bf16 and float32
+                loss and gradient, a greedy bf16 caption of 8 tokens;
+                ConvNeXt-B and ja_clip ViT-B/16: float32 embeddings.
 Then the `kernels` JSON line, the card's name and power limit as nvidia-smi
 reports them, and last the device line. Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -4694,6 +4705,247 @@ PARALLEL_TP_TIMEOUT_S = 900
 # per-sample CE over a few answer tokens by about 2e-4 relative); its APGD
 # loss from the unsplit one's by (4 + 1)x plus PARALLEL_TOL
 PARALLEL_TP_BF16_FACTOR = 4.0
+# the other families on the same two ranks: OpenFlamingo-9B with MPT-7B cut
+# to 8 of 32 layers (2 gated cross-attention blocks, one every 4 layers),
+# the ViT-L/14 tower and the 6-layer Perceiver whole; blip2-opt-2.7b with
+# EVA ViT-g/14 cut to 4 of 39 layers and OPT-2.7B to 4 of 32, the Q-Former
+# whole; ConvNeXt-B (convnext_base_w) and ja_clip ViT-B/16 whole
+PARALLEL_TP_FLAMINGO_LM_LAYERS = 8
+PARALLEL_TP_BLIP2_LAYERS = 4
+PARALLEL_TP_APGD_ITERS_FAMILIES = 2
+PARALLEL_TP_FAMILY_CUTS = {
+    "flamingo": [f"{PARALLEL_TP_FLAMINGO_LM_LAYERS} of 32 MPT-7B layers (2 of 8 gated cross-attention blocks)",
+                 "ViT-L/14 and Perceiver whole", "batch 2", f"{PARALLEL_TP_APGD_ITERS_FAMILIES} APGD iterations",
+                 "random weights (seed 0), gates 0.5"],
+    "blip2": [f"{PARALLEL_TP_BLIP2_LAYERS} of 39 EVA ViT-g/14 layers", f"{PARALLEL_TP_BLIP2_LAYERS} of 32 OPT-2.7B "
+              "layers", "Q-Former whole", "batch 2", "random weights (seed 0)"],
+    "convnext": ["whole", "batch 2", "random weights (seed 0)"],
+    "ja_clip": ["whole", "batch 2", "random weights (seed 0)"],
+}
+
+
+def _tp_loss_grad(adapter, x) -> dict:
+    """An adapter's per-sample loss and pixel gradient (host float32), ms,
+    and the kernels' launches (counts reset just before)."""
+    import torch
+
+    _reset_launches()
+    xa = x.clone().requires_grad_(True)
+    t = time.perf_counter()
+    loss = adapter(xa)
+    (grad,) = torch.autograd.grad(loss.sum(), xa)
+    torch.cuda.synchronize()
+    return {"loss": loss.detach().float().cpu(), "grad": grad.float().cpu(), "ms": (time.perf_counter() - t) * 1e3,
+            "launches": _launches()}
+
+
+def _tp_apgd(adapter, x) -> dict:
+    """PARALLEL_TP_APGD_ITERS_FAMILIES APGD iterations on the adapter's loss
+    (eps 2/255): the best loss, ms an iteration, launches."""
+    import torch
+
+    from robustvlm_tpu_torch.attacks.apgd import apgd_attack
+
+    _reset_launches()
+    t = time.perf_counter()
+    res = apgd_attack(adapter, x, None, criterion=lambda o, y: o, eps=FLAMINGO_EPS / 255.0,
+                      n_iter=PARALLEL_TP_APGD_ITERS_FAMILIES, norm="linf", rng=0)
+    torch.cuda.synchronize()
+    return {"loss_best": res.loss_best.float().cpu(),
+            "ms_per_iter": (time.perf_counter() - t) * 1e3 / PARALLEL_TP_APGD_ITERS_FAMILIES,
+            "launches": _launches()}
+
+
+def _record_q_shapes(seen: list, targets):
+    """Record (entry, dtype, q shape) of every call of each (module, name)
+    attention entry in `targets`; returns the function that takes the
+    wrappers off."""
+    wrapped = []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+
+        def rec(q, *a, _fn=fn, _n=name, **k):
+            seen.append((_n, str(q.dtype).split(".")[-1], tuple(q.shape)))
+            return _fn(q, *a, **k)
+
+        setattr(mod, name, rec)
+        wrapped.append((mod, name, fn))
+
+    def restore():
+        for mod, name, fn in wrapped:
+            setattr(mod, name, fn)
+
+    return restore
+
+
+def _parallel_tp_families(rank: int, mesh) -> dict:
+    """The families beside LLaVA in phase_parallel_tp, in the rank's group:
+    rank 0 runs each unsplit model first (the other rank waits at a
+    barrier), then both split it and run the same work. OpenFlamingo-9B
+    (cut, gates 0.5): the float32 and bf16 loss and pixel gradient and bf16
+    APGD; blip2-opt-2.7b (cut): the same losses and a greedy bf16 caption of
+    BLIP2_NEW_TOKENS tokens with its solo logits; ConvNeXt-B and ja_clip:
+    float32 image and text embeddings. Launches and the attention q shapes
+    are read from the split bf16 runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from robustvlm_tpu_torch.models.blip2 import model as PB
+    from robustvlm_tpu_torch.models.blip2.convert import init_random_state as blip2_state
+    from robustvlm_tpu_torch.models.clip import model as clip_model
+    from robustvlm_tpu_torch.models.clip.model import CLIP, CLIP_CONFIGS
+    from robustvlm_tpu_torch.models.flamingo.convert import init_random_state as flamingo_state
+    from robustvlm_tpu_torch.models.flamingo.model import Flamingo
+    from robustvlm_tpu_torch.models.jaclip import JACLIP_CONFIGS, JaCLIP, get_ja_tokenizer
+    from robustvlm_tpu_torch.models.mpt import model as mpt_model
+    from robustvlm_tpu_torch.ops.image import normalize_clip
+    from robustvlm_tpu_torch.parallel import shard_params, sharded_call
+    from robustvlm_tpu_torch.vlm_eval.eval_models import Blip2EvalModel, FlamingoEvalModel, WordTokenizer
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+
+    def pixels(size, seed=0):
+        return torch.from_numpy(np.random.RandomState(seed).rand(2, 3, size, size).astype(np.float32)).cuda()
+
+    def split_of(model):
+        _free()
+        t = time.perf_counter()
+        shard_params(model, mesh)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def param_gib(model):
+        return sum((p.to_local() if type(p).__name__ == "DTensor" else p).nbytes for p in model.parameters()) / 2**30
+
+    # --- OpenFlamingo-9B
+    fcfg = _flamingo_cut(PARALLEL_TP_FLAMINGO_LM_LAYERS, 24)
+    x = pixels(fcfg.vision.image_size)
+
+    def flamingo(dtype):
+        state = flamingo_state(fcfg, 0, "cuda", dtype)
+        for i in range(fcfg.n_xattn):
+            for gate in ("attn_gate", "ff_gate"):
+                state[f"xattn.{i}.{gate}"].fill_(FLAMINGO_GATE)
+        model = Flamingo.from_state(fcfg, state)
+        adapter = FlamingoEvalModel(model, WordTokenizer(), compute_dtype=dtype)
+        adapter.set_inputs([flamingo_prompt(adapter, caps[0]) for caps in FLAMINGO_IMAGES[:2]])
+        return model, adapter
+
+    rec = {"seq_len": None}
+    if rank == 0:
+        model, adapter = flamingo(f32)
+        rec["f32_unsplit"] = _tp_loss_grad(adapter, x)
+        del model, adapter
+        _free()
+        model, adapter = flamingo(bf16)
+        rec["bf16_unsplit"] = _tp_loss_grad(adapter, x)
+        rec["apgd_unsplit"] = _tp_apgd(adapter, x)
+        del model, adapter
+    dist.barrier()
+    model, adapter = flamingo(bf16)
+    rec["seq_len"] = int(adapter._lang.shape[1])
+    rec["shard_params_s"] = split_of(model)
+    rec["param_gib"] = param_gib(model)
+    rec["split"] = {"vision": sum(b.tp is not None for b in model.vision.blocks),
+                    "perceiver": sum(lyr.attn.tp is not None and lyr.ff.tp is not None
+                                     for lyr in model.perceiver.layers),
+                    "xattn": sum(b.attn.tp is not None and b.ff.tp is not None for b in model.xattn),
+                    "lm": sum(b.tp is not None for b in model.mpt.blocks)}
+    shapes = []
+    restore = _record_q_shapes(shapes, ((clip_model, "vit_attention"), (mpt_model, "flash_attention")))
+    try:
+        rec["bf16_split"] = _tp_loss_grad(adapter, x)
+        rec["apgd_split"] = _tp_apgd(adapter, x)
+    finally:
+        restore()
+    rec["q_shapes"] = sorted(set(shapes))
+    del model, adapter
+    model, adapter = flamingo(f32)
+    split_of(model)
+    rec["f32_split"] = _tp_loss_grad(adapter, x)
+    del model, adapter
+    _free()
+    out["flamingo"] = rec
+
+    # --- blip2-opt-2.7b
+    bcfg = PB.BLIP2_CONFIGS["blip2-opt-2.7b"]
+    bcfg = dataclasses.replace(bcfg, name=f"blip2-opt-2.7b-{PARALLEL_TP_BLIP2_LAYERS}l",
+                               vision=dataclasses.replace(bcfg.vision, layers=PARALLEL_TP_BLIP2_LAYERS),
+                               opt=dataclasses.replace(bcfg.opt, n_layers=PARALLEL_TP_BLIP2_LAYERS))
+    x = pixels(bcfg.vision.image_size)
+
+    def blip2(dtype):
+        model = PB.Blip2.from_state(bcfg, blip2_state(bcfg, 0, "cuda", dtype))
+        adapter = Blip2EvalModel(model, WordTokenizer(), compute_dtype=dtype)
+        adapter.set_inputs([adapter.get_caption_prompt(caps[0]) for caps in LLAVA_IMAGES[:2]])
+        return model, adapter
+
+    rec = {}
+    if rank == 0:
+        model, adapter = blip2(f32)
+        rec["f32_unsplit"] = _tp_loss_grad(adapter, x)
+        del model, adapter
+        model, adapter = blip2(bf16)
+        rec["bf16_unsplit"] = _tp_loss_grad(adapter, x)
+        rec["caption_unsplit"] = _solo_trace(adapter, x[:1], adapter.get_caption_prompt(), BLIP2_NEW_TOKENS)
+        del model, adapter
+    dist.barrier()
+    model, adapter = blip2(bf16)
+    rec["shard_params_s"] = split_of(model)
+    rec["param_gib"] = param_gib(model)
+    q = model.qformer.layers
+    rec["split"] = {"vision": sum(b.tp is not None for b in model.visual.blocks),
+                    "qformer": sum(lyr.self_attn.tp is not None and lyr.ffn.tp is not None
+                                   and (lyr.cross is None or lyr.cross.tp is not None) for lyr in q),
+                    "projection": model.language_projection.tp is not None,
+                    "lm": sum(b.tp is not None for b in model.opt.blocks), "lm_head": model.opt.tp is not None}
+    rec["bf16_split"] = _tp_loss_grad(adapter, x)
+    rec["caption_split"] = _solo_trace(adapter, x[:1], adapter.get_caption_prompt(), BLIP2_NEW_TOKENS)[0]
+    del model, adapter
+    model, adapter = blip2(f32)
+    split_of(model)
+    rec["f32_split"] = _tp_loss_grad(adapter, x)
+    del model, adapter
+    _free()
+    out["blip2"] = rec
+
+    # --- ConvNeXt-B and ja_clip: float32 embeddings
+    def towers(name, build, size, text):
+        def encode(model):
+            with torch.no_grad():
+                img = sharded_call(model, model.encode_image, normalize_clip(pixels(size, 1)), normalize=True)
+                txt = sharded_call(model, model.encode_text, *text, normalize=True)
+            torch.cuda.synchronize()
+            return {"img": img.float().cpu(), "txt": txt.float().cpu()}
+
+        rec = {}
+        if rank == 0:
+            rec["unsplit"] = encode(build())
+        dist.barrier()
+        model = build()
+        split_of(model)
+        t = time.perf_counter()
+        rec["split"] = encode(model)
+        rec["ms"] = (time.perf_counter() - t) * 1e3
+        blocks = model.visual.stages if name == "convnext" else [model.visual]
+        rec["split_blocks"] = {"vision": sum(b.tp is not None for s in blocks for b in s.blocks),
+                               "text": sum(b.tp is not None for b in model.text.blocks)}
+        del model
+        _free()
+        out[name] = rec
+
+    ccfg = CLIP_CONFIGS["convnext_base_w"]
+    tokens = torch.randint(1, ccfg.vocab_size, (2, ccfg.context_length), generator=torch.Generator().manual_seed(0))
+    towers("convnext", lambda: CLIP(ccfg, device="cuda").init_random_(0), ccfg.image_size, (tokens.cuda(),))
+    jcfg = JACLIP_CONFIGS["ja_clip-vit-b-16"]
+    ids, mask = get_ja_tokenizer(None, jcfg)(["two dogs play with a red ball", "a cat asleep on a sofa"])
+    towers("ja_clip", lambda: JaCLIP(jcfg, device="cuda").init_random_(0), jcfg.image_size,
+           (ids.cuda(), mask.cuda()))
+    return out
 
 
 def _parallel_tp_rank(rank: int, world: int, store: str, out_dir: str, lm_layers: int) -> None:
@@ -4740,16 +4992,6 @@ def _parallel_tp_rank(rank: int, world: int, store: str, out_dir: str, lm_layers
         adapter.set_inputs([adapter.get_caption_prompt(c[0]) for c in LLAVA_IMAGES])
         return model, adapter
 
-    def loss_grad(adapter):
-        _reset_launches()
-        xa = x.clone().requires_grad_(True)
-        t = time.perf_counter()
-        loss = adapter(xa)
-        (grad,) = torch.autograd.grad(loss.sum(), xa)
-        torch.cuda.synchronize()
-        return {"loss": loss.detach().cpu(), "grad": grad.cpu(), "ms": (time.perf_counter() - t) * 1e3,
-                "launches": _launches()}
-
     def spec(adapter, prompt):
         stats = {}
         _reset_launches()
@@ -4763,20 +5005,10 @@ def _parallel_tp_rank(rank: int, world: int, store: str, out_dir: str, lm_layers
 
     shapes = []
 
-    def record_shapes():
-        for mod, name in ((clip_model, "vit_attention"), (llama_model, "flash_attention")):
-            fn = getattr(mod, name)
-
-            def wrapped(q, *a, _fn=fn, _n=name, **k):
-                shapes.append((_n, str(q.dtype).split(".")[-1], tuple(q.shape)))
-                return _fn(q, *a, **k)
-
-            setattr(mod, name, wrapped)
-
     try:
         if rank == 0:
             model, adapter = build(torch.float32)
-            out["f32_unsplit"] = loss_grad(adapter)
+            out["f32_unsplit"] = _tp_loss_grad(adapter, x)
             del model, adapter
             _free()
         model, adapter = build(torch.bfloat16)
@@ -4800,7 +5032,7 @@ def _parallel_tp_rank(rank: int, world: int, store: str, out_dir: str, lm_layers
             out["split"] = {"vision_blocks": sum(b.tp is not None for b in model.vision.blocks),
                             "lm_blocks": sum(b.tp is not None for b in model.llama.blocks),
                             "lm_head": model.llama.tp is not None, "projector": model.projector.tp is not None}
-            record_shapes()
+            _record_q_shapes(shapes, ((clip_model, "vit_attention"), (llama_model, "flash_attention")))
             out["split_run"] = host(_parallel_llava(adapter, x, prompt))
             out["split_spec"] = spec(adapter, prompt)
             out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -4813,15 +5045,124 @@ def _parallel_tp_rank(rank: int, world: int, store: str, out_dir: str, lm_layers
                     shard_params(model, mesh)
                     _free()
                 dist.barrier()
-            out["f32_split"] = loss_grad(adapter)
+            out["f32_split"] = _tp_loss_grad(adapter, x)
             out["attention_shapes"] = sorted(set(shapes))
             del model, adapter
+            _free()
+            t = time.perf_counter()
+            out["families"] = _parallel_tp_families(rank, mesh)
+            out["families_s"] = time.perf_counter() - t
         finally:
             dist.destroy_process_group()
         record = {"ok": True, "result": out}
     except Exception:  # noqa: BLE001 - the traceback goes to the parent, which fails the phase
         record = {"ok": False, "error": traceback.format_exc()}
     torch.save(record, Path(out_dir) / f"rank{rank}.pt")
+
+
+def _parallel_tp_family_checks(ranks: list) -> tuple:
+    """phase_parallel_tp's report and checks of `_parallel_tp_families`:
+    float32 held to PARALLEL_TOL against rank 0's unsplit run; bf16 within
+    PARALLEL_TP_BF16_FACTOR times the unsplit bf16 model's own error against
+    float32, plus PARALLEL_TOL (APGD's best loss from the unsplit one's by
+    one more of that error); BLIP-2's caption equal or parted at a near tie
+    of rank 0's solo logits; the embeddings within PARALLEL_TOL["loss_rel"]
+    of their largest magnitude. Each rank must have launched the ALiBi flash
+    kernels at (B*16, T, 128), the ViT kernels at (B*8, 257, 64) and
+    `linf_step`, and split every block."""
+    import torch
+
+    m = PARALLEL_TP_MESH[2]
+
+    def rel(a, b):
+        return float(((a.double() - b.double()).abs() / b.double().abs()).max())
+
+    def diff(a, b):
+        return float((a - b).abs().max())
+
+    ref = ranks[0]["families"]
+    bounds = {}
+    for name in ("flamingo", "blip2"):
+        f32, b16 = ref[name]["f32_unsplit"], ref[name]["bf16_unsplit"]
+        g32, le, ge = float(f32["grad"].abs().max()), rel(b16["loss"], f32["loss"]), diff(b16["grad"], f32["grad"])
+        bounds[name] = {"grad_max_abs_f32": g32, "bf16_loss_rel_err_unsplit": le, "bf16_grad_err_unsplit": ge,
+                        "loss_rel_vs_f32": PARALLEL_TP_BF16_FACTOR * le + PARALLEL_TOL["loss_rel"],
+                        "grad_max_abs_vs_f32": PARALLEL_TP_BF16_FACTOR * ge + PARALLEL_TOL["grad_rel_to_max"] * g32,
+                        "apgd_loss_rel_vs_unsplit": (PARALLEL_TP_BF16_FACTOR + 1.0) * le + PARALLEL_TOL["loss_rel"]}
+    t = ref["flamingo"]["seq_len"]
+    want_shapes = [("flash_attention", "bfloat16", (2, 32 // m, t, 128)),
+                   ("vit_attention", "bfloat16", (2, 16 // m, 257, 64))]
+    alibi = ("flash_attention_fwd_alibi", "flash_attention_bwd_alibi", "vit_attention_fwd", "vit_attention_bwd")
+    per_rank, checks = [], {}
+    for r, res in enumerate(ranks):
+        fam = res["families"]
+        rec = {"rank": r}
+        for name in ("flamingo", "blip2"):
+            v, u, b = fam[name], ref[name], bounds[name]
+            rec[name] = {
+                "f32": {"loss": v["f32_split"]["loss"].tolist(),
+                        "loss_rel_err": rel(v["f32_split"]["loss"], u["f32_unsplit"]["loss"]),
+                        "grad_max_abs_diff": diff(v["f32_split"]["grad"], u["f32_unsplit"]["grad"]),
+                        "ms_loss_grad": v["f32_split"]["ms"]},
+                "bf16": {"loss": v["bf16_split"]["loss"].tolist(),
+                         "loss_rel_err_vs_f32": rel(v["bf16_split"]["loss"], u["f32_unsplit"]["loss"]),
+                         "grad_max_abs_diff_vs_f32": diff(v["bf16_split"]["grad"], u["f32_unsplit"]["grad"]),
+                         "ms_loss_grad": v["bf16_split"]["ms"]},
+                "split": v["split"], "shard_params_s": v["shard_params_s"], "param_gib_bf16": v["param_gib"],
+                "launches_loss_grad": {k: v["bf16_split"]["launches"].get(k, 0) for k in FLAMINGO_KERNELS}}
+            checks.update({
+                f"rank{r}_{name}_f32_loss_rel": rec[name]["f32"]["loss_rel_err"] <= PARALLEL_TOL["loss_rel"],
+                f"rank{r}_{name}_f32_grad": (rec[name]["f32"]["grad_max_abs_diff"]
+                                             <= PARALLEL_TOL["grad_rel_to_max"] * b["grad_max_abs_f32"]
+                                             and b["grad_max_abs_f32"] > 0.0),
+                f"rank{r}_{name}_bf16_loss": rec[name]["bf16"]["loss_rel_err_vs_f32"] <= b["loss_rel_vs_f32"],
+                f"rank{r}_{name}_bf16_grad": rec[name]["bf16"]["grad_max_abs_diff_vs_f32"] <= b["grad_max_abs_vs_f32"],
+            })
+        fl = fam["flamingo"]
+        rec["flamingo"].update({
+            "apgd_loss_best_rel_err_vs_unsplit": rel(fl["apgd_split"]["loss_best"],
+                                                     ref["flamingo"]["apgd_unsplit"]["loss_best"]),
+            "ms_per_apgd_iter": fl["apgd_split"]["ms_per_iter"], "q_shapes": fl["q_shapes"],
+            "launches_apgd": {k: fl["apgd_split"]["launches"].get(k, 0) for k in FLAMINGO_KERNELS},
+            "launches_f32": {k: fl["f32_split"]["launches"].get(k, 0) for k in FLAMINGO_KERNELS}})
+        bl = fam["blip2"]
+        caption = _near_tie(bl["caption_split"], *ref["blip2"]["caption_unsplit"], 2)
+        rec["blip2"].update({"caption": bl["caption_split"], "caption_vs_unsplit": caption})
+        checks.update({
+            f"rank{r}_flamingo_bf16_apgd_loss": (rec["flamingo"]["apgd_loss_best_rel_err_vs_unsplit"]
+                                                 <= bounds["flamingo"]["apgd_loss_rel_vs_unsplit"]),
+            f"rank{r}_flamingo_launched": (_launched(fl["bf16_split"]["launches"], alibi)
+                                           and _launched(fl["f32_split"]["launches"], alibi)
+                                           and _launched(fl["apgd_split"]["launches"], FLAMINGO_KERNELS)),
+            f"rank{r}_flamingo_local_heads": sorted(fl["q_shapes"]) == want_shapes,
+            f"rank{r}_flamingo_split": fl["split"] == {"vision": 24, "perceiver": 6, "xattn": 2,
+                                                       "lm": PARALLEL_TP_FLAMINGO_LM_LAYERS},
+            f"rank{r}_blip2_caption_near_tie": caption["ok"] and len(bl["caption_split"]) > 0,
+            f"rank{r}_blip2_split": bl["split"] == {"vision": PARALLEL_TP_BLIP2_LAYERS, "qformer": 12,
+                                                    "projection": True, "lm": PARALLEL_TP_BLIP2_LAYERS,
+                                                    "lm_head": True},
+        })
+        for name, blocks in (("convnext", {"vision": 36, "text": 12}), ("ja_clip", {"vision": 12, "text": 12})):
+            v, u = fam[name], ref[name]["unsplit"]
+            errs = {k: diff(v["split"][k], u[k]) for k in ("img", "txt")}
+            rec[name] = {"max_abs_diff": errs, "ms_encode": v["ms"], "split": v["split_blocks"]}
+            checks.update({
+                f"rank{r}_{name}_embeddings": all(errs[k] <= PARALLEL_TOL["loss_rel"] * float(u[k].abs().max())
+                                                  for k in errs),
+                f"rank{r}_{name}_split": v["split_blocks"] == blocks})
+        per_rank.append(rec)
+    checks["families_ranks_agree"] = all(
+        torch.equal(ranks[0]["families"][n][k]["loss"], res["families"][n][k]["loss"]) for res in ranks[1:]
+        for n in ("flamingo", "blip2") for k in ("f32_split", "bf16_split"))
+    unsplit = {n: {"f32_loss": ref[n]["f32_unsplit"]["loss"].tolist(), "ms_loss_grad_bf16": ref[n]["bf16_unsplit"]["ms"],
+                   "ms_loss_grad_f32": ref[n]["f32_unsplit"]["ms"]} for n in ("flamingo", "blip2")}
+    unsplit["flamingo"]["ms_per_apgd_iter"] = ref["flamingo"]["apgd_unsplit"]["ms_per_iter"]
+    unsplit["blip2"]["caption"] = ref["blip2"]["caption_unsplit"][0]
+    report = {"cuts": PARALLEL_TP_FAMILY_CUTS, "flamingo_seq_len": t, "batch": 2,
+              "apgd_iters": PARALLEL_TP_APGD_ITERS_FAMILIES, "bf16_bounds": bounds, "unsplit": unsplit,
+              "expected_q_shapes": want_shapes, "ranks": per_rank,
+              "families_s": [res["families_s"] for res in ranks]}
+    return report, checks
 
 
 def phase_parallel_tp(lm_layers: int = PARALLEL_TP_LM_LAYERS) -> dict:
@@ -4937,6 +5278,8 @@ def phase_parallel_tp(lm_layers: int = PARALLEL_TP_LM_LAYERS) -> dict:
         })
     checks["ranks_agree"] = all(torch.equal(ranks[0][k][v], res[k][v]) for res in ranks[1:]
                                 for k in ("split_run", "f32_split") for v in ("loss", "grad"))
+    families, family_checks = _parallel_tp_family_checks(ranks)
+    checks.update(family_checks)
     plain_spec = _near_tie(ranks[0]["plain_spec"]["ids"], solo[0][0], solo[0][1], eos)
     emit({"phase": "parallel_tp", "entry": "robustvlm_tpu_torch.parallel (make_mesh, shard_params: Megatron "
           "split over model) in a 2-rank gloo group on one card", "mesh": dict(zip(("data", "fsdp", "model"),
@@ -4955,10 +5298,10 @@ def phase_parallel_tp(lm_layers: int = PARALLEL_TP_LM_LAYERS) -> dict:
                       "spec_vs_solo": plain_spec, "spec_s": ranks[0]["plain_spec"]["s"],
                       "solo": [ids for ids, _ in solo],
                       "launches_apgd": {k: ref["launches_apgd"].get(k, 0) for k in LLAVA_KERNELS}},
-          "ranks": per_rank, "card": card_line(), "phase_s": time.perf_counter() - t_phase,
+          "ranks": per_rank, "families": families, "card": card_line(), "phase_s": time.perf_counter() - t_phase,
           "checks": checks, "ok": all(checks.values())})
     if not all(checks.values()):
-        raise AssertionError(f"parallel_tp checks failed: {checks}")
+        raise AssertionError(f"parallel_tp checks failed: {[k for k, ok in checks.items() if not ok]}")
     return {k: sum(res["split_run"]["launches_loss_grad"].get(k, 0) + res["split_run"]["launches_apgd"].get(k, 0)
                    for res in ranks) for k in LLAVA_KERNELS}
 

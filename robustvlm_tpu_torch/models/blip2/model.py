@@ -28,6 +28,17 @@ each OPT block in the backward (`torch.utils.checkpoint`). A model held in
 bfloat16 (`half_state`) keeps the 1-D parameters, the query tokens and the
 language projection in float32, so it computes what the JAX package
 computes with float32 weights cast at each use.
+
+Split over the mesh's `model` axis (`parallel/mesh.shard_params`): each
+module whose heads (and ffn width) m divides holds this rank's share and
+computes on it (`parallel/tensor_parallel.py`): the EVA blocks (the fused
+[q|k|v] columns of its heads with their bias, the fc columns and bias, the
+out and proj rows), the Q-Former's attention sublayers (q, k and v columns,
+their replicated biases sliced at use; the out rows) and feed-forwards, the
+OPT blocks and LM head (`models/opt/model.py`), and the language projection
+(its columns, gathered before the splice; the bias added after). Each
+row-parallel bias is added once, after the sum over `model`. The decode
+cache holds the rank's heads.
 """
 
 from __future__ import annotations
@@ -45,11 +56,16 @@ from robustvlm_tpu_torch.models.opt.model import (
     OPT,
     OPT_CONFIGS,
     OPTConfig,
+    _col,
+    _lin,
+    _row,
     init_opt_cache,
     layer_norm,
+    local_heads,
     opt_forward,
 )
 from robustvlm_tpu_torch.ops.image import normalize_clip, resize_bicubic
+from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, gather_from_model, local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,11 +129,6 @@ def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch
     return torch.matmul(p, v).transpose(1, 2).reshape(b, tq, w)
 
 
-def _lin(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """h @ w + b with the weights cast to h's dtype."""
-    return h @ w.to(h.dtype) + b.to(h.dtype)
-
-
 class LayerNorm(nn.Module):
     def __init__(self, width: int):
         super().__init__()
@@ -145,6 +156,8 @@ class VisionMLP(nn.Module):
 
 
 class VisionBlock(nn.Module):
+    tp = None  # parallel.tensor_parallel.TensorParallel when split over `model`
+
     def __init__(self, vc: Blip2VisionConfig):
         super().__init__()
         self.vc = vc
@@ -153,13 +166,22 @@ class VisionBlock(nn.Module):
         self.ln_2 = LayerNorm(vc.width)
         self.mlp = VisionMLP(vc.width, vc.intermediate)
 
+    def tp_layout(self, m: int):
+        """CLIP's split (`models/clip/model.Block.tp_layout`), or None when
+        m does not divide the heads or the ffn width."""
+        if self.vc.heads % m or self.vc.intermediate % m:
+            return None
+        return {"attn.qkv_w": (1, 3), "attn.qkv_b": (0, 3), "attn.out_w": (0, 1),
+                "mlp.fc_w": (1, 1), "mlp.fc_b": (0, 1), "mlp.proj_w": (0, 1)}
+
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        vc, a, m = self.vc, self.attn, self.mlp
+        vc, a, m, tp = self.vc, self.attn, self.mlp, self.tp
+        heads = vc.heads // tp.size if tp else vc.heads
         x = layer_norm(h, self.ln_1.g, self.ln_1.b, vc.norm_eps)
-        q, k, v = _lin(x, a.qkv_w, a.qkv_b).chunk(3, dim=-1)
-        h = h + _lin(_mha(q, k, v, vc.heads), a.out_w, a.out_b)
+        q, k, v = _col(x, a.qkv_w, a.qkv_b, tp, b_split=True).chunk(3, dim=-1)
+        h = h + _row(_mha(q, k, v, heads), a.out_w, a.out_b, tp)
         x = layer_norm(h, self.ln_2.g, self.ln_2.b, vc.norm_eps)
-        return h + _lin(F.gelu(_lin(x, m.fc_w, m.fc_b)), m.proj_w, m.proj_b)
+        return h + _row(F.gelu(_col(x, m.fc_w, m.fc_b, tp, b_split=True)), m.proj_w, m.proj_b, tp)
 
 
 class VisionTower(nn.Module):
@@ -179,8 +201,11 @@ class QFormerAttention(nn.Module):
     """One post-LN attention sublayer: query/key/value, the output dense and
     its LayerNorm (HF `attention.output.LayerNorm`)."""
 
-    def __init__(self, w: int, kv_in: int):
+    tp = None
+
+    def __init__(self, w: int, kv_in: int, heads: int):
         super().__init__()
+        self.heads = heads
         self.q_w = nn.Parameter(torch.zeros(w, w))
         self.q_b = nn.Parameter(torch.zeros(w))
         self.k_w = nn.Parameter(torch.zeros(kv_in, w))
@@ -192,13 +217,24 @@ class QFormerAttention(nn.Module):
         self.ln_g = nn.Parameter(torch.ones(w))
         self.ln_b = nn.Parameter(torch.zeros(w))
 
+    def tp_layout(self, m: int):
+        """The q, k and v columns of this rank's heads and the out rows, or
+        None (whole) when m does not divide the heads. The biases are
+        replicated, as the JAX package gives them no rule."""
+        if self.heads % m:
+            return None
+        return {"q_w": (1, 1), "k_w": (1, 1), "v_w": (1, 1), "out_w": (0, 1)}
+
     def forward(self, h: torch.Tensor, kv: torch.Tensor, heads: int, eps: float) -> torch.Tensor:
-        att = _mha(_lin(h, self.q_w, self.q_b), _lin(kv, self.k_w, self.k_b),
-                   _lin(kv, self.v_w, self.v_b), heads)
-        return layer_norm(_lin(att, self.out_w, self.out_b) + h, self.ln_g, self.ln_b, eps)
+        tp = self.tp
+        att = _mha(_col(h, self.q_w, self.q_b, tp), _col(kv, self.k_w, self.k_b, tp),
+                   _col(kv, self.v_w, self.v_b, tp), heads // tp.size if tp else heads)
+        return layer_norm(_row(att, self.out_w, self.out_b, tp) + h, self.ln_g, self.ln_b, eps)
 
 
 class QFormerFFN(nn.Module):
+    tp = None
+
     def __init__(self, w: int, f: int):
         super().__init__()
         self.fc_w = nn.Parameter(torch.zeros(w, f))
@@ -208,9 +244,13 @@ class QFormerFFN(nn.Module):
         self.ln_g = nn.Parameter(torch.ones(w))
         self.ln_b = nn.Parameter(torch.zeros(w))
 
+    def tp_layout(self, m: int):
+        return None if self.fc_w.shape[1] % m else {"fc_w": (1, 1), "proj_w": (0, 1)}
+
     def forward(self, h: torch.Tensor, eps: float) -> torch.Tensor:
-        m = F.gelu(_lin(h, self.fc_w, self.fc_b))
-        return layer_norm(_lin(m, self.proj_w, self.proj_b) + h, self.ln_g, self.ln_b, eps)
+        tp = self.tp
+        m = F.gelu(_col(h, self.fc_w, self.fc_b, tp))
+        return layer_norm(_row(m, self.proj_w, self.proj_b, tp) + h, self.ln_g, self.ln_b, eps)
 
 
 class QFormerLayer(nn.Module):
@@ -220,8 +260,8 @@ class QFormerLayer(nn.Module):
     def __init__(self, cfg: Blip2Config, cross: bool):
         super().__init__()
         qc = cfg.qformer
-        self.self_attn = QFormerAttention(qc.width, qc.width)
-        self.cross = QFormerAttention(qc.width, cfg.vision.width) if cross else None
+        self.self_attn = QFormerAttention(qc.width, qc.width, qc.heads)
+        self.cross = QFormerAttention(qc.width, cfg.vision.width, qc.heads) if cross else None
         self.ffn = QFormerFFN(qc.width, qc.intermediate)
 
 
@@ -237,10 +277,24 @@ class QFormer(nn.Module):
 
 
 class LanguageProjection(nn.Module):
+    """Float32 (B, Q, Wq) query outputs -> (B, Q, W_opt) float32."""
+
+    tp = None
+
     def __init__(self, wq: int, d: int):
         super().__init__()
         self.w = nn.Parameter(torch.zeros(wq, d))
         self.b = nn.Parameter(torch.zeros(d))
+
+    def tp_layout(self, m: int):
+        """w's columns over a `model` axis of m; the bias stays whole."""
+        return None if self.w.shape[1] % m else {"w": (1, 1)}
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        tp = self.tp
+        if tp is None:
+            return q @ self.w.float() + self.b.float()
+        return gather_from_model(column_parallel(q, local(self.w).float(), tp), tp) + self.b.float()
 
 
 class Blip2(nn.Module):
@@ -269,6 +323,11 @@ class Blip2(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.opt.tok_embedding.device
+
+    @property
+    def tensor_parallel_ok(self) -> bool:
+        """`parallel/mesh.shard_params` splits this model over `model`."""
+        return True
 
 
 def _keeps_float32(name: str, t: torch.Tensor) -> bool:
@@ -328,8 +387,7 @@ def blip2_image_features(model: Blip2, pixels_norm: torch.Tensor, *, compute_dty
     embeddings (HF `get_image_features`); the projection in float32."""
     img = blip2_vision_forward(model, pixels_norm, compute_dtype=compute_dtype, remat=remat)
     q = qformer_forward(model, img, compute_dtype=compute_dtype)
-    lp = model.language_projection
-    return q @ lp.w.float() + lp.b.float()
+    return model.language_projection(q)
 
 
 def _splice(model: Blip2, lm_in: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -381,7 +439,8 @@ def make_blip2_decode_fns(model: Blip2, pixels01: torch.Tensor, *, max_total_len
         img = lm_in.repeat_interleave(n_rep, dim=0) if n_rep > 1 else lm_in
         kv_valid_full = torch.cat([torch.ones(b, nq, dtype=torch.bool, device=dev), kv_valid], dim=1)
         pos_full = torch.cat([torch.arange(nq, device=dev)[None].expand(b, nq), nq + positions], dim=1)
-        cache = init_opt_cache(cfg.opt, b, max_len=nq + max_total_len, dtype=compute_dtype, device=dev)
+        cache = init_opt_cache(cfg.opt, b, max_len=nq + max_total_len, dtype=compute_dtype, device=dev,
+                               n_heads=local_heads(model.opt))
         logits, cache = opt_forward(model.opt, inputs_embeds=_splice(model, img, tokens),
                                     positions=pos_full, compute_dtype=compute_dtype, cache=cache,
                                     cache_pos=0, kv_mask=kv_valid_full)

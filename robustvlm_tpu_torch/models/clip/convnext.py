@@ -15,6 +15,12 @@ channels-last (N, H, W, C) as in JAX; each convolution reads them as an
 NCHW view in channels-last memory (`F.conv2d`, cuDNN on the card). The
 tower reaches no kernel of the port: it has no attention.
 
+A block split over the mesh's `model` axis (`parallel/mesh.shard_params`
+sets its `tp`) holds this rank's columns of fc1 (and of its bias) and rows
+of fc2; fc2's bias is added once, after the sum over `model`, and the layer
+scale after that (`parallel/tensor_parallel.py`). The convolutions, the
+LayerNorms and the layer scale stay whole.
+
 `import_convnext_state_dict` / `export_convnext_state_dict` read and write
 the open_clip TimmModel layout:
   trunk.stem.0 (conv) + trunk.stem.1 (LayerNorm2d)
@@ -33,6 +39,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+
+from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, local, row_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +81,8 @@ class Stem(nn.Module):
 
 
 class ConvNeXtBlock(nn.Module):
+    tp = None  # parallel.tensor_parallel.TensorParallel when split over `model`
+
     def __init__(self, dim: int, cfg: ConvNeXtConfig):
         super().__init__()
         k, hid = cfg.kernel_size, cfg.mlp_ratio * dim
@@ -83,12 +93,21 @@ class ConvNeXtBlock(nn.Module):
         self.gamma = _param(dim)
         self.k, self.eps = k, cfg.ln_eps
 
+    def tp_layout(self, m: int):
+        """fc1's columns (with its bias) and fc2's rows over a `model` axis
+        of m, or None when m does not divide the hidden width."""
+        return None if self.fc1_w.shape[1] % m else {"fc1_w": (1, 1), "fc1_b": (0, 1), "fc2_w": (0, 1)}
+
     def forward(self, x):
-        cd = x.dtype
+        cd, tp = x.dtype, self.tp
         h = _conv(x, self.dw_w, self.dw_b, 1, groups=x.shape[-1], padding=self.k // 2)
         h = _layer_norm(h, self.norm_g, self.norm_b, self.eps)
-        h = F.gelu(h @ self.fc1_w.to(cd) + self.fc1_b.to(cd))  # exact (erf) GELU
-        h = h @ self.fc2_w.to(cd) + self.fc2_b.to(cd)
+        if tp:
+            h = F.gelu(column_parallel(h, local(self.fc1_w).to(cd), tp) + local(self.fc1_b).to(cd))
+            h = row_parallel(h, local(self.fc2_w).to(cd), tp) + self.fc2_b.to(cd)
+        else:
+            h = F.gelu(h @ self.fc1_w.to(cd) + self.fc1_b.to(cd))  # exact (erf) GELU
+            h = h @ self.fc2_w.to(cd) + self.fc2_b.to(cd)
         return x + self.gamma.to(cd) * h
 
 

@@ -20,7 +20,7 @@ the JAX package's parameter names and layouts (linear weights stored
 - `remat=True` recomputes each vision block's activations in the backward
   (`torch.utils.checkpoint`), the counterpart of the JAX `remat` flag.
 - A block split over the mesh's `model` axis (`parallel/mesh.shard_params`
-  sets its `tp`) holds this rank's heads of q, k and v (the fused columns
+  sets its `tp`; ConvNeXt's blocks split as `convnext.py` says) holds this rank's heads of q, k and v (the fused columns
   [q_r|k_r|v_r]) and ffn columns, runs the attention kernels on its
   (B, heads/m, N, hd) and adds the out and proj biases once, after the
   row-parallel sum (`parallel/tensor_parallel.py`). A whole block (`tp`
@@ -341,8 +341,8 @@ class CLIP(nn.Module):
     @property
     def tensor_parallel_ok(self) -> bool:
         """Whether `parallel/mesh.shard_params` splits this model over
-        `model` (the ViT towers; a ConvNeXt CLIP gathers on use)."""
-        return self.cfg.vision_arch == "vit"
+        `model`: yes, with a ViT or a ConvNeXt vision tower."""
+        return True
 
     def encode_image(self, x, *, normalize=False, compute_dtype=torch.float32,
                      tokens=False, n_skip_last=0, remat=False):

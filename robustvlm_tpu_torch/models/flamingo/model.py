@@ -22,6 +22,15 @@ neither causal nor ALiBi, so no attention kernel encodes it. The Perceiver
 runs in float32 whatever the compute dtype (its input, the vision tower's
 tokens, is float32 and so are its weights, as in JAX); a model held in
 bfloat16 (`half_state`) keeps it and every 1-D parameter in float32.
+
+Split over the mesh's `model` axis (`parallel/mesh.shard_params`): the
+ViT-L/14 tower and the MPT blocks as their modules say; each Perceiver and
+cross-attention module whose heads m divides holds this rank's heads (the q
+columns, the fused [k|v] columns of its heads, the out rows) and each
+feed-forward its ffn columns, and the out and w2 products are summed over
+`model` before the residual and before the gates multiply
+(`parallel/tensor_parallel.py`). The LayerNorms, the latents and the gates
+stay whole. The decode cache holds the rank's heads.
 """
 
 from __future__ import annotations
@@ -34,8 +43,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from robustvlm_tpu_torch.models.clip.model import CLIP_CONFIGS, CLIPConfig, VisionTower
-from robustvlm_tpu_torch.models.mpt.model import MPT, MPT_CONFIGS, MPTConfig, init_mpt_cache, mpt_forward
+from robustvlm_tpu_torch.models.mpt.model import (
+    MPT,
+    MPT_CONFIGS,
+    MPTConfig,
+    init_mpt_cache,
+    local_heads,
+    mpt_forward,
+)
 from robustvlm_tpu_torch.ops.image import normalize_clip, resize_bicubic
+from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, local, row_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,8 +89,19 @@ FLAMINGO_CONFIGS: Dict[str, FlamingoConfig] = {
 
 
 # -------------------------------------------------------------------- modules
+def _attn_layout(heads: int, m: int):
+    """The q columns, the fused [k|v] columns and the out rows of a
+    Perceiver or cross-attention over a `model` axis of m, or None (whole)
+    when m does not divide its heads."""
+    if heads % m:
+        return None
+    return {"to_q": (1, 1), "to_kv": (1, 2), "to_out": (0, 1)}
+
+
 class FeedForward(nn.Module):
     """LN, Linear (ff_mult x, no bias), exact GELU, Linear."""
+
+    tp = None  # parallel.tensor_parallel.TensorParallel when split over `model`
 
     def __init__(self, dim: int, mult: int):
         super().__init__()
@@ -82,10 +110,19 @@ class FeedForward(nn.Module):
         self.w1 = nn.Parameter(torch.zeros(dim, mult * dim))
         self.w2 = nn.Parameter(torch.zeros(mult * dim, dim))
 
+    def tp_layout(self, m: int):
+        return None if self.w1.shape[1] % m else {"w1": (1, 1), "w2": (0, 1)}
+
+    def forward(self, x):
+        return _ff(x, self)
+
 
 class PerceiverAttention(nn.Module):
-    def __init__(self, dim: int, inner: int):
+    tp = None
+
+    def __init__(self, dim: int, inner: int, heads: int):
         super().__init__()
+        self.heads = heads
         self.ln_media_g = nn.Parameter(torch.ones(dim))
         self.ln_media_b = nn.Parameter(torch.zeros(dim))
         self.ln_lat_g = nn.Parameter(torch.ones(dim))
@@ -94,12 +131,18 @@ class PerceiverAttention(nn.Module):
         self.to_kv = nn.Parameter(torch.zeros(dim, 2 * inner))
         self.to_out = nn.Parameter(torch.zeros(inner, dim))
 
+    def tp_layout(self, m: int):
+        return _attn_layout(self.heads, m)
+
+    def forward(self, x, latents, heads: int):
+        return perceiver_attention(x, latents, self, heads)
+
 
 class PerceiverLayer(nn.Module):
     def __init__(self, cfg: FlamingoConfig):
         super().__init__()
         dv = cfg.vision.vision.width
-        self.attn = PerceiverAttention(dv, cfg.inner_dim)
+        self.attn = PerceiverAttention(dv, cfg.inner_dim, cfg.resampler_heads)
         self.ff = FeedForward(dv, cfg.ff_mult)
 
 
@@ -114,14 +157,23 @@ class PerceiverResampler(nn.Module):
 
 
 class MaskedCrossAttention(nn.Module):
+    tp = None
+
     def __init__(self, cfg: FlamingoConfig):
         super().__init__()
         dl, dv, inner = cfg.mpt.d_model, cfg.vision.vision.width, cfg.inner_dim
+        self.heads = cfg.resampler_heads
         self.ln_g = nn.Parameter(torch.ones(dl))
         self.ln_b = nn.Parameter(torch.zeros(dl))
         self.to_q = nn.Parameter(torch.zeros(dl, inner))
         self.to_kv = nn.Parameter(torch.zeros(dv, 2 * inner))
         self.to_out = nn.Parameter(torch.zeros(inner, dl))
+
+    def tp_layout(self, m: int):
+        return _attn_layout(self.heads, m)
+
+    def forward(self, x, media, heads: int, media_locations, use_cached_media: bool = False):
+        return masked_cross_attention(x, media, self, heads, media_locations, use_cached_media)
 
 
 class GatedCrossAttentionBlock(nn.Module):
@@ -160,6 +212,11 @@ class Flamingo(nn.Module):
     def device(self) -> torch.device:
         return self.mpt.norm_f.device
 
+    @property
+    def tensor_parallel_ok(self) -> bool:
+        """`parallel/mesh.shard_params` splits this model over `model`."""
+        return True
+
 
 def _keeps_float32(name: str, t: torch.Tensor) -> bool:
     return t.dim() < 2 or name.startswith("perceiver.")
@@ -180,20 +237,30 @@ def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((xf - mu) * torch.rsqrt(var + 1e-5) * g.float() + b.float()).to(x.dtype)
 
 
+def _col(h: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+    """h @ w in h's dtype: on this rank's columns of w in a split module."""
+    return column_parallel(h, local(w).to(h.dtype), tp) if tp else h @ w.to(h.dtype)
+
+
+def _row(h: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+    """h @ w in h's dtype: summed over `model` in a split module."""
+    return row_parallel(h, local(w).to(h.dtype), tp) if tp else h @ w.to(h.dtype)
+
+
 def _ff(x: torch.Tensor, p: FeedForward) -> torch.Tensor:
-    cd = x.dtype
     h = _ln(x, p.ln_g, p.ln_b)
-    return F.gelu(h @ p.w1.to(cd)) @ p.w2.to(cd)
+    return _row(F.gelu(_col(h, p.w1, p.tp)), p.w2, p.tp)
 
 
 def perceiver_attention(x: torch.Tensor, latents: torch.Tensor, p: PerceiverAttention,
                         heads: int) -> torch.Tensor:
     """x (B, T, n1, D) media, latents (B, T, n2, D) -> (B, T, n2, D)."""
-    cd = x.dtype
+    tp = p.tp
+    heads = heads // tp.size if tp else heads
     x = _ln(x, p.ln_media_g, p.ln_media_b)
     latents = _ln(latents, p.ln_lat_g, p.ln_lat_b)
-    q = latents @ p.to_q.to(cd)
-    k, v = (torch.cat([x, latents], dim=-2) @ p.to_kv.to(cd)).chunk(2, dim=-1)
+    q = _col(latents, p.to_q, tp)
+    k, v = _col(torch.cat([x, latents], dim=-2), p.to_kv, tp).chunk(2, dim=-1)
     b, t, n2, inner = q.shape
     hd = inner // heads
 
@@ -204,7 +271,7 @@ def perceiver_attention(x: torch.Tensor, latents: torch.Tensor, p: PerceiverAtte
     s = torch.einsum("bthid,bthjd->bthij", q, k).float() * hd ** -0.5
     a = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bthij,bthjd->bthid", a, v).transpose(2, 3).reshape(b, t, n2, inner)
-    return out @ p.to_out.to(cd)
+    return _row(out, p.to_out, tp)
 
 
 def perceiver_resampler(p: PerceiverResampler, x: torch.Tensor, cfg: FlamingoConfig) -> torch.Tensor:
@@ -213,8 +280,8 @@ def perceiver_resampler(p: PerceiverResampler, x: torch.Tensor, cfg: FlamingoCon
     x = x.reshape(b, t, f * v, d)
     lat = p.latents.to(x.dtype).expand(b, t, cfg.num_latents, d)
     for layer in p.layers:
-        lat = perceiver_attention(x, lat, layer.attn, cfg.resampler_heads) + lat
-        lat = _ff(lat, layer.ff) + lat
+        lat = layer.attn(x, lat, cfg.resampler_heads) + lat
+        lat = layer.ff(lat) + lat
     return _ln(lat, p.norm_g, p.norm_b)
 
 
@@ -228,11 +295,12 @@ def masked_cross_attention(x: torch.Tensor, media: torch.Tensor, p: MaskedCrossA
     the whole prompt."""
     b, t_txt, _ = x.shape
     t_img, n_lat = media.shape[1], media.shape[2]
-    cd = x.dtype
+    tp = p.tp
+    heads = heads // tp.size if tp else heads
     h = _ln(x, p.ln_g, p.ln_b)
-    q = h @ p.to_q.to(cd)
+    q = _col(h, p.to_q, tp)
     m = media.reshape(b, t_img * n_lat, media.shape[-1])
-    k, v = (m.to(cd) @ p.to_kv.to(cd)).chunk(2, dim=-1)
+    k, v = _col(m.to(x.dtype), p.to_kv, tp).chunk(2, dim=-1)
     inner = q.shape[-1]
     hd = inner // heads
 
@@ -254,15 +322,16 @@ def masked_cross_attention(x: torch.Tensor, media: torch.Tensor, p: MaskedCrossA
     else:
         a = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bhij,bhjd->bhid", a, v).transpose(1, 2).reshape(b, t_txt, inner)
-    return out @ p.to_out.to(cd)
+    return _row(out, p.to_out, tp)
 
 
 def gated_xattn_block(x: torch.Tensor, media: torch.Tensor, p: GatedCrossAttentionBlock, heads: int,
                       media_locations: Optional[torch.Tensor],
                       use_cached_media: bool = False) -> torch.Tensor:
-    att = masked_cross_attention(x, media, p.attn, heads, media_locations, use_cached_media)
+    """The gates scale each sublayer's output after its sum over `model`."""
+    att = p.attn(x, media, heads, media_locations, use_cached_media)
     x = x + torch.tanh(p.attn_gate.float()).to(x.dtype) * att
-    return x + torch.tanh(p.ff_gate.float()).to(x.dtype) * _ff(x, p.ff)
+    return x + torch.tanh(p.ff_gate.float()).to(x.dtype) * p.ff(x)
 
 
 def encode_vision(model: Flamingo, vision_x: torch.Tensor, *, compute_dtype=torch.bfloat16,
@@ -346,7 +415,7 @@ def make_flamingo_decode_fns(model: Flamingo, vision_x: torch.Tensor, *, max_tot
         b = tokens.shape[0]
         media_locations = (tokens == cfg.media_token_id) & kv_valid
         cache = init_mpt_cache(cfg.mpt, b, max_len=max_total_len, dtype=compute_dtype,
-                               device=tokens.device)
+                               device=tokens.device, n_heads=local_heads(model.mpt))
         logits, cache = mpt_forward(
             model.mpt, tokens, compute_dtype=compute_dtype, cache=cache, cache_pos=0,
             kv_mask=kv_valid, positions=positions,

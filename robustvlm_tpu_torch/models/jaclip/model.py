@@ -14,6 +14,14 @@ the port's CLIP ViT (`models/clip`), so its attention runs through the
 `vit_attention` kernels on the card; the text tower's products are plain
 `torch.matmul` in float32, as the JAX tower reaches no Pallas kernel.
 
+Split over the mesh's `model` axis (`parallel/mesh.shard_params`): the ViT
+tower as `models/clip` says; a BERT block whose heads and ffn width m
+divides holds this rank's q, k and v columns with their biases and ff1
+columns with its bias, and sums the o and ff2 products over `model` before
+their biases (added once) and the LayerNorms; the MLP projection holds fc's
+columns and out's rows (`parallel/tensor_parallel.py`). The embeddings stay
+whole on `model`.
+
 Parameters keep the JAX package's names and layouts (linear weights (in,
 out)), so a JAX tree carries across by name (`convert.params_from_jax`).
 The tokenizers return (input_ids, attention_mask) int64 tensors: with a
@@ -36,6 +44,7 @@ from torch import nn
 
 from robustvlm_tpu_torch.benchmark.templates import format_prompts
 from robustvlm_tpu_torch.models.clip.model import CLIP_CONFIGS, CLIPConfig, VisionTower
+from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, local, row_parallel
 
 LOGIT_SCALE_INIT = 2.659260036932778  # ln(1 / 0.07), CLIP's
 
@@ -107,6 +116,8 @@ def _p(*shape) -> nn.Parameter:
 
 
 class BertBlock(nn.Module):
+    tp = None  # parallel.tensor_parallel.TensorParallel when split over `model`
+
     def __init__(self, cfg: BertTextConfig):
         super().__init__()
         d, i = cfg.hidden, cfg.intermediate
@@ -119,18 +130,35 @@ class BertBlock(nn.Module):
         self.ln2_w, self.ln2_b = _p(d), _p(d)
         self.heads, self.eps = cfg.heads, cfg.layer_norm_eps
 
+    def tp_layout(self, m: int):
+        """{parameter: (split dim, blocks)} over a `model` axis of m, or None
+        (the block stays whole) when m does not divide the heads or the ffn
+        width."""
+        if self.heads % m or self.ff1_w.shape[1] % m:
+            return None
+        cols = ("q_w", "q_b", "k_w", "k_b", "v_w", "v_b", "ff1_w", "ff1_b")
+        return {**{n: (1 if n.endswith("_w") else 0, 1) for n in cols}, "o_w": (0, 1), "ff2_w": (0, 1)}
+
     def forward(self, h, bias):
+        tp = self.tp
         b, t, d = h.shape
         hd = d // self.heads
+        heads = self.heads // tp.size if tp else self.heads
+
+        def col(x, w, bb):
+            return (column_parallel(x, local(w), tp) if tp else x @ w) + local(bb)
+
+        def row(x, w, bb):
+            return (row_parallel(x, local(w), tp) if tp else x @ w) + bb
 
         def proj(w, bb):
-            return (h @ w + bb).reshape(b, t, self.heads, hd).transpose(1, 2)
+            return col(h, w, bb).reshape(b, t, heads, hd).transpose(1, 2)
 
         q, k, v = proj(self.q_w, self.q_b), proj(self.k_w, self.k_b), proj(self.v_w, self.v_b)
         s = q @ k.transpose(-1, -2) / math.sqrt(hd) + bias  # the bias carries the padding mask
-        o = (torch.softmax(s, dim=-1) @ v).transpose(1, 2).reshape(b, t, d)
-        h = _ln(h + (o @ self.o_w + self.o_b), self.ln1_w, self.ln1_b, self.eps)
-        f = F.gelu(h @ self.ff1_w + self.ff1_b) @ self.ff2_w + self.ff2_b
+        o = (torch.softmax(s, dim=-1) @ v).transpose(1, 2).reshape(b, t, heads * hd)
+        h = _ln(h + row(o, self.o_w, self.o_b), self.ln1_w, self.ln1_b, self.eps)
+        f = row(F.gelu(col(h, self.ff1_w, self.ff1_b)), self.ff2_w, self.ff2_b)
         return _ln(h + f, self.ln2_w, self.ln2_b, self.eps)
 
 
@@ -160,9 +188,22 @@ class BertText(nn.Module):
 
 
 class MLPProjection(nn.Module):
+    """open_clip's `proj='mlp'`: bias-free fc, exact GELU, bias-free out."""
+
+    tp = None
+
     def __init__(self, d: int, hid: int, embed: int):
         super().__init__()
         self.fc_w, self.out_w = _p(d, hid), _p(hid, embed)
+
+    def tp_layout(self, m: int):
+        return None if self.fc_w.shape[1] % m else {"fc_w": (1, 1), "out_w": (0, 1)}
+
+    def forward(self, x):
+        tp = self.tp
+        if tp is None:
+            return F.gelu(x @ self.fc_w) @ self.out_w
+        return row_parallel(F.gelu(column_parallel(x, local(self.fc_w), tp)), local(self.out_w), tp)
 
 
 class JaCLIP(nn.Module):
@@ -193,9 +234,14 @@ class JaCLIP(nn.Module):
         else:  # masked mean
             m = attention_mask[..., None].to(h.dtype)
             pooled = (h * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
-        tp = self.text_projection
-        e = F.gelu(pooled @ tp.fc_w) @ tp.out_w if self.cfg.proj_arch == "mlp" else pooled @ tp
+        proj = self.text_projection
+        e = proj(pooled) if self.cfg.proj_arch == "mlp" else pooled @ proj
         return e / torch.linalg.norm(e, dim=-1, keepdim=True) if normalize else e
+
+    @property
+    def tensor_parallel_ok(self) -> bool:
+        """`parallel/mesh.shard_params` splits this model over `model`."""
+        return True
 
     def encode_image(self, x, *, normalize=False, compute_dtype=torch.float32, tokens=False,
                      n_skip_last=0, remat=False):

@@ -24,12 +24,13 @@ cast at each matmul.
 A serving model may hold weight-only quantized LM leaves (`ops/quant.py`):
 generation runs on them, the loss path refuses them.
 
-Split over the mesh's `model` axis (`parallel/mesh.shard_params`, LLaMA
-family): the tower's and the LM's blocks and the LM head as their modules
-say, and the `mlp2x_gelu` projector Megatron-style (w1 column-parallel with
-this rank's slice of the replicated b1, w2 row-parallel, b2 added once after
-the sum over `model`). The decode functions' caches hold the rank's kv heads
-(`models/llama/model.local_kv_heads`).
+Split over the mesh's `model` axis (`parallel/mesh.shard_params`, either
+LM family): the tower's and the LM's blocks and the LLaMA LM head as their
+modules say (MPT's head is the tied embedding, whole), and the `mlp2x_gelu`
+projector Megatron-style (w1 column-parallel with this rank's slice of the
+replicated b1, w2 row-parallel, b2 added once after the sum over `model`).
+The decode functions' caches hold the rank's kv heads
+(`models/llama/model.local_kv_heads`, `models/mpt/model.local_heads`).
 """
 
 from __future__ import annotations
@@ -50,7 +51,14 @@ from robustvlm_tpu_torch.models.llama.model import (
     llama_forward,
     local_kv_heads,
 )
-from robustvlm_tpu_torch.models.mpt.model import MPT, MPT_CONFIGS, MPTConfig, init_mpt_cache, mpt_forward
+from robustvlm_tpu_torch.models.mpt.model import (
+    MPT,
+    MPT_CONFIGS,
+    MPTConfig,
+    init_mpt_cache,
+    local_heads,
+    mpt_forward,
+)
 from robustvlm_tpu_torch.ops.image import normalize_clip, resize_bicubic
 from robustvlm_tpu_torch.ops.quant import has_quantized, install_quantized
 from robustvlm_tpu_torch.parallel.tensor_parallel import (
@@ -155,8 +163,8 @@ class Llava(nn.Module):
     @property
     def tensor_parallel_ok(self) -> bool:
         """Whether `parallel/mesh.shard_params` splits this model over
-        `model` (the LLaMA family; LLaVA-MPT gathers on use)."""
-        return self.cfg.lm_family == "llama"
+        `model`: yes, with either LM family (LLaMA or MPT)."""
+        return True
 
     @classmethod
     def from_state(cls, cfg: LlavaConfig, state: Dict[str, object]) -> "Llava":
@@ -303,7 +311,8 @@ def make_llava_decode_fns(model: Llava, pixels01, pre_tokens, *, max_total_len: 
         max_len = t_prefix + max_total_len
         kw = {}
         if use_kvpos:
-            cache = init_mpt_cache(cfg.mpt, b, max_len=max_len, dtype=compute_dtype, device=dev)
+            cache = init_mpt_cache(cfg.mpt, b, max_len=max_len, dtype=compute_dtype, device=dev,
+                                   n_heads=local_heads(model.mpt))
             fill = torch.zeros(b, max_total_len - tokens.shape[1], dtype=pos_full.dtype, device=dev)
             kw["kv_positions"] = torch.cat([pos_full, fill], dim=1)
         elif cache is None:

@@ -27,6 +27,14 @@ names and layouts are the JAX tree's (linear weights (in, out) for
 - Every block matmul and the LM head go through `ops/quant.qmatmul`: a
   plain weight is cast to the compute dtype (a model already held in that
   dtype casts nothing).
+- A block split over the mesh's `model` axis (`parallel/mesh.shard_params`
+  sets its `tp`) holds this rank's heads of the fused [q|k|v] columns and
+  ffn columns, runs attention on its H/m heads with its slice of the ALiBi
+  slopes (`alibi_slopes(H)[r*H/m:(r+1)*H/m]`, not `alibi_slopes(H/m)`, a
+  different series) and sums the out and down products over `model`
+  (`parallel/tensor_parallel.py`). The LM head, tied to the embedding,
+  stays whole. A quantized block stays whole. A cache holds the rank's
+  heads (`local_heads`).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from robustvlm_tpu_torch.models.llama.model import _cache_write
 from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from robustvlm_tpu_torch.ops.quant import qmatmul
+from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, local, row_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +138,8 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    tp = None  # parallel.tensor_parallel.TensorParallel when split over `model`
+
     def __init__(self, cfg: MPTConfig):
         super().__init__()
         self.cfg = cfg
@@ -138,18 +149,40 @@ class Block(nn.Module):
         self.attn = Attention(cfg)
         self.mlp = MLP(cfg)
 
+    def tp_layout(self, m: int):
+        """{parameter: (split dim, blocks)} over a `model` axis of m, or None
+        (the block stays whole) when m does not divide the heads or the ffn
+        width, or a weight is quantized."""
+        a, f = self.attn, self.mlp
+        if (self.cfg.n_heads % m or f.up_w.shape[1] % m
+                or not all(isinstance(w, nn.Parameter) for w in (a.wqkv, a.out_w, f.up_w, f.down_w))):
+            return None
+        return {"attn.wqkv": (1, 3), "attn.out_w": (0, 1), "mlp.up_w": (1, 1), "mlp.down_w": (0, 1)}
+
     def forward(self, x, slopes, *, cache=None, pos=None, kv_mask=None, positions=None,
                 kv_positions=None):
         """One decoder layer. cache: (k, v) buffers (B, H, N, hd) written in
-        place at `pos`; kv_mask (B, Tk) marks valid keys."""
-        cfg = self.cfg
-        b, t, d = x.shape
+        place at `pos`; kv_mask (B, Tk) marks valid keys. `slopes` are all H
+        heads' (a split block takes its own)."""
+        cfg, tp = self.cfg, self.tp
+        b, t, _ = x.shape
         cd = x.dtype
         a, m = self.attn, self.mlp
+        n_heads = cfg.n_heads // tp.size if tp else cfg.n_heads
+        if tp:
+            slopes = slopes[tp.rank * n_heads:(tp.rank + 1) * n_heads]
+
+        def col(h, w):  # a split block's column-parallel product, else qmatmul
+            return column_parallel(h, local(w).to(cd), tp) if tp else qmatmul(h, w)
+
+        def row(h, w):  # the sum over `model` of the row-parallel product
+            return row_parallel(h, local(w).to(cd), tp) if tp else qmatmul(h, w)
+
         h = layer_norm(x, self.norm_1, cfg.norm_eps)
-        qkv = qmatmul(h, a.wqkv)
-        q, k, v = (y.reshape(b, t, cfg.n_heads, cfg.head_dim).transpose(1, 2)
-                   for y in qkv.split(d, dim=-1))
+        qkv = col(h, a.wqkv)
+        w = n_heads * cfg.head_dim
+        q, k, v = (y.reshape(b, t, n_heads, cfg.head_dim).transpose(1, 2)
+                   for y in qkv.split(w, dim=-1))
         slot_q = None if pos is None else int(pos) + torch.arange(t, device=x.device)
         if cache is not None:
             ck = _cache_write(cache[0], k.to(cache[0].dtype), pos)
@@ -168,10 +201,10 @@ class Block(nn.Module):
         else:
             qp = positions if positions is not None else torch.arange(t, device=x.device)
             att = _attn_masked(q, k, v, slopes, q_positions=qp, kv_mask=kv_mask)
-        att = att.transpose(1, 2).reshape(b, t, d)
-        x = x + qmatmul(att.to(cd), a.out_w)
+        att = att.transpose(1, 2).reshape(b, t, w)
+        x = x + row(att.to(cd), a.out_w)
         h = layer_norm(x, self.norm_2, cfg.norm_eps)
-        return x + qmatmul(F.gelu(qmatmul(h, m.up_w)), m.down_w)
+        return x + row(F.gelu(col(h, m.up_w)), m.down_w)
 
 
 class MPT(nn.Module):
@@ -249,10 +282,18 @@ def mpt_forward(
     return qmatmul(x, model.tok_embedding.T).float()
 
 
+def local_heads(model: MPT) -> int:
+    """The heads a rank's blocks hold (all of them on a whole model): the
+    head count of its KV cache."""
+    tp = model.blocks[0].tp if len(model.blocks) else None
+    return model.cfg.n_heads // tp.size if tp else model.cfg.n_heads
+
+
 def init_mpt_cache(cfg: MPTConfig, batch: int, max_len: Optional[int] = None,
-                   dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    """Stacked per-layer KV buffers (L, B, H, N, hd)."""
+                   dtype=torch.bfloat16, device=None, n_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Stacked per-layer KV buffers (L, B, H, N, hd). `n_heads` is the heads
+    a rank holds (`local_heads`: a split model's H / m), all by default."""
     n = max_len or cfg.max_seq_len
-    shape = (cfg.n_layers, batch, cfg.n_heads, n, cfg.head_dim)
+    shape = (cfg.n_layers, batch, n_heads or cfg.n_heads, n, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -16,6 +16,13 @@ for `x @ w`), so a JAX tree carries across by name (`convert.py`).
   blocks); `remat` recomputes each block in the backward
   (`torch.utils.checkpoint`). The KV cache is one (L, B, H, N, hd) buffer
   per k and v, written in place; the cached path takes no `remat`.
+- A block split over the mesh's `model` axis (`parallel/mesh.shard_params`
+  sets its `tp`) holds this rank's heads of q, k and v and its ffn columns
+  (with its slice of fc1's bias, b1), adds its slice of the replicated q, k
+  and v biases, and adds the out and fc2 biases once, after the sum over
+  `model` (`parallel/tensor_parallel.py`). A split LM head holds this rank's
+  vocabulary columns; its logits are gathered before any argmax or
+  cross-entropy. A cache holds the rank's heads (`local_heads`).
 """
 
 from __future__ import annotations
@@ -30,6 +37,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from robustvlm_tpu_torch.models.llama.model import _cache_write
+from robustvlm_tpu_torch.parallel.tensor_parallel import (
+    column_parallel,
+    gather_from_model,
+    local,
+    row_parallel,
+    split_to_model,
+)
 
 POS_OFFSET = 2  # OPT embeds position i at row i + 2 (HF modeling_opt.py)
 
@@ -83,6 +97,27 @@ def _attn(q, k, v, *, q_positions=None, kv_mask=None) -> torch.Tensor:
     return torch.matmul(p, v)
 
 
+def _lin(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h @ w + b with the weights cast to h's dtype."""
+    return h @ w.to(h.dtype) + b.to(h.dtype)
+
+
+def _col(h: torch.Tensor, w, b, tp, b_split: bool = False) -> torch.Tensor:
+    """`_lin`, in a split module (`tp`) on this rank's columns of w: b is
+    split with them (`b_split`) or replicated and sliced here."""
+    if not tp:
+        return _lin(h, w, b)
+    b = local(b) if b_split else split_to_model(b, tp)
+    return column_parallel(h, local(w).to(h.dtype), tp) + b.to(h.dtype)
+
+
+def _row(h: torch.Tensor, w, b, tp) -> torch.Tensor:
+    """`_lin`, in a split module summed over `model`, b added once after."""
+    if not tp:
+        return _lin(h, w, b)
+    return row_parallel(h, local(w).to(h.dtype), tp) + b.to(h.dtype)
+
+
 class LayerNorm(nn.Module):
     def __init__(self, width: int):
         super().__init__()
@@ -108,6 +143,8 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    tp = None  # parallel.tensor_parallel.TensorParallel when split over `model`
+
     def __init__(self, cfg: OPTConfig):
         super().__init__()
         self.cfg = cfg
@@ -116,22 +153,30 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(cfg.dim)
         self.mlp = MLP(cfg.dim, cfg.ffn_dim)
 
+    def tp_layout(self, m: int):
+        """{parameter: (split dim, blocks)} over a `model` axis of m, or None
+        (the block stays whole) when m does not divide the heads or the ffn
+        width. The q, k and v biases are replicated (sliced at use), as the
+        JAX package gives them no rule; b1 splits with fc1's columns."""
+        if self.cfg.n_heads % m or self.cfg.ffn_dim % m:
+            return None
+        return {"attn.wq": (1, 1), "attn.wk": (1, 1), "attn.wv": (1, 1), "attn.wo": (0, 1),
+                "mlp.fc1": (1, 1), "mlp.b1": (0, 1), "mlp.fc2": (0, 1)}
+
     def forward(self, x, kv_mask=None, cache=None, pos=None):
         """One decoder layer. cache: (k, v) buffers (B, H, N, hd) written in
         place at token offset `pos`; kv_mask (B, Tk) marks valid keys."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         b, t, _ = x.shape
         cd = x.dtype
         a, m = self.attn, self.mlp
-
-        def proj(h, w, bias):
-            return h @ w.to(cd) + bias.to(cd)
+        n_heads = cfg.n_heads // tp.size if tp else cfg.n_heads
 
         def heads(y):
-            return y.reshape(b, t, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+            return y.reshape(b, t, n_heads, cfg.head_dim).transpose(1, 2)
 
         h = layer_norm(x, self.ln1.g, self.ln1.b, cfg.norm_eps)
-        q, k, v = (heads(proj(h, getattr(a, f"w{n}"), getattr(a, f"b{n}"))) for n in "qkv")
+        q, k, v = (heads(_col(h, getattr(a, f"w{n}"), getattr(a, f"b{n}"), tp)) for n in "qkv")
         if cache is not None:
             ck = _cache_write(cache[0], k.to(cache[0].dtype), pos)
             cv = _cache_write(cache[1], v.to(cache[1].dtype), pos)
@@ -139,17 +184,19 @@ class Block(nn.Module):
                         kv_mask=kv_mask)
         else:
             att = _attn(q, k, v, kv_mask=kv_mask)
-        att = att.transpose(1, 2).reshape(b, t, cfg.dim)
-        x = x + proj(att, a.wo, a.bo)
+        att = att.transpose(1, 2).reshape(b, t, n_heads * cfg.head_dim)
+        x = x + _row(att, a.wo, a.bo, tp)
         h = layer_norm(x, self.ln2.g, self.ln2.b, cfg.norm_eps)
-        h = F.relu(proj(h, m.fc1, m.b1))
-        return x + proj(h, m.fc2, m.b2)
+        h = F.relu(_col(h, m.fc1, m.b1, tp, b_split=True))
+        return x + _row(h, m.fc2, m.b2, tp)
 
 
 class OPT(nn.Module):
     """Token and position embeddings, decoder blocks, the final norm and the
     LM head. Parameters are created frozen; load a state dict (`convert.py`)
     with `from_state`."""
+
+    tp = None  # set when the LM head is split over `model`
 
     def __init__(self, cfg: OPTConfig):
         super().__init__()
@@ -168,6 +215,26 @@ class OPT(nn.Module):
             model = cls(cfg)
         model.load_state_dict(state, assign=True, strict=True)
         return model.requires_grad_(False)
+
+    def tp_layout(self, m: int):
+        """The LM head's vocabulary columns over a `model` axis of m, unless m
+        does not divide the vocabulary."""
+        return None if self.cfg.vocab_size % m else {"lm_head": (1, 1)}
+
+
+def local_heads(model: OPT) -> int:
+    """The heads a rank's blocks hold (all of them on a whole model): the
+    head count of its KV cache."""
+    tp = model.blocks[0].tp if len(model.blocks) else None
+    return model.cfg.n_heads // tp.size if tp else model.cfg.n_heads
+
+
+def _lm_head(model: OPT, h: torch.Tensor) -> torch.Tensor:
+    """Float32 logits over the whole vocabulary (a split head's gathered)."""
+    tp = model.tp
+    if tp is None:
+        return (h @ model.lm_head.to(h.dtype)).float()
+    return gather_from_model(column_parallel(h, local(model.lm_head).to(h.dtype), tp).float(), tp)
 
 
 def opt_forward(
@@ -210,7 +277,7 @@ def opt_forward(
         for i, blk in enumerate(model.blocks):
             x = blk(x, kv_mask, cache=(cache["k"][i], cache["v"][i]), pos=cache_pos)
         h = layer_norm(x, fn.g, fn.b, cfg.norm_eps)
-        return (h @ model.lm_head.to(compute_dtype)).float(), cache
+        return _lm_head(model, h), cache
 
     for blk in model.blocks:
         if remat and torch.is_grad_enabled():
@@ -220,13 +287,14 @@ def opt_forward(
     x = layer_norm(x, fn.g, fn.b, cfg.norm_eps)
     if return_hidden:
         return x
-    return (x @ model.lm_head.to(compute_dtype)).float()
+    return _lm_head(model, x)
 
 
 def init_opt_cache(cfg: OPTConfig, batch: int, max_len: Optional[int] = None,
-                   dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    """Stacked per-layer KV buffers (L, B, H, N, hd)."""
+                   dtype=torch.bfloat16, device=None, n_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Stacked per-layer KV buffers (L, B, H, N, hd). `n_heads` is the heads
+    a rank holds (`local_heads`: a split model's H / m), all by default."""
     n = max_len or cfg.max_seq_len
-    shape = (cfg.n_layers, batch, cfg.n_heads, n, cfg.head_dim)
+    shape = (cfg.n_layers, batch, n_heads or cfg.n_heads, n, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -240,5 +240,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf, vf = (t.reshape(b * h, nk, d).contiguous() for t in (k, v))
     slopes = None
     if alibi_slopes is not None:  # per head, tiled over the batch
+        if alibi_slopes.numel() != h:
+            raise ValueError(f"flash_attention: {alibi_slopes.numel()} alibi_slopes for {h} heads")
         slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).repeat(b).contiguous()
     return _FlashAttention.apply(qf, kf, vf, slopes, causal).reshape(b, h, nq, d)

@@ -8,27 +8,28 @@ Counterpart of `robustvlm_tpu/parallel/mesh.py`, with its names:
   * data  - each rank holds its own rows of the batch;
   * fsdp  - parameters sharded at rest and gathered on use (FSDP2's
     `fully_shard`); fsdp doubles as a second batch axis;
-  * model - Megatron tensor parallelism (`tensor_parallel.py`) in the
-    families that split: the CLIP ViT towers (vision and text) and LLaVA
-    with a LLaMA LM (its tower, projector, blocks and LM head). A split block
-    holds and computes on this rank's heads and ffn columns; ranks that
-    differ only in `model` hold the same rows of the batch. The other
-    families (MPT and OpenFlamingo, OPT and BLIP-2's Q-Former, ConvNeXt, the
-    BERT/XLM-R towers) shard over `model` at rest as over `fsdp` (one
-    flattened fsdp x model shard axis) and gather on use: the function is
-    JAX's, the compute is not split.
+  * model - Megatron tensor parallelism (`tensor_parallel.py`) in every
+    family: the CLIP ViT and ConvNeXt towers and the CLIP text tower; LLaVA
+    with a LLaMA or an MPT LM (tower, projector, blocks, LLaMA's LM head);
+    OpenFlamingo (tower, Perceiver, gated cross-attention, MPT); BLIP-2
+    (EVA tower, Q-Former, language projection, OPT and its LM head); the
+    BERT/XLM-R text towers and their MLP projection. A split module holds
+    and computes on this rank's heads and ffn columns; ranks that differ
+    only in `model` hold the same rows of the batch. A module that m does
+    not divide stays whole (below).
 - `_RULES` are JAX's decisions written on the port's parameter names (the
   blocks are `nn.ModuleList` entries, `visual.blocks.3.attn.qkv_w`, so the
   per-layer case of `_spec_for`, where a rule's leading layer axis drops,
   is the port's case). `param_sharding_rules` is a pure function of the
   parameters' names and shapes and the mesh's shape.
-- `shard_params`, in a family that splits, on a mesh with `model` > 1: each
-  module that can split (`tp_layout(m)` names its parameters' split dims
-  when m divides its heads, kv heads and ffn width) gets this rank's share of
-  those parameters as DTensors on the `model` sub-mesh (`Shard(dim)`; the
-  fused [q|k|v] columns `_StridedShard(1, split_factor=3)`, so that each
-  rank holds the q, k and v columns of its own heads and the global view is
-  the unsplit layout) and `tp` set. Then FSDP2 (`fully_shard` on the
+- `shard_params` on a mesh with `model` > 1: each module that can split
+  (`tp_layout(m)` names its parameters' split dims when m divides its
+  heads, kv heads and ffn width) gets this rank's share of those parameters
+  as DTensors on the `model` sub-mesh (`Shard(dim)`; the fused [q|k|v]
+  columns `_StridedShard(1, split_factor=3)` and [k|v] columns
+  `_StridedShard(1, split_factor=2)`, so that each rank holds the columns
+  of its own heads and the global view is the unsplit layout) and `tp`
+  set. Then FSDP2 (`fully_shard` on the
   `fsdp` sub-mesh, or on ("data", "fsdp") for HSDP) on every block and the
   root shards the dim JAX's spec gives `fsdp`; a parameter whose spec names
   no `fsdp` dim (JAX's replicated LayerNorms and biases, and the
@@ -38,14 +39,17 @@ Counterpart of `robustvlm_tpu/parallel/mesh.py`, with its names:
   a TP shard (the out and down projections: TP on the rows, FSDP on the
   columns, JAX's own dims). A block that m does not divide (heads, kv heads
   or ffn width; a quantized block) stays whole on every rank and takes the
-  flattened placement below, with JAX's replicated parameters left whole.
-  `state_dict()` of a split model is the unsplit layout, in plain tensors
-  (every DTensor gathered, `qkv_w` in [q|k|v] order): a checkpoint or an
-  export of it loads into an unsplit model. A split model loads no state.
-- `shard_params` in the other families (and on any mesh with `model` = 1)
-  applies `fully_shard` to every block (a module of an `nn.ModuleList` with
-  its own `forward`) and then to the root, on the 2-D mesh (data, fsdp x
-  model): replicated over `data`, each parameter sharded over the flattened
+  flattened placement below, with JAX's replicated parameters left whole;
+  so does any other module with a forward of its own whose `tp_layout` is
+  None (a Perceiver or Q-Former attention of too few heads), as an FSDP
+  unit of its own. `state_dict()` of a split model is the unsplit layout,
+  in plain tensors (every DTensor gathered, fused [q|k|v] and [k|v] columns
+  in their order): a checkpoint or an export of it loads into an unsplit
+  model. A split model loads no state.
+- `shard_params` on a mesh with `model` = 1 (or a root without
+  `tensor_parallel_ok`) applies `fully_shard` to every block (a module of
+  an `nn.ModuleList` with its own `forward`) and then to the root, on the
+  2-D mesh (data, fsdp x model): replicated over `data`, each parameter sharded over the flattened
   pair on the dim JAX gives `fsdp` (else `model`) when the pair divides it,
   else on FSDP2's default dim 0. Scalars, which FSDP2 cannot shard and JAX
   replicates, stay replicated tensors.
@@ -394,10 +398,10 @@ def _blocks(model: nn.Module) -> list:
 
 def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
     """Shard `model`'s parameters at rest over the mesh by the rules, in
-    place: split over `model` where the family splits, then `fully_shard`
-    on every block and on the root (see the module docstring). Returns the
-    model; the identity without a process group. Run its computations
-    through `sharded_call`."""
+    place: split over `model` when it is > 1, then `fully_shard` on every
+    block and on the root (see the module docstring). Returns the model; the
+    identity without a process group. Run its computations through
+    `sharded_call`."""
     if not mesh.distributed:
         return model
     if mesh.tp is not None and getattr(model, "tensor_parallel_ok", False):
@@ -445,10 +449,10 @@ def _split_param(p: nn.Parameter, dim: int, parts: int, tp: TensorParallel, mode
 
 
 def _shard_split(model: nn.Module, mesh: Mesh) -> nn.Module:
-    """`shard_params` of a family that splits, on `model` > 1: TP DTensors
-    where `tp_layout` allows, FSDP2 over the `fsdp` sub-mesh on the dim
-    JAX's spec gives `fsdp` (blocks that stay whole: the flattened
-    placement), JAX's replicated parameters left out of FSDP."""
+    """`shard_params` on `model` > 1: TP DTensors where `tp_layout` allows,
+    FSDP2 over the `fsdp` sub-mesh on the dim JAX's spec gives `fsdp`
+    (blocks, and other modules with a forward, that stay whole: the
+    flattened placement), JAX's replicated parameters left out of FSDP."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -485,13 +489,21 @@ def _shard_split(model: nn.Module, mesh: Mesh) -> nn.Module:
         return {p for p in mod.parameters()
                 if p.dim() == 0 or all(a is None for a in spec(p)) or (split and "fsdp" not in spec(p))}
 
-    for blk in _blocks(model):
-        if blk in split_mods:
-            fully_shard(blk, mesh=mesh.fsdp_mesh, shard_placement_fn=split_placement,
-                        ignored_params=whole(blk, True) or None)
+    blocks = _blocks(model)
+    in_blocks = {id(p) for blk in blocks for p in blk.parameters()}
+    # whole modules outside the blocks that JAX shards over `model` too: units
+    # of their own on the flattened axis, gathered around their forward
+    whole_mods = [mod for mod in model.modules()
+                  if mod is not model and mod not in split_mods and hasattr(mod, "tp_layout")
+                  and type(mod).forward is not nn.Module.forward
+                  and not any(id(p) in in_blocks for p in mod.parameters())]
+    for unit in blocks + whole_mods:
+        if unit in split_mods:
+            fully_shard(unit, mesh=mesh.fsdp_mesh, shard_placement_fn=split_placement,
+                        ignored_params=whole(unit, True) or None)
         else:
-            fully_shard(blk, mesh=mesh.shard_mesh, shard_placement_fn=flat_placement,
-                        ignored_params=whole(blk, False) or None)
+            fully_shard(unit, mesh=mesh.shard_mesh, shard_placement_fn=flat_placement,
+                        ignored_params=whole(unit, False) or None)
     # fully_shard put new parameters in the blocks
     names.update({id(p): n for n, p in model.named_parameters()})
     fully_shard(model, mesh=mesh.fsdp_mesh, shard_placement_fn=split_placement,

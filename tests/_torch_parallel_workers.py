@@ -188,10 +188,10 @@ def driver_world(rank, world, argv_by_rank):
 
 def models_world(rank, world, llava_tree, blip2_tree, mclip_tree, apgd):
     """shard_attack APGD on a data = world mesh, both forms; sharded pixel
-    gradients of tiny LLaVA (on (1, 4, 1): sharded and gathered on use; on
-    (1, 2, 2) LLaVA splits over `model`, which `tp_world` holds) and BLIP-2
-    and a sharded mclip text encode on (1, 2, 2), each with the same model
-    unsharded."""
+    gradients of tiny LLaVA and BLIP-2 and a sharded mclip text encode on
+    (1, 4, 1), sharded and gathered on use (on a mesh with `model` > 1 they
+    split over `model`, which `tp_world` and `tp_family_world` hold), each
+    with the same model unsharded."""
     from robustvlm_tpu_torch.attacks.apgd import apgd_attack
     from robustvlm_tpu_torch.models.blip2 import model as PB
     from robustvlm_tpu_torch.models.blip2.convert import params_from_jax as blip2_from_jax
@@ -227,7 +227,7 @@ def models_world(rank, world, llava_tree, blip2_tree, mclip_tree, apgd):
     out["apgd"] = shard_attack(attack, dp)(x, y).numpy()
     out["apgd_params"] = shard_attack(attack_p, dp, params=w.clone())(x, y).numpy()
 
-    mesh = make_mesh(data=1, fsdp=2, model=2, device="cpu")
+    mesh = make_mesh(data=1, fsdp=4, model=1, device="cpu")
 
     def pixel_grad(model, loss_fn, xx, *args):
         xa = xx.clone().requires_grad_(True)
@@ -249,7 +249,7 @@ def models_world(rank, world, llava_tree, blip2_tree, mclip_tree, apgd):
     lx, ltok, lmask = (torch.from_numpy(a) for a in (llava_tree["x"], llava_tree["tokens"], llava_tree["mask"]))
     out["llava"] = held(lambda: Llava.from_state(lcfg, llava_from_jax(llava_tree["params"])),
                         lambda m, xx, t, mk: llava_per_sample_loss(m, xx, t, t, t, mk, compute_dtype=torch.float32),
-                        lx, ltok, lmask, mesh=make_mesh(data=1, fsdp=4, model=1, device="cpu"))
+                        lx, ltok, lmask)
     bcfg = PB.BLIP2_CONFIGS["test-tiny"]
     bx, btok, bmask = (torch.from_numpy(a) for a in (blip2_tree["x"], blip2_tree["tokens"], blip2_tree["mask"]))
     out["blip2"] = held(lambda: PB.Blip2.from_state(bcfg, blip2_from_jax(blip2_tree["params"])),
@@ -502,3 +502,266 @@ def tp_serve_world(rank, world, mesh_shape, tree, imgs, max_new, k):
     return {"solo": solo, "spec": spec, "engine": engine, "verify_steps": stats["verify_steps"],
             "sharded": sorted(_placements(model)),
             "split": [b.tp is not None for b in model.llama.blocks] + [model.llama.tp is not None]}
+
+
+# ------------------------------------------------------------------ tensor parallel: the other families
+GEN_NEW = 6  # generated tokens
+
+
+def _loss_grad(model, loss_fn, x, *args):
+    """(loss, pixel gradient) of `loss_fn(model, x, *args)` through sharded_call."""
+    from robustvlm_tpu_torch.parallel.mesh import sharded_call
+
+    xa = x.clone().requires_grad_(True)
+    loss = sharded_call(model, loss_fn, model, xa, *args)
+    (g,) = torch.autograd.grad(loss.sum(), xa)
+    return loss.detach(), g
+
+
+def _held_split(mesh, build, loss_fn, arrays, spy=None):
+    """The loss and pixel gradient of the unsplit model on the whole batch
+    and of the split one (`shard_params`) on this rank's rows, gathered;
+    `spy` (a module whose `flash_attention` to record) is wrapped around
+    the split run only. -> (split model, record)."""
+    from robustvlm_tpu_torch.parallel.mesh import batch_sharding, gather_batch, shard_params
+
+    full = [torch.from_numpy(a) for a in arrays]
+    ref_loss, ref_grad = _loss_grad(build(), loss_fn, *full)
+    model = shard_params(build(), mesh)
+    seen, fn = [], getattr(spy, "flash_attention", None)
+    if spy is not None:
+        def wrapped(q, *a, **k):
+            s = k.get("alibi_slopes")
+            seen.append((tuple(q.shape), None if s is None else s.tolist()))
+            return fn(q, *a, **k)
+
+        spy.flash_attention = wrapped
+    try:
+        loss, grad = gather_batch(_loss_grad(model, loss_fn, *[batch_sharding(mesh, a) for a in full]), mesh)
+    finally:
+        if spy is not None:
+            spy.flash_attention = fn
+    rec = {"loss": loss.numpy(), "grad": grad.numpy(), "ref_loss": ref_loss.numpy(), "ref_grad": ref_grad.numpy(),
+           "bytes": _local_bytes(model), "spy": seen}
+    return model, rec
+
+
+def _tokens(model, make_fns, x, seqs, beams, **kw):
+    """Greedy (beams = 1) or beam tokens of `seqs` (left-padded) on `x`,
+    through the eval adapters' `_decode_fns_of` (every call under
+    sharded_call)."""
+    from robustvlm_tpu_torch.models.generation import beam_generate, greedy_generate, left_pad
+    from robustvlm_tpu_torch.vlm_eval.eval_models import _decode_fns_of
+
+    toks, n_pad = left_pad(seqs, pad_id=0)
+    pf, df = _decode_fns_of(model, make_fns, torch.from_numpy(x), *kw.pop("args", ()),
+                            max_total_len=toks.shape[1] + GEN_NEW, compute_dtype=torch.float32, **kw)
+    gkw = dict(max_new_tokens=GEN_NEW, eos_id=2, pad_id=0)
+    pt, pn = torch.from_numpy(toks).long(), torch.from_numpy(n_pad).long()
+    with torch.no_grad():
+        if beams == 1:
+            return greedy_generate(pf, df, pt, pn, **gkw).tokens.numpy()
+        return beam_generate(pf, df, pt, pn, num_beams=beams, length_penalty=1.0, **gkw).tokens.numpy()
+
+
+def _local_columns(mesh, ref_state, name, param, parts):
+    """Whether a split parameter's local block is exactly this rank's
+    columns of each of its `parts` fused blocks, of its fsdp rows."""
+    from robustvlm_tpu_torch.parallel.tensor_parallel import head_columns
+
+    want = torch.from_numpy(ref_state[name])
+    want = want.chunk(mesh.shape["fsdp"], 0)[mesh.coords[1]]
+    want = want[:, head_columns(want.shape[1] // parts, mesh.shape["model"], mesh.coords[2], parts)]
+    return bool(torch.equal(param.to_local(), want))
+
+
+def _tp_llava_mpt(mesh, d):
+    from robustvlm_tpu_torch.models.llava import model as PV
+    from robustvlm_tpu_torch.models.llava.convert import params_from_jax
+    from robustvlm_tpu_torch.models.mpt import model as PM
+
+    cfg = PV.LLAVA_CONFIGS["test-tiny-mpt"]
+
+    def build():
+        return PV.Llava.from_state(cfg, params_from_jax(d["tree"]))
+
+    def loss_fn(m, x, pre, post, mask):
+        return PV.llava_per_sample_loss(m, x, pre, post, post, mask, compute_dtype=torch.float32)
+
+    ref = build()
+    model, rec = _held_split(mesh, build, loss_fn, (d["x"], d["pre"], d["post"], d["mask"]),
+                             spy=PM)
+    args = (torch.from_numpy(d["gen_pre"]),)
+    rec["tokens"] = _tokens(model, PV.make_llava_decode_fns, d["gen_x"], d["seqs"], 1, args=args)
+    rec["ref_tokens"] = _tokens(ref, PV.make_llava_decode_fns, d["gen_x"], d["seqs"], 1, args=args)
+    rec["split"] = {"vision": [b.tp is not None for b in model.vision.blocks],
+                    "lm": [b.tp is not None for b in model.mpt.blocks], "projector": model.projector.tp is not None}
+    rec["wqkv_local_equal"] = _local_columns(mesh, _full(ref), "mpt.blocks.0.attn.wqkv",
+                                             model.mpt.blocks[0].attn.wqkv, 3)
+    rec["state"] = _full(model)
+    return rec
+
+
+def _tp_flamingo(mesh, d):
+    import dataclasses
+
+    from robustvlm_tpu_torch.attacks.apgd import apgd_attack
+    from robustvlm_tpu_torch.models.flamingo import convert as PC
+    from robustvlm_tpu_torch.models.flamingo import model as PF
+    from robustvlm_tpu_torch.models.mpt import model as PM
+    from robustvlm_tpu_torch.ops.losses import ce_loss
+    from robustvlm_tpu_torch.parallel.mesh import batch_sharding, gather_batch, sharded_call
+
+    cfg = dataclasses.replace(PF.FLAMINGO_CONFIGS["test-tiny"], media_token_id=d["media"])
+
+    def build():
+        return PF.Flamingo.from_state(cfg, PC.params_from_jax(d["tree"]))
+
+    def loss_fn(m, vx, lang, mask):
+        return PF.flamingo_per_sample_loss(m, vx, lang, lang, mask, compute_dtype=torch.float32)
+
+    ref = build()
+    model, rec = _held_split(mesh, build, loss_fn, (d["vx"], d["lang"], d["mask"]), spy=PM)
+    for beams in (1, 3):
+        rec[f"tokens{beams}"] = _tokens(model, PF.make_flamingo_decode_fns, d["gen_vx"], d["seqs"], beams)
+        rec[f"ref_tokens{beams}"] = _tokens(ref, PF.make_flamingo_decode_fns, d["gen_vx"], d["seqs"], beams)
+
+    a = d["apgd"]
+    pairs = [(torch.from_numpy(a[f"lang_{c}"]), torch.from_numpy(a[f"mask_{c}"])) for c in "ab"]
+
+    def logits_of(m, rows):
+        """The two-caption logits -loss(caption) on this rank's rows."""
+        def logits(xa):
+            lp = [sharded_call(m, loss_fn, m, xa[:, None, None], rows(la), rows(ma)) for la, ma in pairs]
+            return -torch.stack(lp, dim=-1)
+        return logits
+
+    x = torch.from_numpy(a["x"])
+    with torch.no_grad():
+        y = logits_of(ref, lambda t: t)(x).argmax(dim=-1)  # the clean predictions
+
+    def flags(m, rows):
+        """5 APGD-CE iterations' robust flags."""
+        res = apgd_attack(logits_of(m, rows), rows(x), rows(y), criterion=lambda o, t: ce_loss(o, t, reduction="none"),
+                          eps=a["eps"], n_iter=5, norm="linf")
+        return res.acc
+
+    rec["y"] = y.numpy()
+    rec["flags"] = gather_batch(flags(model, lambda t: batch_sharding(mesh, t)), mesh).numpy()
+    rec["ref_flags"] = flags(ref, lambda t: t).numpy()
+    rec["split"] = {"vision": [b.tp is not None for b in model.vision.blocks],
+                    "perceiver_attn": [lyr.attn.tp is not None for lyr in model.perceiver.layers],
+                    "perceiver_ff": [lyr.ff.tp is not None for lyr in model.perceiver.layers],
+                    "xattn_attn": [x.attn.tp is not None for x in model.xattn],
+                    "xattn_ff": [x.ff.tp is not None for x in model.xattn],
+                    "lm": [b.tp is not None for b in model.mpt.blocks]}
+    full = _full(ref)
+    rec["to_kv_local_equal"] = [_local_columns(mesh, full, f"{n}.to_kv", mod.to_kv, 2)
+                                for n, mod in (("perceiver.layers.0.attn", model.perceiver.layers[0].attn),
+                                               ("xattn.0.attn", model.xattn[0].attn)) if mod.tp is not None]
+    rec["state"] = _full(model)
+    return rec
+
+
+def _tp_blip2(mesh, d):
+    from robustvlm_tpu_torch.models.blip2 import model as PB
+    from robustvlm_tpu_torch.models.blip2.convert import params_from_jax
+
+    cfg = PB.BLIP2_CONFIGS["test-tiny"]
+
+    def build():
+        return PB.Blip2.from_state(cfg, params_from_jax(d["tree"]))
+
+    def loss_fn(m, x, t, mask):
+        return PB.blip2_per_sample_loss(m, x, t, t, mask, compute_dtype=torch.float32)
+
+    ref = build()
+    model, rec = _held_split(mesh, build, loss_fn, (d["x"], d["tokens"], d["mask"]))
+    rec["tokens"] = _tokens(model, PB.make_blip2_decode_fns, d["gen_x"], d["seqs"], 1)
+    rec["ref_tokens"] = _tokens(ref, PB.make_blip2_decode_fns, d["gen_x"], d["seqs"], 1)
+    q = model.qformer.layers
+    rec["split"] = {"vision": [b.tp is not None for b in model.visual.blocks],
+                    "qformer_attn": [lyr.self_attn.tp is not None for lyr in q]
+                    + [lyr.cross.tp is not None for lyr in q if lyr.cross is not None],
+                    "qformer_ffn": [lyr.ffn.tp is not None for lyr in q],
+                    "projection": model.language_projection.tp is not None,
+                    "lm": [b.tp is not None for b in model.opt.blocks], "lm_head": model.opt.tp is not None}
+    rec["state"] = _full(model)
+    return rec
+
+
+def _tp_tower(mesh, d, build):
+    """Image and text embeddings (normalized) of a split tower pair against
+    the same model unsplit; `text(model, rows)` encodes the text rows."""
+    from robustvlm_tpu_torch.ops.image import normalize_clip
+    from robustvlm_tpu_torch.parallel.mesh import batch_sharding, gather_batch, shard_params, sharded_call
+
+    def encode(model, rows):
+        x = normalize_clip(rows(torch.from_numpy(d["x"])))
+        img = sharded_call(model, model.encode_image, x, normalize=True)
+        toks = [rows(torch.from_numpy(t)) for t in d["text"]]
+        return img, sharded_call(model, model.encode_text, *toks, normalize=True)
+
+    with torch.no_grad():
+        ref_img, ref_txt = encode(build(), lambda t: t)
+        model = shard_params(build(), mesh)
+        img, txt = gather_batch(encode(model, lambda t: batch_sharding(mesh, t)), mesh)
+    return model, {"img": img.numpy(), "txt": txt.numpy(), "ref_img": ref_img.numpy(), "ref_txt": ref_txt.numpy(),
+                   "bytes": _local_bytes(model), "state": _full(model)}
+
+
+def _tp_convnext(mesh, d):
+    from robustvlm_tpu_torch.models.clip import CLIP, CLIP_CONFIGS, params_from_jax
+
+    def build():
+        model = CLIP(CLIP_CONFIGS["test-tiny-convnext"])
+        model.load_state_dict(params_from_jax(d["tree"]))
+        return model
+
+    model, rec = _tp_tower(mesh, d, build)
+    rec["split"] = {"vision": [b.tp is not None for s in model.visual.stages for b in s.blocks],
+                    "text": [b.tp is not None for b in model.text.blocks]}
+    return rec
+
+
+def _tp_bert(mesh, d):
+    """ja_clip or mclip (the JaCLIP config `d["config"]`)."""
+    from robustvlm_tpu_torch.models.clip import params_from_jax
+    from robustvlm_tpu_torch.models.jaclip import JACLIP_CONFIGS, JaCLIP
+    from robustvlm_tpu_torch.models.mclip import MCLIP_CONFIGS
+
+    cfg = {**JACLIP_CONFIGS, **MCLIP_CONFIGS}[d["config"]]
+
+    def build():
+        model = JaCLIP(cfg)
+        model.load_state_dict(params_from_jax(d["tree"]))
+        return model
+
+    model, rec = _tp_tower(mesh, d, build)
+    rec["split"] = {"vision": [b.tp is not None for b in model.visual.blocks],
+                    "text": [b.tp is not None for b in model.text.blocks],
+                    "projection": getattr(model.text_projection, "tp", None) is not None}
+    return rec
+
+
+_TP_FAMILIES = {"llava_mpt": _tp_llava_mpt, "flamingo": _tp_flamingo, "blip2": _tp_blip2,
+                "convnext": _tp_convnext, "ja_clip": _tp_bert, "mclip": _tp_bert}
+
+
+def tp_family_world(rank, world, mesh_shape, families):
+    """One mesh (data, fsdp, model) with `model` > 1, float32 on the CPU: for
+    each family in `families` (name -> its weights and inputs) the split
+    model's results (this rank's rows, gathered) beside the same model
+    unsplit on the whole batch:
+      llava_mpt, flamingo, blip2 - the per-sample loss and pixel gradient,
+          greedy tokens (flamingo: and 3-beam tokens, and 5 APGD
+          iterations' robust flags), which modules split; llava_mpt and
+          flamingo the ALiBi slopes and q shape of each flash call, block
+          0's local wqkv (llava_mpt) and the local to_kv columns (flamingo);
+      convnext, ja_clip, mclip - image and text embeddings, which blocks
+          split;
+    and every family's per-parameter local bytes and its state_dict."""
+    from robustvlm_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(*mesh_shape, device="cpu")
+    return {"coords": mesh.coords, **{name: _TP_FAMILIES[name](mesh, d) for name, d in families.items()}}

@@ -5,14 +5,15 @@ LLaVA / BLIP-2 / mclip cases.
 
 - `shard_attack` APGD on a data = 4 mesh, with and without `params=`:
   within 2e-5 of the single-process port, robust flags equal JAX's;
-- pixel gradients of tiny LLaVA sharded over (1, 4, 1) (gathered on use:
-  over (1, 2, 2) LLaVA splits over `model`, held by
-  tests/test_torch_parallel_tp.py) and BLIP-2 over (1, 2, 2), float32:
-  the per-sample loss within 1e-6 relative and the gradient within 1e-6 of
-  its largest element of the same port model unsharded, and within 1e-5
-  (both) of JAX's unsharded function (the family tests' bound);
-- mclip's text embedding sharded over (1, 2, 2): 1e-6 of the unsharded
-  port, 1e-5 of JAX, unit norm.
+- pixel gradients of tiny LLaVA and BLIP-2 sharded over (1, 4, 1)
+  (gathered on use: over (1, 2, 2) they split over `model`, held by
+  tests/test_torch_parallel_tp.py and tests/test_torch_parallel_tp_vlms.py),
+  float32: the per-sample loss within 1e-6 relative and the gradient within
+  1e-6 of its largest element of the same port model unsharded, and within
+  1e-5 (both) of JAX's unsharded function (the family tests' bound);
+- mclip's text embedding sharded over (1, 4, 1): 1e-6 of the unsharded
+  port, 1e-5 of JAX, unit norm (split over (1, 2, 2):
+  tests/test_torch_parallel_tp_towers.py).
 """
 
 import jax
