@@ -25,7 +25,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 iterations, in float32 (APGD-CE + APGD-T) and in bfloat16
                 (APGD-T), with each kernel's launch count read around each run;
   5. timed    - `apgd_attack` at ViT-L/14 in bfloat16, batch 8, 100
-                iterations: APGD example-steps/s;
+                iterations: APGD example-steps/s, through the headline
+                function of `scripts/bench_torch.py` (`main`: the CLI's
+                `cast_matrices_` layout, best of 3), its launches and the
+                eps-ball checked;
   6. robustbench_breadth - at ViT-L/14 full width, bf16, 8 synthetic images:
                 the card's l1-ball and hyperplane-box projections against the
                 CPU's; `robustbench.main` with FAB-T (10 iterations), l2 and
@@ -155,6 +158,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 q4_matmul only at 8 rows, 225 a verify step, the stats
                 against the tokens streamed; accept rate, tokens per verify
                 step, tokens/s against the plain stream.
+ 25a. bench_serving - on the same build, the serving benches' stages in
+                process at 16 new tokens: `bench_worker_torch.run_stages`
+                (single request, stream, 2 concurrent clients, 2 staggered
+                clients against the continuous engine and the window
+                batcher, through the controller over HTTP; q4_matmul in
+                each) and `bench_spec_torch.run_configs` (reject-all accept
+                rate exactly 0, accept-all 1, prompt lookup's tokens equal
+                the solo stream's or parted at a near tie).
  26. parallel - `robustvlm_tpu_torch.parallel` over a world-size-1 NCCL
                 process group: `driver.main` with train[tecoa2]'s argv for 2
                 steps in the group against without it (parameters
@@ -190,6 +201,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 layers, OPT to 4 of 32, Q-Former whole): bf16 and float32
                 loss and gradient, a greedy bf16 caption of 8 tokens;
                 ConvNeXt-B and ja_clip ViT-B/16: float32 embeddings.
+ 28. bench    - `python scripts/bench_torch.py` as a subprocess at full
+                width, its counts cut (LLaVA 10 iterations, FARE batch 32 in
+                4 chunks for 2 steps, 16 new decode tokens; the headline at
+                its defaults): exit 0, every line's value set, the stages in
+                order and the headline last, the LLaVA stage's flash, ViT
+                and step launches, the int4 decode stage's q4_matmul; then
+                `bench_of9b_torch` (the memory plan against this card, the
+                FLOPs priced at the LLaVA stage's rate, the (1, 8, 1) shard
+                plan dropping only the 588-row patch embedding) and
+                `real_ckpt_parity_torch` at ViT-L/14 on a visual checkpoint
+                written under chiprun_out/parity/ (deleted after): record and
+                check exit 0, a copy with one matrix perturbed exits 1.
 Then the `kernels` JSON line, the card's name and power limit as nvidia-smi
 reports them, and last the device line. Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -1175,21 +1198,16 @@ def phase_kernels(peaks: dict) -> list:
     return rows
 
 
-def _counters() -> list:
-    from robustvlm_tpu_torch.ops.kernels import attack_step, flash_attention, q4_matmul, vit_attention
-
-    return [attack_step.LAUNCHES, vit_attention.LAUNCHES, flash_attention.LAUNCHES, q4_matmul.LAUNCHES,
-            q4_matmul.LAUNCHES_BY_ROWS]
-
-
 def _reset_launches() -> None:
-    for counts in _counters():
-        for k in counts:
-            counts[k] = 0
+    from robustvlm_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
 
 
 def _launches() -> dict:
-    return {k: v for counts in _counters() for k, v in counts.items()}
+    from robustvlm_tpu_torch.ops import kernels
+
+    return kernels.launches()
 
 
 # the kernels each path must have launched
@@ -1291,57 +1309,34 @@ TIMED_BATCH = 8
 TIMED_ITERS = 100
 
 
+def _bench_scripts():
+    """The port's bench scripts (scripts/*_torch.py) as importable modules."""
+    path = str(ROOT / "scripts")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+
+
 def phase_timed() -> None:
-    """`apgd_attack` at ViT-L/14 in bfloat16 as the JAX bench.py drives it:
-    batch 8, 100 iterations, random weights, example-steps/s."""
-    import numpy as np
+    """`apgd_attack` at ViT-L/14 in bfloat16 as the JAX bench.py drives it
+    (batch 8, 100 iterations, random weights, example-steps/s), through the
+    headline function of `scripts/bench_torch.py` itself (the CLI's
+    `cast_matrices_` layout, best of 3 runs), so one implementation measures
+    the headline."""
     import torch
 
-    from robustvlm_tpu_torch.attacks.apgd import apgd_attack
-    from robustvlm_tpu_torch.eval.classifier import make_zero_shot_classifier
-    from robustvlm_tpu_torch.models.clip import CLIP, CLIP_CONFIGS
-    from robustvlm_tpu_torch.models.clip.model import cast_matrices_
-    from robustvlm_tpu_torch.ops.losses import ce_loss
+    _bench_scripts()
+    import bench_torch
 
-    cfg = CLIP_CONFIGS["ViT-L-14"]
-    # the CLI's bf16 layout: matrices in bf16, 1-D parameters in float32
-    model = cast_matrices_(CLIP(cfg, device="cuda").init_random_(0), torch.bfloat16)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    temb = torch.randn(cfg.embed_dim, 1000, generator=gen, device="cuda")
-    temb = temb / temb.norm(dim=0, keepdim=True)
-    logits_fn = make_zero_shot_classifier(model, temb, compute_dtype=torch.bfloat16)
-    npr = np.random.RandomState(0)
-    x = torch.from_numpy(npr.rand(TIMED_BATCH, 3, 224, 224).astype(np.float32)).cuda()
-    y = torch.from_numpy(npr.randint(0, 1000, TIMED_BATCH)).cuda()
-
-    def criterion(o, t):
-        return ce_loss(o, t, reduction="none")
-
-    def attack(n_iter):
-        res = apgd_attack(logits_fn, x, y, criterion=criterion, eps=2.0 / 255.0,
-                          n_iter=n_iter, norm="linf")
-        torch.cuda.synchronize()
-        return res
-
-    attack(3)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    runs, launches = [], None
-    for _ in range(2):
-        _reset_launches()
-        t0 = time.perf_counter()
-        res = attack(TIMED_ITERS)
-        runs.append(time.perf_counter() - t0)
-        launches = _launches()
-    linf = float((res.x_best_adv - x).abs().max())
-    best = min(runs)
-    # the attack evaluates the model n_iter + 1 times per example (bench.py)
-    value = TIMED_BATCH * (TIMED_ITERS + 1) / best
-    ok = linf <= 2.0 / 255.0 + 1e-6 and _launched(launches, CLIP_KERNELS)
-    emit({"phase": "timed", "metric": "apgd_example_steps_per_sec_vitl14_bf16",
-          "value": value, "unit": "example-steps/s", "batch": TIMED_BATCH,
-          "n_iter": TIMED_ITERS, "run_s": runs, "ms_per_iter": best / TIMED_ITERS * 1e3,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "launches": launches, "linf_max": linf, "card": card_line(), "ok": ok})
+    line = bench_torch.main("cuda", batch=TIMED_BATCH, n_iter=TIMED_ITERS, fold_norm=False, calib=False)
+    launches = {k: line["launches"].get(k, 0) for k in _launches()}
+    ok = line["linf_max"] <= 2.0 / 255.0 + 1e-6 and _launched(launches, CLIP_KERNELS)
+    emit({"phase": "timed", "entry": "scripts/bench_torch.py:main",
+          "metric": "apgd_example_steps_per_sec_vitl14_bf16",
+          "value": line["value"], "unit": "example-steps/s", "batch": TIMED_BATCH,
+          "n_iter": TIMED_ITERS, "run_s": line["run_s"], "ms_per_iter": line["ms_per_iter"],
+          "peak_mem_gib": line["peak_mem_gib"], "launches": launches, "linf_max": line["linf_max"],
+          "card": card_line(), "ok": ok})
     if not ok:
         raise AssertionError("timed attack left the eps-ball or launched no kernel")
 
@@ -4462,6 +4457,191 @@ def phase_serve_speculate(adapter) -> dict:
     return {**launches, "q4_matmul_shift@8": shift_launches.get("q4_matmul_shift@8", 0)}
 
 
+# ------------------------------------------------------------------ phase 25a
+# The serving benches' stages in process on the `serve` phase's int4 build
+# (scripts/bench_worker_torch.py, scripts/bench_spec_torch.py), cut to 16
+# new tokens: the worker single, streamed, 2 concurrent clients, and 2
+# staggered clients against the continuous engine and the window batcher;
+# speculation's floor (reject-all), ceiling (accept-all) and prompt lookup.
+BENCH_SERVING_NEW = 16
+BENCH_SERVING = {"concs": [2], "reqs": 2, "cb_concs": [2], "cb_chunk": 8, "stagger_s": 0.25}
+
+
+def phase_bench_serving(adapter) -> dict:
+    """Held: every worker stage answers (no error, tokens emitted), the int4
+    build's `q4_matmul` launched in each; reject-all's accept rate exactly
+    0; accept-all's exactly 1, or its tokens part from the plain stream's at
+    a near tie (NEAR_TIE: the width-8 verify rounds in another order);
+    prompt lookup's tokens equal the plain stream's or part at a near tie."""
+    import numpy as np
+    import torch
+
+    _bench_scripts()
+    import bench_spec_torch
+    import bench_worker_torch
+
+    t_phase = time.perf_counter()
+    adapter.quantize_kv = False
+    worker = bench_worker_torch.run_stages(adapter, max_new=BENCH_SERVING_NEW, stream_new=BENCH_SERVING_NEW,
+                                           **BENCH_SERVING)
+    s = adapter.cfg.vision.image_size
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 3, s, s).astype(np.float32)).to(adapter.device)
+    prompt = adapter.get_caption_prompt()
+    spec = bench_spec_torch.run_configs(adapter, x, prompt, BENCH_SERVING_NEW, SPEC_K)
+    rows = {r["config"]: r for r in spec["rows"]}
+    ref, logit_rows = _solo_trace(adapter, x, prompt, BENCH_SERVING_NEW)
+    eos, pad = adapter.tok.eos_token_id, adapter.tok.pad_token_id
+
+    def until_eos(ids):  # the streams yield their EOS; the solo trace stops before it
+        return next((ids[:i] for i, t in enumerate(ids) if t in (eos, pad)), ids)
+
+    vs_solo = {name: _near_tie(until_eos(rows[name]["ids"]), ref, logit_rows, eos)
+               for name in ("plain_stream", "spec_accept_all", "spec_pld")}
+    # an EOS inside the stream ends the oracle's drafts early (padded), so
+    # accept-all is exactly 1 only over a stream of max_new tokens
+    full_length = len(rows["plain_stream"]["ids"]) == BENCH_SERVING_NEW
+    rates = spec["accept_rate"]
+    points = worker["points"]
+    checks = {
+        "worker_stages_ok": not worker["failed"] and worker["value"] is not None and len(points) == 5,
+        "worker_tokens_emitted": all(p.get("tokens_emitted", 0) > 0 for p in points),
+        "worker_q4_launched": all(p["launches"].get("q4_matmul_group", 0) > 0 for p in points),
+        "plain_equals_solo": vs_solo["plain_stream"]["equal"],
+        "reject_all_rate_0": rates["spec_reject_all"] == 0.0,
+        "accept_all_rate_1_or_near_tie": (rates["spec_accept_all"] == 1.0
+                                          or not full_length
+                                          or (not vs_solo["spec_accept_all"]["equal"]
+                                              and vs_solo["spec_accept_all"]["ok"])),
+        "pld_equals_solo_or_near_tie": vs_solo["spec_pld"]["ok"],
+        "spec_q4_launched": spec["launches"].get("q4_matmul_group", 0) > 0,
+    }
+    out = {"phase": "bench_serving", "entry": "scripts/bench_worker_torch.py:run_stages, "
+                                              "scripts/bench_spec_torch.py:run_configs",
+           "new_tokens": BENCH_SERVING_NEW, "worker": {k: worker[k] for k in (
+               "value", "single_request_tokens_per_sec", "stream_steady_ms_per_token",
+               "aggregate_by_concurrency", "staggered_aggregate")},
+           "spec": {k: spec[k] for k in ("value", "vs_plain_stream", "accept_rate", "launches")},
+           "vs_solo": vs_solo, "plain_full_length": full_length, "card": card_line(),
+           "phase_s": time.perf_counter() - t_phase, "checks": checks, "ok": all(checks.values())}
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"bench_serving checks failed: {[k for k, ok in checks.items() if not ok]}")
+    return out
+
+
+# ------------------------------------------------------------------ phase 28
+# The port's bench script end to end (`python scripts/bench_torch.py`, a
+# subprocess) at full width with its counts cut for the smoke; the headline
+# at its defaults. Then the OpenFlamingo-9B plan (arithmetic on the meta
+# device) and the real-checkpoint parity gate at ViT-L/14 on a checkpoint
+# the phase writes.
+BENCH_CUTS = {"BENCH_LLAVA_ITERS": "10", "BENCH_TRAIN_BATCH": "32", "BENCH_TRAIN_ACCUM": "4",
+              "BENCH_TRAIN_STEPS": "2", "BENCH_DECODE_NEW": "16"}
+BENCH_TIMEOUT_S = 900
+BENCH_METRICS = ["apgd_attack_steps_per_sec_llava7b_b1", "fare_train_imgs_per_sec_per_chip_vitl14"] + \
+    ["llava7b_greedy_decode", "llava7b_greedy_decode", "llava7b_greedy_decode_tokens_per_sec"] * 2 + \
+    ["llava7b_greedy_decode", "llava7b_greedy_decode_tokens_per_sec", "apgd_attack_steps_per_sec_per_chip_vitl14"]
+
+
+def _bench_subprocess() -> tuple:
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if not (k.startswith("BENCH_") and k not in BENCH_CUTS)}
+    env.update(BENCH_CUTS)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "scripts" / "bench_torch.py")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    (OUT / "bench_torch.log").write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    return proc.returncode, lines, wall
+
+
+def _parity_roundtrip(root: Path) -> dict:
+    """real_ckpt_parity_torch at ViT-L/14 full width: a visual-only
+    checkpoint written here (random weights, seed 0), recorded, checked,
+    and a copy with one matrix perturbed non-uniformly checked against the
+    record."""
+    import torch
+
+    _bench_scripts()
+    import real_ckpt_parity_torch as rp
+
+    from robustvlm_tpu_torch.models.clip import CLIP, CLIP_CONFIGS, export_visual_state_dict
+
+    cfg = CLIP_CONFIGS["ViT-L-14"]
+    root.mkdir(parents=True, exist_ok=True)
+    sd = export_visual_state_dict(CLIP(cfg).init_random_(0).state_dict(), cfg)
+    torch.save(sd, root / "visual.pt")
+    gen = torch.Generator().manual_seed(0)
+    k0 = next(k for k in sd if sd[k].ndim >= 2)
+    sd[k0] = sd[k0] + 1e-2 * torch.randn(sd[k0].shape, generator=gen)
+    torch.save(sd, root / "perturbed.pt")
+    del sd
+    argv = ["--model", "ViT-L-14", "--visual_only", "--device", "cuda"]
+    t0 = time.perf_counter()
+    try:
+        rcs = {"record": rp.main(["--ckpt", str(root / "visual.pt"), *argv, "--record", str(root / "fp.json")]),
+               "check": rp.main(["--ckpt", str(root / "visual.pt"), *argv, "--expected", str(root / "fp.json")]),
+               "check_perturbed": rp.main(["--ckpt", str(root / "perturbed.pt"), *argv,
+                                           "--expected", str(root / "fp.json")])}
+        fp = json.loads((root / "fp.json").read_text())
+    finally:
+        for name in ("visual.pt", "perturbed.pt"):
+            (root / name).unlink(missing_ok=True)
+    return {"rcs": rcs, "seconds": time.perf_counter() - t0, "embed_norms": fp["embed_norms"],
+            "model": fp["model"]}
+
+
+def phase_bench() -> dict:
+    """Held: the bench exits 0, every line's value is set, the lines come in
+    the order of the stages and the headline last; the LLaVA stage launched
+    the flash, ViT and l-inf step kernels and the int4 decode stage
+    `q4_matmul`; the OpenFlamingo-9B plan counts 8.0-8.3 B parameters and
+    its shard plan drops only the 588-row patch embedding; the parity
+    gate's record and check return 0 and the perturbed check 1."""
+    _bench_scripts()
+    import bench_of9b_torch
+
+    t_phase = time.perf_counter()
+    _free()
+    rc, lines, wall = _bench_subprocess()
+    by = {}
+    for ln in lines:
+        by.setdefault(ln.get("metric"), []).append(ln)
+    llava = (by.get("apgd_attack_steps_per_sec_llava7b_b1") or [{}])[0]
+    decodes = by.get("llava7b_greedy_decode_tokens_per_sec", [])
+    int4 = next((d for d in decodes if d.get("weights") == "int4"), {})
+    plan = bench_of9b_torch.plan(device="cuda")
+    proj = bench_of9b_torch.flops_projection(rate_tf_s=llava.get("model_tf_s"))
+    shards = bench_of9b_torch.shard_plan()
+    parity = _parity_roundtrip(OUT / "parity")
+    checks = {
+        "exit_0": rc == 0,
+        "values_set": bool(lines) and all(ln.get("value") is not None for ln in lines),
+        "stage_order": [ln.get("metric") for ln in lines] == BENCH_METRICS,
+        "headline_last": bool(lines) and lines[-1].get("metric") == "apgd_attack_steps_per_sec_per_chip_vitl14",
+        "llava_kernels": _launched({k: llava.get("launches", {}).get(k, 0) for k in LLAVA_KERNELS}, LLAVA_KERNELS),
+        "int4_q4_matmul": int4.get("launches", {}).get("q4_matmul_group", 0) > 0,
+        "of9b_params": 8.0 <= plan["n_params_b"] <= 8.3 and plan["card_memory_gib"] > 0,
+        "of9b_shard_drop": [d["name"] for d in shards["dropped"]] == ["vision.patch_embed"],
+        "parity_rcs": parity["rcs"] == {"record": 0, "check": 0, "check_perturbed": 1},
+    }
+    out = {"phase": "bench", "entry": "python scripts/bench_torch.py", "cuts": BENCH_CUTS, "rc": rc,
+           "bench_s": wall, "lines": [{k: ln.get(k) for k in ("metric", "value", "unit", "weights", "batch")}
+                                       for ln in lines],
+           "headline": lines[-1] if lines else None, "llava": llava,
+           "of9b": {"plan": plan, "projection": proj["points"], "shards": {k: shards[k] for k in (
+               "per_device_param_gib", "whole_param_gib", "dropped")}},
+           "parity": parity, "card": card_line(), "phase_s": time.perf_counter() - t_phase,
+           "checks": checks, "ok": all(checks.values())}
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"bench checks failed: {[k for k, ok in checks.items() if not ok]}")
+    return out
+
+
 # ------------------------------------------------------------------ phase 26
 PARALLEL_TRAIN_STEPS = 2
 PARALLEL_APGD_ITERS = 5
@@ -5307,11 +5487,9 @@ def phase_parallel_tp(lm_layers: int = PARALLEL_TP_LM_LAYERS) -> dict:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
+    from robustvlm_tpu_torch.device import card_line as line
+
+    return line()
 
 
 def main() -> int:
@@ -5372,10 +5550,12 @@ def main() -> int:
     runs["serve_continuous[int8 kv]"], _ = phase_serve_continuous(adapter, quantize_kv=True,
                                                                   bf16_kv=bf16_kv)
     runs["serve_speculate"] = phase_serve_speculate(adapter)
+    phase_bench_serving(adapter)
     del adapter
     _free()
     runs["parallel"] = phase_parallel()
     runs["parallel_tp"] = phase_parallel_tp()
+    phase_bench()
     # Each row takes the launches of the run of its path and dtype: the CLIP
     # kernels from the CLI's CLIP runs; flash in bf16 from the LLaVA eval,
     # in float32 from the ensemble's float32 stage (at head dim 64 from the

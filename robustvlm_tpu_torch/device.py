@@ -6,6 +6,7 @@ no explicit `cpu` they raise: the port never carries on on the CPU by itself.
 
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -32,3 +33,15 @@ def use_full_fp32() -> None:
     differences)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them. Raises
+    `OSError` or `subprocess.SubprocessError` where nvidia-smi is absent or
+    fails."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0]

@@ -13,6 +13,8 @@ import sys
 
 import torch
 
+from robustvlm_tpu_torch.ops.losses import dlr_loss
+
 log = logging.getLogger("robustvlm_tpu_torch.autoattack")
 
 
@@ -56,6 +58,15 @@ def check_zero_gradients(grad: torch.Tensor) -> bool:
             n_zero, flat.shape[0],
         )
     return n_zero > 0
+
+
+def check_zero_gradients_fn(logits_fn, x: torch.Tensor, y: torch.Tensor) -> bool:
+    """`check_zero_gradients` of the summed DLR loss's gradient with respect
+    to x (JAX's `jax.grad` of the same sum)."""
+    xa = x.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        (g,) = torch.autograd.grad(dlr_loss(logits_fn(xa), y).sum(), xa)
+    return check_zero_gradients(g)
 
 
 def check_n_classes(n_cls: int, attacks_to_run, n_target_classes: int) -> None:

@@ -9,7 +9,9 @@ the JAX package's parameter names and layouts (linear weights stored
 
 - LayerNorm keeps float32 statistics whatever the activation dtype.
 - The patch embedding is a reshape plus one matmul, not a convolution (a
-  convolution would go through cuDNN).
+  convolution would go through cuDNN). A tower whose CLIP normalization
+  was folded into it (`fold_normalization`) holds a `patch_bias`, added
+  after that matmul, and takes raw [0,1] pixels.
 - Non-causal vision attention goes through the port's `vit_attention`,
   causal text attention through its `flash_attention` (CUDA kernels on the
   card for both), as the JAX `flash=True` branch routes them.
@@ -244,6 +246,8 @@ class VisionTower(nn.Module):
         w, p = cfg.vision.width, cfg.patch_size
         self.patch_size = p
         self.patch_embed = nn.Parameter(torch.zeros(3 * p * p, w))
+        # set by fold_normalization (or by loading a folded state dict)
+        self.register_parameter("patch_bias", None)
         self.class_embedding = nn.Parameter(torch.zeros(w))
         self.positional_embedding = nn.Parameter(torch.zeros(cfg.n_vision_tokens, w))
         self.ln_pre = LayerNorm(w)
@@ -262,6 +266,8 @@ class VisionTower(nn.Module):
         # patch embed as matmul: (B,3,H,W) -> (B, g*g, 3*p*p) @ (3*p*p, W)
         x = x.reshape(b, 3, g, p, g, p).permute(0, 2, 4, 1, 3, 5).reshape(b, g * g, 3 * p * p)
         x = x @ self.patch_embed.to(cd)
+        if self.patch_bias is not None:
+            x = x + self.patch_bias.to(cd)
         cls = self.class_embedding.to(cd).expand(b, 1, x.shape[-1])
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(cd)
         x = self.ln_pre(x)
@@ -274,6 +280,43 @@ class VisionTower(nn.Module):
             return x.float()
         x = self.ln_post(x[:, 0])
         return (x @ self.proj.to(cd)).float()
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a folded tower's state (JAX's `fold_normalization` tree through
+        # `convert.params_from_jax`) loads into an unfolded module
+        bias = state_dict.get(prefix + "patch_bias")
+        if bias is not None and self.patch_bias is None:
+            self.patch_bias = nn.Parameter(torch.zeros(bias.shape, dtype=self.patch_embed.dtype,
+                                                       device=self.patch_embed.device),
+                                           requires_grad=self.patch_embed.requires_grad)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+@torch.no_grad()
+def fold_normalization(visual: VisionTower, mean=None, std=None) -> VisionTower:
+    """Absorb CLIP's per-channel normalization into the patch embedding, in
+    place: normalize is affine per channel, y_c = (x_c - m_c) / s_c, and the
+    patch embedding is a bias-free matmul over rows ordered (channel, py,
+    px), so rows W_r / s_c(r) and a bias -(m / s) @ W make `visual(raw_x)`
+    compute `visual(normalize_clip(raw_x))` before the fold, exactly in
+    real arithmetic (one elementwise pass over the pixels fewer an
+    evaluation). ViT towers only. Counterpart of JAX's
+    `fold_normalization`; the folded tower then takes [0,1] pixels."""
+    from robustvlm_tpu_torch.ops.image import OPENAI_MEAN, OPENAI_STD
+
+    if not isinstance(visual, VisionTower):
+        raise ValueError("fold_normalization: a ViT vision tower is required")
+    if visual.patch_bias is not None:
+        raise ValueError("fold_normalization: the tower is already folded")
+    w = visual.patch_embed
+    pp = visual.patch_size * visual.patch_size
+    m = torch.tensor(OPENAI_MEAN if mean is None else mean, dtype=w.dtype, device=w.device)
+    s = torch.tensor(OPENAI_STD if std is None else std, dtype=w.dtype, device=w.device)
+    m, s = m.repeat_interleave(pp), s.repeat_interleave(pp)
+    bias = -(m / s) @ w
+    w.copy_(w / s[:, None])
+    visual.patch_bias = nn.Parameter(bias, requires_grad=w.requires_grad)
+    return visual
 
 
 class TextTower(nn.Module):

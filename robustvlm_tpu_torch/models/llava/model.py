@@ -69,6 +69,12 @@ from robustvlm_tpu_torch.parallel.tensor_parallel import (
 )
 
 
+# the reference's llava/constants.py: the <image> placeholder's id in a
+# tokenized prompt, and the label that a loss ignores
+IMAGE_TOKEN_INDEX = -200
+IGNORE_INDEX = -100
+
+
 @dataclasses.dataclass(frozen=True)
 class LlavaConfig:
     name: str

@@ -1,4 +1,5 @@
-"""In-model image preprocessing: CLIP normalization and bicubic resize.
+"""In-model image preprocessing: CLIP normalization and bicubic resize, and
+the host-side center crop.
 
 Counterpart of `robustvlm_tpu/ops/image.py`. Attacks operate on raw [0,1]
 pixels; normalize (and for CIFAR the 32->224 bicubic resize, antialias off)
@@ -62,3 +63,11 @@ def resize_bicubic(x: torch.Tensor, size: int) -> torch.Tensor:
     mw = torch.from_numpy(_resize_matrix(w, size)).to(x.device, x.dtype)
     y = torch.einsum("bchw,hs->bcsw", x, mh)
     return torch.einsum("bcsw,wt->bcst", y, mw)
+
+
+def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Center crop of NCHW (or CHW) images to (size, size): a view."""
+    h, w = x.shape[-2:]
+    top = (h - size) // 2
+    left = (w - size) // 2
+    return x[..., top:top + size, left:left + size]

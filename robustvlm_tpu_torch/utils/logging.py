@@ -1,9 +1,10 @@
 """Metric logging: an append-only JSONL file, and wandb when it is importable
 and asked for.
 
-Counterpart of `MetricLogger` in `robustvlm_tpu/utils/logging.py`: the
-JSONL file `<output_dir>/metrics.jsonl` is the primary sink; `use_wandb`
-tries `wandb.init` up to 5 times and falls back to the file alone.
+Counterpart of `MetricLogger` and `Logger` in `robustvlm_tpu/utils/logging.py`:
+the JSONL file `<output_dir>/metrics.jsonl` is the primary sink; `use_wandb`
+tries `wandb.init` up to 5 times and falls back to the file alone. `Logger`
+is the tee of AutoAttack's logs: stdout and, when given, a file.
 """
 
 from __future__ import annotations
@@ -62,3 +63,16 @@ class MetricLogger:
         if self._wandb is not None:
             for k, v in metrics.items():
                 self._wandb.summary[k] = _to_py(v)
+
+
+class Logger:
+    """Print each message and append it to `log_path` when one is given."""
+
+    def __init__(self, log_path: Optional[str] = None):
+        self.log_path = log_path
+
+    def log(self, msg: str) -> None:
+        print(msg)
+        if self.log_path is not None:
+            with open(self.log_path, "a") as f:
+                f.write(msg + "\n")

@@ -3,6 +3,8 @@
 Counterpart of `robustvlm_tpu/utils/profiling.py`:
 - `trace(dir)` records a `torch.profiler` trace (CPU and, on a GPU, CUDA
   activity) of the enclosed region into `dir/trace.json`;
+- `annotate(name)` names a region inside such a trace
+  (`torch.profiler.record_function`, JAX's `TraceAnnotation`);
 - `StepTimer` gives examples per second over a rolling window of steps,
   synchronizing the GPU before it reads the clock, so the rate counts
   finished device work, not enqueued work.
@@ -29,6 +31,11 @@ def trace(log_dir: str):
         yield prof
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+def annotate(name: str):
+    """A named region inside a profiler trace, as a context manager."""
+    return torch.profiler.record_function(name)
 
 
 def sync() -> None:

@@ -1,6 +1,7 @@
-"""Caption and VQA datasets for the VLM eval (counterpart of
-`CaptionDataset`, `VQADataset`, `TensorCaptionDataset` and `save_adv_image`
-in `robustvlm_tpu/vlm_eval/datasets.py`).
+"""Caption, VQA and classification datasets for the VLM eval (counterpart
+of `CaptionDataset`, `VQADataset`, `TensorCaptionDataset`, `save_adv_image`,
+`VLMImageNetDataset` and `HatefulMemesDataset` in
+`robustvlm_tpu/vlm_eval/datasets.py`).
 
 Images come out as [0,1] float32 CHW (the threat-model contract);
 adversarial tensors are stored as .npy, and .pt is still read.
@@ -204,3 +205,53 @@ def save_adv_image(x: np.ndarray, adv_root: str, image_id) -> str:
         np.save(f, np.asarray(x, np.float32))
     os.replace(tmp, path)
     return str(path)
+
+
+class VLMImageNetDataset:
+    """An ImageNet tree, one directory per class, for VLM classification
+    probing: items carry the class id and its CLIP-style class name."""
+
+    def __init__(self, root: str, *, size: int = 224, n_samples: Optional[int] = None):
+        from robustvlm_tpu_torch.benchmark.templates import imagenet_classnames
+        from robustvlm_tpu_torch.data.loaders import ImageFolderDataset
+
+        self.base = ImageFolderDataset(root, size=size)
+        self.n = min(len(self.base), n_samples or len(self.base))
+        self.classnames = imagenet_classnames()
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i: int):
+        x, label = self.base[i]
+        return {
+            "image": x,
+            "image_id": i,
+            "class_id": label,
+            "class_name": self.classnames[label] if label < len(self.classnames) else str(label),
+        }
+
+
+class HatefulMemesDataset:
+    """Hateful Memes jsonl lines ({'img', 'text', 'label'}) for the yes/no
+    VLM probe; an image is `<image_root>/<basename of img>`."""
+
+    def __init__(self, image_root: str, annotations_path: str, *, size: int = 224,
+                 n_samples: Optional[int] = None):
+        self.image_root = Path(image_root)
+        self.transform = default_image_transform(size)
+        with open(annotations_path) as f:
+            items = [json.loads(line) for line in f if line.strip()]
+        self.items = items[:n_samples]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i: int):
+        it = self.items[i]
+        return {
+            "image": _load_image(str(self.image_root / Path(it["img"]).name), self.transform),
+            "image_id": it.get("id", i),
+            "text": it.get("text", ""),
+            "label": it.get("label"),
+        }

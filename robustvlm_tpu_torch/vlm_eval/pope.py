@@ -82,13 +82,10 @@ def run_pope(eval_model, questions: List[Dict], image_root: str, *, size: int = 
     return eval_pope(answers, [q.get("label", "yes") for q in questions])
 
 
-def main(argv=None):
-    """Generate answers and score precision / recall / F1 / yes-ratio in one
-    pass, with the float32 adapter `run_evaluation` builds."""
+def build_parser():
     import argparse
 
-    from robustvlm_tpu_torch.device import resolve_device, use_full_fp32
-    from robustvlm_tpu_torch.vlm_eval.run_evaluation import add_model_args, build_eval_model
+    from robustvlm_tpu_torch.vlm_eval.run_evaluation import add_model_args
 
     p = argparse.ArgumentParser(description="POPE hallucination eval (PyTorch/CUDA)")
     add_model_args(p)
@@ -99,6 +96,16 @@ def main(argv=None):
     p.add_argument("--answers_path", default="")
     p.add_argument("--max_new_tokens", type=int, default=16)
     p.add_argument("--image_size", type=int, default=224)
+    return p
+
+
+def main(argv=None):
+    """Generate answers and score precision / recall / F1 / yes-ratio in one
+    pass, with the float32 adapter `run_evaluation` builds."""
+    from robustvlm_tpu_torch.device import resolve_device, use_full_fp32
+    from robustvlm_tpu_torch.vlm_eval.run_evaluation import build_eval_model
+
+    p = build_parser()
     args = p.parse_args(argv)
     resolve_device(args.device)
     use_full_fp32()

@@ -56,6 +56,7 @@ def main(argv=None) -> int:
     from robustvlm_tpu_torch.device import resolve_device, use_full_fp32
     from robustvlm_tpu_torch.eval.classifier import make_zero_shot_classifier
     from robustvlm_tpu_torch.models.clip import CLIP, CLIP_CONFIGS
+    from robustvlm_tpu_torch.models.clip.model import cast_matrices_
     from robustvlm_tpu_torch.ops.losses import ce_loss
 
     p = argparse.ArgumentParser()
@@ -69,7 +70,9 @@ def main(argv=None) -> int:
     dtype = getattr(torch, args.dtype)
 
     cfg = CLIP_CONFIGS["ViT-L-14"]
-    model = CLIP(cfg, device=dev).init_random_(0).to(dtype)
+    # the CLI's layout (`phase_timed`, `bench_torch.py`): matrices in dtype,
+    # 1-D parameters in float32
+    model = cast_matrices_(CLIP(cfg, device=dev).init_random_(0), dtype)
     gen = torch.Generator(device=dev).manual_seed(1)
     temb = torch.randn(cfg.embed_dim, 1000, generator=gen, device=dev)
     logits_fn = make_zero_shot_classifier(model, temb / temb.norm(dim=0, keepdim=True),
