@@ -1,0 +1,7 @@
+"""The vit_attention kernels' roofline share in a training step: the launches' bound over their summed device time, in %."""
+
+from harness import readers
+
+
+def read(ctx):
+    return readers.roofline(ctx, "vit", readers.is_vit)
