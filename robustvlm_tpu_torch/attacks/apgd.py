@@ -27,6 +27,13 @@ Random draws come from a `torch.Generator` seeded with an integer. Where
 the JAX package folds integers into a PRNG key (`jax.random.fold_in`), the
 port folds the same integers into the seed with `fold_in`; the two
 frameworks give different random numbers from the same seed.
+
+Under a profiler window (`utils/profiling.span`) a call is an
+`apgd.attack` span; its first evaluation's `apgd.forward` and
+`apgd.backward` sit directly under it, and each iteration is an
+`apgd.iter` whose children are `apgd.update` (the step, then the best
+tracking and checkpoint), `apgd.forward` (model and criterion) and
+`apgd.backward` (the pixel gradient).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from robustvlm_tpu_torch.ops.projections import (
     l2_norm,
     lp_normalize,
 )
+from robustvlm_tpu_torch.utils.profiling import span
 
 _MASK64 = (1 << 64) - 1
 
@@ -166,9 +174,11 @@ def eot_loss_grad(model_fn, criterion, xa, y, criterion_args=(), *, eot_iter: in
     def one(s):
         xg = xa.detach().requires_grad_(True)
         with torch.enable_grad():
-            out = model_fn(xg) if model_rng_fn is None else model_rng_fn(xg, s)
-            li = criterion(out, y, *criterion_args)
-            (g,) = torch.autograd.grad(li.sum(), xg)
+            with span("apgd.forward"):
+                out = model_fn(xg) if model_rng_fn is None else model_rng_fn(xg, s)
+                li = criterion(out, y, *criterion_args)
+            with span("apgd.backward"):
+                (g,) = torch.autograd.grad(li.sum(), xg)
         return li.detach(), g, out.detach()
 
     if eot_iter <= 1 or model_rng_fn is None:
@@ -239,15 +249,8 @@ def apgd_attack(
     if initial_stepsize is not None:
         alpha = initial_stepsize / eps
 
-    if x_init is not None:
-        x_adv = x_init
-    elif use_rs:
-        if rng is None:
-            raise ValueError("use_rs=True requires rng")
-        x_adv = _random_init(rng, x, eps, norm)
-    else:
-        x_adv = x
-    x_adv = x_adv.detach().clamp(0.0, 1.0)
+    if use_rs and x_init is None and rng is None:
+        raise ValueError("use_rs=True requires rng")
 
     deterministic = eot_iter <= 1 and model_rng_fn is None
     skip_last_grad = deterministic if skip_last_grad is None else (skip_last_grad and deterministic)
@@ -270,14 +273,22 @@ def apgd_attack(
         return li, grad, predictions(out)
 
     def fwd_only_eval(xa):
-        out = model_fn(xa)
-        li = criterion(out, y, *criterion_args)
+        with span("apgd.forward"):
+            out = model_fn(xa)
+            li = criterion(out, y, *criterion_args)
         return li, torch.zeros_like(xa), predictions(out)
 
     if norm == "l1" and topk_init is None:
         topk_init = 0.2
     is_ckpt, window = _checkpoint_schedule(n_iter, norm)
-    with torch.no_grad():
+    with span("apgd.attack"), torch.no_grad():
+        if x_init is not None:
+            x_adv = x_init
+        elif use_rs:
+            x_adv = _random_init(rng, x, eps, norm)
+        else:
+            x_adv = x
+        x_adv = x_adv.detach().clamp(0.0, 1.0)
         loss, grad, correct = eval_point(x_adv)
         x_adv_old = x_adv
         grad_best = grad
@@ -297,56 +308,58 @@ def apgd_attack(
                 sp_old = sp0.to(x.dtype)
 
         for i in range(n_iter):
-            a = 0.75 if i > 0 else 1.0
-            if norm == "linf":
-                x_new = fused_linf_apgd_step(x_adv, x_adv_old, grad, x, step_size, eps, a)
-            elif norm == "l2":
-                x_new = step_l2(x_adv, x_adv_old, grad, x, step_size, eps, a)
-            else:
-                x_new = step_l1(x_adv, grad, x, step_size, topk, eps)
-            x_adv_old, x_adv = x_adv, x_new
+            with span("apgd.iter"):
+                with span("apgd.update"):
+                    a = 0.75 if i > 0 else 1.0
+                    if norm == "linf":
+                        x_new = fused_linf_apgd_step(x_adv, x_adv_old, grad, x, step_size, eps, a)
+                    elif norm == "l2":
+                        x_new = step_l2(x_adv, x_adv_old, grad, x, step_size, eps, a)
+                    else:
+                        x_new = step_l1(x_adv, grad, x, step_size, topk, eps)
+                    x_adv_old, x_adv = x_adv, x_new
+                if skip_last_grad and i == n_iter - 1:
+                    loss, grad, pred_correct = fwd_only_eval(x_adv)
+                else:
+                    loss, grad, pred_correct = eval_point(x_adv, i)
+                with span("apgd.update"):
+                    if track_acc:
+                        acc = acc & pred_correct
+                    x_best_adv = torch.where(expand(~pred_correct), x_adv, x_best_adv)
 
-            if skip_last_grad and i == n_iter - 1:
-                loss, grad, pred_correct = fwd_only_eval(x_adv)
-            else:
-                loss, grad, pred_correct = eval_point(x_adv, i)
-            if track_acc:
-                acc = acc & pred_correct
-            x_best_adv = torch.where(expand(~pred_correct), x_adv, x_best_adv)
+                    # best tracking, strictly greater
+                    improved = loss > loss_best
+                    x_best = torch.where(expand(improved), x_adv, x_best)
+                    grad_best = torch.where(expand(improved), grad, grad_best)
+                    loss_best = torch.where(improved, loss, loss_best)
+                    hist[i] = loss.to(torch.float32)
 
-            # best tracking, strictly greater
-            improved = loss > loss_best
-            x_best = torch.where(expand(improved), x_adv, x_best)
-            grad_best = torch.where(expand(improved), grad, grad_best)
-            loss_best = torch.where(improved, loss, loss_best)
-            hist[i] = loss.to(torch.float32)
-
-            if not is_ckpt[i]:
-                continue
-            if norm in ("linf", "l2"):  # oscillation check at the static checkpoints
-                k = int(window[i])
-                t = _oscillation_count(hist, i, k)
-                fl_osc = (t <= k * 0.75).to(x.dtype)
-                fl_no_impr = (1.0 - reduced_last_check) * (
-                    loss_best_last_check >= loss_best
-                ).to(x.dtype)
-                fl = torch.maximum(fl_osc, fl_no_impr)
-                halve = fl > 0
-                step_size = torch.where(halve, step_size / 2.0, step_size)
-                x_adv = torch.where(expand(halve), x_best, x_adv)
-                grad = torch.where(expand(halve), grad_best, grad)
-                reduced_last_check = fl
-                loss_best_last_check = loss_best
-            else:  # l1 sparsity adaptation
-                sp_curr = l0_norm(x_best - x).to(x.dtype)
-                fl_red = (sp_curr / sp_old) < 0.95
-                step_up = torch.full_like(step_size, alpha * eps)
-                step_size = torch.clamp(torch.where(fl_red, step_up, step_size / 1.5),
-                                        alpha * eps / 10.0, alpha * eps)
-                topk = sp_curr / n_fts / 1.5
-                sp_old = sp_curr
-                x_adv = torch.where(expand(fl_red), x_best, x_adv)
-                grad = torch.where(expand(fl_red), grad_best, grad)
+                    if not is_ckpt[i]:
+                        continue
+                    if norm in ("linf", "l2"):  # oscillation check at the static checkpoints
+                        k = int(window[i])
+                        t = _oscillation_count(hist, i, k)
+                        fl_osc = (t <= k * 0.75).to(x.dtype)
+                        fl_no_impr = (1.0 - reduced_last_check) * (
+                            loss_best_last_check >= loss_best
+                        ).to(x.dtype)
+                        fl = torch.maximum(fl_osc, fl_no_impr)
+                        halve = fl > 0
+                        step_size = torch.where(halve, step_size / 2.0, step_size)
+                        x_adv = torch.where(expand(halve), x_best, x_adv)
+                        grad = torch.where(expand(halve), grad_best, grad)
+                        reduced_last_check = fl
+                        loss_best_last_check = loss_best
+                    else:  # l1 sparsity adaptation
+                        sp_curr = l0_norm(x_best - x).to(x.dtype)
+                        fl_red = (sp_curr / sp_old) < 0.95
+                        step_up = torch.full_like(step_size, alpha * eps)
+                        step_size = torch.clamp(torch.where(fl_red, step_up, step_size / 1.5),
+                                                alpha * eps / 10.0, alpha * eps)
+                        topk = sp_curr / n_fts / 1.5
+                        sp_old = sp_curr
+                        x_adv = torch.where(expand(fl_red), x_best, x_adv)
+                        grad = torch.where(expand(fl_red), grad_best, grad)
 
     return APGDResult(x_best=x_best, x_best_adv=x_best_adv, loss_best=loss_best, acc=acc)
 

@@ -7,7 +7,11 @@ none; FARE: squared l2 to the frozen embedding, TeCoA: cross-entropy
 against the class-text embeddings at logit scale 100), the clean and
 adversarial outer forwards, the outer loss (`clean_weight` mixing, TRADES)
 and its backward into the weights; then one AdamW or SGD update at the
-cosine-warmup learning rate.
+cosine-warmup learning rate. Under a profiler window (`utils/profiling.span`)
+a step is a `train.step` span with `train.frozen_embedding`,
+`train.inner_attack` (the attack's `apgd.*` spans inside) and `train.outer`
+children a chunk, then `train.optimizer` (the all-reduce, if any, and the
+update).
 
 Differences from the JAX step that change no result:
 - The model is an `nn.Module` updated in place: `TrainStep` (JAX's
@@ -61,6 +65,7 @@ from robustvlm_tpu_torch.parallel.mesh import (
     sharded_call,
 )
 from robustvlm_tpu_torch.train.schedules import cosine_warmup_lr
+from robustvlm_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,38 +267,43 @@ class TrainStep:
     def chunk_grads(self, x, y, seed: int) -> Dict[str, torch.Tensor]:
         """Attack and backward for one chunk: adds its gradients into the
         weights' `.grad` and returns its metrics."""
-        emb_orig = self.frozen_embedding(x)
-        start = self.pgd_start(x, seed) if self.cfg.attack == "pgd" else None
-        x_adv = self.inner_attack(x, y, emb_orig, seed, perturbation=start).detach()
-        total, metrics = self.outer_loss(x, y, x_adv, emb_orig)
-        total.backward()
+        with span("train.frozen_embedding"):
+            emb_orig = self.frozen_embedding(x)
+        with span("train.inner_attack"):
+            start = self.pgd_start(x, seed) if self.cfg.attack == "pgd" else None
+            x_adv = self.inner_attack(x, y, emb_orig, seed, perturbation=start).detach()
+        with span("train.outer"):
+            total, metrics = self.outer_loss(x, y, x_adv, emb_orig)
+            total.backward()
         return metrics
 
     def __call__(self, x, y, seed: int) -> Dict[str, torch.Tensor]:
-        k = self.cfg.grad_accum
-        self.optimizer.zero_grad()
-        if k <= 1:
-            metrics = self.chunk_grads(x, y, seed)
-        else:
-            b = x.shape[0]
-            if b % k:
-                raise ValueError(f"batch {b} not divisible by grad_accum {k}")
-            xs = x.reshape(k, b // k, *x.shape[1:])
-            ys = None if y is None else y.reshape(k, b // k)
-            metrics = None
-            for i in range(k):
-                m = self.chunk_grads(xs[i], None if ys is None else ys[i], fold_in(seed, i))
-                metrics = m if metrics is None else {n: metrics[n] + m[n] for n in m}
-            # equal chunks: the mean of the chunk means is the batch mean
-            metrics = {n: v / k for n, v in metrics.items()}
-            for p in self.optimizer.params:
-                if p.grad is not None:
-                    p.grad.div_(k)
-        if self.mesh is not None:
-            all_reduce_grads_(self.optimizer.params, self.mesh)
-            metrics = batch_mean(metrics, self.mesh)
-        self.optimizer.step()
-        return metrics
+        with span("train.step"):
+            k = self.cfg.grad_accum
+            self.optimizer.zero_grad()
+            if k <= 1:
+                metrics = self.chunk_grads(x, y, seed)
+            else:
+                b = x.shape[0]
+                if b % k:
+                    raise ValueError(f"batch {b} not divisible by grad_accum {k}")
+                xs = x.reshape(k, b // k, *x.shape[1:])
+                ys = None if y is None else y.reshape(k, b // k)
+                metrics = None
+                for i in range(k):
+                    m = self.chunk_grads(xs[i], None if ys is None else ys[i], fold_in(seed, i))
+                    metrics = m if metrics is None else {n: metrics[n] + m[n] for n in m}
+                # equal chunks: the mean of the chunk means is the batch mean
+                metrics = {n: v / k for n, v in metrics.items()}
+                for p in self.optimizer.params:
+                    if p.grad is not None:
+                        p.grad.div_(k)
+            with span("train.optimizer"):
+                if self.mesh is not None:
+                    all_reduce_grads_(self.optimizer.params, self.mesh)
+                    metrics = batch_mean(metrics, self.mesh)
+                self.optimizer.step()
+            return metrics
 
 
 def make_eval_step(cfg: TrainConfig, model: CLIP, text_embedding: torch.Tensor,

@@ -31,6 +31,7 @@ import torch
 
 from robustvlm_tpu_torch.attacks.apgd import apgd_attack, fold_in
 from robustvlm_tpu_torch.vlm_eval.datasets import save_adv_image
+from robustvlm_tpu_torch.utils.profiling import span
 from robustvlm_tpu_torch.vlm_eval.eval_models import make_frame_mask
 
 
@@ -196,8 +197,12 @@ class EnsembleRunner:
             n_samples: Optional[int] = None, save_adv: bool = True,
             indices: Optional[Sequence[int]] = None, resume: bool = False) -> Dict:
         """Returns scores, outputs and adversarial images per item, the items
-        left to attack, wall seconds, and the seconds and APGD iterations
-        spent in attacks (`attack_s`, `attack_iters`)."""
+        left to attack, wall seconds, the seconds and APGD iterations
+        spent in attacks (`attack_s`, `attack_iters`), and the seconds spent
+        captioning the attacked images and scoring the captions (`caption_s`,
+        `score_s`), all on one clock. Under a profiler window each group is
+        an `ensemble.group` span with `ensemble.attack`, `ensemble.caption`
+        and `ensemble.score` children."""
         if indices is not None:
             items = [dataset[int(i)] for i in indices]
         else:
@@ -218,8 +223,8 @@ class EnsembleRunner:
         if resume:
             start_stage = self._load_state(ids, schedule, seed, left_to_attack, best_scores,
                                            best_outputs, best_adv, gt_dict)
-        t0 = time.time()
-        attack_s, attack_iters = 0.0, 0
+        t0 = time.perf_counter()
+        attack_s, caption_s, score_s, attack_iters = 0.0, 0.0, 0.0, 0
 
         for a_idx, spec in enumerate(schedule):
             if a_idx < start_stage:
@@ -233,62 +238,70 @@ class EnsembleRunner:
                 groups = [[j] for j in active]
             dirty = set()  # ids whose best_adv changed this stage
             for grp in groups:
-                n_real = len(grp)
-                if batchable and n_real < self.batch_size:
-                    grp = grp + [grp[-1]] * (self.batch_size - n_real)
-                # the prev-best stage re-attacks each image's best gt
-                eff_specs = []
-                for j in grp:
-                    eff = spec
-                    if spec.init_from_best and spec.gt_idx is None and not spec.targeted:
-                        eff = dataclasses.replace(spec, gt_idx=gt_dict.get(str(ids[j]), 0))
-                    eff_specs.append(eff)
-                model.set_inputs([self.prompt_fn(model, items[j], e, False)
-                                  for j, e in zip(grp, eff_specs)])
-                dev = model.device
-                x = torch.from_numpy(np.stack([np.asarray(items[j]["image"], np.float32)
-                                               for j in grp])).to(dev)
-                best0 = best_adv[ids[grp[0]]]
-                x_init = (torch.from_numpy(np.asarray(best0, np.float32))[None].to(dev)
-                          if spec.init_from_best and best0 is not None else None)
-                # positional index, not the id (ids may be strings)
-                rng = fold_in(fold_in(seed, a_idx), grp[0])
-                ta = time.perf_counter()
-                x_adv = self._attack_one(model, x, eff_specs[0], x_init, rng)
-                if spec.kind != "none":
-                    if dev.type == "cuda":
-                        torch.cuda.synchronize(dev)
-                    attack_s += time.perf_counter() - ta
-                    attack_iters += spec.n_iter
-
-                outs = model.get_outputs(
-                    x_adv, [self.prompt_fn(model, items[j], e, True) for j, e in zip(grp, eff_specs)],
-                    max_new_tokens=self.max_new_tokens, num_beams=self.num_beams,
-                )
-                x_adv_np = x_adv.detach().cpu().numpy()
-                for pos, j in enumerate(grp[:n_real]):
-                    iid = ids[j]
-                    out = outs[pos]
-                    score = self.score_fn(out, items[j])
-                    # a NaN score never wins `<`: keep the FIRST output/adv
-                    # so the item still has a generation and a saved image
-                    if best_outputs[iid] is None or score < best_scores[iid]:
-                        best_outputs[iid] = out
-                        best_adv[iid] = x_adv_np[pos]
-                        dirty.add(iid)
-                        if eff_specs[pos].gt_idx is not None:
-                            gt_dict[str(iid)] = eff_specs[pos].gt_idx
-                        if not np.isnan(score):
-                            best_scores[iid] = score
-                    if best_scores[iid] < self.threshold:
-                        left_to_attack[iid] = False
+                with span("ensemble.group"):
+                    n_real = len(grp)
+                    if batchable and n_real < self.batch_size:
+                        grp = grp + [grp[-1]] * (self.batch_size - n_real)
+                    # the prev-best stage re-attacks each image's best gt
+                    eff_specs = []
+                    for j in grp:
+                        eff = spec
+                        if spec.init_from_best and spec.gt_idx is None and not spec.targeted:
+                            eff = dataclasses.replace(spec, gt_idx=gt_dict.get(str(ids[j]), 0))
+                        eff_specs.append(eff)
+                    model.set_inputs([self.prompt_fn(model, items[j], e, False)
+                                      for j, e in zip(grp, eff_specs)])
+                    dev = model.device
+                    x = torch.from_numpy(np.stack([np.asarray(items[j]["image"], np.float32)
+                                                   for j in grp])).to(dev)
+                    best0 = best_adv[ids[grp[0]]]
+                    x_init = (torch.from_numpy(np.asarray(best0, np.float32))[None].to(dev)
+                              if spec.init_from_best and best0 is not None else None)
+                    # positional index, not the id (ids may be strings)
+                    rng = fold_in(fold_in(seed, a_idx), grp[0])
+                    with span("ensemble.attack"):
+                        ta = time.perf_counter()
+                        x_adv = self._attack_one(model, x, eff_specs[0], x_init, rng)
+                        if spec.kind != "none":
+                            if dev.type == "cuda":
+                                torch.cuda.synchronize(dev)
+                            attack_s += time.perf_counter() - ta
+                            attack_iters += spec.n_iter
+                    tc = time.perf_counter()
+                    with span("ensemble.caption"):
+                        outs = model.get_outputs(
+                            x_adv, [self.prompt_fn(model, items[j], e, True) for j, e in zip(grp, eff_specs)],
+                            max_new_tokens=self.max_new_tokens, num_beams=self.num_beams,
+                        )
+                    ts = time.perf_counter()
+                    caption_s += ts - tc
+                    with span("ensemble.score"):
+                        x_adv_np = x_adv.detach().cpu().numpy()
+                        for pos, j in enumerate(grp[:n_real]):
+                            iid = ids[j]
+                            out = outs[pos]
+                            score = self.score_fn(out, items[j])
+                            # a NaN score never wins `<`: keep the FIRST output/adv
+                            # so the item still has a generation and a saved image
+                            if best_outputs[iid] is None or score < best_scores[iid]:
+                                best_outputs[iid] = out
+                                best_adv[iid] = x_adv_np[pos]
+                                dirty.add(iid)
+                                if eff_specs[pos].gt_idx is not None:
+                                    gt_dict[str(iid)] = eff_specs[pos].gt_idx
+                                if not np.isnan(score):
+                                    best_scores[iid] = score
+                            if best_scores[iid] < self.threshold:
+                                left_to_attack[iid] = False
+                    score_s += time.perf_counter() - ts
             if self.verbose:
                 finite = [s for s in best_scores.values() if np.isfinite(s)]
                 mean_s = float(np.mean(finite)) if finite else float("nan")
                 print(f"[ensemble] attack {a_idx + 1}/{len(schedule)} ({spec.kind},{spec.precision},"
                       f"gt={spec.gt_idx},targeted={spec.targeted}) done: mean score {mean_s:.2f}, "
                       f"{sum(left_to_attack.values())}/{n} still above threshold, "
-                      f"{time.time() - t0:.0f}s", flush=True)
+                      f"{time.perf_counter() - t0:.0f}s (attack {attack_s:.0f}s, caption {caption_s:.0f}s, "
+                      f"score {score_s:.0f}s)", flush=True)
             if self.out_dir is not None:
                 self._write_state(ids, schedule, seed, a_idx, dirty, left_to_attack, best_scores,
                                   best_outputs, best_adv, gt_dict)
@@ -305,8 +318,10 @@ class EnsembleRunner:
             "outputs": best_outputs,
             "adv": best_adv,
             "left_to_attack": left_to_attack,
-            "wall_s": time.time() - t0,
+            "wall_s": time.perf_counter() - t0,
             "attack_s": attack_s,
+            "caption_s": caption_s,
+            "score_s": score_s,
             "attack_iters": attack_iters,
         }
 

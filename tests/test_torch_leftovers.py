@@ -1,6 +1,6 @@
 """The JAX package's last functions without a port counterpart, against
 their JAX twins on the CPU: `fold_normalization` (float32, same weights),
-`check_zero_gradients_fn`, `center_crop`, `annotate`, the tee `Logger`, the
+`check_zero_gradients_fn`, `center_crop`, `span`, the tee `Logger`, the
 VLM ImageNet and Hateful Memes datasets and LLaVA's two constants."""
 
 import json
@@ -130,12 +130,24 @@ def test_center_crop_is_bitwise_jax(shape, size):
     assert np.array_equal(got, ref)
 
 
-def test_annotate_names_a_region_in_the_trace(tmp_path):
+def test_span_names_a_region_in_the_trace_and_in_spans_json(tmp_path):
+    profiling.reset()
+    with profiling.span("apgd.attack"):  # before the window: not recorded
+        pass
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("apgd_iteration"):
-            torch.ones(8).sum()
+        with profiling.span("apgd.iter"):
+            with profiling.span("apgd.update"):
+                torch.ones(8).sum()
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
-    assert any(e.get("name") == "apgd_iteration" for e in events)
+    ranges = [e for e in events if e.get("name") in ("apgd.iter", "apgd.update")]
+    assert sorted(e["name"] for e in ranges) == ["apgd.iter", "apgd.update"]
+    assert all(e.get("cat") != "gpu_user_annotation" for e in ranges)
+    log = json.loads((tmp_path / "spans.json").read_text())
+    assert log["dropped"] == 0
+    it, up = log["spans"]
+    assert (it["name"], up["name"]) == ("apgd.iter", "apgd.update")
+    assert up["parent"] == it["id"] == up["root"] and it["complete"] and up["complete"]
+    assert it["host_ms"] >= up["host_ms"] >= 0
 
 
 def test_logger_tees_to_stdout_and_file(tmp_path, capsys):

@@ -144,6 +144,39 @@ def test_ensemble_outcomes_equal_jax(adapters, tmp_path):
     assert got["attack_iters"] == 3 * 2 * 3
 
 
+def test_ensemble_splits_its_wall_time_and_spans_each_group(adapters, capsys):
+    """`run` reports the attack, captioning and scoring seconds on the clock
+    of its wall time, prints them on the stage line, and under a profiler
+    window spans each group with its three phases."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from robustvlm_tpu_torch.utils import profiling
+
+    _, p = adapters
+    ds = _dataset()
+    runner = PE.EnsembleRunner(
+        lambda prec: p, eps=16 / 255, score_fn=lambda caption, item: 50.0,
+        prompt_fn=lambda model, item, spec, query_only: model.get_caption_prompt(
+            None if query_only else item["caption"]),
+        threshold=-1.0, max_new_tokens=3, verbose=True, batch_size=2)
+    schedule = [PE.AttackSpec(gt_idx=0, n_iter=2)]
+    res = runner.run(ds, schedule, seed=0)
+    parts = [res["attack_s"], res["caption_s"], res["score_s"]]
+    assert all(s > 0 for s in parts) and sum(parts) <= res["wall_s"]
+    line = capsys.readouterr().out
+    assert "attack" in line and "caption" in line and "score" in line
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        runner.run(ds, schedule, seed=0)
+    log = profiling.spans()
+    profiling.reset()
+    (group,) = [s for s in log if s["name"] == "ensemble.group"]
+    kids = [s for s in log if s["parent"] == group["id"]]
+    assert [s["name"] for s in kids] == ["ensemble.attack", "ensemble.caption", "ensemble.score"]
+    (attack,) = [s for s in log if s["name"] == "apgd.attack"]
+    assert attack["parent"] == kids[0]["id"] and attack["root"] == group["id"]
+
+
 def _coco_fixture(tmp_path):
     """The COCO-format fixture of tests/test_vlm_eval.py (TestRunEvaluationE2E)."""
     img_dir = tmp_path / "images"
