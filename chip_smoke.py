@@ -716,6 +716,132 @@ def check_vit_serve_row(peaks: dict) -> dict:
             "timed_by": TIMED_BY["fwd"]}
 
 
+# The CLIP block's LayerNorm and bias + QuickGELU (csrc/block_ops.cu) at the
+# ViT-L/14 cells' shapes: 128 images x 257 tokens, width 1024 and hidden
+# 4096, bf16. Each against its plain version (forward within 2 bf16 ulp of
+# a value, backward within 2e-2 of each tensor's largest), then timed by
+# CUDA-graph replay over operand sets rotated past the L2: the kernels, the
+# plain versions (the forward chains the block ran before, and the analytic
+# backwards), the chains' own autograd backward (`unfused_ms`: forward and
+# `autograd.grad` in one graph less the forward) and, for LayerNorm,
+# `F.layer_norm` as the library yardstick (timed only; the port never
+# calls it). The bound counts x (or h) and y read or written once forward,
+# x, dy and dx backward, and the per-row statistics.
+BLOCK_OPS_ROWS = 128 * 257
+BLOCK_OPS_WIDTH, BLOCK_OPS_HIDDEN = 1024, 4096
+
+
+def _bf16_ulps_used(got, ref, terms=0.0) -> float:
+    """The largest gap over its allowance: 2 bf16 ulp of each value plus
+    2^-16 of the magnitude of the float32 terms that sum to it (their own
+    rounding, where they cancel; tests/test_torch_block_ops.py says why).
+    At most 1 within the allowance."""
+    import torch
+
+    a = ref.float().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+    return float(((got.float() - ref.float()).abs() / (2 * ulp + 2.0 ** -16 * terms)).max())
+
+
+def _share_of_max(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def check_block_ops(peaks: dict) -> list:
+    import torch
+    import torch.nn.functional as F
+
+    from robustvlm_tpu_torch.ops.kernels import block_ops as K
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rows, w, hid = BLOCK_OPS_ROWS, BLOCK_OPS_WIDTH, BLOCK_OPS_HIDDEN
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+    x, dy = randn(rows, w, scale=2.0, shift=0.5).to(bf), randn(rows, w).to(bf)
+    g, b = randn(w, scale=0.1, shift=1.0), randn(w, scale=0.1)
+    h, dh = randn(rows, hid, scale=2.0).to(bf), randn(rows, hid).to(bf)
+    bias = randn(hid, scale=0.5)
+    y, mean, rstd = K.layer_norm_fwd_cuda(x, g, b, 1e-5)
+    y_ref, mean_ref, rstd_ref = K.layer_norm_fwd_plain(x, g, b, 1e-5)
+    ln_bwd = K.layer_norm_bwd_cuda(x, g, mean, rstd, dy, True)
+    ln_bwd_ref = K.layer_norm_bwd_plain(x, g, mean_ref, rstd_ref, dy, True)
+    act = K.bias_act_fwd_cuda(h, bias, True)
+    act_ref = K.bias_act_plain((h + bias.to(bf)).float(), torch.zeros_like(bias), True).to(bf)
+    act_bwd = K.bias_act_bwd_cuda(h, bias, dh, True, True)
+    act_bwd_ref = K.bias_act_bwd_plain(h, bias, dh, True, True)
+    errs = {"layer_norm_fwd": _share_of_max(y, y_ref),
+            "layer_norm_bwd": max(_share_of_max(a, r) for a, r in zip(ln_bwd, ln_bwd_ref)),
+            "bias_act_fwd": _share_of_max(act, act_ref),
+            "bias_act_bwd": max(_share_of_max(a, r) for a, r in zip(act_bwd, act_bwd_ref))}
+    ln_terms = ((x.float() - mean_ref[:, None]) * rstd_ref[:, None] * g).abs() + b.abs()
+    used = {"layer_norm_fwd": _bf16_ulps_used(y, y_ref, ln_terms), "bias_act_fwd": _bf16_ulps_used(act, act_ref)}
+    ok = (max(used.values()) <= 1 and errs["layer_norm_bwd"] <= 2e-2 and errs["bias_act_bwd"] <= 2e-2)
+    emit({"phase": "kernels", "kernel": "block_ops", "dtype": "bfloat16", "rows": rows,
+          "share_of_max_err": errs, "forward_allowance_used": used, "ok": ok})
+    if not ok:
+        raise AssertionError("block_ops kernels disagree with their plain versions")
+
+    ln_bytes = 2 * rows * w * 2 + rows * 8 + 2 * w * 4
+    ln_bwd_bytes = 3 * rows * w * 2 + rows * 8 + w * 4
+    act_bytes = 2 * rows * hid * 2 + hid * 4
+    act_bwd_bytes = 3 * rows * hid * 2 + hid * 4
+    ln_sets = _rotating(lambda: (x.clone(), dy.clone(), mean.clone(), rstd.clone()), ln_bytes)
+    act_sets = _rotating(lambda: (h.clone(), dh.clone()), act_bytes)
+    gl, bl = g.to(bf), b.to(bf)
+
+    # the backwards that a pixel gradient takes: dx alone (g and b frozen)
+    xg, hg = x.clone().requires_grad_(True), h.clone().requires_grad_(True)
+    timed = {
+        "layer_norm_fwd": {
+            "ms": time_linf_graph_ms(lambda xa, *_: K.layer_norm_fwd_cuda(xa, g, b, 1e-5), ln_sets),
+            "plain_ms": time_linf_graph_ms(lambda xa, *_: K.layer_norm_plain(xa, g, b), ln_sets),
+            "library_ms": time_linf_graph_ms(lambda xa, *_: F.layer_norm(xa, (w,), gl, bl), ln_sets)},
+        "layer_norm_bwd": {
+            "ms": time_linf_graph_ms(lambda xa, da, m, r: K.layer_norm_bwd_cuda(xa, g, m, r, da, False),
+                                     ln_sets),
+            "ms_with_dg_db": time_linf_graph_ms(
+                lambda xa, da, m, r: K.layer_norm_bwd_cuda(xa, g, m, r, da, True), ln_sets),
+            "plain_ms": time_linf_graph_ms(
+                lambda xa, da, m, r: K.layer_norm_bwd_plain(xa, g, m, r, da, False), ln_sets),
+            "unfused_ms": time_graph_fwd_bwd_ms(lambda a: K.layer_norm_plain(a, g, b), (xg,), dy)["library_ms"],
+            **time_graph_fwd_bwd_ms(lambda a: F.layer_norm(a, (w,), gl, bl), (xg,), dy)},
+        "bias_act_fwd": {
+            "ms": time_linf_graph_ms(lambda ha, _: K.bias_act_fwd_cuda(ha, bias, True), act_sets),
+            "plain_ms": time_linf_graph_ms(lambda ha, _: K.bias_act_plain(ha, bias, True), act_sets),
+            "library_ms": None},
+        "bias_act_bwd": {
+            "ms": time_linf_graph_ms(lambda ha, da: K.bias_act_bwd_cuda(ha, bias, da, True, False), act_sets),
+            "ms_with_dbias": time_linf_graph_ms(
+                lambda ha, da: K.bias_act_bwd_cuda(ha, bias, da, True, True), act_sets),
+            "plain_ms": time_linf_graph_ms(
+                lambda ha, da: K.bias_act_bwd_plain(ha, bias, da, True, False), act_sets),
+            "unfused_ms": time_graph_fwd_bwd_ms(lambda a: K.bias_act_plain(a, bias, True), (hg,),
+                                                dh)["library_ms"],
+            "library_ms": None},
+    }
+    bounds = {"layer_norm_fwd": ln_bytes, "layer_norm_bwd": ln_bwd_bytes,
+              "bias_act_fwd": act_bytes, "bias_act_bwd": act_bwd_bytes}
+    rows_out = []
+    for name, t in timed.items():
+        bnd, by = bound_ms(bounds[name], 0, "bfloat16", peaks)
+        shape = [rows, w if name.startswith("layer_norm") else hid]
+        rows_out.append({"name": f"{name}[bfloat16]", "route": "cuda", "counter": name,
+                         "source": "robustvlm_tpu_torch/csrc/block_ops.cu", "replaces": None,
+                         "dtype": "bfloat16", "shape": shape, "share_of_max_err": errs[name],
+                         "bound_ms": bnd, "bound_by": by, "bound_share": bnd / t["ms"], **t,
+                         "operand_sets": len(ln_sets if name.startswith("layer_norm") else act_sets),
+                         "timed_by": {"ms": "graph, operands rotated past the L2",
+                                      "plain_ms": "graph, operands rotated past the L2",
+                                      "unfused_ms": "graph: the plain chain's forward + autograd.grad "
+                                                    "less the forward",
+                                      "library_ms": "graph, operands rotated past the L2 (forward); "
+                                                    "forward + autograd.grad less the forward"}})
+    return rows_out
+
+
 # Flash attention at the main paths' shapes: the LLaVA-1.5-7B LM layer
 # (32 heads, the `llava` phase's teacher-forced sequence at batch 1, head
 # dim 128) and the CLIP text tower (96 = 8 prompts x 12 heads, 77 tokens,
@@ -1195,6 +1321,7 @@ def phase_kernels(peaks: dict) -> list:
                               launches_from=LLAVA_MPT_RUNS, launches_cut=LLAVA_MPT_CUT)
     rows.append(check_vit_serve_row(peaks))
     rows += check_q4_matmul(peaks)
+    rows += check_block_ops(peaks)
     return rows
 
 

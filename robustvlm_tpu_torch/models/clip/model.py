@@ -7,7 +7,9 @@ the JAX package's parameter names and layouts (linear weights stored
 (in, out) for `x @ w`), so a JAX tree carries across by name
 (`convert.params_from_jax`).
 
-- LayerNorm keeps float32 statistics whatever the activation dtype.
+- LayerNorm keeps float32 statistics whatever the activation dtype. It and
+  the MLP's bias + activation are `ops/kernels/block_ops.py`'s: one CUDA
+  kernel each way on the card, the plain arithmetic on the CPU.
 - The patch embedding is a reshape plus one matmul, not a convolution (a
   convolution would go through cuDNN). A tower whose CLIP normalization
   was folded into it (`fold_normalization`) holds a `patch_bias`, added
@@ -36,11 +38,11 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
 from robustvlm_tpu_torch.models.clip.convnext import ConvNeXtConfig, ConvNeXtTower
+from robustvlm_tpu_torch.ops.kernels.block_ops import bias_act, layer_norm
 from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from robustvlm_tpu_torch.ops.kernels.vit_attention import vit_attention
 from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, local, row_parallel
@@ -148,19 +150,6 @@ CLIP_CONFIGS: Dict[str, CLIPConfig] = {
 
 
 # ----------------------------------------------------------------- primitives
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
-
-
-def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm with float32 statistics regardless of activation dtype."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, unbiased=False, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * g.float() + b.float()).to(x.dtype)
-
-
 class LayerNorm(nn.Module):
     def __init__(self, width: int):
         super().__init__()
@@ -217,7 +206,7 @@ class Block(nn.Module):
         self.attn = Attention(tcfg.width, tcfg.heads)
         self.ln_2 = LayerNorm(tcfg.width)
         self.mlp = MLP(tcfg.width, int(tcfg.width * tcfg.mlp_ratio))
-        self.act = quick_gelu if quick else F.gelu  # F.gelu is the exact (erf) GELU
+        self.quick = quick  # QuickGELU, else the exact (erf) GELU
 
     def tp_layout(self, m: int):
         """{parameter: (split dim, blocks)} over a `model` axis of m, or None
@@ -235,7 +224,7 @@ class Block(nn.Module):
         m = self.mlp
         h = self.ln_2(x)
         h = column_parallel(h, local(m.fc_w).to(cd), tp) if tp else h @ m.fc_w.to(cd)
-        h = self.act(h + local(m.fc_b).to(cd))
+        h = bias_act(h, local(m.fc_b), self.quick)
         y = row_parallel(h, local(m.proj_w).to(cd), tp) if tp else h @ m.proj_w.to(cd)
         return x + (y + m.proj_b.to(cd))
 

@@ -6,10 +6,10 @@ from typing import Dict
 
 
 def _counters() -> list:
-    from . import attack_step, flash_attention, q4_matmul, vit_attention
+    from . import attack_step, block_ops, flash_attention, q4_matmul, vit_attention
 
     return [attack_step.LAUNCHES, vit_attention.LAUNCHES, flash_attention.LAUNCHES, q4_matmul.LAUNCHES,
-            q4_matmul.LAUNCHES_BY_ROWS]
+            q4_matmul.LAUNCHES_BY_ROWS, block_ops.LAUNCHES]
 
 
 def reset_launches() -> None:
