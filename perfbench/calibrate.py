@@ -8,7 +8,8 @@ timed path as the window runs it, and the cell's compared numbers for the
 program (a sound run: the lower readings); with `--control`, the same
 numbers with the plain reference computed in fp8 (the step below the
 configuration's bfloat16) put in the program's place; with `--faults`, one
-more unit under each named fault of `harness/faults.py` and its numbers.
+more unit under each named fault that the cell's entry declares (its
+`FAULTS`) and its numbers.
 One JSON line per reading, also appended to chiprun_out/calibrate.jsonl.
 The benchmark's own runs never run this.
 """
@@ -42,6 +43,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(registry.ROOT))
     device = torch.device("cuda", 0)
     wl = registry.workload(args.workload)
+    planted = faults.declared(registry.entry(wl["entry"]))
+    unknown = set(args.faults) - set(planted)
+    if unknown:
+        print(f"calibrate: {args.workload} declares no fault {sorted(unknown)}; it has {sorted(planted)}",
+              file=sys.stderr)
+        return 2
     out = registry.ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
 
@@ -66,7 +73,7 @@ def main(argv=None) -> int:
         if args.control:
             emit({"seed": seed, "kind": "control", "readings": cell.readings(candidate=cell.control())})
         for name in args.faults:
-            with faults.FAULTS[name]():
+            with planted[name]():
                 cell.fresh()
                 cell.unit(0)
                 cell.freeze()

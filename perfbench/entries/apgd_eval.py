@@ -24,13 +24,17 @@ from __future__ import annotations
 
 import torch
 
-from harness import models, traffic, weights
+from harness import faults, models, traffic, weights
 from harness.probe import Probe
 from harness.traffic import fold
 from reference import clip as R
 from reference.common import full_fp32
 
 ROWS = 32  # the reference's block of rows
+
+# the faults a cell of this entry can have, planted by the tests and `calibrate.py --faults`
+# (one chip: no exchange between chips to leave out)
+FAULTS = (faults.step_unchanged, faults.half_batch, faults.answer_altered)
 
 
 class Cell:

@@ -36,7 +36,7 @@ import random
 import numpy as np
 import torch
 
-from harness import models, traffic, weights
+from harness import faults, models, traffic, weights
 from harness.probe import Probe
 from harness.traffic import fold
 from reference import flamingo as R
@@ -44,6 +44,10 @@ from reference.common import full_fp32
 
 GATE = 0.5  # both gates of every cross-attention block (chip_smoke.py's FLAMINGO_GATE)
 ROWS = 16  # the reference's block of rows: its float32 products keep float32 weights for the backward
+
+# the faults a cell of this entry can have, planted by the tests and `calibrate.py --faults`
+# (one chip: no exchange between chips to leave out)
+FAULTS = (faults.step_unchanged, faults.half_batch, faults.answer_altered, faults.caption_altered)
 
 
 class Cell:

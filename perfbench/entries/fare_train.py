@@ -34,10 +34,14 @@ import copy
 import numpy as np
 import torch
 
-from harness import models, traffic, weights
+from harness import faults, models, traffic, weights
 from harness.traffic import fold
 from reference import fare as R
 from reference.common import full_fp32
+
+# the faults a cell of this entry can have, planted by the tests and `calibrate.py --faults`
+# (one chip: no exchange between chips to leave out)
+FAULTS = (faults.step_unchanged, faults.train_half_batch, faults.optimizer_unchanged, faults.loss_altered)
 
 
 class Cell:

@@ -8,16 +8,39 @@ module where the timed path looks the function up, and restores it.
   of its batch only and leaves the rest as it came;
 - `answer_altered`: the attack's answer is altered where it is produced
   (one adversarial image moved off its ball);
-- `caption_altered`: the first served token of every caption changed;
+- `caption_altered`: the first served token of every caption changed, on
+  whichever adapter of `vlm_eval.eval_models` the runner captions with;
 - `optimizer_unchanged`: the optimizer's step leaves the weights as they were;
 - `loss_altered`: the training step's reported loss is off by a tenth.
+
+Each is made by `fault(...)`, which names the check numbers it moves at
+the small size (`caught_by`). An entry declares the faults its cells can
+have in its `FAULTS`: these, or one defined by `fault` in its own file;
+`declared(entry)` gives them by name.
 """
 
 from __future__ import annotations
 
 import contextlib
+from types import ModuleType
 
 import torch
+
+
+def fault(*caught_by: str):
+    """A fault: `fn`, a generator that patches the program around its
+    `yield`, made a context manager that names the numbers it moves."""
+    def make(fn):
+        planted = contextlib.contextmanager(fn)
+        planted.caught_by = caught_by
+        return planted
+
+    return make
+
+
+def declared(entry: ModuleType) -> dict:
+    """The faults an entry module declares in its `FAULTS`, by name."""
+    return {f.__name__: f for f in entry.FAULTS}
 
 
 @contextlib.contextmanager
@@ -30,7 +53,7 @@ def _patched(module, name: str, value):
         setattr(module, name, orig)
 
 
-@contextlib.contextmanager
+@fault("robust_share", "attack_shortfall", "inner_weakness")
 def step_unchanged():
     from robustvlm_tpu_torch.attacks import apgd
 
@@ -79,7 +102,7 @@ def _half(orig):
     return attack
 
 
-@contextlib.contextmanager
+@fault("robust_share", "attack_shortfall")
 def half_batch():
     with _wrap_attack(_half):
         yield
@@ -98,31 +121,43 @@ def _altered(orig):
     return attack
 
 
-@contextlib.contextmanager
+@fault("ball_excess")
 def answer_altered():
     with _wrap_attack(_altered):
         yield
 
 
-@contextlib.contextmanager
+def _captioning_adapters(eval_models) -> list:
+    """Every class of `vlm_eval.eval_models` with a `get_outputs` of its
+    own: the adapters the ensemble runner captions with."""
+    return [c for c in vars(eval_models).values()
+            if isinstance(c, type) and c.__module__ == eval_models.__name__ and "get_outputs" in vars(c)]
+
+
+def _altered_outputs(orig):
+    def get_outputs(self, *a, **k):
+        other, again = self.tok.decode([3]), self.tok.decode([4])
+        out = []
+        for caption in orig(self, *a, **k):
+            words = caption.split(" ")
+            words[0] = other if words[0] != other else again
+            out.append(" ".join(words))
+        return out
+
+    return get_outputs
+
+
+@fault("token_gap_mean")
 def caption_altered():
     from robustvlm_tpu_torch.vlm_eval import eval_models
 
-    orig = eval_models.FlamingoEvalModel.get_outputs
-
-    def alter(caption: str) -> str:
-        words = caption.split(" ")
-        words[0] = "tok3" if words[0] != "tok3" else "tok4"
-        return " ".join(words)
-
-    def get_outputs(self, *a, **k):
-        return [alter(c) for c in orig(self, *a, **k)]
-
-    with _patched(eval_models.FlamingoEvalModel, "get_outputs", get_outputs):
+    with contextlib.ExitStack() as stack:
+        for cls in _captioning_adapters(eval_models):
+            stack.enter_context(_patched(cls, "get_outputs", _altered_outputs(cls.get_outputs)))
         yield
 
 
-@contextlib.contextmanager
+@fault("change_gap")
 def optimizer_unchanged():
     from robustvlm_tpu_torch.train import trainer
 
@@ -130,7 +165,7 @@ def optimizer_unchanged():
         yield
 
 
-@contextlib.contextmanager
+@fault("loss_gap", "grad_gap")
 def train_half_batch():
     from robustvlm_tpu_torch.train import trainer
 
@@ -144,7 +179,7 @@ def train_half_batch():
         yield
 
 
-@contextlib.contextmanager
+@fault("loss_gap")
 def loss_altered():
     from robustvlm_tpu_torch.train import trainer
 
@@ -157,13 +192,3 @@ def loss_altered():
     with _patched(trainer.TrainStep, "__call__", call):
         yield
 
-
-FAULTS = {
-    "step_unchanged": step_unchanged,
-    "half_batch": half_batch,
-    "answer_altered": answer_altered,
-    "caption_altered": caption_altered,
-    "optimizer_unchanged": optimizer_unchanged,
-    "train_half_batch": train_half_batch,
-    "loss_altered": loss_altered,
-}

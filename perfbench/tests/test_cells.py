@@ -1,8 +1,9 @@
 """Each cell's whole run at a small size on the CPU: set-up, window,
 release, check and result line; then the same run with the timed path
-broken underneath by each fault the cell can have, which the check must
-catch (`correct` false), and the control (the reference in fp8 in the
-program's place), which must read above a sound run."""
+broken underneath by each fault the cell's entry declares, which the check
+must catch (`correct` false) through a number the fault names, and the
+control (the reference in fp8 in the program's place), which must read
+above a sound run."""
 
 import time
 
@@ -14,20 +15,6 @@ from harness import core, faults, registry
 
 BENCH = registry.benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
-# the faults a cell can have (one chip: no exchange between chips to leave out)
-FAULTS = {
-    "apgd_eval": ["step_unchanged", "half_batch", "answer_altered"],
-    "caption_attack": ["step_unchanged", "half_batch", "answer_altered", "caption_altered"],
-    "fare_train": ["step_unchanged", "train_half_batch", "optimizer_unchanged", "loss_altered"],
-}
-# the number each fault moves at the small size
-CAUGHT_BY = {"step_unchanged": ("robust_share", "attack_shortfall", "inner_weakness"),
-             "half_batch": ("robust_share", "attack_shortfall"),
-             "answer_altered": ("ball_excess",),
-             "caption_altered": ("token_gap_mean",),
-             "train_half_batch": ("loss_gap", "grad_gap"),
-             "optimizer_unchanged": ("change_gap",),
-             "loss_altered": ("loss_gap",)}
 
 
 def _execute(cell, trace=False):
@@ -47,17 +34,22 @@ def test_a_run_prints_the_contract_line(cell):
         assert set(c) == {"value", "limit"}
 
 
+def _faults(cell) -> dict:
+    return faults.declared(registry.entry(registry.workload(cell)["entry"]))
+
+
 def _cases():
-    return [(c, f) for c in CELLS for f in FAULTS[registry.workload(c)["entry"]]]
+    return [(c, f) for c in CELLS for f in _faults(c)]
 
 
 @pytest.mark.parametrize("cell,fault", _cases())
 def test_a_fault_underneath_makes_the_run_incorrect(cell, fault):
-    with faults.FAULTS[fault]():
+    planted = _faults(cell)[fault]
+    with planted():
         line = _execute(cell)
     assert line["correct"] is False
     assert any(line["checks"][n]["value"] > line["checks"][n]["limit"]
-               for n in CAUGHT_BY[fault] if n in line["checks"]), line["checks"]
+               for n in planted.caught_by if n in line["checks"]), line["checks"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
