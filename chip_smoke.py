@@ -842,6 +842,135 @@ def check_block_ops(peaks: dict) -> list:
     return rows_out
 
 
+# BLIP-2 OPT-2.7B's MLP under the benchmark's caption attack: 64 images x
+# (32 queries + 64 text tokens, the adapter's padded prompt), width 10240
+BLIP2_LM_BATCH, BLIP2_LM_LEN = 64, 96
+
+
+def check_bias_act_relu(peaks: dict) -> list:
+    """The ReLU form of bias + activation at OPT-2.7B's MLP shape, bf16:
+    forward exact and dh bit for bit against the plain versions (a select,
+    rounded once), dbias within 2e-2 of its largest; rows timed as
+    `check_block_ops` times the QuickGELU ones."""
+    import torch
+
+    from robustvlm_tpu_torch.ops.kernels import block_ops as K
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rows, hid = BLIP2_LM_BATCH * BLIP2_LM_LEN, 10240
+    gen = torch.Generator(device=dev).manual_seed(24)
+    h = (torch.randn(rows, hid, generator=gen, device=dev) * 2.0).to(bf)
+    dh = torch.randn(rows, hid, generator=gen, device=dev).to(bf)
+    bias = torch.randn(hid, generator=gen, device=dev) * 0.5
+    act = K.bias_act_fwd_cuda(h, bias, "relu")
+    got_dh, got_db = K.bias_act_bwd_cuda(h, bias, dh, "relu", True)
+    ref_dh, ref_db = K.bias_act_bwd_plain(h, bias, dh, "relu", True)
+    checks = {"fwd_equal": bool(torch.equal(act, K.bias_act_plain(h, bias, "relu"))),
+              "dh_equal": bool(torch.equal(got_dh, ref_dh)),
+              "dbias": _share_of_max(got_db, ref_db) <= 2e-2}
+    emit({"phase": "kernels", "kernel": "block_ops", "case": "bias_act_relu[blip2-opt-2.7b]", "dtype": "bfloat16",
+          "rows": rows, "width": hid, "dbias_share_of_max_err": _share_of_max(got_db, ref_db), "checks": checks,
+          "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"bias_act ReLU disagrees with its plain version: {checks}")
+    act_bytes, act_bwd_bytes = 2 * rows * hid * 2 + hid * 4, 3 * rows * hid * 2 + hid * 4
+    sets = _rotating(lambda: (h.clone(), dh.clone()), act_bytes)
+    hg = h.clone().requires_grad_(True)
+    timed = {
+        "bias_act_fwd": {
+            "ms": time_linf_graph_ms(lambda ha, _: K.bias_act_fwd_cuda(ha, bias, "relu"), sets),
+            "plain_ms": time_linf_graph_ms(lambda ha, _: K.bias_act_plain(ha, bias, "relu"), sets)},
+        "bias_act_bwd": {
+            "ms": time_linf_graph_ms(lambda ha, da: K.bias_act_bwd_cuda(ha, bias, da, "relu", False), sets),
+            "ms_with_dbias": time_linf_graph_ms(
+                lambda ha, da: K.bias_act_bwd_cuda(ha, bias, da, "relu", True), sets),
+            "unfused_ms": time_graph_fwd_bwd_ms(lambda a: K.bias_act_plain(a, bias, "relu"), (hg,),
+                                                dh)["library_ms"]},
+    }
+    out = []
+    for name, t in timed.items():
+        bnd, by = bound_ms(act_bytes if name == "bias_act_fwd" else act_bwd_bytes, 0, "bfloat16", peaks)
+        out.append({"name": f"{name}_relu[bfloat16, blip2-opt-2.7b]", "route": "cuda", "counter": name,
+                    "source": "robustvlm_tpu_torch/csrc/block_ops.cu", "replaces": None, "dtype": "bfloat16",
+                    "shape": [rows, hid], "bound_ms": bnd, "bound_by": by, "bound_share": bnd / t["ms"], **t,
+                    "operand_sets": len(sets), "launches_from": "blip2",
+                    "timed_by": {"ms": "graph, operands rotated past the L2",
+                                 "unfused_ms": "graph: relu(h + bias)'s forward + autograd.grad less the forward"}})
+    return out
+
+
+def check_flash_opt(peaks: dict, batch: int = BLIP2_LM_BATCH, n: int = BLIP2_LM_LEN) -> list:
+    """The causal flash forward and backward at head dim 80, OPT-2.7B in
+    BLIP-2: `batch` images x 32 heads, n positions; float32 and bf16. The
+    checks of the other flash rows (limits ATTN_TOL/LSE_TOL, four planted
+    faults caught, the backward bitwise repeatable); times by CUDA-graph
+    replay against SDPA with is_causal."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from robustvlm_tpu_torch.ops.kernels import flash_attention as F
+
+    bh, d = batch * 32, 80
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        (q, k, v, do), _ = _flash_inputs(bh, n, n, d, dtype, seed=n)
+        kw = dict(causal=True)
+        o, lse = F.flash_fwd_cuda(q, k, v, **kw)
+        grads = F.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+        again = F.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+        got = (o, lse, *grads)
+        ref = _flash_plain_all(q, k, v, do, kw)
+        res = _attn_check(dname, got, ref, False)
+        repeatable = all(torch.equal(a, b) for a, b in zip(grads, again))
+        controls = _flash_controls(dname, q, k, v, do, kw, got, ref)
+        ok = all(r[1] for r in res.values()) and repeatable and all(controls.values())
+        emit({"phase": "kernels", "kernel": "flash_attention", "case": "opt_lm[blip2-opt-2.7b]",
+              "dtype": dname, "shape": [bh, n, n, d], "causal": True, "alibi": False,
+              "max_abs_err": {m: e for m, (e, _) in res.items()},
+              "within": {m: w for m, (_, w) in res.items()}, "bwd_bitwise_repeatable": repeatable,
+              "controls_caught": controls,
+              "tol": {"outputs": ATTN_TOL[dname], "relative_to_max_ref": dname != "float32",
+                      "lse": LSE_TOL}, "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash_attention {dname} at head dim 80 (n = {n}): "
+                                 "disagrees, is not repeatable, or a planted fault passed")
+        fwd_ms = time_graph_ms(lambda: F.flash_fwd_cuda(q, k, v, **kw))
+        fwd_plain = time_ms(lambda: F.flash_fwd_plain(q, k, v, **kw), iters=5)
+        bwd_ms = time_graph_ms(lambda: F.flash_bwd_cuda(q, k, v, o, lse, do, **kw))
+        bwd_plain = time_ms(lambda: F.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=5)
+        q4, k4, v4, do4 = (t.view(1, bh, n, d) for t in (q, k, v, do))
+
+        def sdpa_causal(q_, k_, v_):
+            return Fn.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+
+        lib_fwd = time_graph_ms(lambda: sdpa_causal(q4, k4, v4))
+        fwd_backend = sdpa_backend(lambda: sdpa_causal(q4, k4, v4))
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
+        lib_bwd = time_graph_fwd_bwd_ms(sdpa_causal, (ql, kl, vl), do4)
+        lib_bwd.update(sdpa_backend(lambda: torch.autograd.grad(sdpa_causal(ql, kl, vl), (ql, kl, vl), do4)))
+        itm = q.element_size()
+        elems = bh * n * d
+        causal_pairs = bh * n * (n + 1) / 2
+        fb, fby = bound_ms(4 * elems * itm + bh * n * 4, 4 * causal_pairs * d, dname, peaks)
+        bb, bby = bound_ms(8 * elems * itm + bh * n * 4, 10 * causal_pairs * d, dname, peaks)
+        common = {"route": "cuda", "dtype": dname, "shape": [bh, n, d], "causal": True,
+                  "launches_from": "blip2"}
+        rows.append({"name": f"flash_attention_fwd[{dname}, blip2-opt-2.7b]", **common,
+                     **_attn_source("fwd", dname, "flash_attention.cu"),
+                     "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
+                     "max_abs_err": res["o"][0], "ms": fwd_ms, "plain_ms": fwd_plain,
+                     "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd, **fwd_backend,
+                     "timed_by": TIMED_BY["fwd"]})
+        rows.append({"name": f"flash_attention_bwd[{dname}, blip2-opt-2.7b]", **common,
+                     **_attn_source("bwd", dname, "flash_attention.cu"),
+                     "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:273 (dQ), :295 (dK/dV)",
+                     "max_abs_err": max(res[m][0] for m in ("dq", "dk", "dv")), "ms": bwd_ms,
+                     "plain_ms": bwd_plain, "bound_ms": bb, "bound_by": bby, **lib_bwd,
+                     "timed_by": TIMED_BY["bwd"]})
+    return rows
+
+
 # Flash attention at the main paths' shapes: the LLaVA-1.5-7B LM layer
 # (32 heads, the `llava` phase's teacher-forced sequence at batch 1, head
 # dim 128) and the CLIP text tower (96 = 8 prompts x 12 heads, 77 tokens,
@@ -1322,6 +1451,8 @@ def phase_kernels(peaks: dict) -> list:
     rows.append(check_vit_serve_row(peaks))
     rows += check_q4_matmul(peaks)
     rows += check_block_ops(peaks)
+    rows += check_flash_opt(peaks)
+    rows += check_bias_act_relu(peaks)
     return rows
 
 
@@ -2835,7 +2966,24 @@ BLIP2_CUT = [f"{BLIP2_LAYERS} of 39 vision layers", f"{BLIP2_LAYERS} of 12 Q-For
 BLIP2_NEW_TOKENS = 8
 BLIP2_ITERS = 25
 BLIP2_SHARD_LAYERS = 8  # OPT layers a shard
-ATTN_KERNELS = ("vit_attention_fwd", "vit_attention_bwd", "flash_attention_fwd", "flash_attention_bwd")
+
+
+def _blip2_attention_launches(launches: dict, cfg, grads: int, lm_forwards=None, tower_forwards=None) -> bool:
+    """BLIP-2's attention launches: `grads` pixel gradients, each a backward
+    of every EVA and OPT layer; a forward of every OPT layer for each
+    teacher-forced forward (`lm_forwards`, at least `grads`) and of every
+    EVA layer for each tower forward (`tower_forwards`, at least the OPT
+    forwards: the prefill runs the tower too)."""
+    nv, nl = cfg.vision.layers, cfg.opt.n_layers
+    vf, lf = launches["vit_attention_fwd"], launches["flash_attention_fwd"]
+    ok = (grads > 0 and launches["vit_attention_bwd"] == grads * nv
+          and launches["flash_attention_bwd"] == grads * nl and vf % nv == 0 and lf % nl == 0
+          and lf >= grads * nl and vf // nv >= lf // nl)
+    if lm_forwards is not None:
+        ok = ok and lf == lm_forwards * nl
+    if tower_forwards is not None:
+        ok = ok and vf == tower_forwards * nv
+    return ok
 
 
 def _blip2_cut(n_layers: int = BLIP2_LAYERS):
@@ -2857,7 +3005,10 @@ def phase_blip2_reference() -> dict:
     adapter's per-sample CE of a caption (1e-4 relative), its pixel gradient
     (1e-3 of its largest element, not 0), and the greedy tokens of a
     left-padded batch of 2 prompts of different lengths (equal). Returns the
-    card's launches (the attention kernels' none)."""
+    card's launches: the EVA blocks' `vit_attention` (the loss's forward,
+    its backward, the prefill's image features) and OPT's causal
+    `flash_attention` (the loss's forward and backward; the prefill and the
+    decode steps take a key mask and stay plain), one a layer each."""
     import numpy as np
     import torch
 
@@ -2903,7 +3054,8 @@ def phase_blip2_reference() -> dict:
               "finite": bool(torch.isfinite(card[1]).all()),
               "greedy_tokens_equal": tokens["cpu"] == tokens["cuda"],
               "left_padded_batch": len(set(n_pad)) == 2,
-              "no_attention_kernel": all(launches[k] == 0 for k in ATTN_KERNELS)}
+              "attention_kernels": _blip2_attention_launches(launches, cfg, grads=1, lm_forwards=1,
+                                                             tower_forwards=2)}
     emit({"phase": "blip2_reference", "model": cfg.name, "dtype": "float32", "batch": 1,
           "loss": float(ref[0][0]), "loss_rel_err": loss_rel, "grad_max_abs_err": g_err, "grad_max_abs": g_max,
           "tol": {"loss_rel": 1e-4, "grad_of_largest": 1e-3}, "greedy_tokens": tokens, "n_pad": n_pad,
@@ -3022,8 +3174,11 @@ def phase_blip2() -> dict:
     box and the eps-ball, the loss at x_adv above clean; ms per APGD
     iteration, the run's peak memory above what the phase held before it,
     write and load seconds, the texts and the
-    launches: `linf_step` once an iteration, no attention kernel (BLIP-2's
-    attention is plain, as in JAX). Returns the launches."""
+    launches: `linf_step` once an iteration; EVA's `vit_attention` (head dim
+    88) and OPT's causal `flash_attention` (head dim 80), a forward a layer
+    for each teacher-forced forward and a backward a layer for each pixel
+    gradient, both towers as often; the bias + activation kernels a block
+    each way. Returns the launches."""
     import shutil
 
     import numpy as np
@@ -3107,7 +3262,11 @@ def phase_blip2() -> dict:
             "iterations": result["coco"]["attack_iters"] == 2 * BLIP2_ITERS
             and result["vqav2"]["attack_iters"] == BLIP2_ITERS,
             "linf_step_once_an_iteration": launches["linf_step"] == iters,
-            "no_attention_kernel": all(launches[k] == 0 for k in ATTN_KERNELS),
+            "attention_kernels": _blip2_attention_launches(launches, cfg, grads=launches["flash_attention_bwd"]
+                                                           // cfg.opt.n_layers),
+            "a_gradient_an_iteration": launches["flash_attention_bwd"] >= iters * cfg.opt.n_layers,
+            "bias_act_a_block": launches["bias_act_bwd"] == launches["flash_attention_bwd"]
+            // cfg.opt.n_layers * (cfg.vision.layers + cfg.opt.n_layers),
             "metrics": math.isfinite(result["coco"]["cider"]) and math.isfinite(result["vqav2"]["vqa_accuracy"]),
         }
         emit({"phase": "blip2", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation.main", "argv": argv,

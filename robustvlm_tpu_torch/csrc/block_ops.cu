@@ -31,8 +31,8 @@
 //   sum_slots_kernel in a fixed order: no atomics, so a backward repeats
 //   bitwise on one card.
 // - bias_act_fwd: z = h + bias rounded to h's dtype (as `h + bias.to(dtype)`
-//   rounds it), then QuickGELU z sigmoid(1.702 z) or the exact erf GELU in
-//   float32, rounded once. A thread owns 8 (bf16) or 4 (float32) columns
+//   rounds it), then QuickGELU z sigmoid(1.702 z), the exact erf GELU or
+//   ReLU (OPT's MLP) in float32, rounded once. A thread owns 8 (bf16) or 4 (float32) columns
 //   and keeps their bias in registers over its rows; several rows are
 //   loaded before any is computed, to keep loads in flight.
 // - bias_act_bwd: z and the activation's derivative recomputed from h and
@@ -341,22 +341,29 @@ constexpr int kActThreads = 256;
 constexpr int kActFwdRows = 8;
 constexpr int kActBwdRows = 2;
 constexpr float kQuickAlpha = 1.702f;
+// the activation, as the C interface's `act` names it
+constexpr int kGelu = 0, kQuick = 1, kRelu = 2;
 
 // The exponential and the division by the hardware's approximations (a few
 // float32 ulp): a full-precision division costs as many instructions as the
 // rest of the element, and the kernels would no longer be bound by bytes.
-template <bool kQuick>
+// ReLU is exact; its backward passes dy where z > 0 and +0 elsewhere (a
+// select, as PyTorch's relu backward takes it, not dy * 0, which is -0 for
+// a negative dy).
+template <int kAct>
 __device__ __forceinline__ float act(float z) {
-  if constexpr (kQuick) {
+  if constexpr (kAct == kQuick) {
     return __fdividef(z, 1.f + __expf(-kQuickAlpha * z));  // z sigmoid(1.702 z)
+  } else if constexpr (kAct == kRelu) {
+    return fmaxf(z, 0.f);
   } else {
     return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
   }
 }
 
-template <bool kQuick>
+template <int kAct>
 __device__ __forceinline__ float act_grad(float z) {
-  if constexpr (kQuick) {
+  if constexpr (kAct == kQuick) {
     const float s = __fdividef(1.f, 1.f + __expf(-kQuickAlpha * z));
     return s * (1.f + kQuickAlpha * z * (1.f - s));
   } else {
@@ -365,10 +372,20 @@ __device__ __forceinline__ float act_grad(float z) {
   }
 }
 
+// dy act'(z)
+template <int kAct>
+__device__ __forceinline__ float act_bwd(float z, float dy) {
+  if constexpr (kAct == kRelu) {
+    return z > 0.f ? dy : 0.f;
+  } else {
+    return dy * act_grad<kAct>(z);
+  }
+}
+
 // Thread (blockIdx.x, threadIdx.x) owns columns col .. col + VEC - 1; block
 // row blockIdx.y walks rows blockIdx.y, + gridDim.y, ..., kActFwdRows (or
 // kActBwdRows) at a time.
-template <typename T, int VEC, bool kQuick>
+template <typename T, int VEC, int kAct>
 __global__ void __launch_bounds__(kActThreads)
 bias_act_fwd_kernel(const T* __restrict__ h, const float* __restrict__ bias, T* __restrict__ out,
                     long long rows, int n) {
@@ -392,7 +409,7 @@ bias_act_fwd_kernel(const T* __restrict__ h, const float* __restrict__ bias, T* 
       if (r < rows) {
         float o[VEC];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) o[i] = act<kQuick>(to_f(from_f<T>(v[u][i] + bv[i])));
+        for (int i = 0; i < VEC; ++i) o[i] = act<kAct>(to_f(from_f<T>(v[u][i] + bv[i])));
         store_n<VEC>(out + r * n + col, o);
       }
     }
@@ -401,7 +418,7 @@ bias_act_fwd_kernel(const T* __restrict__ h, const float* __restrict__ bias, T* 
 
 // With kBias, block row blockIdx.y sums the rounded dh of its rows into
 // part[blockIdx.y * n + col].
-template <typename T, int VEC, bool kQuick, bool kBias>
+template <typename T, int VEC, int kAct, bool kBias>
 __global__ void __launch_bounds__(kActThreads)
 bias_act_bwd_kernel(const T* __restrict__ h, const float* __restrict__ bias, const T* __restrict__ dy,
                     T* __restrict__ dh, float* __restrict__ part, long long rows, int n) {
@@ -433,7 +450,7 @@ bias_act_bwd_kernel(const T* __restrict__ h, const float* __restrict__ bias, con
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           const float z = to_f(from_f<T>(hv[u][i] + bv[i]));
-          o[i] = to_f(from_f<T>(dv[u][i] * act_grad<kQuick>(z)));
+          o[i] = to_f(from_f<T>(act_bwd<kAct>(z, dv[u][i])));
           if constexpr (kBias) acc[i] += o[i];
         }
         store_n<VEC>(dh + r * n + col, o);
@@ -466,6 +483,15 @@ void with_e(int e, F&& f) {
 template <typename F>
 void with_bool(bool v, F&& f) {
   if (v) f(std::true_type{}); else f(std::false_type{});
+}
+
+template <typename F>
+void with_act(int a, F&& f) {
+  switch (a) {
+    case kQuick: f(Int<kQuick>{}); break;
+    case kRelu: f(Int<kRelu>{}); break;
+    default: f(Int<kGelu>{}); break;
+  }
 }
 
 int sm_count() {
@@ -602,19 +628,20 @@ extern "C" int layer_norm_bwd(const void* x, long long x_stride, const void* dy,
   return static_cast<int>(cudaGetLastError());
 }
 
-// h and out (rows, n) contiguous; bias (n,). quick: QuickGELU, else the
-// exact erf GELU.
+// h and out (rows, n) contiguous; bias (n,). act: 0 the exact erf GELU, 1
+// QuickGELU, 2 ReLU.
 extern "C" int bias_act_fwd(const void* h, const void* bias, void* out, long long rows, int n,
-                            int quick, int dtype, int vec, void* stream) {
+                            int act, int dtype, int vec, void* stream) {
+  if (act < kGelu || act > kRelu) return static_cast<int>(cudaErrorInvalidValue);
   if (rows <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_type(dtype, vec, [&](auto tag, auto v) {
     using T = typename decltype(tag)::type;
     constexpr int VEC = decltype(v)::value;
     const ActGrid ag = act_grid(rows, n, VEC);
-    with_bool(quick != 0, [&](auto qc) {
-      constexpr bool Q = decltype(qc)::value;
-      bias_act_fwd_kernel<T, VEC, Q><<<ag.grid, ag.threads, 0, s>>>(
+    with_act(act, [&](auto ac) {
+      constexpr int A = decltype(ac)::value;
+      bias_act_fwd_kernel<T, VEC, A><<<ag.grid, ag.threads, 0, s>>>(
           static_cast<const T*>(h), static_cast<const float*>(bias), static_cast<T*>(out), rows, n);
     });
   });
@@ -624,8 +651,9 @@ extern "C" int bias_act_fwd(const void* h, const void* bias, void* out, long lon
 // dy and dh (rows, n) contiguous. With part (block_ops_slots(1, ...) rows of
 // n floats), also dbias (n,).
 extern "C" int bias_act_bwd(const void* h, const void* bias, const void* dy, void* dh, void* part,
-                            void* dbias, long long rows, int n, int quick, int dtype, int vec,
+                            void* dbias, long long rows, int n, int act, int dtype, int vec,
                             void* stream) {
+  if (act < kGelu || act > kRelu) return static_cast<int>(cudaErrorInvalidValue);
   if (rows <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool with_bias = part != nullptr;
@@ -635,11 +663,11 @@ extern "C" int bias_act_bwd(const void* h, const void* bias, const void* dy, voi
     constexpr int VEC = decltype(v)::value;
     const ActGrid ag = act_grid(rows, n, VEC);
     slots = ag.grid.y;
-    with_bool(quick != 0, [&](auto qc) {
-      constexpr bool Q = decltype(qc)::value;
+    with_act(act, [&](auto ac) {
+      constexpr int A = decltype(ac)::value;
       with_bool(with_bias, [&](auto bc) {
         constexpr bool B = decltype(bc)::value;
-        bias_act_bwd_kernel<T, VEC, Q, B><<<ag.grid, ag.threads, 0, s>>>(
+        bias_act_bwd_kernel<T, VEC, A, B><<<ag.grid, ag.threads, 0, s>>>(
             static_cast<const T*>(h), static_cast<const float*>(bias), static_cast<const T*>(dy),
             static_cast<T*>(dh), static_cast<float*>(part), rows, n);
       });

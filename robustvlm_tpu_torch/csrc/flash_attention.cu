@@ -6,7 +6,7 @@
 // body _fwd_kernel), and the two pallas_calls of _flash_bwd (_bwd_dq_kernel,
 // _bwd_dkv_kernel). Layout (B*H, N, D), contiguous; q (bh, nq, D), k and v
 // (bh, nk, D); float32 or bfloat16 operands; float32 softmax and sums; head
-// dims 64 (CLIP text tower) and 128 (LLaMA-7B).
+// dims 64 (CLIP text tower), 80 (OPT-2.7B in BLIP-2) and 128 (LLaMA-7B).
 //
 // The function is the Pallas kernels', not their tiling: the TPU keeps a
 // whole K/V row in VMEM and walks 128-key blocks; here each block owns a
@@ -100,6 +100,14 @@ template <>
 struct F32Tile<64, kDq> { static constexpr int kRows = 32, kTile = 32, kThreads = 64, kBufs = 2; };
 template <>
 struct F32Tile<64, kDkv> { static constexpr int kRows = 64, kTile = 32, kThreads = 256, kBufs = 2; };
+// D = 80 takes the ViT's D = 80 shapes (vit_attention.cu's VitF32Tile),
+// staged into 96-float shared rows, zero past D.
+template <>
+struct F32Tile<80, kFwd> { static constexpr int kRows = 48, kTile = 48, kThreads = 128, kBufs = 2; };
+template <>
+struct F32Tile<80, kDq> { static constexpr int kRows = 48, kTile = 24, kThreads = 128, kBufs = 2; };
+template <>
+struct F32Tile<80, kDkv> { static constexpr int kRows = 48, kTile = 24, kThreads = 128, kBufs = 2; };
 template <>
 struct F32Tile<128, kFwd> { static constexpr int kRows = 64, kTile = 48, kThreads = 128, kBufs = 1; };
 template <>
@@ -117,6 +125,8 @@ struct Bf16Fwd;
 template <>
 struct Bf16Fwd<64> { static constexpr int kN = 64, kStages = 2; };
 template <>
+struct Bf16Fwd<80> { static constexpr int kN = 32, kStages = 2; };  // vit_attention.cu's D = 80
+template <>
 struct Bf16Fwd<128> { static constexpr int kN = 64, kStages = 2; };
 
 // Backward: wgmma + TMA (attn_bf16_bwd.cuh, shared with vit_attention.cu).
@@ -127,6 +137,8 @@ template <int D>
 struct Bf16Bwd;
 template <>
 struct Bf16Bwd<64> { static constexpr int kN = 32, kM = 64, kStages = 2; };
+template <>
+struct Bf16Bwd<80> { static constexpr int kN = 64, kM = 64, kStages = 2; };  // vit_attention.cu's D = 80
 template <>
 struct Bf16Bwd<128> { static constexpr int kN = 64, kM = 64, kStages = 2; };
 
@@ -176,7 +188,7 @@ int launch_bwd(int dtype, const void* q, const void* k, const void* v, const voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Head dims 64 and 128. All arrays are
+// dtype: 0 = float32, 1 = bfloat16. Head dims 64, 80 and 128. All arrays are
 // contiguous device arrays, 16-byte aligned: q, o (bh, nq, d); k, v (bh, nk,
 // d); lse (bh, nq) float32; slopes (bh,) float32 or null (no ALiBi).
 // causal: 0 or 1, with the diagonal at col = row + q_off. Returns
@@ -191,6 +203,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 64: return launch_fwd<64>(dtype, q, k, v, o, lse, sl, bh, nq, nk, causal, q_off, scale, s);
+    case 80: return launch_fwd<80>(dtype, q, k, v, o, lse, sl, bh, nq, nk, causal, q_off, scale, s);
     case 128: return launch_fwd<128>(dtype, q, k, v, o, lse, sl, bh, nq, nk, causal, q_off, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -207,6 +220,9 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
   switch (d) {
     case 64:
       return launch_bwd<64>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, bh, nq, nk,
+                            causal, q_off, scale, s);
+    case 80:
+      return launch_bwd<80>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, bh, nq, nk,
                             causal, q_off, scale, s);
     case 128:
       return launch_bwd<128>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, bh, nq, nk,

@@ -16,10 +16,18 @@ Counterpart of `robustvlm_tpu/models/blip2/model.py` (HF
   embedding's dtype, is PREFIXED to the prompt's token embeddings and OPT
   runs causally over the concatenation.
 
-Attention is plain PyTorch everywhere (`_mha`: float32 softmax, P cast to
-the compute dtype before P V), as in JAX, where BLIP-2 reaches no Pallas
-kernel. Threat-model contract: `blip2_per_sample_loss` takes UNNORMALIZED
-[0,1] pixels at any size; the bicubic resize (JAX's `_maybe_resize`) and
+On a CUDA tensor the vision blocks' attention goes through the port's
+`vit_attention` (its kernels at head dim 88 for ViT-g/14), their
+LayerNorms and bias + exact GELU through `ops/kernels/block_ops.py`, and
+OPT's blocks through `flash_attention` and the same block kernels
+(`models/opt/model.py`). The Q-Former's attention (32 queries) stays plain
+PyTorch (`_mha`: float32 softmax, P cast to the compute dtype before P V),
+as does every op on a CPU tensor, as in JAX, where BLIP-2 reaches no
+Pallas kernel. The forwards name their stages `blip2.vision`,
+`blip2.qformer` (`blip2_image_features`) and `blip2.lm` (`blip2_forward`)
+for the profiler (`utils/profiling.span`). Threat-model contract:
+`blip2_per_sample_loss` takes UNNORMALIZED [0,1] pixels at any size; the
+bicubic resize (JAX's `_maybe_resize`) and
 CLIP normalization happen inside.
 
 Layers are `nn.ModuleList`s walked by Python loops (JAX scans stacked
@@ -57,6 +65,7 @@ from robustvlm_tpu_torch.models.opt.model import (
     OPT_CONFIGS,
     OPTConfig,
     _col,
+    _col_act,
     _lin,
     _row,
     init_opt_cache,
@@ -65,7 +74,9 @@ from robustvlm_tpu_torch.models.opt.model import (
     opt_forward,
 )
 from robustvlm_tpu_torch.ops.image import normalize_clip, resize_bicubic
+from robustvlm_tpu_torch.ops.kernels.vit_attention import vit_attention
 from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, gather_from_model, local
+from robustvlm_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +140,20 @@ def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch
     return torch.matmul(p, v).transpose(1, 2).reshape(b, tq, w)
 
 
+def _self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """`_mha` of a vision block: the `vit_attention` kernels for CUDA
+    tensors, the plain version for CPU ones."""
+    if not q.is_cuda:
+        return _mha(q, k, v, heads)
+    b, n, w = q.shape
+    hd = w // heads
+
+    def split(t):
+        return t.reshape(b, n, heads, hd).transpose(1, 2)
+
+    return vit_attention(split(q), split(k), split(v)).transpose(1, 2).reshape(b, n, w)
+
+
 class LayerNorm(nn.Module):
     def __init__(self, width: int):
         super().__init__()
@@ -179,9 +204,9 @@ class VisionBlock(nn.Module):
         heads = vc.heads // tp.size if tp else vc.heads
         x = layer_norm(h, self.ln_1.g, self.ln_1.b, vc.norm_eps)
         q, k, v = _col(x, a.qkv_w, a.qkv_b, tp, b_split=True).chunk(3, dim=-1)
-        h = h + _row(_mha(q, k, v, heads), a.out_w, a.out_b, tp)
+        h = h + _row(_self_attention(q, k, v, heads), a.out_w, a.out_b, tp)
         x = layer_norm(h, self.ln_2.g, self.ln_2.b, vc.norm_eps)
-        return h + _row(F.gelu(_col(x, m.fc_w, m.fc_b, tp, b_split=True)), m.proj_w, m.proj_b, tp)
+        return h + _row(_col_act(x, m.fc_w, m.fc_b, tp, "gelu"), m.proj_w, m.proj_b, tp)
 
 
 class VisionTower(nn.Module):
@@ -385,9 +410,10 @@ def blip2_image_features(model: Blip2, pixels_norm: torch.Tensor, *, compute_dty
                          remat: bool = False) -> torch.Tensor:
     """Normalized pixels -> (B, Q, W_opt) float32 language-model input
     embeddings (HF `get_image_features`); the projection in float32."""
-    img = blip2_vision_forward(model, pixels_norm, compute_dtype=compute_dtype, remat=remat)
-    q = qformer_forward(model, img, compute_dtype=compute_dtype)
-    return model.language_projection(q)
+    with span("blip2.vision"):
+        img = blip2_vision_forward(model, pixels_norm, compute_dtype=compute_dtype, remat=remat)
+    with span("blip2.qformer"):
+        return model.language_projection(qformer_forward(model, img, compute_dtype=compute_dtype))
 
 
 def _splice(model: Blip2, lm_in: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -403,8 +429,9 @@ def blip2_forward(model: Blip2, pixels01: torch.Tensor, tokens: torch.Tensor, *,
     cfg = model.cfg
     lm_in = blip2_image_features(model, normalize_clip(resize_bicubic(pixels01, cfg.vision.image_size)),
                                  compute_dtype=compute_dtype, remat=remat)
-    return opt_forward(model.opt, inputs_embeds=_splice(model, lm_in, tokens),
-                       compute_dtype=compute_dtype, remat=remat)
+    with span("blip2.lm"):
+        return opt_forward(model.opt, inputs_embeds=_splice(model, lm_in, tokens),
+                           compute_dtype=compute_dtype, remat=remat)
 
 
 def blip2_per_sample_loss(model: Blip2, pixels01: torch.Tensor, tokens: torch.Tensor,

@@ -8,10 +8,17 @@ every release (held as its own (W, V) leaf, as the JAX tree holds it).
 Parameter names and layouts are the JAX tree's (linear weights (in, out)
 for `x @ w`), so a JAX tree carries across by name (`convert.py`).
 
-- Attention is plain PyTorch on every path, as in JAX (no Pallas kernel
-  there): scores in the compute dtype, then float32, an explicit
-  query-position mask and a valid-key mask filled with -1e30, P cast back
-  to the compute dtype before P V.
+- Causal attention without a key mask (the teacher-forced forward the
+  attacks differentiate) goes through the port's `flash_attention` on a
+  CUDA tensor (its kernels at head dim 80 for OPT-2.7B). The paths with a
+  cache or a key mask (prefill with left padding, decode), and every CPU
+  tensor, stay plain PyTorch, as in JAX (no Pallas kernel there): scores
+  in the compute dtype, then float32, an explicit query-position mask and
+  a valid-key mask filled with -1e30, P cast back to the compute dtype
+  before P V.
+- LayerNorm and the MLP's bias + ReLU are `ops/kernels/block_ops.py`'s on
+  a CUDA tensor (one kernel each way); a CPU tensor keeps the arithmetic
+  below, op for op.
 - Layers are an `nn.ModuleList` walked by a Python loop (JAX scans stacked
   blocks); `remat` recomputes each block in the backward
   (`torch.utils.checkpoint`). The KV cache is one (L, B, H, N, hd) buffer
@@ -32,11 +39,12 @@ import math
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from robustvlm_tpu_torch.models.llama.model import _cache_write
+from robustvlm_tpu_torch.ops.kernels import block_ops
+from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from robustvlm_tpu_torch.parallel.tensor_parallel import (
     column_parallel,
     gather_from_model,
@@ -73,7 +81,10 @@ OPT_CONFIGS: Dict[str, OPTConfig] = {
 
 
 def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
-    """LayerNorm with float32 statistics, cast back to x's dtype."""
+    """LayerNorm with float32 statistics, cast back to x's dtype: the
+    `block_ops` kernels for a CUDA tensor, this arithmetic for a CPU one."""
+    if x.is_cuda:
+        return block_ops.layer_norm(x, g, b, eps)
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
@@ -97,6 +108,14 @@ def _attn(q, k, v, *, q_positions=None, kv_mask=None) -> torch.Tensor:
     return torch.matmul(p, v)
 
 
+def _causal(q, k, v, kv_mask=None) -> torch.Tensor:
+    """`_attn` without a cache: the `flash_attention` kernels for CUDA
+    tensors when no key is masked, else the plain version."""
+    if q.is_cuda and kv_mask is None:
+        return flash_attention(q, k, v, causal=True)
+    return _attn(q, k, v, kv_mask=kv_mask)
+
+
 def _lin(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h @ w + b with the weights cast to h's dtype."""
     return h @ w.to(h.dtype) + b.to(h.dtype)
@@ -109,6 +128,13 @@ def _col(h: torch.Tensor, w, b, tp, b_split: bool = False) -> torch.Tensor:
         return _lin(h, w, b)
     b = local(b) if b_split else split_to_model(b, tp)
     return column_parallel(h, local(w).to(h.dtype), tp) + b.to(h.dtype)
+
+
+def _col_act(h: torch.Tensor, w, b, tp, act: str) -> torch.Tensor:
+    """`act(_col(h, w, b, tp, b_split=True))`, the bias add and the
+    activation in one `block_ops.bias_act` (the same arithmetic on the CPU)."""
+    y = column_parallel(h, local(w).to(h.dtype), tp) if tp else h @ w.to(h.dtype)
+    return block_ops.bias_act(y, local(b), act)
 
 
 def _row(h: torch.Tensor, w, b, tp) -> torch.Tensor:
@@ -183,11 +209,11 @@ class Block(nn.Module):
             att = _attn(q, ck.to(cd), cv.to(cd), q_positions=int(pos) + torch.arange(t, device=x.device),
                         kv_mask=kv_mask)
         else:
-            att = _attn(q, k, v, kv_mask=kv_mask)
+            att = _causal(q, k, v, kv_mask)
         att = att.transpose(1, 2).reshape(b, t, n_heads * cfg.head_dim)
         x = x + _row(att, a.wo, a.bo, tp)
         h = layer_norm(x, self.ln2.g, self.ln2.b, cfg.norm_eps)
-        h = F.relu(_col(h, m.fc1, m.b1, tp, b_split=True))
+        h = _col_act(h, m.fc1, m.b1, tp, "relu")
         return x + _row(h, m.fc2, m.b2, tp)
 
 

@@ -1,5 +1,6 @@
-"""The CLIP block's LayerNorm and bias + activation, forward and backward:
-one-pass CUDA kernels and their plain versions.
+"""The transformer block's LayerNorm and bias + activation, forward and
+backward: one-pass CUDA kernels and their plain versions (the CLIP towers,
+BLIP-2's EVA tower and OPT).
 
 No Pallas kernel is replaced: the JAX package leaves both chains to XLA,
 which fuses them. PyTorch runs them eagerly as chains of elementwise
@@ -12,10 +13,12 @@ says how). What they compute:
   x, dy and g and the forward's per-row float32 mean and rstd, and writes
   dx = rstd (dy g - mean(dy g) - x_hat mean(dy g x_hat)); dg = sum dy x_hat
   and db = sum dy only when g or b requires grad, summed in a fixed order.
-- `bias_act(h, bias, quick)`: z = h + bias rounded to h's dtype, then
-  QuickGELU (`quick`) or the exact erf GELU, evaluated in float32 and rounded
-  once. It saves h only; the backward recomputes z and writes
-  dh = dy act'(z), and sums dh over rows for the bias when it requires grad.
+- `bias_act(h, bias, act)`: z = h + bias rounded to h's dtype, then the
+  activation `act` names (`ACTS`: QuickGELU, the exact erf GELU or ReLU; the
+  CLIP block's flag True or False is QuickGELU or GELU), evaluated in
+  float32 and rounded once. It saves h only; the backward recomputes z and
+  writes dh = dy act'(z) (ReLU's: dy where z > 0, else +0), and sums
+  dh over rows for the bias when it requires grad.
 
 CPU tensors take the plain versions, the block's arithmetic op for op with
 autograd through it (`layer_norm_plain`, `bias_act_plain`). CUDA tensors go
@@ -45,6 +48,7 @@ LAUNCHES = {"layer_norm_fwd": 0, "layer_norm_bwd": 0, "bias_act_fwd": 0, "bias_a
 
 MAX_WIDTH = 8192  # LayerNorm rows the kernels hold in registers (8 warps of 32 values a lane)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ACTS = {"gelu": 0, "quick_gelu": 1, "relu": 2}  # the activations, by the C interface's codes
 
 
 # ------------------------------------------------------------- plain versions
@@ -61,11 +65,21 @@ def layer_norm_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: flo
     return (y * g.float() + b.float()).to(x.dtype)
 
 
-def bias_act_plain(h: torch.Tensor, bias: torch.Tensor, quick: bool) -> torch.Tensor:
+def act_name(act) -> str:
+    """The name in `ACTS` of `act`: a name, or the CLIP block's flag (True
+    QuickGELU, False the exact GELU)."""
+    if isinstance(act, bool):
+        return "quick_gelu" if act else "gelu"
+    if act not in ACTS:
+        raise ValueError(f"bias_act: unknown activation {act!r}; one of {sorted(ACTS)}")
+    return act
+
+
+def bias_act_plain(h: torch.Tensor, bias: torch.Tensor, act) -> torch.Tensor:
     """The activation of `h + bias` with the bias cast to h's dtype first;
-    QuickGELU or the exact (erf) GELU."""
-    act = quick_gelu if quick else F.gelu
-    return act(h + bias.to(h.dtype))
+    QuickGELU, the exact (erf) GELU or ReLU (`act_name`)."""
+    fn = {"quick_gelu": quick_gelu, "gelu": F.gelu, "relu": F.relu}[act_name(act)]
+    return fn(h + bias.to(h.dtype))
 
 
 def _acc(dtype) -> torch.dtype:
@@ -97,17 +111,21 @@ def layer_norm_bwd_plain(x, g, mean, rstd, dy, weights: bool):
     return dx.to(x.dtype), (dyf * xh).reshape(-1, w).sum(0), dyf.reshape(-1, w).sum(0)
 
 
-def bias_act_bwd_plain(h, bias, dy, quick: bool, with_bias: bool):
+def bias_act_bwd_plain(h, bias, dy, act, with_bias: bool):
     """dh in h's dtype and, with `with_bias`, the bias gradient (the sum of dh
     over rows; None without), analytically."""
     acc = _acc(h.dtype)
     z = (h + bias.to(h.dtype)).to(acc)
-    if quick:
-        s = torch.sigmoid(1.702 * z)
-        grad = s * (1 + 1.702 * z * (1 - s))
+    name = act_name(act)
+    if name == "relu":  # a select, as autograd's: +0 where z <= 0
+        dh = torch.where(z > 0, dy.to(acc), 0.0).to(h.dtype)
     else:
-        grad = 0.5 * (1 + torch.erf(z * math.sqrt(0.5))) + z * torch.exp(-0.5 * z * z) / math.sqrt(2 * math.pi)
-    dh = (dy.to(acc) * grad).to(h.dtype)
+        if name == "quick_gelu":
+            s = torch.sigmoid(1.702 * z)
+            grad = s * (1 + 1.702 * z * (1 - s))
+        else:
+            grad = 0.5 * (1 + torch.erf(z * math.sqrt(0.5))) + z * torch.exp(-0.5 * z * z) / math.sqrt(2 * math.pi)
+        dh = (dy.to(acc) * grad).to(h.dtype)
     return dh, (dh.to(acc).reshape(-1, h.shape[-1]).sum(0) if with_bias else None)
 
 
@@ -219,7 +237,7 @@ def layer_norm_bwd_cuda(x, g, mean, rstd, dy, weights: bool):
     return dx.view(x.shape), dg, db
 
 
-def bias_act_fwd_cuda(h, bias, quick: bool):
+def bias_act_fwd_cuda(h, bias, act):
     _check("bias_act", h, (bias,))
     n = h.shape[-1]
     h2, b32 = h.contiguous().view(-1, n), _f32(bias)
@@ -227,13 +245,13 @@ def bias_act_fwd_cuda(h, bias, quick: bool):
     vec = _vec(n, n, (h2, b32))
     with torch.cuda.device(h.device):
         err = _lib().bias_act_fwd(h2.data_ptr(), b32.data_ptr(), out.data_ptr(), h2.shape[0], n,
-                                  int(quick), _DTYPES[h.dtype], vec, _stream(h))
+                                  ACTS[act_name(act)], _DTYPES[h.dtype], vec, _stream(h))
     _build.check_launch(err, "bias_act forward")
     LAUNCHES["bias_act_fwd"] += 1
     return out.view(h.shape)
 
 
-def bias_act_bwd_cuda(h, bias, dy, quick: bool, with_bias: bool):
+def bias_act_bwd_cuda(h, bias, dy, act, with_bias: bool):
     _check("bias_act backward", h, (bias,))
     n = h.shape[-1]
     h2, b32 = h.contiguous().view(-1, n), _f32(bias)
@@ -250,7 +268,7 @@ def bias_act_bwd_cuda(h, bias, dy, quick: bool, with_bias: bool):
         dbias = torch.empty(n, dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         err = lib.bias_act_bwd(h2.data_ptr(), b32.data_ptr(), dy2.data_ptr(), dh.data_ptr(),
-                               _ptr(part), _ptr(dbias), rows, n, int(quick), dt, vec, _stream(h))
+                               _ptr(part), _ptr(dbias), rows, n, ACTS[act_name(act)], dt, vec, _stream(h))
     _build.check_launch(err, "bias_act backward")
     LAUNCHES["bias_act_bwd"] += 1
     return dh.view(h.shape), dbias
@@ -286,10 +304,10 @@ class BiasActFn(torch.autograd.Function):
     """`bias_act` differentiable in h and the bias; saves h and the bias."""
 
     @staticmethod
-    def forward(ctx, h, bias, quick):
-        out = bias_act_fwd_cuda(h, bias, quick) if h.is_cuda else bias_act_plain(h, bias, quick)
+    def forward(ctx, h, bias, act):
+        out = bias_act_fwd_cuda(h, bias, act) if h.is_cuda else bias_act_plain(h, bias, act)
         ctx.save_for_backward(h, bias)
-        ctx.quick = quick
+        ctx.act = act
         return out
 
     @staticmethod
@@ -297,7 +315,7 @@ class BiasActFn(torch.autograd.Function):
         h, bias = ctx.saved_tensors
         need_bias = ctx.needs_input_grad[1]
         bwd = bias_act_bwd_cuda if h.is_cuda else bias_act_bwd_plain
-        dh, dbias = bwd(h, bias, dy, ctx.quick, need_bias)
+        dh, dbias = bwd(h, bias, dy, ctx.act, need_bias)
         return dh, _cast(dbias, bias), None
 
 
@@ -316,9 +334,10 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1
     return LayerNormFn.apply(x, g, b, eps)
 
 
-def bias_act(h: torch.Tensor, bias: torch.Tensor, quick: bool) -> torch.Tensor:
-    """QuickGELU (`quick`) or the exact GELU of `h + bias`, the bias cast to
-    h's dtype (the block's MLP after its first product)."""
+def bias_act(h: torch.Tensor, bias: torch.Tensor, act) -> torch.Tensor:
+    """The activation `act` (`act_name`: QuickGELU, the exact GELU or ReLU)
+    of `h + bias`, the bias cast to h's dtype (the block's MLP after its
+    first product)."""
     if not _route("bias_act", h):
-        return bias_act_plain(h, bias, quick)
-    return BiasActFn.apply(h, bias, quick)
+        return bias_act_plain(h, bias, act)
+    return BiasActFn.apply(h, bias, act)

@@ -43,7 +43,7 @@ from robustvlm_tpu_torch.ops.kernels import _build
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
             "flash_attention_fwd_alibi": 0, "flash_attention_bwd_alibi": 0}
 
-HEAD_DIMS = (64, 128)  # CLIP text towers and LLaMA-7B
+HEAD_DIMS = (64, 80, 128)  # CLIP text towers, OPT-2.7B (BLIP-2) and LLaMA-7B
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
 

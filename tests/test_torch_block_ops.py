@@ -1,5 +1,6 @@
-"""The CLIP block's LayerNorm and bias + activation
-(robustvlm_tpu_torch.ops.kernels.block_ops).
+"""The block kernels' LayerNorm and bias + activation
+(robustvlm_tpu_torch.ops.kernels.block_ops): the CLIP block's, and the ReLU
+form OPT's MLP takes.
 
 On the CPU: `layer_norm`, `bias_act` and `Block.forward` give, bit for bit,
 what the block computed before the kernels (frozen copies below), forward
@@ -93,6 +94,28 @@ def test_layer_norm_cpu_bitwise_equals_old(dtype, layout):
         gn = torch.autograd.grad(new, (xs[0], *ps[0]), dy)
         go = torch.autograd.grad(old, (xs[1], *ps[1]), dy)
         assert all(_bits_equal(a, c) for a, c in zip(gn, go))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_bias_act_relu_cpu_bitwise_equals_opt_mlp(dtype):
+    """ReLU, as OPT's MLP ran it before the kernels: relu(h + b1 cast to
+    h's dtype), forward and autograd, bit for bit on the CPU."""
+    h, _, bias, dy = _inputs((4, 7, 256), dtype, 2, shift=0.0)
+    hs = [h.clone().requires_grad_(True) for _ in range(2)]
+    bs = [bias.clone().requires_grad_(True) for _ in range(2)]
+    new = B.bias_act(hs[0], bs[0], "relu")
+    old = F.relu(hs[1] + bs[1].to(dtype))
+    assert _bits_equal(new, old)
+    gn = torch.autograd.grad(new, (hs[0], bs[0]), dy)
+    go = torch.autograd.grad(old, (hs[1], bs[1]), dy)
+    assert all(_bits_equal(a, c) for a, c in zip(gn, go))
+
+
+def test_bias_act_names_and_flags():
+    assert [B.act_name(a) for a in (True, False, "quick_gelu", "gelu", "relu")] == \
+        ["quick_gelu", "gelu", "quick_gelu", "gelu", "relu"]
+    with pytest.raises(ValueError, match="unknown activation"):
+        B.act_name("silu")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -211,6 +234,24 @@ def test_bias_act_bwd_plain_float64_matches_autograd(quick, with_bias):
     assert with_bias == (db is not None)
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, atol=1e-12 * float(r.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["dh_only", "with_dbias"])
+def test_bias_act_relu_plain_backward_matches_autograd(with_bias):
+    """ReLU's analytic backward, dy where z > 0 (float64, and the Function in
+    float32, where it is exact), against autograd through `bias_act_plain`."""
+    for dtype in (torch.float64, torch.float32):
+        h, _, bias, dy = _inputs((5, 3, 48), dtype, 7, shift=0.0)
+        bias = bias.to(dtype)
+        hf, bf = h.clone().requires_grad_(True), bias.clone().requires_grad_(with_bias)
+        ref = torch.autograd.grad(B.bias_act_plain(hf, bf, "relu"), (hf, bf) if with_bias else (hf,), dy)
+        dh, db = B.bias_act_bwd_plain(h, bias, dy, "relu", with_bias)
+        assert _bits_equal(dh, ref[0])
+        if with_bias:
+            torch.testing.assert_close(db.to(dtype), ref[1], atol=1e-6 * float(ref[1].abs().max()), rtol=0)
+        hg = h.clone().requires_grad_(True)
+        (fn_dh,) = torch.autograd.grad(B.BiasActFn.apply(hg, bias, "relu"), hg, dy)
+        assert _bits_equal(fn_dh, ref[0])
 
 
 @pytest.mark.parametrize("quick", [True, False], ids=["quick_gelu", "gelu"])
@@ -360,6 +401,25 @@ def test_cuda_bias_act_matches_plain(dtype, quick, w, rows):
     assert B.LAUNCHES["bias_act_bwd"] == before["bias_act_bwd"] + 1
     dh, db = B.bias_act_bwd_cuda(h, bias, dy, quick, False)
     assert db is None and torch.equal(dh, B.bias_act_bwd_cuda(h, bias, dy, quick, True)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [64 * 69, 64 * 96, 37])
+def test_cuda_bias_act_relu_at_opt_shape(dtype, rows):
+    """ReLU at OPT-2.7B's MLP width (10240) over 64 images' 69 or 96 (the
+    prompt padded to 64 text tokens) positions, and a ragged row count:
+    forward exact against the plain version, dh bit for bit (a product by 1
+    or 0, rounded once), dbias within the sums' tolerance."""
+    _cuda()
+    h, _, bias, dy = _card_inputs(rows, 10240, dtype, rows, shift=0.0)
+    before = dict(B.LAUNCHES)
+    fwd, bwd = _check_bias_act(h, bias, dy, "relu", dtype)
+    assert fwd and all(bwd), (fwd, bwd)
+    assert B.LAUNCHES["bias_act_fwd"] == before["bias_act_fwd"] + 1
+    assert torch.equal(B.bias_act_fwd_cuda(h, bias, "relu"), B.bias_act_plain(h, bias, "relu"))
+    dh, _ = B.bias_act_bwd_cuda(h, bias, dy, "relu", False)
+    assert torch.equal(dh, B.bias_act_bwd_plain(h, bias, dy, "relu", False)[0])
 
 
 @pytest.mark.cuda

@@ -141,6 +141,25 @@ def test_causal_nq_gt_nk_matches_reference_on_seeing_rows(nq, nk, d):
         np.testing.assert_allclose(a, r, atol=1e-5, rtol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("nq", [69, 96])
+def test_head_dim_80_is_built_and_matches_attention_reference(nq):
+    """OPT-2.7B's head dim: the wrapper takes D = 80 (the card's check
+    passes it, an unbuilt width raises), and the plain version the D = 80
+    kernels are held to on the card matches JAX's reference, causal, at
+    the BLIP-2 caption prompt's lengths (32 queries and 37 text tokens; 64
+    text tokens as the adapter pads them)."""
+    assert 80 in F.HEAD_DIMS
+    q, k, v, g = _inputs(6, 1, 2, nq, nq, 80)
+    tq, tk, tv = (torch.from_numpy(t).reshape(2, nq, 80) for t in (q, k, v))
+    F._check_cuda(tq, tk, tv)
+    with pytest.raises(ValueError, match="head dim 96 not built"):
+        F._check_cuda(*(torch.zeros(2, nq, 96) for _ in range(3)))
+    ref = _jax_vjp(lambda q, k, v: attention_reference(q, k, v, causal=True), q, k, v, g)
+    got = _torch_fwd_bwd(q, k, v, g, causal=True, alibi=False)
+    for name, a, r in zip(("o", "dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a, r, atol=1e-5, rtol=1e-5, err_msg=name)
+
+
 def test_cpu_counts_no_launch():
     q, k, v, _ = (torch.from_numpy(t).requires_grad_(True) for t in _inputs(5, 1, 2, 16, 16, 64))
     before = dict(F.LAUNCHES)
@@ -175,6 +194,13 @@ def _card_inputs(bh, nq, nk, d, dtype, seed):
     (8, 100, 40, 128, True, False),
     (8, 50, 50, 128, False, False),
     (8, 65, 65, 64, True, False),
+    (2048, 69, 69, 80, True, False),    # OPT-2.7B in BLIP-2: 64 images x 32 heads, 32 + 37 tokens
+    (2048, 96, 96, 80, True, False),    # the same, the prompt padded to 64 text tokens
+    (8, 1, 5, 80, True, False),         # the edges at head dim 80
+    (8, 70, 300, 80, True, False),
+    (8, 100, 40, 80, True, False),
+    (8, 65, 65, 80, True, True),
+    (8, 50, 50, 80, False, False),
 ])
 def test_cuda_kernels_match_plain(dtype, bh, nq, nk, d, causal, alibi):
     if not torch.cuda.is_available():

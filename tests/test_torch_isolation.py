@@ -94,7 +94,7 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     kv = torch.zeros(4, 30, 128)
     qf = torch.zeros(4, 10, 128)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention._check_cuda(torch.zeros(4, 10, 80), torch.zeros(4, 30, 80), torch.zeros(4, 30, 80))
+        flash_attention._check_cuda(torch.zeros(4, 10, 96), torch.zeros(4, 30, 96), torch.zeros(4, 30, 96))
     with pytest.raises(TypeError):
         flash_attention._check_cuda(qf.half(), kv.half(), kv.half())
     with pytest.raises(ValueError, match="disagree"):

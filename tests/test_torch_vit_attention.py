@@ -231,7 +231,7 @@ def test_head_dim_88_is_built():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("bh,n", [(128, 257), (16, 129)])
+@pytest.mark.parametrize("bh,n", [(128, 257), (16, 129), (1024, 257)])  # the last: BLIP-2's EVA at 64 images
 def test_cuda_head_dim_88(dtype, bh, n):
     """Head dim 88 (ViT-g/14) forward and backward, at chip_smoke.py's
     limits: float32 within 1e-5 abs; bf16 within 2e-2 of each tensor's
