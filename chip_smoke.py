@@ -971,6 +971,157 @@ def check_flash_opt(peaks: dict, batch: int = BLIP2_LM_BATCH, n: int = BLIP2_LM_
     return rows
 
 
+# The bf16 attention kernels on the views their callers hand them: (label,
+# kernel module, batch, heads, n, head dim, causal, alibi, packed). Packed:
+# q, k, v are the heads' views into one fused (B, n, 3W) projection and the
+# backward writes one (B, n, 3W) gradient (CLIP's ViT, EVA, MPT, a block
+# split over `model` = 2 holding 8 of ViT-L/14's 16 heads); otherwise three
+# separate (B, n, W) projections (OPT). The four benchmark cells' shapes.
+STRIDED_ATTN_CASES = (
+    ("vitl14", "vit_attention", 128, 16, 257, 64, False, False, True),
+    ("vitg14", "vit_attention", 64, 16, 257, 88, False, False, True),
+    ("opt", "flash_attention", BLIP2_LM_BATCH, 32, BLIP2_LM_LEN, 80, True, False, False),
+    ("mpt", "flash_attention", 64, 32, 34, 128, True, True, True),
+    ("vitl14_tp2", "vit_attention", 128, 8, 257, 64, False, False, True),
+)
+# the phase whose launches a row counts, where it is not `main[bfloat16]`
+STRIDED_ATTN_LAUNCHES_FROM = {"vitg14": "blip2", "opt": "blip2", "mpt": "flamingo"}
+
+
+def _strided_attn_case(mod, b, h, n, d, causal, alibi, packed, seed):
+    """Operands of one case: (q, k, v, do) as the caller's views, O and the
+    gradients' views, their contiguous (B*H, n, D) copies, the kernel's
+    keyword arguments and the merged (B, n, W) tensors the caller feeds."""
+    import torch
+
+    from robustvlm_tpu_torch.ops.kernels import _heads
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = h * d
+
+    def rand(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda") * 0.5).bfloat16()
+
+    if packed:
+        qkv = rand(b, n, 3 * w)
+        q, k, v = _heads.qkv_views(qkv, h)
+    else:
+        qkv = None
+        q, k, v = (_heads.heads_of(rand(b, n, w), h) for _ in range(3))
+    dout = rand(b, n, w)
+    kw = {}
+    if mod.__name__.endswith("flash_attention"):
+        kw["causal"] = causal
+        if alibi:
+            from robustvlm_tpu_torch.models.mpt.model import alibi_slopes
+
+            kw["slopes"] = torch.from_numpy(alibi_slopes(h)).float().cuda().repeat(b).contiguous()
+    return qkv, (q, k, v, _heads.heads_of(dout, h)), dout, kw
+
+
+def check_strided_attention(peaks: dict) -> list:
+    """The bf16 attention kernels launched on the callers' views (the
+    heads read through their strides, O token-major, the gradients into one
+    fused (B, n, 3W) tensor) against the same kernels on contiguous (B*H,
+    n, D) copies: O, lse, dQ, dK and dV bitwise equal, since only the
+    addressing changed; the packed autograd Functions equal too, with no
+    operand copied (`*_copied` 0). Times by CUDA-graph replay: the view
+    launch, the contiguous launch, and the split and merge copies the views
+    remove (forward: q, k, v made contiguous and O merged; backward: dO made
+    contiguous, dQ, dK, dV re-laid to (B, n, W) and, packed, their `cat`)."""
+    import torch
+
+    from robustvlm_tpu_torch.ops.kernels import _heads
+    from robustvlm_tpu_torch.ops.kernels import flash_attention as F
+    from robustvlm_tpu_torch.ops.kernels import vit_attention as A
+
+    rows = []
+    for label, kname, b, h, n, d, causal, alibi, packed in STRIDED_ATTN_CASES:
+        mod = A if kname == "vit_attention" else F
+        fwd, bwd = ((A.attention_fwd_cuda, A.attention_bwd_cuda) if mod is A
+                    else (F.flash_fwd_cuda, F.flash_bwd_cuda))
+        qkv, (q, k, v, do), dout, kw = _strided_attn_case(mod, b, h, n, d, causal, alibi, packed,
+                                                          seed=b + h + n + d)
+        w = h * d
+        flat = [t.reshape(b * h, n, d).contiguous() for t in (q, k, v, do)]
+        oc, lsec = fwd(*flat[:3], **kw)
+        gc = bwd(*flat[:3], oc, lsec, flat[3], **kw)
+        o = _heads.heads_of(torch.empty(b, n, w, dtype=torch.bfloat16, device="cuda"), h)
+        dqkv = torch.empty(b, n, 3 * w, dtype=torch.bfloat16, device="cuda")
+        grads = _heads.qkv_views(dqkv, h) if packed else tuple(_heads.empty_out(t) for t in (q, k, v))
+        before = _launches()
+        _, lse = fwd(q, k, v, o, **kw)
+        got = bwd(q, k, v, o, lse, do, grads, **kw)
+        copied = _launches()[f"{kname}_copied"] - before[f"{kname}_copied"]
+        pairs = [("o", o, oc), ("lse", lse, lsec)] + [
+            (m, a, c) for m, a, c in zip(("dq", "dk", "dv"), got, gc)]
+        bitwise = {m: torch.equal(a.reshape(c.shape), c) for m, a, c in pairs}
+        # the callers' autograd path: the packed Function, or the views one
+        slopes = None if not alibi else kw["slopes"][:h].clone()
+        before = _launches()
+        if packed:
+            x = qkv.detach().clone().requires_grad_(True)
+            out = (A.vit_attention_qkv(x, h) if mod is A
+                   else F.flash_attention_qkv(x, h, causal=causal, alibi_slopes=slopes))
+            out.backward(dout)
+            fn_grads = _heads.qkv_views(x.grad, h)
+        else:
+            xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            out = F.flash_attention(*xs, causal=causal, alibi_slopes=slopes)
+            out = out.transpose(1, 2).reshape(b, n, w)
+            out.backward(dout)
+            fn_grads = [t.grad for t in xs]
+        fn_copied = _launches()[f"{kname}_copied"] - before[f"{kname}_copied"]
+        fn_bitwise = torch.equal(out.reshape(b, n, h, d).transpose(1, 2).reshape(oc.shape), oc) and all(
+            torch.equal(a.reshape(c.shape), c) for a, c in zip(fn_grads, gc))
+        ok = all(bitwise.values()) and fn_bitwise and copied == 0 and fn_copied == 0
+        emit({"phase": "kernels", "kernel": kname, "case": f"token_major_views[{label}]",
+              "dtype": "bfloat16", "shape": [b, h, n, d], "causal": causal, "alibi": alibi,
+              "packed": packed, "bitwise_equal_to_contiguous": bitwise,
+              "autograd_bitwise_equal": fn_bitwise, "copied": copied, "autograd_copied": fn_copied,
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"{kname} on views at {label}: not bitwise the contiguous launch, "
+                                 "or an operand was copied")
+        oc4 = oc.view(b, h, n, d)
+        gc4 = [t.view(b, h, n, d) for t in gc]
+
+        def split_merge():
+            for t in (q, k, v):
+                t.contiguous()
+            oc4.transpose(1, 2).reshape(b, n, w)
+
+        def grads_back():
+            do.contiguous()
+            parts = [t.transpose(1, 2).reshape(b, n, w) for t in gc4]
+            if packed:
+                torch.cat(parts, dim=-1)
+
+        ms = {"fwd": time_graph_ms(lambda: fwd(q, k, v, o, **kw)),
+              "fwd_contiguous": time_graph_ms(lambda: fwd(*flat[:3], **kw)),
+              "fwd_copies": time_graph_ms(split_merge),
+              "bwd": time_graph_ms(lambda: bwd(q, k, v, o, lse, do, grads, **kw)),
+              "bwd_contiguous": time_graph_ms(lambda: bwd(*flat[:3], oc, lsec, flat[3], **kw)),
+              "bwd_copies": time_graph_ms(grads_back)}
+        elems, itm = b * h * n * d, 2
+        pairs_n = b * h * (n * (n + 1) / 2 if causal else n * n)
+        fb, fby = bound_ms(4 * elems * itm + b * h * n * 4, 4 * pairs_n * d, "bfloat16", peaks)
+        bb, bby = bound_ms(8 * elems * itm + b * h * n * 4, 10 * pairs_n * d, "bfloat16", peaks)
+        common = {"route": "cuda", "dtype": "bfloat16", "shape": [b, h, n, d], "causal": causal,
+                  "alibi": alibi, "packed": packed, "timed_by": "graph"}
+        if label in STRIDED_ATTN_LAUNCHES_FROM:
+            common["launches_from"] = STRIDED_ATTN_LAUNCHES_FROM[label]
+        rows.append({"name": f"{kname}_fwd[bfloat16, token-major views, {label}]", **common,
+                     "ms": ms["fwd"], "contiguous_ms": ms["fwd_contiguous"],
+                     "copies_removed_ms": ms["fwd_copies"], "bound_ms": fb, "bound_by": fby})
+        rows.append({"name": f"{kname}_bwd[bfloat16, token-major views, {label}]", **common,
+                     "ms": ms["bwd"], "contiguous_ms": ms["bwd_contiguous"],
+                     "copies_removed_ms": ms["bwd_copies"], "bound_ms": bb, "bound_by": bby})
+        emit({"phase": "kernels", "kernel": kname, "case": f"token_major_views[{label}]",
+              "times_ms": ms, "bound_ms": {"fwd": fb, "bwd": bb}})
+    return rows
+
+
 # Flash attention at the main paths' shapes: the LLaVA-1.5-7B LM layer
 # (32 heads, the `llava` phase's teacher-forced sequence at batch 1, head
 # dim 128) and the CLIP text tower (96 = 8 prompts x 12 heads, 77 tokens,
@@ -1453,6 +1604,7 @@ def phase_kernels(peaks: dict) -> list:
     rows += check_block_ops(peaks)
     rows += check_flash_opt(peaks)
     rows += check_bias_act_relu(peaks)
+    rows += check_strided_attention(peaks)
     return rows
 
 
@@ -2616,13 +2768,13 @@ def phase_llava_rob() -> dict:
             load["s"] = time.perf_counter() - t
             return out
 
-        def fwd(q, k, v):
-            tokens_seen.add(int(q.shape[1]))
-            return real_fwd(q, k, v)
+        def fwd(q, k, v, o=None):
+            tokens_seen.add(int(q.shape[-2]))
+            return real_fwd(q, k, v, o)
 
-        def flash_fwd(q, k, v, **kw):
-            flash_seen.add(int(q.shape[1]))
-            return real_flash(q, k, v, **kw)
+        def flash_fwd(q, k, v, o=None, **kw):
+            flash_seen.add(int(q.shape[-2]))
+            return real_flash(q, k, v, o, **kw)
 
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
@@ -5224,18 +5376,25 @@ def _tp_apgd(adapter, x) -> dict:
 
 def _record_q_shapes(seen: list, targets):
     """Record (entry, dtype, q shape) of every call of each (module, name)
-    attention entry in `targets`; returns the function that takes the
-    wrappers off."""
+    attention entry in `targets`, and of its packed form `<name>_qkv` (q's
+    (B, H, N, D) shape from the fused projection and the heads), under
+    `name`; returns the function that takes the wrappers off."""
     wrapped = []
     for mod, name in targets:
-        fn = getattr(mod, name)
+        for entry in (name, name + "_qkv"):
+            if not hasattr(mod, entry):
+                continue
+            fn = getattr(mod, entry)
 
-        def rec(q, *a, _fn=fn, _n=name, **k):
-            seen.append((_n, str(q.dtype).split(".")[-1], tuple(q.shape)))
-            return _fn(q, *a, **k)
+            def rec(q, *a, _fn=fn, _n=name, **k):
+                shape = tuple(q.shape)
+                if a and isinstance(a[0], int):  # packed: (B, N, 3W) over a[0] heads
+                    shape = (shape[0], a[0], shape[1], shape[2] // 3 // a[0])
+                seen.append((_n, str(q.dtype).split(".")[-1], shape))
+                return _fn(q, *a, **k)
 
-        setattr(mod, name, rec)
-        wrapped.append((mod, name, fn))
+            setattr(mod, entry, rec)
+            wrapped.append((mod, entry, fn))
 
     def restore():
         for mod, name, fn in wrapped:

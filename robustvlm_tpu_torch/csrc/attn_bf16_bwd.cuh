@@ -38,8 +38,14 @@
 // (ptxas injects a warpgroup wait; no gain, more registers) and two
 // warpgroups a block sharing the streamed tiles (slower at both shapes).
 //
+// Operands are addressed through their strides, as in the forward
+// (attn_bf16_fwd.cuh): Q, K, V and dO by 4-D tensor maps over (D, n, H, B),
+// O and dO's rows for delta and the stores of dQ, dK and dV by their own
+// strides, so dQ, dK and dV can land in the column blocks of one fused
+// q|k|v gradient. lse and delta stay (B*H, n) float32.
+//
 // Head dims: tiles are whole 64-column boxes, DT = 64 or 128. A head dim of
-// 80 (ViT-H/14) or 88 (ViT-g/14) is mapped as (D, n, bh) and read as two
+// 80 (ViT-H/14) or 88 (ViT-g/14) is mapped as (D, n, H, B) and read as two
 // boxes a row; TMA zero-fills columns D-127 of Q, K, V and dO alike, so the
 // tile has the D = 128 layout: S and dP take ceil(D / 16) = 5 or 6 k-steps
 // (at 88 the sixth reads zeros past column 88 in both operands); dQ, dK and
@@ -82,19 +88,21 @@ struct WgBwd : S {
 };
 
 // Store a warpgroup accumulator (64 rows of DT float32 columns, the block's
-// rows r0 ..) as bf16 rows of an (n, D) array, rows < n and columns < D.
+// rows r0 ..) as bf16 rows of an (n, D) head whose rows lie row_stride
+// elements apart, rows < n and columns < D.
 template <int D, int DT>
-__device__ __forceinline__ void store_acc_bf16(bf16* __restrict__ dst, const float (&acc)[DT / 2],
-                                               int row0, int n, int g, int t) {
+__device__ __forceinline__ void store_acc_bf16(bf16* __restrict__ dst, long long row_stride,
+                                               const float (&acc)[DT / 2], int row0, int n, int g,
+                                               int t) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + h * 8;
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + g + e * 8;
     if (row >= n) continue;
-    bf16* p = dst + (size_t)row * D + 2 * t;
+    bf16* p = dst + row * row_stride + 2 * t;
 #pragma unroll
     for (int j = 0; j < DT / 8; ++j) {
       if (DT != D && 8 * j + 2 * t >= D) continue;  // a zero-filled column of the padding
-      *reinterpret_cast<uint32_t*>(p + 8 * j) = pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(p + 8 * j) = pack_bf16(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
     }
   }
 }
@@ -109,18 +117,19 @@ __device__ __forceinline__ float prob(float s, float scale, float lse_l2e, bool 
 }
 
 // dQ over query blocks; also writes delta = rowsum(dO * O) for the dK/dV
-// kernel. Grid (bh, query blocks). Tensor maps over (D, n, bh): Q and dO
-// with 64-row boxes, K and V with kN-row boxes.
+// kernel. Grid (B * heads, query blocks). Tensor maps over (D, n, H, B): Q
+// and dO with 64-row boxes, K and V with kN-row boxes; O, dO and dQ by
+// their strides (o_st, do_st, dq_st).
 template <int D, class S>
 __global__ void __launch_bounds__(128)
 attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap domap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ o,
-                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ slopes, bf16* __restrict__ dq,
-                         float* __restrict__ delta, int nq, int nk, int causal, int q_off,
-                         float scale) {
+                         Bhn o_st, const bf16* __restrict__ dout, Bhn do_st,
+                         const float* __restrict__ lse, const float* __restrict__ slopes,
+                         bf16* __restrict__ dq, Bhn dq_st, float* __restrict__ delta, int heads,
+                         int nq, int nk, int causal, int q_off, float scale) {
   using P = WgBwd<D, S>;
   constexpr int BN = S::kN, NS = S::kStages, DT = P::kDt;
   extern __shared__ unsigned char smem_raw[];
@@ -132,10 +141,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* own = full + NS;                                        // Q and dO
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x, b = bh / heads, h = bh - b * heads;
   const int r0 = (gridDim.y - 1 - blockIdx.y) * P::kRows;  // the longest blocks start first
   const int row0 = r0 + warp * 16;
-  const size_t qb = (size_t)bh * nq * D;
   const float slope = slopes ? slopes[bh] : 0.f;
   const int n_tiles = (key_end(r0, P::kRows, nk, causal, q_off) + BN - 1) / BN;
 
@@ -146,9 +154,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     uint64_t* bar = &full[tile % NS];
     mbar_arrive_expect_tx(bar, P::kDqStage);
 #pragma unroll
-    for (int b = 0; b < P::kBoxes; ++b) {
-      tma_load_3d(ks + b * BN * 128, &kmap, bar, 64 * b, tile * BN, bh);
-      tma_load_3d(ks + BN * DT * 2 + b * BN * 128, &vmap, bar, 64 * b, tile * BN, bh);
+    for (int x = 0; x < P::kBoxes; ++x) {
+      tma_load_4d(ks + x * BN * 128, &kmap, bar, 64 * x, tile * BN, h, b);
+      tma_load_4d(ks + BN * DT * 2 + x * BN * 128, &vmap, bar, 64 * x, tile * BN, h, b);
     }
   };
   if (threadIdx.x == 0) {
@@ -158,9 +166,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (n_tiles > 0) {
       mbar_arrive_expect_tx(own, 2 * P::kOwnBytes);
 #pragma unroll
-      for (int b = 0; b < P::kBoxes; ++b) {
-        tma_load_3d(qs + b * P::kRows * 128, &qmap, own, 64 * b, r0, bh);
-        tma_load_3d(dos + b * P::kRows * 128, &domap, own, 64 * b, r0, bh);
+      for (int x = 0; x < P::kBoxes; ++x) {
+        tma_load_4d(qs + x * P::kRows * 128, &qmap, own, 64 * x, r0, h, b);
+        tma_load_4d(dos + x * P::kRows * 128, &domap, own, 64 * x, r0, h, b);
       }
       for (int s = 0; s < NS && s < n_tiles; ++s) load_tile(s);
     }
@@ -177,12 +185,14 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int row = r0 + r;
     float part = 0.f;
     if (row < nq) {
-      const uint4* a = reinterpret_cast<const uint4*>(dout + qb + (size_t)row * D) + half * kHalf;
-      const uint4* b = reinterpret_cast<const uint4*>(o + qb + (size_t)row * D) + half * kHalf;
+      const uint4* a =
+          reinterpret_cast<const uint4*>(dout + b * do_st.b + h * do_st.h + row * do_st.n) + half * kHalf;
+      const uint4* z =
+          reinterpret_cast<const uint4*>(o + b * o_st.b + h * o_st.h + row * o_st.n) + half * kHalf;
 #pragma unroll
       for (int c = 0; c < kHalf; ++c) {
         if (half * kHalf + c >= kChunks) break;
-        const uint4 x = a[c], y = b[c];
+        const uint4 x = a[c], y = z[c];
         part = fmaf(bf16_lo(x.x), bf16_lo(y.x), part);
         part = fmaf(bf16_hi(x.x), bf16_hi(y.x), part);
         part = fmaf(bf16_lo(x.y), bf16_lo(y.y), part);
@@ -202,10 +212,10 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // rows g, g + 8 of this warp: delta times scale, lse times log2(e)
   float dls_r[2], lse_r[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + h * 8;
-    dls_r[h] = dls[warp * 16 + g + h * 8] * scale;
-    lse_r[h] = row < nq ? lse[(size_t)bh * nq + row] * kLog2e : 0.f;
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + g + e * 8;
+    dls_r[e] = dls[warp * 16 + g + e * 8] * scale;
+    lse_r[e] = row < nq ? lse[(size_t)bh * nq + row] * kLog2e : 0.f;
   }
   float acc[DT / 2];  // dQ: d[4 j + c] = (row g or g + 8, column 8 j + 2 t + (c & 1))
 #pragma unroll
@@ -271,12 +281,13 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       if (threadIdx.x == 0 && tile + NS < n_tiles) load_tile(tile + NS);
     }
   }
-  store_acc_bf16<D, DT>(dq + qb, acc, row0, nq, g, t);
+  store_acc_bf16<D, DT>(dq + b * dq_st.b + h * dq_st.h, dq_st.n, acc, row0, nq, g, t);
 }
 
 // dK and dV over key blocks: S^T = K Q^T and dP^T = V dO^T, so the block's
-// 64 keys are the rows of every product. Grid (bh, key blocks). Tensor maps
-// over (D, n, bh): K and V with 64-row boxes, Q and dO with kM-row boxes.
+// 64 keys are the rows of every product. Grid (B * heads, key blocks).
+// Tensor maps over (D, n, H, B): K and V with 64-row boxes, Q and dO with
+// kM-row boxes; dK and dV stored by their strides (dk_st, dv_st).
 template <int D, class S>
 __global__ void __launch_bounds__(128)
 attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -284,8 +295,8 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap, const float* __restrict__ lse,
                           const float* __restrict__ delta, const float* __restrict__ slopes,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int nq, int nk, int causal,
-                          int q_off, float scale) {
+                          bf16* __restrict__ dk, Bhn dk_st, bf16* __restrict__ dv, Bhn dv_st,
+                          int heads, int nq, int nk, int causal, int q_off, float scale) {
   using P = WgBwd<D, S>;
   constexpr int BM = S::kM, NS = S::kStages, DT = P::kDt;
   extern __shared__ unsigned char smem_raw[];
@@ -297,10 +308,9 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* own = full + NS;                                            // K and V
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x, b = bh / heads, h = bh - b * heads;
   const int k0 = blockIdx.y * P::kRows;  // the first key blocks see the most queries
   const int key0 = k0 + warp * 16;
-  const size_t kb = (size_t)bh * nk * D;
   const float slope = slopes ? slopes[bh] : 0.f;
   const int q_begin = query_start(k0, BM, causal, q_off);
   const int n_tiles = q_begin < nq ? (nq - q_begin + BM - 1) / BM : 0;
@@ -311,9 +321,9 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int q0 = q_begin + tile * BM;
     mbar_arrive_expect_tx(bar, P::kDkvStage);
 #pragma unroll
-    for (int b = 0; b < P::kBoxes; ++b) {
-      tma_load_3d(qsb + b * BM * 128, &qmap, bar, 64 * b, q0, bh);
-      tma_load_3d(qsb + BM * DT * 2 + b * BM * 128, &domap, bar, 64 * b, q0, bh);
+    for (int x = 0; x < P::kBoxes; ++x) {
+      tma_load_4d(qsb + x * BM * 128, &qmap, bar, 64 * x, q0, h, b);
+      tma_load_4d(qsb + BM * DT * 2 + x * BM * 128, &domap, bar, 64 * x, q0, h, b);
     }
   };
   // every thread: its part of the tile's lse and delta rows by cp.async
@@ -334,9 +344,9 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (n_tiles > 0) {
       mbar_arrive_expect_tx(own, 2 * P::kOwnBytes);
 #pragma unroll
-      for (int b = 0; b < P::kBoxes; ++b) {
-        tma_load_3d(ks + b * P::kRows * 128, &kmap, own, 64 * b, k0, bh);
-        tma_load_3d(vs + b * P::kRows * 128, &vmap, own, 64 * b, k0, bh);
+      for (int x = 0; x < P::kBoxes; ++x) {
+        tma_load_4d(ks + x * P::kRows * 128, &kmap, own, 64 * x, k0, h, b);
+        tma_load_4d(vs + x * P::kRows * 128, &vmap, own, 64 * x, k0, h, b);
       }
       for (int s = 0; s < NS && s < n_tiles; ++s) load_tile(s);
     }
@@ -425,46 +435,55 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       load_rows(tile + NS);
     }
   }
-  store_acc_bf16<D, DT>(dk + kb, dka, key0, nk, g, t);
-  store_acc_bf16<D, DT>(dv + kb, dva, key0, nk, g, t);
+  store_acc_bf16<D, DT>(dk + b * dk_st.b + h * dk_st.h, dk_st.n, dka, key0, nk, g, t);
+  store_acc_bf16<D, DT>(dv + b * dv_st.b + h * dv_st.h, dv_st.n, dva, key0, nk, g, t);
 }
 
-// Launch the backward, dQ then dK/dV on stream s, with tile shape S. The
-// tensor maps are encoded on the host for every call and passed by value.
-// Returns cudaGetLastError() after the launches; cudaErrorInvalidValue,
-// with no launch tried, if a tensor map could not be encoded.
+// Launch the backward, dQ then dK/dV on stream s, with tile shape S, over
+// (batch, heads, n, D) operands with element strides st[0..7] (q, k, v, o,
+// dO, dQ, dK, dV). The tensor maps are encoded on the host for every call
+// and passed by value. Returns cudaGetLastError() after the launches;
+// cudaErrorInvalidValue, with no launch tried, if a tensor map could not be
+// encoded.
 template <int D, class S>
 int launch_bwd_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                      const float* lse, const bf16* dout, const float* slopes, bf16* dq, bf16* dk,
-                     bf16* dv, float* delta, int bh, int nq, int nk, int causal, int q_off,
-                     float scale, cudaStream_t s) {
+                     bf16* dv, float* delta, const Bhn* st, int batch, int heads, int nq, int nk,
+                     int causal, int q_off, float scale, cudaStream_t s) {
   using P = WgBwd<D, S>;
+  const int H = heads, B = batch;
   CUtensorMap q64, do64, k64, v64, kn, vn, qm, dom;
-  bool ok = make_map_3d(&q64, q, D, nq, bh, 64) && make_map_3d(&do64, dout, D, nq, bh, 64) &&
-            make_map_3d(&k64, k, D, nk, bh, 64) && make_map_3d(&v64, v, D, nk, bh, 64);
+  bool ok = make_map_4d(&q64, q, D, nq, H, B, st[0], 64) &&
+            make_map_4d(&do64, dout, D, nq, H, B, st[4], 64) &&
+            make_map_4d(&k64, k, D, nk, H, B, st[1], 64) &&
+            make_map_4d(&v64, v, D, nk, H, B, st[2], 64);
   if constexpr (S::kN == 64) {
     kn = k64;
     vn = v64;
   } else {
-    ok = ok && make_map_3d(&kn, k, D, nk, bh, S::kN) && make_map_3d(&vn, v, D, nk, bh, S::kN);
+    ok = ok && make_map_4d(&kn, k, D, nk, H, B, st[1], S::kN) &&
+         make_map_4d(&vn, v, D, nk, H, B, st[2], S::kN);
   }
   if constexpr (S::kM == 64) {
     qm = q64;
     dom = do64;
   } else {
-    ok = ok && make_map_3d(&qm, q, D, nq, bh, S::kM) && make_map_3d(&dom, dout, D, nq, bh, S::kM);
+    ok = ok && make_map_4d(&qm, q, D, nq, H, B, st[0], S::kM) &&
+         make_map_4d(&dom, dout, D, nq, H, B, st[4], S::kM);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   static const bool smem_ok = allow_smem(attn_bwd_dq_wgmma_kernel<D, S>, P::kSmemDq) &&
                               allow_smem(attn_bwd_dkv_wgmma_kernel<D, S>, P::kSmemDkv);
   if (smem_ok) {
     attn_bwd_dq_wgmma_kernel<D, S>
-        <<<dim3(bh, (nq + P::kRows - 1) / P::kRows), P::kThreads, P::kSmemDq, s>>>(
-            q64, do64, kn, vn, o, dout, lse, slopes, dq, delta, nq, nk, causal, q_off, scale);
+        <<<dim3(B * H, (nq + P::kRows - 1) / P::kRows), P::kThreads, P::kSmemDq, s>>>(
+            q64, do64, kn, vn, o, st[3], dout, st[4], lse, slopes, dq, st[5], delta, H, nq, nk,
+            causal, q_off, scale);
     if (cudaPeekAtLastError() == cudaSuccess) {
       attn_bwd_dkv_wgmma_kernel<D, S>
-          <<<dim3(bh, (nk + P::kRows - 1) / P::kRows), P::kThreads, P::kSmemDkv, s>>>(
-              qm, dom, k64, v64, lse, delta, slopes, dk, dv, nq, nk, causal, q_off, scale);
+          <<<dim3(B * H, (nk + P::kRows - 1) / P::kRows), P::kThreads, P::kSmemDkv, s>>>(
+              qm, dom, k64, v64, lse, delta, slopes, dk, st[6], dv, st[7], H, nq, nk, causal,
+              q_off, scale);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -19,8 +19,10 @@
 //   longest causal blocks start first. One thread issues every copy: Q once,
 //   then K and V tiles of kN keys into a ring of kStages stages, each
 //   completing on its mbarrier, so the next tiles land while this one is
-//   computed. 3-D tensor maps over (D, n, bh) let the hardware zero-fill
-//   rows past n and, at head dims 80 and 88, columns D-127; 128-byte boxes
+//   computed. 4-D tensor maps over (D, n, H, B), each with its operand's
+//   own strides, let the hardware zero-fill rows past n and, at head dims
+//   80 and 88, columns D-127 (whatever the strides put there: the next
+//   head's columns in a token-major array); 128-byte boxes
 //   with the 128-byte swizzle feed wgmma without bank conflicts. A tile is
 //   kDt = 64 or 128 columns wide: one box, or two (D = 80, 88 and 128).
 // - Per tile: S = (Q scale) K^T with Q and K from shared
@@ -37,6 +39,11 @@
 // - No branch around a wgmma, and no warp specialisation: the softmax does
 //   not overlap the block's own products, only those of the other blocks on
 //   the SM.
+// - Operands are addressed through their strides (Bhn, wgmma_bf16.cuh): q,
+//   k and v may be head views into a fused q|k|v projection, and O is
+//   stored as its strides say (token-major, (B, n, H, D), for the callers),
+//   so no caller copies heads apart or back together. A 128-byte box row is
+//   128 contiguous bytes whatever the row stride. lse stays (B*H, n).
 // The tensor maps are encoded on the host for each call
 // (cuTensorMapEncodeTiled through the runtime, no -lcuda).
 
@@ -70,15 +77,15 @@ struct WgFwd : S {
   static_assert(S::kStages >= 1 && kSmem <= 227 * 1024, "a block may take 227 KB of shared memory");
 };
 
-// Grid (bh, query blocks). Tensor maps over (D, n, bh): Q with 64-row
-// boxes, K and V with kN-row boxes.
+// Grid (B * heads, query blocks). Tensor maps over (D, n, H, B): Q with
+// 64-row boxes, K and V with kN-row boxes. O (strides o_st) and lse (B*H, nq).
 template <int D, class S>
 __global__ void __launch_bounds__(WgFwd<D, S>::kThreads)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
-                      const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
-                      float* __restrict__ lse, const float* __restrict__ slopes, int nq, int nk,
-                      int causal, int q_off, float scale) {
+                      const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, Bhn o_st,
+                      float* __restrict__ lse, const float* __restrict__ slopes, int heads,
+                      int nq, int nk, int causal, int q_off, float scale) {
   using P = WgFwd<D, S>;
   constexpr int BN = S::kN, NS = S::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -88,7 +95,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* qbar = full + NS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x, b = bh / heads, h = bh - b * heads;
   const int r0 = (gridDim.y - 1 - blockIdx.y) * P::kRows;  // the longest blocks start first
   const int row0 = r0 + warp * 16;
   const float slope = slopes ? slopes[bh] : 0.f;
@@ -107,9 +114,9 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       uint64_t* bar = &full[tile % NS];
       mbar_arrive_expect_tx(bar, P::kStageBytes);
 #pragma unroll
-      for (int b = 0; b < P::kBoxes; ++b) {
-        tma_load_3d(ks + b * BN * 128, &kmap, bar, 64 * b, tile * BN, bh);
-        tma_load_3d(ks + P::kTileBytes + b * BN * 128, &vmap, bar, 64 * b, tile * BN, bh);
+      for (int x = 0; x < P::kBoxes; ++x) {
+        tma_load_4d(ks + x * BN * 128, &kmap, bar, 64 * x, tile * BN, h, b);
+        tma_load_4d(ks + P::kTileBytes + x * BN * 128, &vmap, bar, 64 * x, tile * BN, h, b);
       }
     };
     if (threadIdx.x == 0) {
@@ -118,7 +125,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_init_fence();
       mbar_arrive_expect_tx(qbar, P::kQBytes);
 #pragma unroll
-      for (int b = 0; b < P::kBoxes; ++b) tma_load_3d(qs + b * 64 * 128, &qmap, qbar, 64 * b, r0, bh);
+      for (int x = 0; x < P::kBoxes; ++x) tma_load_4d(qs + x * 64 * 128, &qmap, qbar, 64 * x, r0, h, b);
       for (int s = 0; s < NS && s < n_tiles; ++s) load_tile(s);
     }
     __syncthreads();  // the barriers are initialised
@@ -181,12 +188,12 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       float alpha[2], ml[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float m_new = fmaxf(m[h], quad_max(mx[h]));
-        alpha[h] = exp2f((m[h] - m_new) * kLog2e);
-        m[h] = m_new;
-        ml[h] = m_new * kLog2e;
-        l[h] *= alpha[h];
+      for (int e = 0; e < 2; ++e) {
+        const float m_new = fmaxf(m[e], quad_max(mx[e]));
+        alpha[e] = exp2f((m[e] - m_new) * kLog2e);
+        m[e] = m_new;
+        ml[e] = m_new * kLog2e;
+        l[e] *= alpha[e];
       }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -227,46 +234,50 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   float inv[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float lh = quad_sum(l[h]);
-    const float ls = lh == 0.f ? 1.f : lh;
-    inv[h] = 1.f / ls;
-    const int row = row0 + g + h * 8;
-    if (row < nq && t == 0) lse[(size_t)bh * nq + row] = m[h] + logf(ls);
+  for (int e = 0; e < 2; ++e) {
+    const float le = quad_sum(l[e]);
+    const float ls = le == 0.f ? 1.f : le;
+    inv[e] = 1.f / ls;
+    const int row = row0 + g + e * 8;
+    if (row < nq && t == 0) lse[(size_t)bh * nq + row] = m[e] + logf(ls);
   }
+  bf16* ob = o + b * o_st.b + h * o_st.h;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + h * 8;
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + g + e * 8;
     if (row >= nq) continue;
-    bf16* dst = o + ((size_t)bh * nq + row) * D + 2 * t;
+    bf16* dst = ob + row * o_st.n + 2 * t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-          pack_bf16(acc[4 * j + 2 * h] * inv[h], acc[4 * j + 2 * h + 1] * inv[h]);
+          pack_bf16(acc[4 * j + 2 * e] * inv[e], acc[4 * j + 2 * e + 1] * inv[e]);
     }
   }
 }
 
-// Launch the forward on stream s with tile shape S. The tensor maps are
-// encoded on the host for every call (under a us;
+// Launch the forward on stream s with tile shape S over (batch, heads, n,
+// D) operands with element strides st[0..3] (q, k, v, o). The tensor maps
+// are encoded on the host for every call (under a us;
 // scripts/probe_wgmma_torch.py times it) and passed by value; the
 // shared-memory opt-in is set once an instantiation. Returns
 // cudaGetLastError() after the launch; cudaErrorInvalidValue, with no
 // launch tried, if a tensor map could not be encoded.
 template <int D, class S>
 int launch_fwd_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-                     const float* slopes, int bh, int nq, int nk, int causal, int q_off,
-                     float scale, cudaStream_t s) {
+                     const float* slopes, const Bhn* st, int batch, int heads, int nq, int nk,
+                     int causal, int q_off, float scale, cudaStream_t s) {
   using P = WgFwd<D, S>;
   CUtensorMap qm, km, vm;
-  if (!make_map_3d(&qm, q, D, nq, bh, P::kRows) || !make_map_3d(&km, k, D, nk, bh, S::kN) ||
-      !make_map_3d(&vm, v, D, nk, bh, S::kN)) {
+  if (!make_map_4d(&qm, q, D, nq, heads, batch, st[0], P::kRows) ||
+      !make_map_4d(&km, k, D, nk, heads, batch, st[1], S::kN) ||
+      !make_map_4d(&vm, v, D, nk, heads, batch, st[2], S::kN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static const bool smem_ok = allow_smem(attn_fwd_wgmma_kernel<D, S>, P::kSmem);
   if (smem_ok) {
-    attn_fwd_wgmma_kernel<D, S><<<dim3(bh, (nq + P::kRows - 1) / P::kRows), P::kThreads, P::kSmem, s>>>(
-        qm, km, vm, o, lse, slopes, nq, nk, causal, q_off, scale);
+    attn_fwd_wgmma_kernel<D, S>
+        <<<dim3(batch * heads, (nq + P::kRows - 1) / P::kRows), P::kThreads, P::kSmem, s>>>(
+            qm, km, vm, o, st[3], lse, slopes, heads, nq, nk, causal, q_off, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

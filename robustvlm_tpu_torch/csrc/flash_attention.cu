@@ -4,8 +4,9 @@
 //
 // Replaces robustvlm_tpu/ops/pallas/flash_attention.py: _flash_fwd (kernel
 // body _fwd_kernel), and the two pallas_calls of _flash_bwd (_bwd_dq_kernel,
-// _bwd_dkv_kernel). Layout (B*H, N, D), contiguous; q (bh, nq, D), k and v
-// (bh, nk, D); float32 or bfloat16 operands; float32 softmax and sums; head
+// _bwd_dkv_kernel). Layout (B, H, N, D), q (B, H, nq, D), k and v (B, H,
+// nk, D): in bfloat16 each operand with its own strides (its head dim
+// contiguous), in float32 contiguous; float32 softmax and sums; head
 // dims 64 (CLIP text tower), 80 (OPT-2.7B in BLIP-2) and 128 (LLaMA-7B).
 //
 // The function is the Pallas kernels', not their tiling: the TPU keeps a
@@ -143,90 +144,115 @@ template <>
 struct Bf16Bwd<128> { static constexpr int kN = 64, kM = 64, kStages = 2; };
 
 // ================================================================= launches
-// cudaGetLastError() after the launch; cudaErrorInvalidValue, with no
-// launch tried, if a tensor map could not be encoded.
+// Over (batch, heads, n, D) operands with element strides st (q, k, v, o):
+// any strides in bf16, those of contiguous arrays in float32. Returns
+// cudaGetLastError() after the launch; cudaErrorInvalidValue, with no launch
+// tried, for float32 strides of another layout or a bf16 tensor map that
+// could not be encoded.
 template <int D>
 int launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
-               const float* slopes, int bh, int nq, int nk, int causal, int q_off, float scale,
-               cudaStream_t s) {
+               const float* slopes, const Bhn* st, int batch, int heads, int nq, int nk,
+               int causal, int q_off, float scale, cudaStream_t s) {
   float* l = static_cast<float*>(lse);
   if (dtype == 0) {
+    if (!packed(st[0], heads, nq, D) || !packed(st[1], heads, nk, D) ||
+        !packed(st[2], heads, nk, D) || !packed(st[3], heads, nq, D)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     using T = float;
     launch_fwd_tile<D, F32Tile<D, kFwd>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                          static_cast<const T*>(v), static_cast<T*>(o), l, slopes,
-                                         bh, nq, nk, causal, q_off, scale, s);
+                                         batch * heads, nq, nk, causal, q_off, scale, s);
     return static_cast<int>(cudaGetLastError());
   }
   return launch_fwd_wgmma<D, Bf16Fwd<D>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                          static_cast<const bf16*>(v), static_cast<bf16*>(o), l,
-                                         slopes, bh, nq, nk, causal, q_off, scale, s);
+                                         slopes, st, batch, heads, nq, nk, causal, q_off, scale, s);
 }
 
-// cudaGetLastError() after the launches; cudaErrorInvalidValue, with no
-// launch tried, if a bf16 tensor map could not be encoded.
+// As launch_fwd, st over q, k, v, o, dO, dQ, dK, dV.
 template <int D>
 int launch_bwd(int dtype, const void* q, const void* k, const void* v, const void* o,
                const void* lse, const void* dout, const float* slopes, void* dq, void* dk,
-               void* dv, void* delta, int bh, int nq, int nk, int causal, int q_off, float scale,
-               cudaStream_t s) {
+               void* dv, void* delta, const Bhn* st, int batch, int heads, int nq, int nk,
+               int causal, int q_off, float scale, cudaStream_t s) {
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == 0) {
+    for (int i = 0; i < 8; ++i) {  // q, o, dO, dQ have nq rows; k, v, dK, dV nk
+      const bool keys = i == 1 || i == 2 || i == 6 || i == 7;
+      if (!packed(st[i], heads, keys ? nk : nq, D)) return static_cast<int>(cudaErrorInvalidValue);
+    }
     using T = float;
     launch_bwd_tile<D, F32Tile<D, kDq>, F32Tile<D, kDkv>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), l, static_cast<const T*>(dout), slopes, static_cast<T*>(dq),
-        static_cast<T*>(dk), static_cast<T*>(dv), dl, bh, nq, nk, causal, q_off, scale, s);
+        static_cast<T*>(dk), static_cast<T*>(dv), dl, batch * heads, nq, nk, causal, q_off, scale,
+        s);
     return static_cast<int>(cudaGetLastError());
   }
   using T = bf16;
   return launch_bwd_wgmma<D, Bf16Bwd<D>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), l, static_cast<const T*>(dout), slopes, static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), dl, bh, nq, nk, causal, q_off, scale, s);
+      static_cast<T*>(dk), static_cast<T*>(dv), dl, st, batch, heads, nq, nk, causal, q_off, scale,
+      s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Head dims 64, 80 and 128. All arrays are
-// contiguous device arrays, 16-byte aligned: q, o (bh, nq, d); k, v (bh, nk,
-// d); lse (bh, nq) float32; slopes (bh,) float32 or null (no ALiBi).
-// causal: 0 or 1, with the diagonal at col = row + q_off. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unsupported dtype or head dim, or a bf16 tensor map that could not be
-// encoded).
+// dtype: 0 = float32, 1 = bfloat16. Head dims 64, 80 and 128. q, o are
+// (batch, heads, nq, d) and k, v (batch, heads, nk, d) device arrays,
+// 16-byte aligned, with element strides (batch, head, row: multiples of 8;
+// the head dim contiguous) in strides[0..11], q, k, v, o in turn; contiguous
+// in float32. lse (batch * heads, nq) float32; slopes (batch * heads,)
+// float32 or null (no ALiBi). causal: 0 or 1, with the diagonal at col = row
+// + q_off. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported dtype, head dim or float32
+// layout, or a bf16 tensor map that could not be encoded).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                              void* lse, const void* slopes, int bh, int nq, int nk, int d,
-                              int dtype, int causal, int q_off, float scale, void* stream) {
+                              void* lse, const void* slopes, int batch, int heads, int nq, int nk,
+                              int d, int dtype, int causal, int q_off, float scale,
+                              const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sl = static_cast<const float*>(slopes);
+  const Bhn* st = reinterpret_cast<const Bhn*>(strides);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 64: return launch_fwd<64>(dtype, q, k, v, o, lse, sl, bh, nq, nk, causal, q_off, scale, s);
-    case 80: return launch_fwd<80>(dtype, q, k, v, o, lse, sl, bh, nq, nk, causal, q_off, scale, s);
-    case 128: return launch_fwd<128>(dtype, q, k, v, o, lse, sl, bh, nq, nk, causal, q_off, scale, s);
+    case 64:
+      return launch_fwd<64>(dtype, q, k, v, o, lse, sl, st, batch, heads, nq, nk, causal, q_off,
+                            scale, s);
+    case 80:
+      return launch_fwd<80>(dtype, q, k, v, o, lse, sl, st, batch, heads, nq, nk, causal, q_off,
+                            scale, s);
+    case 128:
+      return launch_fwd<128>(dtype, q, k, v, o, lse, sl, st, batch, heads, nq, nk, causal, q_off,
+                             scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// delta is (bh, nq) float32 scratch; dq as q, dk and dv as k.
+// delta is (batch * heads, nq) float32 scratch; dq as q, dk and dv as k.
+// strides[0..23]: q, k, v, o, dout, dq, dk, dv.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* lse, const void* dout, const void* slopes, void* dq,
-                              void* dk, void* dv, void* delta, int bh, int nq, int nk, int d,
-                              int dtype, int causal, int q_off, float scale, void* stream) {
+                              void* dk, void* dv, void* delta, int batch, int heads, int nq,
+                              int nk, int d, int dtype, int causal, int q_off, float scale,
+                              const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sl = static_cast<const float*>(slopes);
+  const Bhn* st = reinterpret_cast<const Bhn*>(strides);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 64:
-      return launch_bwd<64>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, bh, nq, nk,
-                            causal, q_off, scale, s);
+      return launch_bwd<64>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, st, batch, heads,
+                            nq, nk, causal, q_off, scale, s);
     case 80:
-      return launch_bwd<80>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, bh, nq, nk,
-                            causal, q_off, scale, s);
+      return launch_bwd<80>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, st, batch, heads,
+                            nq, nk, causal, q_off, scale, s);
     case 128:
-      return launch_bwd<128>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, bh, nq, nk,
-                             causal, q_off, scale, s);
+      return launch_bwd<128>(dtype, q, k, v, o, lse, dout, sl, dq, dk, dv, delta, st, batch, heads,
+                             nq, nk, causal, q_off, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

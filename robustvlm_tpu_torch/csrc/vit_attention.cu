@@ -2,8 +2,9 @@
 // backward.
 //
 // Replaces robustvlm_tpu/ops/pallas/vit_attention.py: _vit_attn_fwd (kernel
-// body _fwd_kernel) and _vit_attn_bwd (_bwd_kernel). Layout (B*H, N, D),
-// contiguous; float32 or bfloat16 operands; float32 softmax and sums.
+// body _fwd_kernel) and _vit_attn_bwd (_bwd_kernel). Layout (B, H, N, D):
+// in bfloat16 each operand with its own strides (its head dim contiguous),
+// in float32 contiguous; float32 softmax and sums.
 //
 // What it computes is the Pallas kernels' function, not their tiling. The
 // TPU kernel holds the whole (N, N) float32 score tile of several heads in
@@ -123,77 +124,97 @@ template <>
 struct VitBf16Bwd<88> { static constexpr int kN = 64, kM = 64, kStages = 2; };
 
 // ================================================================= launches
-// cudaGetLastError() after the launch; cudaErrorInvalidValue, with no
-// launch tried, if a bf16 tensor map could not be encoded.
+// Over (batch, heads, n, D) operands with element strides st (q, k, v, o):
+// any strides in bf16, those of contiguous arrays in float32. Returns
+// cudaGetLastError() after the launch; cudaErrorInvalidValue, with no launch
+// tried, for float32 strides of another layout or a bf16 tensor map that
+// could not be encoded.
 template <int D>
 int launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
-               int bh, int n, float scale, cudaStream_t s) {
+               const Bhn* st, int batch, int heads, int n, float scale, cudaStream_t s) {
   if (dtype == 0) {
+    for (int i = 0; i < 4; ++i) {
+      if (!packed(st[i], heads, n, D)) return static_cast<int>(cudaErrorInvalidValue);
+    }
     launch_fwd_tile<D, VitF32Tile<D, kFwd>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                       static_cast<const float*>(v), static_cast<float*>(o),
-                                      static_cast<float*>(lse), nullptr, bh, n, n, 0, 0, scale, s);
+                                      static_cast<float*>(lse), nullptr, batch * heads, n, n, 0, 0,
+                                      scale, s);
     return static_cast<int>(cudaGetLastError());
   }
   return launch_fwd_wgmma<D, VitBf16Fwd<D>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                             static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                                            static_cast<float*>(lse), nullptr, bh, n, n, 0, 0,
-                                            scale, s);
+                                            static_cast<float*>(lse), nullptr, st, batch, heads, n,
+                                            n, 0, 0, scale, s);
 }
 
-// cudaGetLastError() after the launches; cudaErrorInvalidValue, with no
-// launch tried, if a bf16 tensor map could not be encoded.
+// As launch_fwd, st over q, k, v, o, dO, dQ, dK, dV.
 template <int D>
 int launch_bwd(int dtype, const void* q, const void* k, const void* v, const void* o,
                const void* lse, const void* dout, void* dq, void* dk, void* dv, void* delta,
-               int bh, int n, float scale, cudaStream_t s) {
+               const Bhn* st, int batch, int heads, int n, float scale, cudaStream_t s) {
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == 0) {
+    for (int i = 0; i < 8; ++i) {
+      if (!packed(st[i], heads, n, D)) return static_cast<int>(cudaErrorInvalidValue);
+    }
     using T = float;
     launch_bwd_tile<D, VitF32Tile<D, kDq>, VitF32Tile<D, kDkv>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), l, static_cast<const T*>(dout), nullptr, static_cast<T*>(dq),
-        static_cast<T*>(dk), static_cast<T*>(dv), dl, bh, n, n, 0, 0, scale, s);
+        static_cast<T*>(dk), static_cast<T*>(dv), dl, batch * heads, n, n, 0, 0, scale, s);
     return static_cast<int>(cudaGetLastError());
   }
   using T = bf16;
   return launch_bwd_wgmma<D, VitBf16Bwd<D>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), l, static_cast<const T*>(dout), nullptr, static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), dl, bh, n, n, 0, 0, scale, s);
+      static_cast<T*>(dk), static_cast<T*>(dv), dl, st, batch, heads, n, n, 0, 0, scale, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Head dims 64, 80 and 88. All arrays are
-// contiguous device arrays, 16-byte aligned: q, k, v, o (bh, n, d); lse
-// (bh, n) float32. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported dtype or head dim, or a bf16
-// tensor map that could not be encoded).
+// dtype: 0 = float32, 1 = bfloat16. Head dims 64, 80 and 88. q, k, v, o are
+// (batch, heads, n, d) device arrays, 16-byte aligned, with element strides
+// (batch, head, row: multiples of 8; the head dim contiguous) in
+// strides[0..11], q, k, v, o in turn; contiguous in float32. lse (batch *
+// heads, n) float32. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported dtype, head dim or float32
+// layout, or a bf16 tensor map that could not be encoded).
 extern "C" int vit_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                            void* lse, int bh, int n, int d, int dtype, float scale,
-                            void* stream) {
+                            void* lse, int batch, int heads, int n, int d, int dtype, float scale,
+                            const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Bhn* st = reinterpret_cast<const Bhn*>(strides);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 64: return launch_fwd<64>(dtype, q, k, v, o, lse, bh, n, scale, s);
-    case 80: return launch_fwd<80>(dtype, q, k, v, o, lse, bh, n, scale, s);
-    case 88: return launch_fwd<88>(dtype, q, k, v, o, lse, bh, n, scale, s);
+    case 64: return launch_fwd<64>(dtype, q, k, v, o, lse, st, batch, heads, n, scale, s);
+    case 80: return launch_fwd<80>(dtype, q, k, v, o, lse, st, batch, heads, n, scale, s);
+    case 88: return launch_fwd<88>(dtype, q, k, v, o, lse, st, batch, heads, n, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// delta is (bh, n) float32 scratch; dq, dk, dv as q.
+// delta is (batch * heads, n) float32 scratch; dq, dk, dv as q. strides[0..23]:
+// q, k, v, o, dout, dq, dk, dv.
 extern "C" int vit_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                             const void* lse, const void* dout, void* dq, void* dk,
-                            void* dv, void* delta, int bh, int n, int d, int dtype,
-                            float scale, void* stream) {
+                            void* dv, void* delta, int batch, int heads, int n, int d, int dtype,
+                            float scale, const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Bhn* st = reinterpret_cast<const Bhn*>(strides);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 64: return launch_bwd<64>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, bh, n, scale, s);
-    case 80: return launch_bwd<80>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, bh, n, scale, s);
-    case 88: return launch_bwd<88>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, bh, n, scale, s);
+    case 64:
+      return launch_bwd<64>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, st, batch, heads, n,
+                            scale, s);
+    case 80:
+      return launch_bwd<80>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, st, batch, heads, n,
+                            scale, s);
+    case 88:
+      return launch_bwd<88>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, st, batch, heads, n,
+                            scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

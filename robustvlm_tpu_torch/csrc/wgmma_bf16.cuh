@@ -3,8 +3,9 @@
 // (wgmma) with B in shared memory and A in shared memory (_ss) or in
 // registers (_rs). sm_90a only.
 //
-// Tiles are copied by TMA from (inner, rows, planes) bf16 arrays (inner =
-// head dim, rows = sequence, planes = heads) as boxes of 64 inner elements
+// Tiles are copied by TMA from (inner, rows, heads, batch) bf16 arrays
+// (inner = head dim, rows = sequence), each addressed through its own
+// strides, as boxes of 64 inner elements
 // (128 bytes) by `box_rows` rows, with the 128-byte swizzle: row r of a box
 // lands at byte 128 r of it, its 16-byte chunk c at chunk c ^ (r % 8). Rows
 // past the array's `rows`, and columns past `inner` (a head dim of 80 or 88
@@ -118,6 +119,32 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ----------------------------------------------------------------------- TMA
+// Element strides of a (batch, heads, rows, inner) bf16 operand whose inner
+// dimension is contiguous: a contiguous (B*H, n, D) array has (H n D, n D,
+// D); a head's view into a token-major (B, n, H, D) array or into a fused
+// (B, n, 3 H D) projection has (n W, D, W) with W the row's width.
+struct Bhn {
+  long long b, h, n;
+};
+
+// Whether st are the strides of a contiguous (batch, heads, n, d) array: what
+// the float32 kernels, which take no strides, need.
+inline bool packed(const Bhn& st, int heads, int n, int d) {
+  return st.n == d && st.h == (long long)n * d && st.b == (long long)heads * n * d;
+}
+
+// One box of a 4-D tensor map into shared memory at dst (1024-byte aligned
+// for the 128-byte swizzle), completing on bar. Coordinates innermost first:
+// column, row, head, batch.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // One box of a 3-D tensor map into shared memory at dst (1024-byte aligned
 // for the 128-byte swizzle), completing on bar. Coordinates innermost first.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -151,7 +178,8 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A tensor map over a contiguous (planes, rows, inner) bf16 array, boxes of
-// 64 x box_rows x 1, 128-byte swizzle, zero fill. False on failure.
+// 64 x box_rows x 1, 128-byte swizzle, zero fill (scripts/probe_wgmma_torch.py's
+// tiles). False on failure.
 inline bool make_map_3d(CUtensorMap* map, const void* base, int inner, int rows, int planes,
                         int box_rows) {
   const EncodeTiled fn = encode_tiled();
@@ -161,6 +189,24 @@ inline bool make_map_3d(CUtensorMap* map, const void* base, int inner, int rows,
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map over a (batch, heads, rows, inner) bf16 operand with element
+// strides st (multiples of 8: TMA takes strides of whole 16 bytes), boxes of
+// 64 x box_rows x 1 x 1, 128-byte swizzle, zero fill past rows and inner
+// whatever the strides put there. False on failure.
+inline bool make_map_4d(CUtensorMap* map, const void* base, int inner, int rows, int heads,
+                        int batch, Bhn st, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.n * 2, (cuuint64_t)st.h * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -17,7 +17,8 @@ Counterpart of `robustvlm_tpu/models/blip2/model.py` (HF
   runs causally over the concatenation.
 
 On a CUDA tensor the vision blocks' attention goes through the port's
-`vit_attention` (its kernels at head dim 88 for ViT-g/14), their
+`vit_attention_qkv` (its kernels at head dim 88 for ViT-g/14, reading the
+heads out of the fused q|k|v projection), their
 LayerNorms and bias + exact GELU through `ops/kernels/block_ops.py`, and
 OPT's blocks through `flash_attention` and the same block kernels
 (`models/opt/model.py`). The Q-Former's attention (32 queries) stays plain
@@ -74,7 +75,7 @@ from robustvlm_tpu_torch.models.opt.model import (
     opt_forward,
 )
 from robustvlm_tpu_torch.ops.image import normalize_clip, resize_bicubic
-from robustvlm_tpu_torch.ops.kernels.vit_attention import vit_attention
+from robustvlm_tpu_torch.ops.kernels.vit_attention import vit_attention_qkv
 from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, gather_from_model, local
 from robustvlm_tpu_torch.utils.profiling import span
 
@@ -140,18 +141,13 @@ def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch
     return torch.matmul(p, v).transpose(1, 2).reshape(b, tq, w)
 
 
-def _self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
-    """`_mha` of a vision block: the `vit_attention` kernels for CUDA
-    tensors, the plain version for CPU ones."""
-    if not q.is_cuda:
-        return _mha(q, k, v, heads)
-    b, n, w = q.shape
-    hd = w // heads
-
-    def split(t):
-        return t.reshape(b, n, heads, hd).transpose(1, 2)
-
-    return vit_attention(split(q), split(k), split(v)).transpose(1, 2).reshape(b, n, w)
+def _self_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """`_mha` of a vision block over its fused (B, N, 3W) q|k|v projection:
+    the `vit_attention` kernels for CUDA tensors, which read the heads out of
+    it, the plain version for CPU ones."""
+    if not qkv.is_cuda:
+        return _mha(*qkv.chunk(3, dim=-1), heads)
+    return vit_attention_qkv(qkv, heads)
 
 
 class LayerNorm(nn.Module):
@@ -203,8 +199,8 @@ class VisionBlock(nn.Module):
         vc, a, m, tp = self.vc, self.attn, self.mlp, self.tp
         heads = vc.heads // tp.size if tp else vc.heads
         x = layer_norm(h, self.ln_1.g, self.ln_1.b, vc.norm_eps)
-        q, k, v = _col(x, a.qkv_w, a.qkv_b, tp, b_split=True).chunk(3, dim=-1)
-        h = h + _row(_self_attention(q, k, v, heads), a.out_w, a.out_b, tp)
+        qkv = _col(x, a.qkv_w, a.qkv_b, tp, b_split=True)
+        h = h + _row(_self_attention(qkv, heads), a.out_w, a.out_b, tp)
         x = layer_norm(h, self.ln_2.g, self.ln_2.b, vc.norm_eps)
         return h + _row(_col_act(x, m.fc_w, m.fc_b, tp, "gelu"), m.proj_w, m.proj_b, tp)
 

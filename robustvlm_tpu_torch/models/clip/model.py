@@ -16,7 +16,9 @@ the JAX package's parameter names and layouts (linear weights stored
   after that matmul, and takes raw [0,1] pixels.
 - Non-causal vision attention goes through the port's `vit_attention`,
   causal text attention through its `flash_attention` (CUDA kernels on the
-  card for both), as the JAX `flash=True` branch routes them.
+  card for both), as the JAX `flash=True` branch routes them; both in
+  their packed forms, which read the heads out of the fused q|k|v
+  projection and return them merged, with no copy either way in bf16.
 - The weights are created frozen (`requires_grad_(False)`): the attacks
   differentiate with respect to pixels only, so autograd computes no
   weight gradients. The trainer (`train/trainer.py`) unfreezes the model
@@ -43,8 +45,8 @@ from torch import nn
 
 from robustvlm_tpu_torch.models.clip.convnext import ConvNeXtConfig, ConvNeXtTower
 from robustvlm_tpu_torch.ops.kernels.block_ops import bias_act, layer_norm
-from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
-from robustvlm_tpu_torch.ops.kernels.vit_attention import vit_attention
+from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention_qkv
+from robustvlm_tpu_torch.ops.kernels.vit_attention import vit_attention_qkv
 from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, local, row_parallel
 
 
@@ -170,20 +172,12 @@ class Attention(nn.Module):
         self.out_b = nn.Parameter(torch.zeros(width))
 
     def forward(self, x: torch.Tensor, causal: bool, tp=None) -> torch.Tensor:
-        b, n, w = x.shape
-        hd = w // self.heads
         heads = self.heads // tp.size if tp else self.heads
         cd = x.dtype
         qkv = (column_parallel(x, local(self.qkv_w).to(cd), tp) if tp else x @ self.qkv_w.to(cd)) + \
             local(self.qkv_b).to(cd)
-
-        def heads_split(t):
-            return t.reshape(b, n, heads, hd).transpose(1, 2)
-
-        q, k, v = (heads_split(t) for t in qkv.split(heads * hd, dim=-1))
         # the CLIP text mask only ever encodes causality (JAX model.py:190-207)
-        out = flash_attention(q, k, v, causal=True) if causal else vit_attention(q, k, v)
-        out = out.transpose(1, 2).reshape(b, n, heads * hd)
+        out = flash_attention_qkv(qkv, heads, causal=True) if causal else vit_attention_qkv(qkv, heads)
         out = row_parallel(out, local(self.out_w).to(cd), tp) if tp else out @ self.out_w.to(cd)
         return out + self.out_b.to(cd)
 

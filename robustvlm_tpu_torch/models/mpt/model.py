@@ -12,11 +12,12 @@ names and layouts are the JAX tree's (linear weights (in, out) for
   head count, interleaved back down to n heads; the bias is
   -slope * (i - j).
 - The full-sequence causal path (no cache, no key mask, no shifted
-  positions) goes through the port's `flash_attention` with the slopes on
-  every device: the CUDA kernels on the card, their plain version on the
-  CPU. The JAX package chooses its Pallas kernel by a shape rule measured on
-  a TPU v5e (head dim 128, 1024 tokens or more, 64 batch x head rows or
-  more); that measurement does not carry over, so the port takes the kernel
+  positions) goes through the port's `flash_attention_qkv` with the slopes
+  on every device: the CUDA kernels on the card, which read the heads out of
+  the fused Wqkv projection, their plain version on the CPU. The JAX
+  package chooses its Pallas kernel by a shape rule measured on a TPU v5e
+  (head dim 128, 1024 tokens or more, 64 batch x head rows or more); that
+  measurement does not carry over, so the port takes the kernel
   whatever the length, as its LLaMA does. The function is the same either
   way. The cached and masked paths stay masked plain attention, as in JAX.
 - `layer_hook(i, x) -> x` runs before each block: the insertion point of
@@ -50,7 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from robustvlm_tpu_torch.models.llama.model import _cache_write
-from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention
+from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention_qkv
 from robustvlm_tpu_torch.ops.quant import qmatmul
 from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, local, row_parallel
 
@@ -181,27 +182,28 @@ class Block(nn.Module):
         h = layer_norm(x, self.norm_1, cfg.norm_eps)
         qkv = col(h, a.wqkv)
         w = n_heads * cfg.head_dim
-        q, k, v = (y.reshape(b, t, n_heads, cfg.head_dim).transpose(1, 2)
-                   for y in qkv.split(w, dim=-1))
-        slot_q = None if pos is None else int(pos) + torch.arange(t, device=x.device)
-        if cache is not None:
-            ck = _cache_write(cache[0], k.to(cache[0].dtype), pos)
-            cv = _cache_write(cache[1], v.to(cache[1].dtype), pos)
-            if kv_positions is not None:
-                # true token positions for q and k: exact ALiBi distances even
-                # with mid-sequence padding
-                qp = positions if positions is not None else slot_q
-                att = _attn_masked(q, ck, cv, slopes, q_positions=qp, kv_mask=kv_mask,
-                                   kv_positions=kv_positions)
-            else:
-                # a uniform left pad: slot distances are token distances
-                att = _attn_masked(q, ck, cv, slopes, q_positions=slot_q, kv_mask=kv_mask)
-        elif kv_mask is None and positions is None:
-            att = flash_attention(q, k, v, causal=True, alibi_slopes=slopes)
+        if cache is None and kv_mask is None and positions is None:
+            att = flash_attention_qkv(qkv, n_heads, causal=True, alibi_slopes=slopes)
         else:
-            qp = positions if positions is not None else torch.arange(t, device=x.device)
-            att = _attn_masked(q, k, v, slopes, q_positions=qp, kv_mask=kv_mask)
-        att = att.transpose(1, 2).reshape(b, t, w)
+            q, k, v = (y.reshape(b, t, n_heads, cfg.head_dim).transpose(1, 2)
+                       for y in qkv.split(w, dim=-1))
+            if cache is not None:
+                slot_q = None if pos is None else int(pos) + torch.arange(t, device=x.device)
+                ck = _cache_write(cache[0], k.to(cache[0].dtype), pos)
+                cv = _cache_write(cache[1], v.to(cache[1].dtype), pos)
+                if kv_positions is not None:
+                    # true token positions for q and k: exact ALiBi distances
+                    # even with mid-sequence padding
+                    qp = positions if positions is not None else slot_q
+                    att = _attn_masked(q, ck, cv, slopes, q_positions=qp, kv_mask=kv_mask,
+                                       kv_positions=kv_positions)
+                else:
+                    # a uniform left pad: slot distances are token distances
+                    att = _attn_masked(q, ck, cv, slopes, q_positions=slot_q, kv_mask=kv_mask)
+            else:
+                qp = positions if positions is not None else torch.arange(t, device=x.device)
+                att = _attn_masked(q, k, v, slopes, q_positions=qp, kv_mask=kv_mask)
+            att = att.transpose(1, 2).reshape(b, t, w)
         x = x + row(att.to(cd), a.out_w)
         h = layer_norm(x, self.norm_2, cfg.norm_eps)
         return x + row(F.gelu(col(h, m.up_w)), m.down_w)

@@ -10,7 +10,9 @@ for `x @ w`), so a JAX tree carries across by name (`convert.py`).
 
 - Causal attention without a key mask (the teacher-forced forward the
   attacks differentiate) goes through the port's `flash_attention` on a
-  CUDA tensor (its kernels at head dim 80 for OPT-2.7B). The paths with a
+  CUDA tensor (its kernels at head dim 80 for OPT-2.7B), handed the heads
+  as views of the q, k and v projections; it returns them token-major, so
+  merging them back is free. The paths with a
   cache or a key mask (prefill with left padding, decode), and every CPU
   tensor, stay plain PyTorch, as in JAX (no Pallas kernel there): scores
   in the compute dtype, then float32, an explicit query-position mask and

@@ -21,9 +21,12 @@ Causal attention with nq != nk (queries at the end of a longer key
 sequence) stays on the kernels: they take the diagonal offset nk - nq,
 where the JAX function sends that case to its reference.
 
-`flash_attention` is differentiable in (q, k, v) through one
-`torch.autograd.Function`; ALiBi slopes get no gradient. CPU tensors take
-the plain versions; CUDA tensors launch the kernels or raise.
+`flash_attention` is differentiable in (q, k, v), `flash_attention_qkv` in
+a fused (B, N, 3W) q|k|v projection, each through one
+`torch.autograd.Function` (`_heads.py`); ALiBi slopes get no gradient. The
+bf16 kernels read the heads through their strides and write O token-major,
+so neither form copies heads apart or back together. CPU tensors take the
+plain versions; CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -35,13 +38,16 @@ from typing import Optional, Tuple
 
 import torch
 
-from robustvlm_tpu_torch.ops.kernels import _build
+from robustvlm_tpu_torch.ops.kernels import _build, _heads
 
 # launches of the CUDA kernels (not of the plain versions); one backward
 # launch is the dQ kernel followed by the dK/dV kernel. The `_alibi` counts
-# are the launches of them with ALiBi slopes (MPT), among the others.
+# are the launches of them with ALiBi slopes (MPT), among the others;
+# `_copied` those for which the wrapper copied an operand the kernels cannot
+# take as it lies (`_heads.layout_problem`), 0 on the bf16 main path.
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
-            "flash_attention_fwd_alibi": 0, "flash_attention_bwd_alibi": 0}
+            "flash_attention_fwd_alibi": 0, "flash_attention_bwd_alibi": 0,
+            "flash_attention_copied": 0}
 
 HEAD_DIMS = (64, 80, 128)  # CLIP text towers, OPT-2.7B (BLIP-2) and LLaMA-7B
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -115,43 +121,48 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from flash_attention.cu."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+    st = ctypes.POINTER(ctypes.c_longlong)
+    lib.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, st, p]
     lib.flash_attn_fwd.restype = ctypes.c_int
-    lib.flash_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+    lib.flash_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, st, p]
     lib.flash_attn_bwd.restype = ctypes.c_int
     return lib
 
 
 def _check_cuda(q, k, v, *q_like, slopes=None) -> None:
     """Raise on what the kernels do not take. `q_like` are the tensors of
-    q's shape (o, dO)."""
+    q's shape (o, dO, dQ); (B, H, N, D) views or (B*H, N, D) arrays, laid
+    out as `_heads.layout_problem` allows."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: the kernel takes float32 or bfloat16, got {q.dtype}")
-    if q.dim() != 3 or k.dim() != 3:
-        raise ValueError(f"flash_attention: expected (B*H, N, D), got {tuple(q.shape)}, {tuple(k.shape)}")
-    bh, nq, d = q.shape
+    if q.dim() not in (3, 4) or k.dim() != q.dim():
+        raise ValueError(f"flash_attention: expected (B, H, N, D) or (B*H, N, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    nq, d = q.shape[-2:]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not built; kernels cover {HEAD_DIMS}")
-    if nq == 0 or k.shape[1] == 0:
+    if nq == 0 or k.shape[-2] == 0:
         raise ValueError("flash_attention: empty sequence")
-    if k.shape[0] != bh or k.shape[2] != d:
+    if k.shape[:-2] != q.shape[:-2] or k.shape[-1] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    for t, shape in [(t, q.shape) for t in (q, *q_like)] + [(k, k.shape), (v, k.shape)]:
+    for t, shape in [(t, q.shape) for t in (q, *q_like)] + [(t, k.shape) for t in (k, v)]:
         if t.device != q.device or t.dtype != q.dtype or t.shape != shape:
             raise ValueError("flash_attention: q, k, v (and o, dO) must share device and dtype, "
                              "k and v one shape")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("flash_attention: the kernel takes contiguous, 16-byte aligned tensors")
+        problem = _heads.layout_problem(t)
+        if problem:
+            raise ValueError(f"flash_attention: {problem}")
+    bh = q.shape[:-2].numel()
     if slopes is not None and (slopes.shape != (bh,) or slopes.dtype != torch.float32
                                or slopes.device != q.device or not slopes.is_contiguous()):
         raise ValueError("flash_attention: ALiBi slopes must be contiguous float32 (B*H,) on q's device")
 
 
 def _dims(q, k, causal: bool):
-    """(bh, nq, nk, d, dtype, causal, q_off, scale) of the C interface."""
-    bh, nq, d = q.shape
-    nk = k.shape[1]
-    return (bh, nq, nk, d, _DTYPES[q.dtype], int(causal), nk - nq if causal else 0,
+    """(batch, heads, nq, nk, d, dtype, causal, q_off, scale) of the C interface."""
+    b, h, nq, d = _heads.bhnd(q).shape
+    nk = k.shape[-2]
+    return (b, h, nq, nk, d, _DTYPES[q.dtype], int(causal), nk - nq if causal else 0,
             1.0 / math.sqrt(d))
 
 
@@ -159,71 +170,88 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def flash_fwd_cuda(q, k, v, *, causal: bool = False, slopes=None):
-    _check_cuda(q, k, v, slopes=slopes)
-    o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+def flash_fwd_cuda(q, k, v, o=None, *, causal: bool = False, slopes=None):
+    """O and lse by the kernel. q (B, H, Nq, D), k and v (B, H, Nk, D):
+    views, or (B*H, N, D) arrays; O written into o, or into a new array
+    (token-major in bf16); lse (B*H, Nq) float32."""
+    (q, k, v), copied = _heads.launchable((q, k, v))
+    (dst,) = _heads.outputs([o], [q])
+    _check_cuda(q, k, v, dst, slopes=slopes)
+    lse = torch.empty((q.shape[:-2].numel(), q.shape[-2]), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            _ptr(slopes), *_dims(q, k, causal), stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dst.data_ptr(), lse.data_ptr(),
+            _ptr(slopes), *_dims(q, k, causal), _heads.strides((q, k, v, dst)), stream,
         )
     _build.check_launch(err, "flash_attention forward")
     LAUNCHES["flash_attention_fwd"] += 1
     LAUNCHES["flash_attention_fwd_alibi"] += slopes is not None
-    return o, lse
+    return _heads.finish([o], [dst], copied, LAUNCHES, "flash_attention_copied")[0], lse
 
 
-def flash_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = False, slopes=None):
-    _check_cuda(q, k, v, o, do, slopes=slopes)
-    if lse.shape != q.shape[:2] or lse.dtype != torch.float32 or not lse.is_contiguous():
+def flash_bwd_cuda(q, k, v, o, lse, do, grads=None, *, causal: bool = False, slopes=None):
+    """dQ (as q), dK, dV (as k, v) by the kernels; written into grads (three
+    outputs) when given."""
+    (q, k, v, o, do), copied = _heads.launchable((q, k, v, o, do))
+    outs = list(grads) if grads is not None else [None] * 3
+    dsts = _heads.outputs(outs, (q, k, v))
+    dq, dk, dv = dsts
+    _check_cuda(q, k, v, o, do, dq, slopes=slopes)
+    _check_cuda(q, dk, dv)
+    if (lse.shape != (q.shape[:-2].numel(), q.shape[-2]) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
         raise ValueError("flash_attention backward: lse must be contiguous float32 (B*H, Nq)")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             do.data_ptr(), _ptr(slopes), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), *_dims(q, k, causal), stream,
+            delta.data_ptr(), *_dims(q, k, causal), _heads.strides((q, k, v, o, do, dq, dk, dv)),
+            stream,
         )
     _build.check_launch(err, "flash_attention backward")
     LAUNCHES["flash_attention_bwd"] += 1
     LAUNCHES["flash_attention_bwd_alibi"] += slopes is not None
-    return dq, dk, dv
+    return tuple(_heads.finish(outs, dsts, copied, LAUNCHES, "flash_attention_copied"))
 
 
-def flash_fwd(q, k, v, *, causal: bool = False, slopes=None):
-    """Forward on (BH, N, D): the plain version for CPU tensors, the kernel
-    for CUDA tensors."""
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal=causal, slopes=slopes)
-    return flash_fwd_cuda(q, k, v, causal=causal, slopes=slopes)
+def flash_fwd(q, k, v, o=None, *, causal: bool = False, slopes=None):
+    """Forward on (B, H, N, D) or (B*H, N, D): the plain version for CPU
+    tensors (on contiguous (B*H, N, D) copies), the kernel for CUDA tensors.
+    Returns (O, lse); O written into o when given."""
+    if q.device.type != "cpu":
+        return flash_fwd_cuda(q, k, v, o, causal=causal, slopes=slopes)
+    out, lse = flash_fwd_plain(*map(_heads.flat, (q, k, v)), causal=causal, slopes=slopes)
+    out = out.view(q.shape)
+    return (out if o is None else o.copy_(out)), lse
 
 
-def flash_bwd(q, k, v, o, lse, do, *, causal: bool = False, slopes=None):
-    if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal=causal, slopes=slopes)
-    return flash_bwd_cuda(q, k, v, o, lse, do, causal=causal, slopes=slopes)
+def flash_bwd(q, k, v, o, lse, do, grads=None, *, causal: bool = False, slopes=None):
+    """dQ, dK, dV, as flash_fwd; written into grads when given."""
+    if q.device.type != "cpu":
+        return flash_bwd_cuda(q, k, v, o, lse, do, grads, causal=causal, slopes=slopes)
+    got = flash_bwd_plain(*map(_heads.flat, (q, k, v, o)), lse, _heads.flat(do),
+                          causal=causal, slopes=slopes)
+    got = [g.view(t.shape) for g, t in zip(got, (q, k, v))]
+    return tuple(got) if grads is None else tuple(d.copy_(g) for d, g in zip(grads, got))
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, slopes, causal):
-        o, lse = flash_fwd(q, k, v, causal=causal, slopes=slopes)
-        ctx.save_for_backward(q, k, v, o, lse, slopes)
-        ctx.causal = causal
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse, slopes = ctx.saved_tensors
-        grads = flash_bwd(q, k, v, o, lse, do.to(q.dtype).contiguous(),
-                          causal=ctx.causal, slopes=slopes)
-        return (*grads, None, None)
+def _ops(b: int, h: int, device, causal: bool, alibi_slopes: Optional[torch.Tensor]):
+    """The (fwd, bwd) pair of `_heads`' Functions, with the mask and the
+    slopes (per head, tiled over the batch) bound."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {device}")
+    slopes = None
+    if alibi_slopes is not None:
+        if alibi_slopes.numel() != h:
+            raise ValueError(f"flash_attention: {alibi_slopes.numel()} alibi_slopes for {h} heads")
+        slopes = alibi_slopes.to(device=device, dtype=torch.float32).repeat(b).contiguous()
+    return (functools.partial(flash_fwd, causal=causal, slopes=slopes),
+            functools.partial(flash_bwd, causal=causal, slopes=slopes))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -231,16 +259,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over (B, H, Nq, D) x (B, H, Nk, D) -> (B, H, Nq, D),
     differentiable in (q, k, v). `alibi_slopes` (H,) adds the bias
-    -slope * (i - j); causal masks key j > i + Nk - Nq."""
-    b, h, nq, d = q.shape
-    nk = k.shape[2]
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    qf = q.reshape(b * h, nq, d).contiguous()
-    kf, vf = (t.reshape(b * h, nk, d).contiguous() for t in (k, v))
-    slopes = None
-    if alibi_slopes is not None:  # per head, tiled over the batch
-        if alibi_slopes.numel() != h:
-            raise ValueError(f"flash_attention: {alibi_slopes.numel()} alibi_slopes for {h} heads")
-        slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).repeat(b).contiguous()
-    return _FlashAttention.apply(qf, kf, vf, slopes, causal).reshape(b, h, nq, d)
+    -slope * (i - j); causal masks key j > i + Nk - Nq. Views of the heads
+    are taken as they lie; O comes back as a view of a token-major (B, Nq,
+    H, D) array in bf16, so the caller's merge of the heads is free."""
+    b, h = q.shape[:2]
+    return _heads.Attention.apply(q, k, v, _ops(b, h, q.device, causal, alibi_slopes))
+
+
+def flash_attention_qkv(qkv: torch.Tensor, heads: int, *, causal: bool = False,
+                        alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`flash_attention` over a fused (B, N, 3W) projection [q | k | v] of
+    `heads` heads -> (B, N, W), the heads merged; differentiable in qkv. In
+    bf16 the kernels read the heads out of qkv and write dQ, dK and dV into
+    one (B, N, 3W) gradient."""
+    return _heads.PackedAttention.apply(
+        qkv, heads, _ops(qkv.shape[0], heads, qkv.device, causal, alibi_slopes))

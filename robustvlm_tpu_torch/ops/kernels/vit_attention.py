@@ -13,10 +13,13 @@ Counterpart of `robustvlm_tpu/ops/pallas/vit_attention.py`. The kernels in
   delta = rowsum(dO * O), dS = P (dP - delta) scale cast to q's dtype,
   then dQ = dS K, dK = dS^T Q, dV = P^T dO.
 
-`vit_attention` is differentiable in (q, k, v) through one
-`torch.autograd.Function`. CPU tensors take the plain versions; CUDA
-tensors launch the kernels or raise. The JAX package leaves its kernel off
-by default (`use_flash_default()`); the port launches its kernels for every
+`vit_attention` is differentiable in (q, k, v), `vit_attention_qkv` in a
+fused (B, N, 3W) q|k|v projection, each through one `torch.autograd.Function`
+(`_heads.py`). The bf16 kernels read the heads through their strides and
+write O token-major, so neither form copies heads apart or back together
+(`_heads.py` says how). CPU tensors take the plain versions; CUDA tensors
+launch the kernels or raise. The JAX package leaves its kernel off by
+default (`use_flash_default()`); the port launches its kernels for every
 CUDA tensor.
 """
 
@@ -29,11 +32,14 @@ from typing import Tuple
 
 import torch
 
-from robustvlm_tpu_torch.ops.kernels import _build
+from robustvlm_tpu_torch.ops.kernels import _build, _heads
 
 # launches of the CUDA kernels (not of the plain versions); one backward
-# launch is the dQ kernel followed by the dK/dV kernel
-LAUNCHES = {"vit_attention_fwd": 0, "vit_attention_bwd": 0}
+# launch is the dQ kernel followed by the dK/dV kernel. `_copied` counts the
+# launches for which the wrapper copied an operand the kernels cannot take as
+# it lies (`_heads.layout_problem`: float32, or strides the bf16 kernels do
+# not take); 0 on the bf16 main path.
+LAUNCHES = {"vit_attention_fwd": 0, "vit_attention_bwd": 0, "vit_attention_copied": 0}
 
 HEAD_DIMS = (64, 80, 88)  # head dims the CUDA kernels are built for (CLIP ViT towers)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,19 +81,23 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from vit_attention.cu."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vit_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+    st = ctypes.POINTER(ctypes.c_longlong)
+    lib.vit_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, st, p]
     lib.vit_attn_fwd.restype = ctypes.c_int
-    lib.vit_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.vit_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, st, p]
     lib.vit_attn_bwd.restype = ctypes.c_int
     return lib
 
 
 def _check_cuda(*ts: torch.Tensor) -> None:
+    """Raise on what the kernels do not take: (B, H, N, D) views or (B*H,
+    N, D) arrays of one shape, dtype and device, laid out as
+    `_heads.layout_problem` allows."""
     ref = ts[0]
     if ref.dtype not in _DTYPES:
         raise TypeError(f"vit_attention: the kernel takes float32 or bfloat16, got {ref.dtype}")
-    if ref.dim() != 3:
-        raise ValueError(f"vit_attention: expected (B*H, N, D), got {tuple(ref.shape)}")
+    if ref.dim() not in (3, 4):
+        raise ValueError(f"vit_attention: expected (B, H, N, D) or (B*H, N, D), got {tuple(ref.shape)}")
     if ref.shape[-1] not in HEAD_DIMS:
         raise ValueError(
             f"vit_attention: head dim {ref.shape[-1]} not built; kernels cover {HEAD_DIMS}"
@@ -95,79 +105,99 @@ def _check_cuda(*ts: torch.Tensor) -> None:
     for t in ts:
         if t.device != ref.device or t.dtype != ref.dtype or t.shape != ref.shape:
             raise ValueError("vit_attention: q, k, v (and o, dO) must share device, dtype and shape")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("vit_attention: the kernel takes contiguous, 16-byte aligned tensors")
+        problem = _heads.layout_problem(t)
+        if problem:
+            raise ValueError(f"vit_attention: {problem}")
 
 
-def attention_fwd_cuda(q, k, v):
-    _check_cuda(q, k, v)
-    bh, n, d = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((bh, n), dtype=torch.float32, device=q.device)
+def attention_fwd_cuda(q, k, v, o=None):
+    """O and lse by the kernel. q, k, v: (B, H, N, D) views or (B*H, N, D)
+    arrays; O written into o, or into a new array (token-major in bf16);
+    lse (B*H, N) float32."""
+    (q, k, v), copied = _heads.launchable((q, k, v))
+    (dst,) = _heads.outputs([o], [q])
+    _check_cuda(q, k, v, dst)
+    b, h, n, d = _heads.bhnd(q).shape
+    lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.vit_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            bh, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dst.data_ptr(), lse.data_ptr(),
+            b, h, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), _heads.strides((q, k, v, dst)), stream,
         )
     _build.check_launch(err, "vit_attention forward")
     LAUNCHES["vit_attention_fwd"] += 1
-    return o, lse
+    return _heads.finish([o], [dst], copied, LAUNCHES, "vit_attention_copied")[0], lse
 
 
-def attention_bwd_cuda(q, k, v, o, lse, do):
-    _check_cuda(q, k, v, o, do)
-    bh, n, d = q.shape
-    if lse.shape != (bh, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+def attention_bwd_cuda(q, k, v, o, lse, do, grads=None):
+    """dQ, dK, dV by the kernels, laid out as attention_fwd_cuda's operands;
+    written into grads (three outputs) when given."""
+    (q, k, v, o, do), copied = _heads.launchable((q, k, v, o, do))
+    outs = list(grads) if grads is not None else [None] * 3
+    dsts = _heads.outputs(outs, (q, k, v))
+    _check_cuda(q, k, v, o, do, *dsts)
+    b, h, n, d = _heads.bhnd(q).shape
+    if lse.shape != (b * h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("vit_attention backward: lse must be contiguous float32 (B*H, N)")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((bh, n), dtype=torch.float32, device=q.device)
+    dq, dk, dv = dsts
+    delta = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.vit_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), bh, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), stream,
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            b, h, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
+            _heads.strides((q, k, v, o, do, dq, dk, dv)), stream,
         )
     _build.check_launch(err, "vit_attention backward")
     LAUNCHES["vit_attention_bwd"] += 1
-    return dq, dk, dv
+    return tuple(_heads.finish(outs, dsts, copied, LAUNCHES, "vit_attention_copied"))
 
 
-def attention_fwd(q, k, v):
-    """Forward on (BH, N, D): the plain version for CPU tensors, the kernel
-    for CUDA tensors."""
-    if q.device.type == "cpu":
-        return attention_fwd_plain(q, k, v)
-    return attention_fwd_cuda(q, k, v)
+def attention_fwd(q, k, v, o=None):
+    """Forward on (B, H, N, D) or (B*H, N, D): the plain version for CPU
+    tensors (on contiguous (B*H, N, D) copies), the kernel for CUDA tensors.
+    Returns (O, lse); O written into o when given."""
+    if q.device.type != "cpu":
+        return attention_fwd_cuda(q, k, v, o)
+    out, lse = attention_fwd_plain(*map(_heads.flat, (q, k, v)))
+    out = out.view(q.shape)
+    return (out if o is None else o.copy_(out)), lse
 
 
-def attention_bwd(q, k, v, o, lse, do):
-    if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, o, lse, do)
-    return attention_bwd_cuda(q, k, v, o, lse, do)
+def attention_bwd(q, k, v, o, lse, do, grads=None):
+    """dQ, dK, dV, as attention_fwd; written into grads when given."""
+    if q.device.type != "cpu":
+        return attention_bwd_cuda(q, k, v, o, lse, do, grads)
+    got = attention_bwd_plain(*map(_heads.flat, (q, k, v, o)), lse, _heads.flat(do))
+    got = [g.view(t.shape) for g, t in zip(got, (q, k, v))]
+    return tuple(got) if grads is None else tuple(d.copy_(g) for d, g in zip(grads, got))
 
 
-class _VitAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = attention_fwd(q, k, v)
-        ctx.save_for_backward(q, k, v, o, lse)
-        return o
+_OPS = (attention_fwd, attention_bwd)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        return attention_bwd(q, k, v, o, lse, do.to(q.dtype).contiguous())
+
+def _check_device(t: torch.Tensor) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"vit_attention: unsupported device {t.device}")
 
 
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Exact non-causal self-attention over (B, H, N, D) -> (B, H, N, D),
-    differentiable in (q, k, v)."""
-    b, h, n, d = q.shape
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"vit_attention: unsupported device {q.device}")
-    flat = [t.reshape(b * h, n, d).contiguous() for t in (q, k, v)]
-    return _VitAttention.apply(*flat).reshape(b, h, n, d)
+    differentiable in (q, k, v). Views of the heads are taken as they lie;
+    O comes back as a view of a token-major (B, N, H, D) array in bf16, so
+    `o.transpose(1, 2).reshape(b, n, h * d)` is free."""
+    _check_device(q)
+    return _heads.Attention.apply(q, k, v, _OPS)
+
+
+def vit_attention_qkv(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """`vit_attention` over a fused (B, N, 3W) projection [q | k | v] of
+    `heads` heads -> (B, N, W), the heads merged; differentiable in qkv. In
+    bf16 the kernels read the heads out of qkv and write dQ, dK and dV into
+    one (B, N, 3W) gradient: no split, merge or `cat` copies."""
+    _check_device(qkv)
+    return _heads.PackedAttention.apply(qkv, heads, _OPS)

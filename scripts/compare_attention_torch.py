@@ -16,7 +16,9 @@ attention forward and backward at ViT-L/14 (B*H = 128, N = 257, D = 64),
 in float32 and bf16; the flash forward (bf16) and backward (float32 and
 bf16) at the LLaVA-1.5-7B LM layer (32, 665, 128, causal). One JSON line
 per side and row, then the card's name and power limit. Exits 1 if either
-side disagrees. Needs a GPU.
+side disagrees. Needs a GPU. Both checkouts must share the C interface
+that passes each operand's strides (the one the kernels took when they
+began reading heads out of views).
 """
 
 from __future__ import annotations
@@ -89,6 +91,7 @@ def main() -> int:
 
     import chip_smoke as C
     from robustvlm_tpu_torch.device import use_full_fp32
+    from robustvlm_tpu_torch.ops.kernels import _heads as H
     from robustvlm_tpu_torch.ops.kernels import flash_attention as F
     from robustvlm_tpu_torch.ops.kernels import vit_attention as A
 
@@ -122,17 +125,18 @@ def main() -> int:
             bh, n, d = q.shape
             code, scale = A._DTYPES[dtype], 1.0 / d ** 0.5
             out = (torch.empty_like(q), torch.empty(bh, n, device="cuda"))
+            st = H.strides((q, k, v, q, q, q, k, v))  # contiguous: one stride set for all
             rows[f"vit_attention_fwd[{dname}]"] = (
-                lambda q=q, k=k, v=v, out=out, bh=bh, n=n, d=d, code=code, scale=scale:
-                lib.vit_attn_fwd(*ptrs(q, k, v, *out), bh, n, d, code, scale, stream()),
+                lambda q=q, k=k, v=v, out=out, bh=bh, n=n, d=d, code=code, scale=scale, st=st:
+                lib.vit_attn_fwd(*ptrs(q, k, v, *out), bh, 1, n, d, code, scale, st, stream()),
                 out, fwd_ref, dname)
             grads = tuple(torch.empty_like(t) for t in (q, k, v))
             delta = torch.empty(bh, n, device="cuda")
             rows[f"vit_attention_bwd[{dname}]"] = (
                 lambda q=q, k=k, v=v, o=o, lse=lse, do=do, grads=grads, delta=delta, bh=bh, n=n,
-                d=d, code=code, scale=scale:
-                lib.vit_attn_bwd(*ptrs(q, k, v, o, lse, do, *grads, delta), bh, n, d, code, scale,
-                                 stream()),
+                d=d, code=code, scale=scale, st=st:
+                lib.vit_attn_bwd(*ptrs(q, k, v, o, lse, do, *grads, delta), bh, 1, n, d, code,
+                                 scale, st, stream()),
                 grads, bwd_ref, dname)
         return rows
 
@@ -141,18 +145,20 @@ def main() -> int:
         for dtype, (q, k, v, do, o, lse, fwd_ref, bwd_ref) in flash.items():
             dname = str(dtype).split(".")[-1]
             dims = F._dims(q, k, True)
+            st = H.strides((q, k, v, q, q, q, k, v))  # contiguous: o, dO, dQ as q; dK, dV as k
             if dtype == torch.bfloat16:
                 out = (torch.empty_like(q), torch.empty(q.shape[:2], device="cuda"))
                 rows[f"flash_attention_fwd[{dname}]"] = (
-                    lambda q=q, k=k, v=v, out=out, dims=dims:
-                    lib.flash_attn_fwd(*ptrs(q, k, v, *out), None, *dims, stream()),
+                    lambda q=q, k=k, v=v, out=out, dims=dims, st=st:
+                    lib.flash_attn_fwd(*ptrs(q, k, v, *out), None, *dims, st, stream()),
                     out, fwd_ref, dname)
             grads = tuple(torch.empty_like(t) for t in (q, k, v))
             delta = torch.empty(q.shape[:2], device="cuda")
             rows[f"flash_attention_bwd[{dname}]"] = (
-                lambda q=q, k=k, v=v, o=o, lse=lse, do=do, grads=grads, delta=delta, dims=dims:
+                lambda q=q, k=k, v=v, o=o, lse=lse, do=do, grads=grads, delta=delta, dims=dims,
+                st=st:
                 lib.flash_attn_bwd(*ptrs(q, k, v, o, lse, do), None, *ptrs(*grads, delta), *dims,
-                                   stream()),
+                                   st, stream()),
                 grads, bwd_ref, dname)
         return rows
 

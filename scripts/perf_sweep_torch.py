@@ -126,14 +126,14 @@ def run_one(name: str, batch: int, knobs: dict, device="cuda", k: int = K, model
                 xc = torch.clamp(xc + (1.0 / 255.0) * torch.sign(g), 0.0, 1.0)
         return xc
 
-    orig = M.vit_attention
-    if knobs.get("ablate") == "noattn":
-        M.vit_attention = lambda q, kk, v: v
+    orig = M.vit_attention_qkv
+    if knobs.get("ablate") == "noattn":  # v's block of the fused projection, heads merged
+        M.vit_attention_qkv = lambda qkv, heads: qkv[..., 2 * qkv.shape[-1] // 3:]
     try:
         t_first = common.timed_s(many, device)
         ms = common.events_ms(many, device)
     finally:
-        M.vit_attention = orig
+        M.vit_attention_qkv = orig
     return common.emit({"script": "scripts/perf_sweep_torch.py", "config": name, "batch": batch,
                         "knobs": knobs, "k": k, "ms_per_eval": ms / k,
                         "example_steps_per_sec": batch * k / (ms / 1e3), "first_call_s": t_first})

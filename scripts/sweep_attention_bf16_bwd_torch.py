@@ -104,6 +104,7 @@ def main() -> int:
     import torch.nn.functional as Fn
 
     import chip_smoke as C
+    from robustvlm_tpu_torch.ops.kernels import _heads
     from robustvlm_tpu_torch.ops.kernels import flash_attention as F
     from robustvlm_tpu_torch.ops.kernels import vit_attention as A
 
@@ -136,18 +137,19 @@ def main() -> int:
         ptrs = [t.data_ptr() for t in (q, k, v, o, lse, do)]
         outs = [t.data_ptr() for t in (*grads, delta)]
         keep = (grads, delta)  # the launch writes them: they live as long as fn
+        st = _heads.strides((q, k, v, o, do, *grads))
         if name == "flash_attention":
             dims = F._dims(q, k, causal)
             sl = None if slopes is None else slopes.data_ptr()
 
             def fn(keep=keep):
-                if lib.flash_attn_bwd(*ptrs, sl, *outs, *dims, stream()):
+                if lib.flash_attn_bwd(*ptrs, sl, *outs, *dims, st, stream()):
                     raise RuntimeError("flash backward launch failed")
         else:
             bh, n, d = q.shape
 
             def fn(keep=keep):
-                if lib.vit_attn_bwd(*ptrs, *outs, bh, n, d, 1, 1.0 / d ** 0.5, stream()):
+                if lib.vit_attn_bwd(*ptrs, *outs, bh, 1, n, d, 1, 1.0 / d ** 0.5, st, stream()):
                     raise RuntimeError("vit backward launch failed")
         return fn, grads
 

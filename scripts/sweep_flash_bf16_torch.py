@@ -118,17 +118,19 @@ def forward(lib, q, k, v, causal, slopes=None, vit=False):
     its outputs."""
     import torch
 
+    from robustvlm_tpu_torch.ops.kernels import _heads
     from robustvlm_tpu_torch.ops.kernels import flash_attention as F
 
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], device="cuda")
+    strides = _heads.strides((q, k, v, o))
     if vit:
         bh, n, d = q.shape
-        args = (bh, n, d, 1, 1.0 / d ** 0.5)
+        args = (bh, 1, n, d, 1, 1.0 / d ** 0.5, strides)
         launch = lib.vit_attn_fwd
     else:
         sl = None if slopes is None else slopes.data_ptr()
-        args = (sl, *F._dims(q, k, causal))
+        args = (sl, *F._dims(q, k, causal), strides)
         launch = lib.flash_attn_fwd
 
     def fwd():

@@ -178,24 +178,26 @@ def calls(lib, q, k, v, do, causal, slopes=None):
     on these tensors, the backward on the forward's own O and lse."""
     import torch
 
+    from robustvlm_tpu_torch.ops.kernels import _heads
     from robustvlm_tpu_torch.ops.kernels import flash_attention as F
 
     o, dq = torch.empty_like(q), torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lse, delta = (torch.empty(q.shape[:2], device="cuda") for _ in range(2))
     dims = F._dims(q, k, causal)
+    st = _heads.strides((q, k, v, o, do, dq, dk, dv))
     sl = None if slopes is None else slopes.data_ptr()
 
     def fwd():
         err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                 lse.data_ptr(), sl, *dims, torch.cuda.current_stream().cuda_stream)
+                                 lse.data_ptr(), sl, *dims, st, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"forward launch failed: cudaError {err}")
 
     def bwd():
         err = lib.flash_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                  lse.data_ptr(), do.data_ptr(), sl, dq.data_ptr(), dk.data_ptr(),
-                                 dv.data_ptr(), delta.data_ptr(), *dims,
+                                 dv.data_ptr(), delta.data_ptr(), *dims, st,
                                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"backward launch failed: cudaError {err}")

@@ -103,24 +103,27 @@ def launchers(lib, q, k, v, do):
     backward from the forward's own O and lse), and their outputs."""
     import torch
 
+    from robustvlm_tpu_torch.ops.kernels import _heads
+
     bh, n, d = q.shape
     o, lse = torch.empty_like(q), torch.empty(bh, n, device="cuda")
     grads = tuple(torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty(bh, n, device="cuda")
     scale = 1.0 / d ** 0.5
+    st = _heads.strides((q, k, v, o, do, *grads))
 
     def stream():  # read at each launch: a graph capture runs on a stream of its own
         return torch.cuda.current_stream().cuda_stream
 
     def fwd():
         if lib.vit_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                            bh, n, d, 0, scale, stream()):
+                            bh, 1, n, d, 0, scale, st, stream()):
             raise RuntimeError("forward launch failed")
 
     def bwd():
         if lib.vit_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                             do.data_ptr(), *(g.data_ptr() for g in grads), delta.data_ptr(),
-                            bh, n, d, 0, scale, stream()):
+                            bh, 1, n, d, 0, scale, st, stream()):
             raise RuntimeError("backward launch failed")
 
     return fwd, bwd, (o, lse, *grads)

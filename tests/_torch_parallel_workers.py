@@ -324,19 +324,30 @@ def gather_world(rank, world, sizes):
 
 
 # ------------------------------------------------------------------ tensor parallel
+def _q_shape(q, a) -> tuple:
+    """q's (B, H, N, D) shape: q itself, or the q of a packed call's fused
+    (B, N, 3W) projection over a[0] heads."""
+    if not a or not isinstance(a[0], int):
+        return tuple(q.shape)
+    b, n, w3 = q.shape
+    return (b, a[0], n, w3 // 3 // a[0])
+
+
 def _record_attention(module, names=("vit_attention", "flash_attention")) -> list:
-    """Wrap the attention entry points a model module calls; returns the list
-    of (name, q shape) each call appends."""
+    """Wrap the attention entry points a model module calls, each name with
+    its packed form (`<name>_qkv`); returns the list of (name, q shape) each
+    call appends."""
     seen = []
     for n in names:
-        if hasattr(module, n):
-            fn = getattr(module, n)
+        for entry in (n, n + "_qkv"):
+            if hasattr(module, entry):
+                fn = getattr(module, entry)
 
-            def wrapped(q, *a, _fn=fn, _n=n, **k):
-                seen.append((_n, tuple(q.shape)))
-                return _fn(q, *a, **k)
+                def wrapped(q, *a, _fn=fn, _n=n, **k):
+                    seen.append((_n, _q_shape(q, a)))
+                    return _fn(q, *a, **k)
 
-            setattr(module, n, wrapped)
+                setattr(module, entry, wrapped)
     return seen
 
 
@@ -521,26 +532,28 @@ def _loss_grad(model, loss_fn, x, *args):
 def _held_split(mesh, build, loss_fn, arrays, spy=None):
     """The loss and pixel gradient of the unsplit model on the whole batch
     and of the split one (`shard_params`) on this rank's rows, gathered;
-    `spy` (a module whose `flash_attention` to record) is wrapped around
-    the split run only. -> (split model, record)."""
+    `spy` (a module whose `flash_attention`, or its packed form
+    `flash_attention_qkv`, to record) is wrapped around the split run only.
+    -> (split model, record)."""
     from robustvlm_tpu_torch.parallel.mesh import batch_sharding, gather_batch, shard_params
 
     full = [torch.from_numpy(a) for a in arrays]
     ref_loss, ref_grad = _loss_grad(build(), loss_fn, *full)
     model = shard_params(build(), mesh)
-    seen, fn = [], getattr(spy, "flash_attention", None)
-    if spy is not None:
+    entry = next((e for e in ("flash_attention", "flash_attention_qkv") if hasattr(spy, e)), None)
+    seen, fn = [], getattr(spy, entry) if entry else None
+    if entry:
         def wrapped(q, *a, **k):
             s = k.get("alibi_slopes")
-            seen.append((tuple(q.shape), None if s is None else s.tolist()))
+            seen.append((_q_shape(q, a), None if s is None else s.tolist()))
             return fn(q, *a, **k)
 
-        spy.flash_attention = wrapped
+        setattr(spy, entry, wrapped)
     try:
         loss, grad = gather_batch(_loss_grad(model, loss_fn, *[batch_sharding(mesh, a) for a in full]), mesh)
     finally:
-        if spy is not None:
-            spy.flash_attention = fn
+        if entry:
+            setattr(spy, entry, fn)
     rec = {"loss": loss.numpy(), "grad": grad.numpy(), "ref_loss": ref_loss.numpy(), "ref_grad": ref_grad.numpy(),
            "bytes": _local_bytes(model), "spy": seen}
     return model, rec

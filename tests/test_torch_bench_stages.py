@@ -157,6 +157,6 @@ def test_perf_sweep_configs_run_at_test_tiny(name, capsys):
     assert line["example_steps_per_sec"] == pytest.approx(2 * 2 / (line["ms_per_eval"] * 2 / 1e3))
     # the ablation restores the model's attention
     import robustvlm_tpu_torch.models.clip.model as M
-    from robustvlm_tpu_torch.ops.kernels.vit_attention import vit_attention
+    from robustvlm_tpu_torch.ops.kernels.vit_attention import vit_attention_qkv
 
-    assert M.vit_attention is vit_attention
+    assert M.vit_attention_qkv is vit_attention_qkv
