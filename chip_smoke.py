@@ -568,16 +568,16 @@ def _attn_controls(dname: str, q, k, v, do, got, ref) -> dict:
             for name, f in faults.items()}
 
 
-# Where each attention kernel's code is: every kernel that both attention
-# sources launch lives in a header of csrc/ (float32 forward and backward;
+# Where each attention kernel's code is: csrc/attention.cu launches them
+# all, and each lives in a header of csrc/ (float32 forward and backward;
 # the bf16 forward; the bf16 backward).
 CSRC = "robustvlm_tpu_torch/csrc/"
-SHARED_ATTN_KERNELS = {("fwd", "float32"): "attn_f32_tile.cuh", ("bwd", "float32"): "attn_f32_tile.cuh",
-                       ("fwd", "bfloat16"): "attn_bf16_fwd.cuh", ("bwd", "bfloat16"): "attn_bf16_bwd.cuh"}
+ATTN_KERNELS = {("fwd", "float32"): "attn_f32_tile.cuh", ("bwd", "float32"): "attn_f32_tile.cuh",
+                ("fwd", "bfloat16"): "attn_bf16_fwd.cuh", ("bwd", "bfloat16"): "attn_bf16_bwd.cuh"}
 
 
-def _attn_source(pass_: str, dname: str, launcher: str) -> dict:
-    return {"source": CSRC + SHARED_ATTN_KERNELS.get((pass_, dname), launcher)}
+def _attn_source(pass_: str, dname: str) -> dict:
+    return {"source": CSRC + ATTN_KERNELS[(pass_, dname)]}
 
 
 def check_attention(peaks: dict) -> list:
@@ -592,9 +592,9 @@ def check_attention(peaks: dict) -> list:
         worst = {d: {"fwd": 0.0, "bwd": 0.0} for d in ATTN_TIMED}
         for n, d, extreme in ATTN_CASES:
             q, k, v, do = _qkv(n, dtype, seed=n + d, extreme=extreme, d=d)
-            o, lse = A.attention_fwd_cuda(q, k, v)
-            grads = A.attention_bwd_cuda(q, k, v, o, lse, do)
-            again = A.attention_bwd_cuda(q, k, v, o, lse, do)
+            o, lse = A.attention_fwd(q, k, v)
+            grads = A.attention_bwd(q, k, v, o, lse, do)
+            again = A.attention_bwd(q, k, v, o, lse, do)
             got = (o, lse, *grads)
             # the plain backward takes the plain forward's residuals, so a
             # wrong O or lse from the kernel shows in the gradients too
@@ -640,10 +640,10 @@ def _attn_timed_rows(peaks: dict, dtype, d: int, worst: dict, launches_from) -> 
     dname = str(dtype).split(".")[-1]
     n = 257
     q, k, v, do = _qkv(n, dtype, seed=1, d=d)
-    o, lse = A.attention_fwd_cuda(q, k, v)
-    fwd_ms = time_graph_ms(lambda: A.attention_fwd_cuda(q, k, v))
+    o, lse = A.attention_fwd(q, k, v)
+    fwd_ms = time_graph_ms(lambda: A.attention_fwd(q, k, v))
     fwd_plain = time_ms(lambda: A.attention_fwd_plain(q, k, v))
-    bwd_ms = time_graph_ms(lambda: A.attention_bwd_cuda(q, k, v, o, lse, do))
+    bwd_ms = time_graph_ms(lambda: A.attention_bwd(q, k, v, o, lse, do))
     bwd_plain = time_ms(lambda: A.attention_bwd_plain(q, k, v, o, lse, do))
     q4, k4, v4 = (t.view(8, 16, n, d) for t in (q, k, v))
     lib_fwd = time_graph_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
@@ -661,13 +661,13 @@ def _attn_timed_rows(peaks: dict, dtype, d: int, worst: dict, launches_from) -> 
     if launches_from:
         common["launches_from"] = launches_from
     return [{"name": f"vit_attention_fwd[{tag}]", **common,
-             **_attn_source("fwd", dname, "vit_attention.cu"),
+             **_attn_source("fwd", dname),
              "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:157",
              "max_abs_err": worst["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
              "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
              "timed_by": TIMED_BY["fwd"]},
             {"name": f"vit_attention_bwd[{tag}]", **common,
-             **_attn_source("bwd", dname, "vit_attention.cu"),
+             **_attn_source("bwd", dname),
              "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:181",
              "max_abs_err": worst["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
              "bound_ms": bb, "bound_by": bby, **lib_bwd,
@@ -694,7 +694,7 @@ def check_vit_serve_row(peaks: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(577)
     q, k, v = ((torch.randn(bh, n, d, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
                for _ in range(3))
-    got = A.attention_fwd_cuda(q, k, v)
+    got = A.attention_fwd(q, k, v)
     res = _attn_check("bfloat16", got, A.attention_fwd_plain(q, k, v), False, names=("o", "lse"))
     ok = all(w for _, w in res.values())
     emit({"phase": "kernels", "kernel": "vit_attention", "dtype": "bfloat16", "n": n, "d": d, "bh": bh,
@@ -706,10 +706,10 @@ def check_vit_serve_row(peaks: dict) -> dict:
     elems = bh * n * d
     bnd, by = bound_ms(4 * elems * 2 + bh * n * 4, 4 * bh * n * n * d, "bfloat16", peaks)
     return {"name": "vit_attention_fwd[bfloat16,336px]", "route": "cuda", "dtype": "bfloat16",
-            "shape": list(VIT_SERVE_SHAPE), **_attn_source("fwd", "bfloat16", "vit_attention.cu"),
+            "shape": list(VIT_SERVE_SHAPE), **_attn_source("fwd", "bfloat16"),
             "replaces": "robustvlm_tpu/ops/pallas/vit_attention.py:157", "counter": "vit_attention_fwd",
             "launches_from": "serve_continuous", "max_abs_err": res["o"][0],
-            "ms": time_graph_ms(lambda: A.attention_fwd_cuda(q, k, v)),
+            "ms": time_graph_ms(lambda: A.attention_fwd(q, k, v)),
             "plain_ms": time_ms(lambda: A.attention_fwd_plain(q, k, v)),
             "bound_ms": bnd, "bound_by": by,
             "library_ms": time_graph_ms(lambda: F.scaled_dot_product_attention(q4d, k4d, v4d)),
@@ -957,13 +957,13 @@ def check_flash_opt(peaks: dict, batch: int = BLIP2_LM_BATCH, n: int = BLIP2_LM_
         common = {"route": "cuda", "dtype": dname, "shape": [bh, n, d], "causal": True,
                   "launches_from": "blip2"}
         rows.append({"name": f"flash_attention_fwd[{dname}, blip2-opt-2.7b]", **common,
-                     **_attn_source("fwd", dname, "flash_attention.cu"),
+                     **_attn_source("fwd", dname),
                      "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
                      "max_abs_err": res["o"][0], "ms": fwd_ms, "plain_ms": fwd_plain,
                      "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd, **fwd_backend,
                      "timed_by": TIMED_BY["fwd"]})
         rows.append({"name": f"flash_attention_bwd[{dname}, blip2-opt-2.7b]", **common,
-                     **_attn_source("bwd", dname, "flash_attention.cu"),
+                     **_attn_source("bwd", dname),
                      "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:273 (dQ), :295 (dK/dV)",
                      "max_abs_err": max(res[m][0] for m in ("dq", "dk", "dv")), "ms": bwd_ms,
                      "plain_ms": bwd_plain, "bound_ms": bb, "bound_by": bby, **lib_bwd,
@@ -1038,7 +1038,7 @@ def check_strided_attention(peaks: dict) -> list:
     rows = []
     for label, kname, b, h, n, d, causal, alibi, packed in STRIDED_ATTN_CASES:
         mod = A if kname == "vit_attention" else F
-        fwd, bwd = ((A.attention_fwd_cuda, A.attention_bwd_cuda) if mod is A
+        fwd, bwd = ((A.attention_fwd, A.attention_bwd) if mod is A
                     else (F.flash_fwd_cuda, F.flash_bwd_cuda))
         qkv, (q, k, v, do), dout, kw = _strided_attn_case(mod, b, h, n, d, causal, alibi, packed,
                                                           seed=b + h + n + d)
@@ -1304,13 +1304,13 @@ def check_flash(peaks: dict, config: str = "llava-1.5-7b", dtypes=("float32", "b
         common = {"route": "cuda", "dtype": dname, "shape": [bh, n, d], "causal": True,
                   **({"launches_from": launches_from} if launches_from else {})}
         results.append({"name": f"flash_attention_fwd[{dname}{suffix}]", **common,
-                        **_attn_source("fwd", dname, "flash_attention.cu"),
+                        **_attn_source("fwd", dname),
                         "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
                         "max_abs_err": worst["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
                         "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
                         "timed_by": TIMED_BY["fwd"]})
         results.append({"name": f"flash_attention_bwd[{dname}{suffix}]", **common,
-                        **_attn_source("bwd", dname, "flash_attention.cu"),
+                        **_attn_source("bwd", dname),
                         "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:273 (dQ), :295 (dK/dV)",
                         "max_abs_err": worst["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
                         "bound_ms": bb, "bound_by": bby, **lib_bwd,
@@ -1338,7 +1338,7 @@ def _flash_clip_text_row(max_abs_err: float, peaks: dict) -> dict:
     plain = time_ms(lambda: F.flash_fwd_plain(q, k, v, causal=True), iters=5)
     bnd, by = bound_ms(4 * bh * n * d * 4 + bh * n * 4, 4 * bh * n * (n + 1) / 2 * d, "float32", peaks)
     return {"name": "flash_attention_fwd[float32, head dim 64]", "route": "cuda",
-            **_attn_source("fwd", "float32", "flash_attention.cu"), "dtype": "float32",
+            **_attn_source("fwd", "float32"), "dtype": "float32",
             "shape": [bh, n, d], "causal": True, "launches_from": "main[float32]",
             "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
@@ -2757,8 +2757,7 @@ def phase_llava_rob() -> dict:
                         "--vision_encoder_pretrained", str(tower), "--attack", "apgd",
                         "--n_iter", str(ROB_ITERS), "--num_samples", "1")
         load = {}
-        real_build, real_fwd = R.build_llava_models, vit_attention.attention_fwd_cuda
-        real_flash = flash_attention.flash_fwd_cuda
+        real_build, real_flash = R.build_llava_models, flash_attention.flash_fwd_cuda
         tokens_seen, flash_seen = set(), set()
 
         def timed_build(*a):
@@ -2768,25 +2767,21 @@ def phase_llava_rob() -> dict:
             load["s"] = time.perf_counter() - t
             return out
 
-        def fwd(q, k, v, o=None):
-            tokens_seen.add(int(q.shape[-2]))
-            return real_fwd(q, k, v, o)
-
         def flash_fwd(q, k, v, o=None, **kw):
-            flash_seen.add(int(q.shape[-2]))
+            # the CUDA front of both entry points: the ViT's calls carry its table set
+            seen = tokens_seen if kw.get("entry") is vit_attention.VIT else flash_seen
+            seen.add(int(q.shape[-2]))
             return real_flash(q, k, v, o, **kw)
 
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
         t0 = time.perf_counter()
-        R.build_llava_models, vit_attention.attention_fwd_cuda = timed_build, fwd
-        flash_attention.flash_fwd_cuda = flash_fwd
+        R.build_llava_models, flash_attention.flash_fwd_cuda = timed_build, flash_fwd
         try:
             with adapters_of_cli(R, {}) as seen:
                 result = R.main(argv)["textvqa"]
         finally:
-            R.build_llava_models, vit_attention.attention_fwd_cuda = real_build, real_fwd
-            flash_attention.flash_fwd_cuda = real_flash
+            R.build_llava_models, flash_attention.flash_fwd_cuda = real_build, real_flash
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _launches()
@@ -3874,13 +3869,13 @@ def check_flash_alibi(peaks: dict, n: int, case: str = "alibi_openflamingo", tag
                   "library": "SDPA, ALiBi bias + causal mask as one additive float attn_mask"}
         suffix = f", {tag}" if tag else ""
         rows.append({"name": f"flash_attention_fwd_alibi[{dname}{suffix}]", **common,
-                     **_attn_source("fwd", dname, "flash_attention.cu"),
+                     **_attn_source("fwd", dname),
                      "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:154",
                      "max_abs_err": res["o"][0], "ms": fwd_ms, "plain_ms": fwd_plain,
                      "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
                      "library_max_abs_err": lib_err, **fwd_backend, "timed_by": TIMED_BY["fwd"]})
         rows.append({"name": f"flash_attention_bwd_alibi[{dname}{suffix}]", **common,
-                     **_attn_source("bwd", dname, "flash_attention.cu"),
+                     **_attn_source("bwd", dname),
                      "replaces": "robustvlm_tpu/ops/pallas/flash_attention.py:273 (dQ), :295 (dK/dV)",
                      "max_abs_err": max(res["dq"][0], res["dk"][0], res["dv"][0]), "ms": bwd_ms,
                      "plain_ms": bwd_plain, "bound_ms": bb, "bound_by": bby, **lib_bwd,

@@ -1,9 +1,9 @@
 // The bfloat16 attention backward on Hopper's tensor cores (wgmma + TMA),
-// for flash_attention.cu and vit_attention.cu: dQ in one kernel over query
+// for attention.cu's flash and ViT launches: dQ in one kernel over query
 // blocks (it also writes delta), dK and dV in another over key blocks,
 // launched after it on the same stream; deterministic, no atomics.
 //
-// The function (flash_attention.cu's header): S = Q K^T in float32, then
+// The function (attention.cu's header): S = Q K^T in float32, then
 // times scale (q is not pre-scaled in the backward); ALiBi after the scale;
 // P = exp(S - lse), 0 exactly where masked (causal with the diagonal at
 // col = row + q_off, keys past nk, queries past nq); delta = rowsum(dO * O)

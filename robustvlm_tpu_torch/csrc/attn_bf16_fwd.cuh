@@ -1,9 +1,9 @@
 // The bfloat16 attention forward on Hopper's tensor cores (wgmma + TMA), for
-// flash_attention.cu (causal or not, ALiBi, key padding; head dims 64 and
-// 128) and vit_attention.cu (non-causal, nq = nk, no slopes; head dims 64,
-// 80 and 88). Each launches it with its own tile shape.
+// attention.cu's flash launches (causal or not, ALiBi, key padding; head
+// dims 64, 80 and 128) and ViT launches (non-causal, nq = nk, no slopes;
+// head dims 64, 80 and 88). Each table set has its own tile shapes.
 //
-// The function (flash_attention.cu's header): q scaled in bf16 before
+// The function (attention.cu's header): q scaled in bf16 before
 // S = Q K^T (the exact product rounded once); ALiBi subtracts slope * (row -
 // col) after the scale; masked scores (col >= nk, and col > row + q_off when
 // causal) never raise the row max and give P = 0 exactly; float32 softmax

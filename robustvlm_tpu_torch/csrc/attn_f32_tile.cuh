@@ -1,10 +1,9 @@
-// The float32 attention kernels on the CUDA cores, shared by
-// flash_attention.cu (causal or not, ALiBi, any nq and nk) and
-// vit_attention.cu (non-causal, nq = nk, no slopes): the forward, and the
-// backward's dQ and dK/dV kernels. Both files compute the same function
-// (flash_attention.cu's header says which), each launch with its own block
-// shapes. Also the masks that every float32 and bfloat16 attention kernel of
-// those two files applies.
+// The float32 attention kernels on the CUDA cores, shared by attention.cu's
+// flash launches (causal or not, ALiBi, any nq and nk) and ViT launches
+// (non-causal, nq = nk, no slopes): the forward, and the backward's dQ and
+// dK/dV kernels. Both compute the same function (attention.cu's header says
+// which), each table set with its own block shapes. Also the masks that
+// every float32 and bfloat16 attention kernel applies.
 //
 // The design (fma_tile.cuh has the products): a block owns kRows rows of
 // its own side (queries; keys in dK/dV) and walks the tiles of the other

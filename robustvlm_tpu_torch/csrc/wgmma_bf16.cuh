@@ -161,19 +161,32 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled, found once through the runtime's entry-point
-// query (so the library needs no -lcuda); null if it is not there.
+// A driver function, found through the runtime's entry-point query (so the
+// library needs no -lcuda); null if it is not there.
+inline void* driver_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &found) != cudaSuccess ||
+      found != cudaDriverEntryPointSuccess) {
+    return nullptr;
+  }
+  return p;
+}
+
+// cuTensorMapEncodeTiled (found once), ready to call. It fails without a
+// current context, which a thread lacks until some runtime call binds one:
+// autograd's device thread can reach a backward having made none, when the
+// caching allocator served every tensor it made. cudaFree(nullptr) binds
+// the runtime's. Null if the encoder is not there or no context can be bound.
 inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      return static_cast<EncodeTiled>(nullptr);
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
+  using GetCurrent = CUresult (*)(CUcontext*);
+  static const EncodeTiled fn =
+      reinterpret_cast<EncodeTiled>(driver_entry("cuTensorMapEncodeTiled"));
+  static const GetCurrent current =
+      reinterpret_cast<GetCurrent>(driver_entry("cuCtxGetCurrent"));
+  CUcontext ctx = nullptr;
+  if (current == nullptr || current(&ctx) != CUDA_SUCCESS) return nullptr;
+  if (ctx == nullptr && cudaFree(nullptr) != cudaSuccess) return nullptr;
   return fn;
 }
 

@@ -26,7 +26,7 @@ from typing import Dict, Sequence
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-KERNELS = ("attack_step", "vit_attention", "flash_attention", "q4_matmul", "block_ops")
+KERNELS = ("attack_step", "attention", "q4_matmul", "block_ops")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

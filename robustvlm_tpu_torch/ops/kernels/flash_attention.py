@@ -2,7 +2,7 @@
 CUDA kernels and their plain versions.
 
 Counterpart of `robustvlm_tpu/ops/pallas/flash_attention.py`. The kernels in
-`csrc/flash_attention.cu` replace `_flash_fwd` (`_fwd_kernel`) and the two
+`csrc/attention.cu` replace `_flash_fwd` (`_fwd_kernel`) and the two
 pallas_calls of `_flash_bwd` (`_bwd_dq_kernel`, `_bwd_dkv_kernel`);
 `flash_fwd_plain` and `flash_bwd_plain` compute the same functions in
 PyTorch:
@@ -27,6 +27,11 @@ a fused (B, N, 3W) q|k|v projection, each through one
 bf16 kernels read the heads through their strides and write O token-major,
 so neither form copies heads apart or back together. CPU tensors take the
 plain versions; CUDA tensors launch the kernels or raise.
+
+The CUDA front here (`flash_fwd_cuda`, `flash_bwd_cuda`) is also
+`vit_attention`'s: one library, one C interface, whose table set (the tile
+shapes tuned for each JAX function's traffic) and head dims, error prefix
+and launch counters come from the calling module's `Entry`.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -52,6 +57,20 @@ LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
 HEAD_DIMS = (64, 80, 128)  # CLIP text towers, OPT-2.7B (BLIP-2) and LLaMA-7B
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
+
+
+class Entry(NamedTuple):
+    """A public function over `csrc/attention.cu`: its name prefixes its
+    errors and its launch counters' keys; `tables` selects its tile shapes
+    in the C interface (0 = flash, 1 = ViT), built at `head_dims`."""
+
+    name: str
+    tables: int
+    head_dims: Tuple[int, ...]
+    launches: Dict[str, int]
+
+
+FLASH = Entry("flash_attention", 0, HEAD_DIMS, LAUNCHES)
 
 
 # ------------------------------------------------------------- plain versions
@@ -115,108 +134,114 @@ def flash_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
 # ----------------------------------------------------------------- CUDA path
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    return bind(_build.load("flash_attention"))
+    return bind(_build.load("attention"))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a library built from flash_attention.cu."""
+    """Declare the C interface of a library built from attention.cu."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     st = ctypes.POINTER(ctypes.c_longlong)
-    lib.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, st, p]
-    lib.flash_attn_fwd.restype = ctypes.c_int
-    lib.flash_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, st, p]
-    lib.flash_attn_bwd.restype = ctypes.c_int
+    lib.attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, st, p]
+    lib.attn_fwd.restype = ctypes.c_int
+    lib.attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, st, p]
+    lib.attn_bwd.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda(q, k, v, *q_like, slopes=None) -> None:
-    """Raise on what the kernels do not take. `q_like` are the tensors of
-    q's shape (o, dO, dQ); (B, H, N, D) views or (B*H, N, D) arrays, laid
+def _check_cuda(q, k, v, *q_like, slopes=None, entry: Entry = FLASH) -> None:
+    """Raise on what entry's kernels do not take. `q_like` are the tensors
+    of q's shape (o, dO, dQ); (B, H, N, D) views or (B*H, N, D) arrays, laid
     out as `_heads.layout_problem` allows."""
+    name = entry.name
     if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention: the kernel takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {q.dtype}")
     if q.dim() not in (3, 4) or k.dim() != q.dim():
-        raise ValueError(f"flash_attention: expected (B, H, N, D) or (B*H, N, D), got "
+        raise ValueError(f"{name}: expected (B, H, N, D) or (B*H, N, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
     nq, d = q.shape[-2:]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not built; kernels cover {HEAD_DIMS}")
+    if d not in entry.head_dims:
+        raise ValueError(f"{name}: head dim {d} not built; kernels cover {entry.head_dims}")
     if nq == 0 or k.shape[-2] == 0:
-        raise ValueError("flash_attention: empty sequence")
+        raise ValueError(f"{name}: empty sequence")
     if k.shape[:-2] != q.shape[:-2] or k.shape[-1] != d:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
     for t, shape in [(t, q.shape) for t in (q, *q_like)] + [(t, k.shape) for t in (k, v)]:
         if t.device != q.device or t.dtype != q.dtype or t.shape != shape:
-            raise ValueError("flash_attention: q, k, v (and o, dO) must share device and dtype, "
+            raise ValueError(f"{name}: q, k, v (and o, dO) must share device and dtype, "
                              "k and v one shape")
         problem = _heads.layout_problem(t)
         if problem:
-            raise ValueError(f"flash_attention: {problem}")
+            raise ValueError(f"{name}: {problem}")
     bh = q.shape[:-2].numel()
     if slopes is not None and (slopes.shape != (bh,) or slopes.dtype != torch.float32
                                or slopes.device != q.device or not slopes.is_contiguous()):
-        raise ValueError("flash_attention: ALiBi slopes must be contiguous float32 (B*H,) on q's device")
+        raise ValueError(f"{name}: ALiBi slopes must be contiguous float32 (B*H,) on q's device")
 
 
-def _dims(q, k, causal: bool):
-    """(batch, heads, nq, nk, d, dtype, causal, q_off, scale) of the C interface."""
+def _dims(q, k, causal: bool, tables: int):
+    """(batch, heads, nq, nk, d, dtype, causal, q_off, scale, tables) of the C interface."""
     b, h, nq, d = _heads.bhnd(q).shape
     nk = k.shape[-2]
     return (b, h, nq, nk, d, _DTYPES[q.dtype], int(causal), nk - nq if causal else 0,
-            1.0 / math.sqrt(d))
+            1.0 / math.sqrt(d), tables)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def flash_fwd_cuda(q, k, v, o=None, *, causal: bool = False, slopes=None):
-    """O and lse by the kernel. q (B, H, Nq, D), k and v (B, H, Nk, D):
+def _count(entry: Entry, kind: str, slopes) -> None:
+    entry.launches[f"{entry.name}_{kind}"] += 1
+    if slopes is not None:
+        entry.launches[f"{entry.name}_{kind}_alibi"] += 1
+
+
+def flash_fwd_cuda(q, k, v, o=None, *, causal: bool = False, slopes=None, entry: Entry = FLASH):
+    """O and lse by entry's kernel. q (B, H, Nq, D), k and v (B, H, Nk, D):
     views, or (B*H, N, D) arrays; O written into o, or into a new array
     (token-major in bf16); lse (B*H, Nq) float32."""
     (q, k, v), copied = _heads.launchable((q, k, v))
     (dst,) = _heads.outputs([o], [q])
-    _check_cuda(q, k, v, dst, slopes=slopes)
+    _check_cuda(q, k, v, dst, slopes=slopes, entry=entry)
     lse = torch.empty((q.shape[:-2].numel(), q.shape[-2]), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_fwd(
+        err = lib.attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dst.data_ptr(), lse.data_ptr(),
-            _ptr(slopes), *_dims(q, k, causal), _heads.strides((q, k, v, dst)), stream,
+            _ptr(slopes), *_dims(q, k, causal, entry.tables), _heads.strides((q, k, v, dst)), stream,
         )
-    _build.check_launch(err, "flash_attention forward")
-    LAUNCHES["flash_attention_fwd"] += 1
-    LAUNCHES["flash_attention_fwd_alibi"] += slopes is not None
-    return _heads.finish([o], [dst], copied, LAUNCHES, "flash_attention_copied")[0], lse
+    _build.check_launch(err, f"{entry.name} forward")
+    _count(entry, "fwd", slopes)
+    return _heads.finish([o], [dst], copied, entry.launches, f"{entry.name}_copied")[0], lse
 
 
-def flash_bwd_cuda(q, k, v, o, lse, do, grads=None, *, causal: bool = False, slopes=None):
-    """dQ (as q), dK, dV (as k, v) by the kernels; written into grads (three
-    outputs) when given."""
+def flash_bwd_cuda(q, k, v, o, lse, do, grads=None, *, causal: bool = False, slopes=None,
+                   entry: Entry = FLASH):
+    """dQ (as q), dK, dV (as k, v) by entry's kernels; written into grads
+    (three outputs) when given."""
     (q, k, v, o, do), copied = _heads.launchable((q, k, v, o, do))
     outs = list(grads) if grads is not None else [None] * 3
     dsts = _heads.outputs(outs, (q, k, v))
     dq, dk, dv = dsts
-    _check_cuda(q, k, v, o, do, dq, slopes=slopes)
-    _check_cuda(q, dk, dv)
+    _check_cuda(q, k, v, o, do, dq, slopes=slopes, entry=entry)
+    _check_cuda(q, dk, dv, entry=entry)
     if (lse.shape != (q.shape[:-2].numel(), q.shape[-2]) or lse.dtype != torch.float32
             or not lse.is_contiguous()):
-        raise ValueError("flash_attention backward: lse must be contiguous float32 (B*H, Nq)")
+        raise ValueError(f"{entry.name} backward: lse must be contiguous float32 (B*H, Nq)")
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_bwd(
+        err = lib.attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             do.data_ptr(), _ptr(slopes), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), *_dims(q, k, causal), _heads.strides((q, k, v, o, do, dq, dk, dv)),
-            stream,
+            delta.data_ptr(), *_dims(q, k, causal, entry.tables),
+            _heads.strides((q, k, v, o, do, dq, dk, dv)), stream,
         )
-    _build.check_launch(err, "flash_attention backward")
-    LAUNCHES["flash_attention_bwd"] += 1
-    LAUNCHES["flash_attention_bwd_alibi"] += slopes is not None
-    return tuple(_heads.finish(outs, dsts, copied, LAUNCHES, "flash_attention_copied"))
+    _build.check_launch(err, f"{entry.name} backward")
+    _count(entry, "bwd", slopes)
+    return tuple(_heads.finish(outs, dsts, copied, entry.launches, f"{entry.name}_copied"))
 
 
 def flash_fwd(q, k, v, o=None, *, causal: bool = False, slopes=None):

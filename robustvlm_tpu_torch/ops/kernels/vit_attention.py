@@ -2,7 +2,7 @@
 their plain versions.
 
 Counterpart of `robustvlm_tpu/ops/pallas/vit_attention.py`. The kernels in
-`csrc/vit_attention.cu` replace `_vit_attn_fwd` (`_fwd_kernel`) and
+`csrc/attention.cu` replace `_vit_attn_fwd` (`_fwd_kernel`) and
 `_vit_attn_bwd` (`_bwd_kernel`); `attention_fwd_plain` and
 `attention_bwd_plain` compute the same functions in PyTorch:
 
@@ -20,19 +20,19 @@ write O token-major, so neither form copies heads apart or back together
 (`_heads.py` says how). CPU tensors take the plain versions; CUDA tensors
 launch the kernels or raise. The JAX package leaves its kernel off by
 default (`use_flash_default()`); the port launches its kernels for every
-CUDA tensor.
+CUDA tensor. These are the flash kernels with causal off and no slopes,
+launched through `flash_attention`'s CUDA front with the ViT's own tile
+shapes (`VIT`).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 from typing import Tuple
 
 import torch
 
-from robustvlm_tpu_torch.ops.kernels import _build, _heads
+from robustvlm_tpu_torch.ops.kernels import _heads, flash_attention
 
 # launches of the CUDA kernels (not of the plain versions); one backward
 # launch is the dQ kernel followed by the dK/dV kernel. `_copied` counts the
@@ -42,7 +42,8 @@ from robustvlm_tpu_torch.ops.kernels import _build, _heads
 LAUNCHES = {"vit_attention_fwd": 0, "vit_attention_bwd": 0, "vit_attention_copied": 0}
 
 HEAD_DIMS = (64, 80, 88)  # head dims the CUDA kernels are built for (CLIP ViT towers)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the ViT table set of csrc/attention.cu's C interface
+VIT = flash_attention.Entry("vit_attention", 1, HEAD_DIMS, LAUNCHES)
 
 
 # ------------------------------------------------------------- plain versions
@@ -72,97 +73,12 @@ def attention_bwd_plain(q, k, v, o, lse, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# ----------------------------------------------------------------- CUDA path
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    return bind(_build.load("vit_attention"))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a library built from vit_attention.cu."""
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    st = ctypes.POINTER(ctypes.c_longlong)
-    lib.vit_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, st, p]
-    lib.vit_attn_fwd.restype = ctypes.c_int
-    lib.vit_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, st, p]
-    lib.vit_attn_bwd.restype = ctypes.c_int
-    return lib
-
-
-def _check_cuda(*ts: torch.Tensor) -> None:
-    """Raise on what the kernels do not take: (B, H, N, D) views or (B*H,
-    N, D) arrays of one shape, dtype and device, laid out as
-    `_heads.layout_problem` allows."""
-    ref = ts[0]
-    if ref.dtype not in _DTYPES:
-        raise TypeError(f"vit_attention: the kernel takes float32 or bfloat16, got {ref.dtype}")
-    if ref.dim() not in (3, 4):
-        raise ValueError(f"vit_attention: expected (B, H, N, D) or (B*H, N, D), got {tuple(ref.shape)}")
-    if ref.shape[-1] not in HEAD_DIMS:
-        raise ValueError(
-            f"vit_attention: head dim {ref.shape[-1]} not built; kernels cover {HEAD_DIMS}"
-        )
-    for t in ts:
-        if t.device != ref.device or t.dtype != ref.dtype or t.shape != ref.shape:
-            raise ValueError("vit_attention: q, k, v (and o, dO) must share device, dtype and shape")
-        problem = _heads.layout_problem(t)
-        if problem:
-            raise ValueError(f"vit_attention: {problem}")
-
-
-def attention_fwd_cuda(q, k, v, o=None):
-    """O and lse by the kernel. q, k, v: (B, H, N, D) views or (B*H, N, D)
-    arrays; O written into o, or into a new array (token-major in bf16);
-    lse (B*H, N) float32."""
-    (q, k, v), copied = _heads.launchable((q, k, v))
-    (dst,) = _heads.outputs([o], [q])
-    _check_cuda(q, k, v, dst)
-    b, h, n, d = _heads.bhnd(q).shape
-    lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.vit_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dst.data_ptr(), lse.data_ptr(),
-            b, h, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), _heads.strides((q, k, v, dst)), stream,
-        )
-    _build.check_launch(err, "vit_attention forward")
-    LAUNCHES["vit_attention_fwd"] += 1
-    return _heads.finish([o], [dst], copied, LAUNCHES, "vit_attention_copied")[0], lse
-
-
-def attention_bwd_cuda(q, k, v, o, lse, do, grads=None):
-    """dQ, dK, dV by the kernels, laid out as attention_fwd_cuda's operands;
-    written into grads (three outputs) when given."""
-    (q, k, v, o, do), copied = _heads.launchable((q, k, v, o, do))
-    outs = list(grads) if grads is not None else [None] * 3
-    dsts = _heads.outputs(outs, (q, k, v))
-    _check_cuda(q, k, v, o, do, *dsts)
-    b, h, n, d = _heads.bhnd(q).shape
-    if lse.shape != (b * h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError("vit_attention backward: lse must be contiguous float32 (B*H, N)")
-    dq, dk, dv = dsts
-    delta = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.vit_attn_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            b, h, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
-            _heads.strides((q, k, v, o, do, dq, dk, dv)), stream,
-        )
-    _build.check_launch(err, "vit_attention backward")
-    LAUNCHES["vit_attention_bwd"] += 1
-    return tuple(_heads.finish(outs, dsts, copied, LAUNCHES, "vit_attention_copied"))
-
-
 def attention_fwd(q, k, v, o=None):
     """Forward on (B, H, N, D) or (B*H, N, D): the plain version for CPU
     tensors (on contiguous (B*H, N, D) copies), the kernel for CUDA tensors.
     Returns (O, lse); O written into o when given."""
     if q.device.type != "cpu":
-        return attention_fwd_cuda(q, k, v, o)
+        return flash_attention.flash_fwd_cuda(q, k, v, o, entry=VIT)
     out, lse = attention_fwd_plain(*map(_heads.flat, (q, k, v)))
     out = out.view(q.shape)
     return (out if o is None else o.copy_(out)), lse
@@ -171,7 +87,7 @@ def attention_fwd(q, k, v, o=None):
 def attention_bwd(q, k, v, o, lse, do, grads=None):
     """dQ, dK, dV, as attention_fwd; written into grads when given."""
     if q.device.type != "cpu":
-        return attention_bwd_cuda(q, k, v, o, lse, do, grads)
+        return flash_attention.flash_bwd_cuda(q, k, v, o, lse, do, grads, entry=VIT)
     got = attention_bwd_plain(*map(_heads.flat, (q, k, v, o)), lse, _heads.flat(do))
     got = [g.view(t.shape) for g, t in zip(got, (q, k, v))]
     return tuple(got) if grads is None else tuple(d.copy_(g) for d, g in zip(grads, got))

@@ -4,9 +4,9 @@
 
     python3 scripts/compare_attention_torch.py OTHER_ROOT
 
-Each checkout's `vit_attention.cu` and `flash_attention.cu` are compiled
-with that checkout's own headers (copied beside the sources, which quoted
-includes find first) under `build/compare/<side>/`. Every row below is held
+Each checkout's `attention.cu` is compiled with that checkout's own headers
+(copied beside the source, which quoted includes find first) under
+`build/compare/<side>/`. Every row below is held
 against this checkout's plain version (the limits of `chip_smoke.py`; a
 backward against the plain backward of the same O and lse) and timed by
 CUDA-graph replay in turns: other, this, this, other; beside it, the host
@@ -16,9 +16,10 @@ attention forward and backward at ViT-L/14 (B*H = 128, N = 257, D = 64),
 in float32 and bf16; the flash forward (bf16) and backward (float32 and
 bf16) at the LLaVA-1.5-7B LM layer (32, 665, 128, causal). One JSON line
 per side and row, then the card's name and power limit. Exits 1 if either
-side disagrees. Needs a GPU. Both checkouts must share the C interface
-that passes each operand's strides (the one the kernels took when they
-began reading heads out of views).
+side disagrees. Needs a GPU. Both checkouts must share the one source and
+its C interface, `attn_fwd`/`attn_bwd` with the table set: checkouts from
+the merge of the ViT and flash launch paths on (older ones build two
+sources, `vit_attention.cu` and `flash_attention.cu`).
 """
 
 from __future__ import annotations
@@ -33,39 +34,34 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-SOURCES = ("vit_attention", "flash_attention")
-
-
-def build(side: str, root: Path) -> dict:
-    """{source name: bound library} built from `root`'s csrc/."""
-    from robustvlm_tpu_torch.ops.kernels import _build, flash_attention, vit_attention
+def build(side: str, root: Path):
+    """The bound library built from `root`'s csrc/attention.cu."""
+    from robustvlm_tpu_torch.ops.kernels import _build, flash_attention
 
     csrc = root / "robustvlm_tpu_torch" / "csrc"
     out = ROOT / "build" / "compare" / side
     out.mkdir(parents=True, exist_ok=True)
     for header in csrc.glob("*.cuh"):
         shutil.copy(header, out / header.name)
-    built = _build.build_variants({name: (csrc / f"{name}.cu").read_text() for name in SOURCES}, out, "k")
-    binders = {"vit_attention": vit_attention.bind, "flash_attention": flash_attention.bind}
-    return {name: binders[name](lib) for name, (lib, _) in built.items()}
+    (lib, _), = _build.build_variants({0: (csrc / "attention.cu").read_text()}, out, "k").values()
+    return flash_attention.bind(lib)
 
 
 def libraries(other: Path) -> dict:
-    """{"other": ..., "this": ...}: each side's libraries, as `build` makes them."""
+    """{"other": ..., "this": ...}: each side's library, as `build` makes it."""
     return {"other": build("other", other), "this": build("this", ROOT)}
 
 
 def bind(libs: dict, side: str) -> None:
-    """Point the attention wrappers at `side`'s libraries (their `_lib`
-    rebound: the package has no switch)."""
-    from robustvlm_tpu_torch.ops.kernels import flash_attention, vit_attention
+    """Point both attention entry points at `side`'s library (the shared
+    CUDA front's `_lib` rebound: the package has no switch)."""
+    from robustvlm_tpu_torch.ops.kernels import flash_attention
 
-    vit_attention._lib = lambda lib=libs[side]["vit_attention"]: lib
-    flash_attention._lib = lambda lib=libs[side]["flash_attention"]: lib
+    flash_attention._lib = lambda lib=libs[side]: lib
 
 
 def in_turns(libs: dict, pairs: int, measure) -> dict:
-    """measure(side, label) -> a number, with either side's libraries bound:
+    """measure(side, label) -> a number, with either side's library bound:
     once a side as a warm-up, then in pairs (other-this, this-other, ...).
     The numbers per side, their means and the per-pair difference other -
     this with its standard deviation."""
@@ -118,52 +114,33 @@ def main() -> int:
         flash[dtype] = (fq, fk, fv, fdo, fo, flse, (fo, flse),
                         F.flash_bwd_plain(fq, fk, fv, fo, flse, fdo, causal=True))
 
-    def vit_rows(lib):
+    def rows_of(lib, entry, data, causal, fwd_dtypes):
+        """{row name: (launch, outputs, reference, dtype name)} of one entry
+        point: its forward in fwd_dtypes, its backward in both."""
         rows = {}
-        for dtype, (q, k, v, do, o, lse, fwd_ref, bwd_ref) in vit.items():
+        for dtype, (q, k, v, do, o, lse, fwd_ref, bwd_ref) in data.items():
             dname = str(dtype).split(".")[-1]
-            bh, n, d = q.shape
-            code, scale = A._DTYPES[dtype], 1.0 / d ** 0.5
-            out = (torch.empty_like(q), torch.empty(bh, n, device="cuda"))
-            st = H.strides((q, k, v, q, q, q, k, v))  # contiguous: one stride set for all
-            rows[f"vit_attention_fwd[{dname}]"] = (
-                lambda q=q, k=k, v=v, out=out, bh=bh, n=n, d=d, code=code, scale=scale, st=st:
-                lib.vit_attn_fwd(*ptrs(q, k, v, *out), bh, 1, n, d, code, scale, st, stream()),
-                out, fwd_ref, dname)
-            grads = tuple(torch.empty_like(t) for t in (q, k, v))
-            delta = torch.empty(bh, n, device="cuda")
-            rows[f"vit_attention_bwd[{dname}]"] = (
-                lambda q=q, k=k, v=v, o=o, lse=lse, do=do, grads=grads, delta=delta, bh=bh, n=n,
-                d=d, code=code, scale=scale, st=st:
-                lib.vit_attn_bwd(*ptrs(q, k, v, o, lse, do, *grads, delta), bh, 1, n, d, code,
-                                 scale, st, stream()),
-                grads, bwd_ref, dname)
-        return rows
-
-    def flash_rows(lib):
-        rows = {}
-        for dtype, (q, k, v, do, o, lse, fwd_ref, bwd_ref) in flash.items():
-            dname = str(dtype).split(".")[-1]
-            dims = F._dims(q, k, True)
+            dims = F._dims(q, k, causal, entry.tables)
             st = H.strides((q, k, v, q, q, q, k, v))  # contiguous: o, dO, dQ as q; dK, dV as k
-            if dtype == torch.bfloat16:
+            if dtype in fwd_dtypes:
                 out = (torch.empty_like(q), torch.empty(q.shape[:2], device="cuda"))
-                rows[f"flash_attention_fwd[{dname}]"] = (
+                rows[f"{entry.name}_fwd[{dname}]"] = (
                     lambda q=q, k=k, v=v, out=out, dims=dims, st=st:
-                    lib.flash_attn_fwd(*ptrs(q, k, v, *out), None, *dims, st, stream()),
+                    lib.attn_fwd(*ptrs(q, k, v, *out), None, *dims, st, stream()),
                     out, fwd_ref, dname)
             grads = tuple(torch.empty_like(t) for t in (q, k, v))
             delta = torch.empty(q.shape[:2], device="cuda")
-            rows[f"flash_attention_bwd[{dname}]"] = (
+            rows[f"{entry.name}_bwd[{dname}]"] = (
                 lambda q=q, k=k, v=v, o=o, lse=lse, do=do, grads=grads, delta=delta, dims=dims,
                 st=st:
-                lib.flash_attn_bwd(*ptrs(q, k, v, o, lse, do), None, *ptrs(*grads, delta), *dims,
-                                   st, stream()),
+                lib.attn_bwd(*ptrs(q, k, v, o, lse, do), None, *ptrs(*grads, delta), *dims,
+                             st, stream()),
                 grads, bwd_ref, dname)
         return rows
 
-    runs = {side: {**vit_rows(libs[side]["vit_attention"]), **flash_rows(libs[side]["flash_attention"])}
-            for side in libs}
+    runs = {side: {**rows_of(lib, A.VIT, vit, False, (torch.float32, torch.bfloat16)),
+                   **rows_of(lib, F.FLASH, flash, True, (torch.bfloat16,))}
+            for side, lib in libs.items()}
     rows, ok = {}, True
     for side, kernels in runs.items():
         for name, (fn, out, ref, dname) in kernels.items():

@@ -6,15 +6,16 @@ process on one GPU.
     python3 scripts/compare_main_fp32_torch.py OTHER_ROOT [--pairs N]
         [--compute_dtype float32|bfloat16]
 
-Both checkouts' `vit_attention.cu` and `flash_attention.cu` are built as
-`compare_attention_torch.py` builds them (each with its own headers, under
-`build/compare/<side>/`). Each run is `robustbench.main` (the CLI entry
-point) at ViT-L/14 full width, random weights, 8 synthetic images, eps
-2/255, 100 iterations: in float32 (the default) with APGD-CE alone (of
+Both checkouts' `attention.cu` is built as `compare_attention_torch.py`
+builds it (each with its own headers, under `build/compare/<side>/`), so
+both checkouts must have that one source (from the merge of the ViT and
+flash launch paths on; older ones build two sources). Each run is
+`robustbench.main` (the CLI entry point) at ViT-L/14 full width, random
+weights, 8 synthetic images, eps 2/255, 100 iterations: in float32 (the default) with APGD-CE alone (of
 `chip_smoke.py`'s `main[float32]`, which runs APGD-CE then APGD-T), in
-bfloat16 with APGD-T as `main[bfloat16]` runs it. Both attention wrappers'
-libraries are the side's for that run (the modules' `_lib` are rebound
-here; the package has no switch). One warm-up
+bfloat16 with APGD-T as `main[bfloat16]` runs it. Both attention entry
+points launch the side's library for that run (the shared CUDA front's
+`_lib` is rebound here; the package has no switch). One warm-up
 run a side, then N pairs (default 5), other-this and this-other in turn. One JSON
 line per run (the CLI's attack seconds, the wall seconds, the ViT kernels'
 launches), then the means and the per-pair difference other - this with its

@@ -11,7 +11,7 @@ CUDA kernels, matrix products, everything else) with the top kernels by
 name. The full table goes to chiprun_out/profile_apgd_torch.json. Needs a
 GPU; raises without one.
 
-With --other, it builds another checkout's attention sources beside this
+With --other, it builds another checkout's attention source beside this
 one's (as `compare_attention_torch.py` does) and runs the same attack with
 either side's libraries bound in turn, in this one process: first in pairs
 without the profiler (other-this, this-other, ...; ms an evaluation), then
@@ -31,7 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 # the port's kernels that a CLIP attack launches: the attention kernels of
-# vit_attention.cu (and the text tower's flash forward) and the l-inf step
+# attention.cu (the ViT's, and the text tower's flash forward) and the l-inf step
 OURS = ("flash_fwd_tile_kernel", "flash_bwd_dq_tile_kernel", "flash_bwd_dkv_tile_kernel",
         "attn_fwd_wgmma_kernel", "attn_bwd_dq_wgmma_kernel", "attn_bwd_dkv_wgmma_kernel", "linf_step")
 MATMUL = ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")
@@ -132,8 +132,8 @@ def device_rows(prof) -> list:
 
 
 def compare(other: Path, pairs: int, iters: int, dtype: str, attack) -> int:
-    """`attack` with the other checkout's attention libraries and this one's
-    bound in turn (the wrappers' `_lib` rebound)."""
+    """`attack` with the other checkout's attention library and this one's
+    bound in turn (the shared front's `_lib` rebound)."""
     from torch.profiler import ProfilerActivity, profile
 
     sys.path.insert(0, str(ROOT / "scripts"))

@@ -15,8 +15,8 @@ name. The full table goes to chiprun_out/profile_llava_torch.json. Needs a
 GPU; raises without one.
 
 With --other, it profiles nothing: it builds another checkout's attention
-sources beside this one's (as `compare_attention_torch.py` does) and times
-the same attack with either side's libraries bound in turn, in pairs
+source beside this one's (as `compare_attention_torch.py` does) and times
+the same attack with either side's library bound in turn, in pairs
 (other-this, this-other, ...) in this one process, so that both sides
 share the model, the allocator and the host's state. One JSON line: ms an
 iteration per side and run, the means, and the per-pair difference other -
@@ -39,10 +39,10 @@ MATMUL = ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")
 
 
 def group(name: str) -> str:
-    """A kernel's group by its demangled name. Both attention sources launch
-    the shared kernels of attn_f32_tile.cuh, attn_bf16_fwd.cuh and
-    attn_bf16_bwd.cuh: their template arguments (VitF32Tile, VitBf16Fwd,
-    VitBf16Bwd) tell the ViT launches apart."""
+    """A kernel's group by its demangled name. Both attention entry points
+    launch the kernels of attn_f32_tile.cuh, attn_bf16_fwd.cuh and
+    attn_bf16_bwd.cuh (through attention.cu): the ViT table set's template
+    arguments (VitF32Tile, VitBf16Fwd, VitBf16Bwd) tell its launches apart."""
     low = name.lower()
     if any(k in name for k in ("VitF32Tile", "VitBf16Fwd", "VitBf16Bwd")):
         return "vit_kernels"
@@ -134,7 +134,7 @@ def main(argv=None) -> int:
 
 def compare(other: Path, pairs: int, iters: int, attack) -> int:
     """ms an iteration of `attack` with the other checkout's attention
-    libraries and this one's bound in turn (the wrappers' `_lib` rebound)."""
+    library and this one's bound in turn (the shared front's `_lib` rebound)."""
     sys.path.insert(0, str(ROOT / "scripts"))
     import compare_attention_torch as CA
     from chip_smoke import card_line

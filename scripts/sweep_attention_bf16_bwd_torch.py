@@ -3,13 +3,13 @@
 
     python3 scripts/sweep_attention_bf16_bwd_torch.py
 
-The bf16 backward of `flash_attention.cu` and of `vit_attention.cu` is the
-wgmma + TMA pair of `csrc/attn_bf16_bwd.cuh`, each launch with its tile
-shape from two lines: `Bf16Bwd<64|128>` in flash_attention.cu,
-`VitBf16Bwd<64|80|88>` in vit_attention.cu, each (kN keys a tile in dQ, kM
+The bf16 backward of `robustvlm_tpu_torch/csrc/attention.cu` is the wgmma +
+TMA pair of `csrc/attn_bf16_bwd.cuh`, each launch with its tile shape from
+one line of its table set: `Bf16Bwd<64|128>` for the flash launches,
+`VitBf16Bwd<64|80|88>` for the ViT's, each (kN keys a tile in dQ, kM
 queries a tile in dK/dV, kStages TMA stages). This builds one edited copy
-of both sources per entry of VARIANTS (an entry names the head dims whose
-lines it changes, in every file that has them), all nvcc processes at
+of the source per entry of VARIANTS (an entry names the head dims whose
+lines it changes, in every table set that has them), all nvcc processes at
 once, under `build/sweep/`, holds every variant's backward against the
 plain PyTorch version at every bf16 case of `chip_smoke.py` (the flash
 cases and the ViT cases; each gradient within 2e-2 of its largest value;
@@ -20,7 +20,7 @@ and at ViT-g/14 (128, 257, 88), every variant twice in turns. One JSON line per 
 memory per kernel and head dim, max errors (a case that misses names its
 worst tensor), ms. Then SDPA's backward at each shape by graph replay (as
 `chip_smoke.py` times it) and the card's name and power limit. Exits 1 if
-the sources as they stand (variant 0) miss a case. Needs a GPU.
+the source as it stands (variant 0) misses a case. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -33,9 +33,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-LINES = {"flash_attention": r"struct Bf16Bwd<(64|128)> \{ static constexpr int kN = (\d+), kM = (\d+), kStages = (\d+); \};",
-         "vit_attention": r"struct VitBf16Bwd<(64|80|88)> \{ static constexpr int kN = (\d+), kM = (\d+), kStages = (\d+); \};"}
-# {head dim: (kN, kM, kStages)}; {} is the sources as they stand
+# the lines of each table set, by the struct its kernels carry in their names
+LINES = {"Bf16Bwd": r"struct Bf16Bwd<(64|128)> \{ static constexpr int kN = (\d+), kM = (\d+), kStages = (\d+); \};",
+         "VitBf16Bwd": r"struct VitBf16Bwd<(64|80|88)> \{ static constexpr int kN = (\d+), kM = (\d+), kStages = (\d+); \};"}
+# {head dim: (kN, kM, kStages)}; {} is the source as it stands
 VARIANTS = [
     {},
     {64: (64, 64, 2)},
@@ -58,44 +59,48 @@ def smem_bytes(d: int, n: int, m: int, stages: int) -> dict:
 
 
 def build(variants):
-    from robustvlm_tpu_torch.ops.kernels import _build, flash_attention, vit_attention
+    """{variant: (bound library, ptxas report)}, one edited attention.cu each."""
+    from robustvlm_tpu_torch.ops.kernels import _build, flash_attention
 
-    srcs = {name: (_build.CSRC / f"{name}.cu").read_text() for name in LINES}
+    src = (_build.CSRC / "attention.cu").read_text()
     in_source = {}
-    for name, pattern in LINES.items():
-        found = re.findall(pattern, srcs[name])
+    for struct, pattern in LINES.items():
+        found = re.findall(pattern, src)
         if len(found) != pattern.count("|") + 1:
-            raise RuntimeError(f"the tile-shape lines were not found in {name}.cu")
-        in_source.update({int(m[0]): tuple(map(int, m[1:])) for m in found})
+            raise RuntimeError(f"the {struct}<...> lines were not found in attention.cu")
+        in_source[struct] = {int(m[0]): tuple(map(int, m[1:])) for m in found}
 
-    def edited(name, change):
+    def edited(change):
         def line(m):
             n, mm, st = change.get(int(m.group(1))) or m.groups()[1:]
             struct = m.group(0).split("<")[0]
             return f"{struct}<{m.group(1)}> {{ static constexpr int kN = {n}, kM = {mm}, kStages = {st}; }};"
-        return re.sub(LINES[name], line, srcs[name])
+        out = src
+        for pattern in LINES.values():
+            out = re.sub(pattern, line, out)
+        return out
 
-    sources = {(i, name): edited(name, change) for i, change in enumerate(variants) for name in LINES}
-    built = _build.build_variants(sources, ROOT / "build" / "sweep", "bb")
-    binders = {"flash_attention": flash_attention.bind, "vit_attention": vit_attention.bind}
+    built = _build.build_variants({i: edited(change) for i, change in enumerate(variants)},
+                                  ROOT / "build" / "sweep", "bb")
     libs = {}
-    for (i, name), (lib, log) in built.items():
+    for i, (lib, log) in built.items():
         lines = log.splitlines()
-        entry = libs.setdefault(i, ({}, {}))
-        entry[0][name] = binders[name](lib)
+        report = {}
         for k, ln in enumerate(lines):
             m = re.search(r"attn_bwd_(dq|dkv)_wgmma_kernelILi(\d+)E", ln)
-            if m and "Compiling entry" in ln:
+            struct = next((s for s in LINES if f"{len(s)}{s}ILi" in ln), None)
+            d = int(m.group(2)) if m else None
+            if m and "Compiling entry" in ln and struct and d in in_source[struct]:
                 text = " ".join(lines[k + 1:k + 4])
-                d = int(m.group(2))
-                shape = variants[i].get(d) or in_source[d]
+                shape = variants[i].get(d) or in_source[struct][d]
                 regs = re.search(r"Used (\d+) registers", text)
                 spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
-                entry[1][f"{name}: {m.group(1)}<{d}>"] = {
+                report[f"{struct}: {m.group(1)}<{d}>"] = {
                     "shape": list(shape),
                     "registers": int(regs.group(1)) if regs else None,
                     "spill_bytes": [int(spill.group(1)), int(spill.group(2))] if spill else None,
                     "smem_bytes": smem_bytes(d, *shape)[m.group(1)]}
+        libs[i] = (flash_attention.bind(lib), report)
     return libs
 
 
@@ -116,21 +121,21 @@ def main() -> int:
     def stream():  # read at each launch: a graph capture runs on a stream of its own
         return torch.cuda.current_stream().cuda_stream
 
-    # every bf16 case of chip_smoke.py: (label, lib name, inputs, kwargs, reference)
+    # every bf16 case of chip_smoke.py: (label, table set, inputs, extreme, reference)
     cases = []
     for label, bh, nq, nk, d, causal, alibi, extreme in C._flash_cases():
         (q, k, v, do), slopes = C._flash_inputs(bh, nq, nk, d, torch.bfloat16, nq + nk, extreme, alibi)
         o, lse = F.flash_fwd_plain(q, k, v, causal=causal, slopes=slopes)
         ref = F.flash_bwd_plain(q, k, v, o, lse, do, causal=causal, slopes=slopes)
-        cases.append((f"flash {label}", "flash_attention", (q, k, v, o, lse, do, slopes, causal),
+        cases.append((f"flash {label}", F.FLASH.tables, (q, k, v, o, lse, do, slopes, causal),
                       extreme, ref))
     for n, d, extreme in C.ATTN_CASES:
         q, k, v, do = C._qkv(n, torch.bfloat16, seed=n + d, extreme=extreme, d=d)
         o, lse = A.attention_fwd_plain(q, k, v)
-        cases.append((f"vit n={n} d={d}{' extreme' if extreme else ''}", "vit_attention",
+        cases.append((f"vit n={n} d={d}{' extreme' if extreme else ''}", A.VIT.tables,
                       (q, k, v, o, lse, do, None, False), extreme, A.attention_bwd_plain(q, k, v, o, lse, do)))
 
-    def launcher(lib, name, args):
+    def launcher(lib, tables, args):
         q, k, v, o, lse, do, slopes, causal = args
         grads = tuple(torch.empty_like(t) for t in (q, k, v))
         delta = torch.empty(q.shape[:2], device="cuda")
@@ -138,19 +143,12 @@ def main() -> int:
         outs = [t.data_ptr() for t in (*grads, delta)]
         keep = (grads, delta)  # the launch writes them: they live as long as fn
         st = _heads.strides((q, k, v, o, do, *grads))
-        if name == "flash_attention":
-            dims = F._dims(q, k, causal)
-            sl = None if slopes is None else slopes.data_ptr()
+        dims = F._dims(q, k, causal, tables)
+        sl = None if slopes is None else slopes.data_ptr()
 
-            def fn(keep=keep):
-                if lib.flash_attn_bwd(*ptrs, sl, *outs, *dims, st, stream()):
-                    raise RuntimeError("flash backward launch failed")
-        else:
-            bh, n, d = q.shape
-
-            def fn(keep=keep):
-                if lib.vit_attn_bwd(*ptrs, *outs, bh, 1, n, d, 1, 1.0 / d ** 0.5, st, stream()):
-                    raise RuntimeError("vit backward launch failed")
+        def fn(keep=keep):
+            if lib.attn_bwd(*ptrs, sl, *outs, *dims, st, stream()):
+                raise RuntimeError(f"backward launch failed (tables {tables})")
         return fn, grads
 
     def kernel_us(fn, calls: int = 5) -> dict:
@@ -171,10 +169,10 @@ def main() -> int:
         return us
 
     results = {}
-    for i, (bound, report) in libs.items():
+    for i, (lib, report) in libs.items():
         errs, within, repeatable = {}, True, True
-        for label, name, args, extreme, ref in cases:
-            fn, grads = launcher(bound[name], name, args)
+        for label, tables, args, extreme, ref in cases:
+            fn, grads = launcher(lib, tables, args)
             fn()
             first = [g.clone() for g in grads]
             fn()
@@ -195,21 +193,21 @@ def main() -> int:
               VIT: next(c for c in cases if c[0] == "vit n=257 d=64"),
               VIT80: next(c for c in cases if c[0] == "vit n=257 d=80"),
               VIT88: next(c for c in cases if c[0] == "vit n=257 d=88")}
-    for i, (bound, _) in libs.items():
+    for i, (lib, _) in libs.items():
         results[i] = {"ms": {key: [] for key in timing},
-                      "kernel_us": {key: kernel_us(launcher(bound[name], name, args)[0])
-                                    for key, (_, name, args, _, _) in timing.items()}}
+                      "kernel_us": {key: kernel_us(launcher(lib, tables, args)[0])
+                                    for key, (_, tables, args, _, _) in timing.items()}}
     for _ in range(2):  # every variant twice, in turns
-        for i, (bound, _) in libs.items():
-            for key, (_, name, args, _, _) in timing.items():
-                results[i]["ms"][key].append(C.time_graph_ms(launcher(bound[name], name, args)[0]))
+        for i, (lib, _) in libs.items():
+            for key, (_, tables, args, _, _) in timing.items():
+                results[i]["ms"][key].append(C.time_graph_ms(launcher(lib, tables, args)[0]))
     for i, r in results.items():
         print(json.dumps({"variant": i, "change": VARIANTS[i] or "source", **r}), flush=True)
     library = {}
-    for key, (_, name, args, _, _) in timing.items():
+    for key, (_, tables, args, _, _) in timing.items():
         q, k, v, _, _, do, _, causal = args
         bh, n, d = q.shape
-        shape = (1, bh, n, d) if name == "flash_attention" else (8, bh // 8, n, d)
+        shape = (1, bh, n, d) if tables == F.FLASH.tables else (8, bh // 8, n, d)
         q4, k4, v4, do4 = (t.reshape(shape) for t in (q, k, v, do))
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
         library[key] = C.time_graph_fwd_bwd_ms(

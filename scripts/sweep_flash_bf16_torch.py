@@ -5,11 +5,11 @@ attention or (with --vit) the ViT attention.
     python3 scripts/sweep_flash_bf16_torch.py [--vit]
 
 `attn_fwd_wgmma_kernel` (`robustvlm_tpu_torch/csrc/attn_bf16_fwd.cuh`) takes
-its shape from one line per head dim in the source that launches it:
-`Bf16Fwd<64|128>` in `flash_attention.cu`, `VitBf16Fwd<64|80|88>` in
-`vit_attention.cu` (--vit). A line holds kN keys per tile (the N of
-S = Q K^T) and kStages stages of the TMA ring (a block is one warpgroup
-of 64 query rows). This builds one edited copy of the source per entry of
+its shape from one line per head dim of its table set in
+`robustvlm_tpu_torch/csrc/attention.cu`: `Bf16Fwd<64|80|128>` for the
+flash launches, `VitBf16Fwd<64|80|88>` for the ViT's (--vit). A line holds
+kN keys per tile (the N of S = Q K^T) and kStages stages of the TMA ring (a
+block is one warpgroup of 64 query rows). This builds one edited copy of the source per entry of
 the target's variants (an entry names only the lines it changes), all nvcc
 processes at once, under `build/sweep/`, holds every variant's forward
 against the plain PyTorch version at every bf16 case of `chip_smoke.py`
@@ -39,7 +39,7 @@ sys.path.insert(0, str(ROOT))
 # {head dim: (kN, kStages)}; {} is the source as it stands
 TARGETS = {
     "flash": {
-        "source": "flash_attention.cu", "struct": "Bf16Fwd", "dims": (64, 128),
+        "struct": "Bf16Fwd", "dims": (64, 80, 128), "tables": 0,
         "variants": [
             {},
             {64: (64, 3), 128: (64, 3)},
@@ -50,7 +50,7 @@ TARGETS = {
         ],
     },
     "vit": {
-        "source": "vit_attention.cu", "struct": "VitBf16Fwd", "dims": (64, 80, 88),
+        "struct": "VitBf16Fwd", "dims": (64, 80, 88), "tables": 1,
         "variants": [
             {},
             {64: (32, 2), 80: (32, 2), 88: (32, 2)},
@@ -73,13 +73,13 @@ def smem_bytes(d: int, n: int, stages: int) -> int:
 
 
 def build(target: dict):
-    from robustvlm_tpu_torch.ops.kernels import _build, flash_attention, vit_attention
+    from robustvlm_tpu_torch.ops.kernels import _build, flash_attention
 
-    src = (_build.CSRC / target["source"]).read_text()
+    src = (_build.CSRC / "attention.cu").read_text()
     pat = shape_line(target["struct"])
     in_source = {int(m[0]): tuple(map(int, m[1:])) for m in re.findall(pat, src)}
     if set(in_source) != set(target["dims"]):
-        raise RuntimeError(f"the {target['struct']}<...> lines were not found in {target['source']}")
+        raise RuntimeError(f"the {target['struct']}<...> lines were not found in attention.cu")
 
     def edited(change):
         def line(m):
@@ -89,8 +89,8 @@ def build(target: dict):
         return re.sub(pat, line, src)
 
     variants = target["variants"]
-    bind = vit_attention.bind if target["struct"].startswith("Vit") else flash_attention.bind
     sources = {i: edited(change) for i, change in enumerate(variants)}
+    mangled = f"{len(target['struct'])}{target['struct']}ILi"  # this set's kernels only
     libs = {}
     for i, (lib, log) in _build.build_variants(sources, ROOT / "build" / "sweep", "fb").items():
         shapes = {**in_source, **variants[i]}
@@ -98,7 +98,7 @@ def build(target: dict):
         report = {}
         for k, ln in enumerate(lines):
             m = re.search(r"attn_fwd_wgmma_kernelILi(\d+)E", ln)
-            if m and "Compiling entry" in ln:
+            if m and "Compiling entry" in ln and mangled in ln:
                 text = " ".join(lines[k + 1:k + 4])
                 d = int(m.group(1))
                 n, stages = shapes[d]
@@ -109,13 +109,13 @@ def build(target: dict):
                     "registers": int(regs.group(1)) if regs else None,
                     "spill_bytes": [int(spill.group(1)), int(spill.group(2))] if spill else None,
                     "smem_bytes": smem_bytes(d, n, stages)}
-        libs[i] = (bind(lib), report)
+        libs[i] = (flash_attention.bind(lib), report)
     return libs
 
 
 def forward(lib, q, k, v, causal, slopes=None, vit=False):
-    """A closure that launches one variant's forward on these tensors, and
-    its outputs."""
+    """A closure that launches one variant's forward on these tensors (with
+    the ViT's table set when vit), and its outputs."""
     import torch
 
     from robustvlm_tpu_torch.ops.kernels import _heads
@@ -123,19 +123,13 @@ def forward(lib, q, k, v, causal, slopes=None, vit=False):
 
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], device="cuda")
-    strides = _heads.strides((q, k, v, o))
-    if vit:
-        bh, n, d = q.shape
-        args = (bh, 1, n, d, 1, 1.0 / d ** 0.5, strides)
-        launch = lib.vit_attn_fwd
-    else:
-        sl = None if slopes is None else slopes.data_ptr()
-        args = (sl, *F._dims(q, k, causal), strides)
-        launch = lib.flash_attn_fwd
+    sl = None if slopes is None else slopes.data_ptr()
+    args = (sl, *F._dims(q, k, causal, TARGETS["vit" if vit else "flash"]["tables"]),
+            _heads.strides((q, k, v, o)))
 
     def fwd():
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *args,
-                     torch.cuda.current_stream().cuda_stream)
+        err = lib.attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                           *args, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"forward launch failed: cudaError {err}")
 

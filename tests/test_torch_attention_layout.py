@@ -11,6 +11,7 @@ and no bf16 caller's operand is copied.
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -91,6 +92,36 @@ def test_float32_strides_are_those_of_a_contiguous_array():
     `packed()` accepts, (H N D, N D, D)."""
     assert list(_heads.strides([torch.zeros(6, 10, 64)])) == [640, 640, 64]
     assert list(_heads.strides([torch.zeros(2, 3, 10, 64)])) == [1920, 640, 64]
+
+
+# ------------------------------------------------- the names the trace reads
+def test_attention_source_holds_each_entrys_tables_and_is_built_once():
+    """The benchmark's trace readers tell a ViT launch from a flash launch
+    by the tile struct in the kernel's name (`VitBf16*` against `Bf16*`).
+    csrc/attention.cu declares the six tables; each head dim of each entry
+    point has its specialisations in its own set, and the dispatch builds
+    each set at exactly those head dims under the entry's `tables` number;
+    `_build` names every source under csrc/ once."""
+    from robustvlm_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC / "attention.cu").read_text()
+    body = src[src.index("int dispatch("):]
+    body = body[:body.index("\n}\n")]
+    cases = dict(zip(*[iter(re.split(r"tables == (\d+)", body)[1:])] * 2))
+    sets = [(F.FLASH, "F32Tile", "Bf16Fwd", "Bf16Bwd", "FlashTables"),
+            (A.VIT, "VitF32Tile", "VitBf16Fwd", "VitBf16Bwd", "VitTables")]
+    for entry, f32, fwd, bwd, tables in sets:
+        for struct in (f32, fwd, bwd):
+            assert re.search(rf"^struct {struct};$", src, re.M), struct
+        dims = set(entry.head_dims)
+        kinds = re.findall(rf"^struct {f32}<(\d+), (kFwd|kDq|kDkv)> {{", src, re.M)
+        assert sorted(kinds) == sorted((str(d), k) for d in dims for k in ("kFwd", "kDq", "kDkv"))
+        for struct in (fwd, bwd):
+            assert {int(d) for d in re.findall(rf"^struct {struct}<(\d+)> {{", src, re.M)} == dims
+        built = re.findall(r"case (\d+): return f\((\w+)\{\}", cases[str(entry.tables)])
+        assert sorted(built) == sorted((str(d), tables) for d in dims)
+    assert sorted(_build.KERNELS) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert len(set(_build.KERNELS)) == len(_build.KERNELS)
 
 
 # --------------------------------------------------------------- CPU, bitwise
@@ -218,7 +249,7 @@ def test_cuda_view_launches_are_the_contiguous_launch_bitwise(label, kind, b, h,
     only the addressing changed. No operand is copied."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    fwd, bwd = ((A.attention_fwd_cuda, A.attention_bwd_cuda) if kind == "vit"
+    fwd, bwd = ((A.attention_fwd, A.attention_bwd) if kind == "vit"
                 else (F.flash_fwd_cuda, F.flash_bwd_cuda))
     copied = "vit_attention_copied" if kind == "vit" else "flash_attention_copied"
     counters = A.LAUNCHES if kind == "vit" else F.LAUNCHES
@@ -251,7 +282,7 @@ def test_cuda_callers_autograd_copies_nothing(label, kind, b, h, n, d, packed, c
     qkv, views, dout, kw = _card_site(kind, b, h, n, d, packed, causal, alibi, seed=n + d + 1)
     slopes = kw["slopes"][:h].clone() if alibi else None
     flat = [t.reshape(b * h, n, d).contiguous() for t in (*views, _heads.heads_of(dout, h))]
-    fwd, bwd = ((A.attention_fwd_cuda, A.attention_bwd_cuda) if kind == "vit"
+    fwd, bwd = ((A.attention_fwd, A.attention_bwd) if kind == "vit"
                 else (F.flash_fwd_cuda, F.flash_bwd_cuda))
     oc, lsec = fwd(*flat[:3], **kw)
     gc = bwd(*flat[:3], oc, lsec, flat[3], **kw)

@@ -2,6 +2,7 @@
 package, and its entry points never carry on on the CPU by themselves."""
 
 import ast
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -69,7 +70,7 @@ def test_resolve_device_raises_without_gpu(monkeypatch):
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """The CUDA wrappers check before they launch; the checks run on any
     tensor, so they are exercised here."""
-    from robustvlm_tpu_torch.ops.kernels import attack_step, vit_attention
+    from robustvlm_tpu_torch.ops.kernels import attack_step, flash_attention, vit_attention
 
     x = torch.zeros(2, 8)
     with pytest.raises(TypeError):
@@ -78,23 +79,28 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         attack_step._check_cuda([x, x, x, torch.zeros(2, 9)], torch.zeros(2))
     with pytest.raises(ValueError):
         attack_step._check_cuda([x, x, x, x], torch.zeros(3))
+    # the shared check with the ViT table set: its head dims, its prefix
+    vit = functools.partial(flash_attention._check_cuda, entry=vit_attention.VIT)
     q = torch.zeros(4, 10, 64)
-    with pytest.raises(ValueError, match="head dim"):
-        vit_attention._check_cuda(torch.zeros(4, 10, 16))
+    with pytest.raises(ValueError, match="vit_attention: head dim"):
+        vit(*(torch.zeros(4, 10, 16) for _ in range(3)))
+    with pytest.raises(ValueError, match="vit_attention: head dim 128"):
+        vit(*(torch.zeros(4, 10, 128) for _ in range(3)))
     with pytest.raises(TypeError):
-        vit_attention._check_cuda(q.half(), q.half(), q.half())
+        vit(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="contiguous"):
-        vit_attention._check_cuda(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
+        vit(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
     with pytest.raises(ValueError, match="aligned"):  # 16-byte vector loads
-        vit_attention._check_cuda(q, torch.zeros(q.numel() + 1)[1:].view(q.shape), q)
-    vit_attention._check_cuda(q, q, q)
-
-    from robustvlm_tpu_torch.ops.kernels import flash_attention
+        vit(q, torch.zeros(q.numel() + 1)[1:].view(q.shape), q)
+    vit(q, q, q)
+    vit(*(torch.zeros(4, 10, 88) for _ in range(3)))
 
     kv = torch.zeros(4, 30, 128)
     qf = torch.zeros(4, 10, 128)
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="flash_attention: head dim"):
         flash_attention._check_cuda(torch.zeros(4, 10, 96), torch.zeros(4, 30, 96), torch.zeros(4, 30, 96))
+    with pytest.raises(ValueError, match="flash_attention: head dim 88"):
+        flash_attention._check_cuda(*(torch.zeros(4, 10, 88) for _ in range(3)))
     with pytest.raises(TypeError):
         flash_attention._check_cuda(qf.half(), kv.half(), kv.half())
     with pytest.raises(ValueError, match="disagree"):
