@@ -899,6 +899,121 @@ def check_bias_act_relu(peaks: dict) -> list:
     return out
 
 
+# OpenFlamingo-9B's LayerNorms under the benchmark's caption attack (64
+# images, 34-token prompts, one 256-token image each): MPT's bias-free and
+# the cross-attention's over the (64 x 34, 4096) bf16 text, the Perceiver's
+# float32 ones over the media (64 x 256, 1024: `ln_media`) and the latents
+# (64 x 64, 1024: `ln_lat`, the feed-forward's, the final one)
+FLAMINGO_LN_CASES = (("mpt", 64 * 34, 4096, "bfloat16", False),
+                     ("perceiver_media", 64 * 256, 1024, "float32", True),
+                     ("perceiver_latents", 64 * 64, 1024, "float32", True))
+
+
+def _ln_chain(x, g, b, eps: float = 1e-5):
+    """The chain MPT's `layer_norm` and Flamingo's `_ln` run on a CPU tensor
+    (and ran on the card before the kernels), bias-free when b is None."""
+    import torch
+
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * g.float()
+    return (y if b is None else y + b.float()).to(x.dtype)
+
+
+def check_layer_norm_flamingo(peaks: dict) -> list:
+    """The LayerNorm kernels at OpenFlamingo's shapes (FLAMINGO_LN_CASES)
+    against the chain its modules ran before them (bf16: forward within 2
+    ulp of a value plus 2^-16 of its terms, x - mean's too; float32:
+    1e-5 of the largest; dx within 2e-2 or 1e-5 of its largest), then timed
+    as `check_block_ops` times the ViT's: the kernels, the chain forward and
+    its autograd backward (`unfused_ms`) by graph replay over operands
+    rotated past the L2, and PyTorch's own `F.layer_norm` (`library_ms`,
+    its gain and bias in x's dtype, as `check_block_ops` times it). The media
+    row also times the forward on the view `ln_media` reads (the ViT's
+    tokens less CLS: every row 257 x 1024 values apart per image, so the
+    front copies it first) and that copy alone. Each row takes the launches
+    of its case in one loss and pixel gradient of the smoke's OpenFlamingo
+    run (`flamingo_layer_norm_step`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from robustvlm_tpu_torch.ops.kernels import block_ops as K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    out = []
+    for case, rows, w, dname, with_bias in FLAMINGO_LN_CASES:
+        dt = getattr(torch, dname)
+        itm = torch.empty((), dtype=dt).element_size()
+        x = (torch.randn(rows, w, generator=gen, device=dev) * 2.0 + 0.5).to(dt)
+        dy = torch.randn(rows, w, generator=gen, device=dev).to(dt)
+        g = torch.randn(w, generator=gen, device=dev) * 0.1 + 1.0
+        b = torch.randn(w, generator=gen, device=dev) * 0.1 if with_bias else None
+        y, mean, rstd = K.layer_norm_fwd_cuda(x, g, b, 1e-5)
+        y_ref = _ln_chain(x, g, b)
+        dx = K.layer_norm_bwd_cuda(x, g, mean, rstd, dy, False)[0]
+        xr = x.clone().requires_grad_(True)
+        dx_ref, = torch.autograd.grad(_ln_chain(xr, g, b), xr, dy)
+        # the float32 terms of each value, x - mean's own included: bias-free,
+        # the mean's rounding is many ulp of a value near it
+        xf = x.float()
+        terms = (xf.abs() + mean[:, None].abs()) * rstd[:, None] * g.abs()
+        if b is not None:
+            terms = terms + b.abs()
+        if dname == "bfloat16":
+            fwd_used = _bf16_ulps_used(y, y_ref, terms)
+            fwd_ok, bwd_tol = fwd_used <= 1, 2e-2
+        else:
+            fwd_used = _share_of_max(y, y_ref) / 1e-5
+            fwd_ok, bwd_tol = fwd_used <= 1, 1e-5
+        dx_err = _share_of_max(dx, dx_ref)
+        ok = fwd_ok and dx_err <= bwd_tol
+        emit({"phase": "kernels", "kernel": "block_ops", "case": f"layer_norm[openflamingo-9b,{case}]",
+              "dtype": dname, "rows": rows, "width": w, "bias": with_bias,
+              "forward_allowance_used": fwd_used, "dx_share_of_max_err": dx_err, "ok": ok})
+        if not ok:
+            raise AssertionError(f"layer_norm at OpenFlamingo's {case} shape disagrees with the chain")
+
+        fwd_bytes = 2 * rows * w * itm + rows * 8 + 2 * w * 4
+        bwd_bytes = 3 * rows * w * itm + rows * 8 + w * 4
+        sets = _rotating(lambda: (x.clone(), dy.clone(), mean.clone(), rstd.clone()), fwd_bytes)
+        xg = x.clone().requires_grad_(True)
+        gl, bl = g.to(dt), None if b is None else b.to(dt)
+        timed = {
+            "layer_norm_fwd": {
+                "ms": time_linf_graph_ms(lambda xa, *_: K.layer_norm_fwd_cuda(xa, g, b, 1e-5), sets),
+                "plain_ms": time_linf_graph_ms(lambda xa, *_: _ln_chain(xa, g, b), sets),
+                "library_ms": time_linf_graph_ms(lambda xa, *_: F.layer_norm(xa, (w,), gl, bl), sets)},
+            "layer_norm_bwd": {
+                "ms": time_linf_graph_ms(lambda xa, da, m, r: K.layer_norm_bwd_cuda(xa, g, m, r, da, False),
+                                         sets),
+                "unfused_ms": time_graph_fwd_bwd_ms(lambda a: _ln_chain(a, g, b), (xg,), dy)["library_ms"],
+                **time_graph_fwd_bwd_ms(lambda a: F.layer_norm(a, (w,), gl, bl), (xg,), dy)},
+        }
+        if case == "perceiver_media":
+            # the media as `encode_vision` hands it over: tokens 1..256 of 257
+            tok_sets = _rotating(lambda: torch.randn(64, 257, w, generator=gen, device=dev), fwd_bytes)
+            timed["layer_norm_fwd"]["ms_strided_view"] = time_linf_graph_ms(
+                lambda t: K.layer_norm_fwd_cuda(t[:, 1:], g, b, 1e-5), [(t,) for t in tok_sets])
+            timed["layer_norm_fwd"]["view_copy_ms"] = time_linf_graph_ms(
+                lambda t: t[:, 1:].contiguous(), [(t,) for t in tok_sets])
+        for name, t in timed.items():
+            bnd, by = bound_ms(fwd_bytes if name == "layer_norm_fwd" else bwd_bytes, 0, dname, peaks)
+            out.append({"name": f"{name}[{dname}, openflamingo-9b {case}]", "route": "cuda",
+                        "counter": f"{name}[{case}]", "source": "robustvlm_tpu_torch/csrc/block_ops.cu",
+                        "replaces": None, "dtype": dname, "shape": [rows, w], "bias": with_bias,
+                        "bound_ms": bnd, "bound_by": by, "bound_share": bnd / t["ms"], **t,
+                        "operand_sets": len(sets), "launches_from": "flamingo",
+                        "launches_per": "loss and pixel gradient",
+                        "timed_by": {"ms": "graph, operands rotated past the L2",
+                                     "plain_ms": "graph, operands rotated past the L2",
+                                     "library_ms": ("graph, operands rotated past the L2" if name == "layer_norm_fwd"
+                                                    else "graph: forward + autograd.grad less the forward"),
+                                     "unfused_ms": "graph: the chain's forward + autograd.grad less the forward"}})
+    return out
+
+
 def check_flash_opt(peaks: dict, batch: int = BLIP2_LM_BATCH, n: int = BLIP2_LM_LEN) -> list:
     """The causal flash forward and backward at head dim 80, OPT-2.7B in
     BLIP-2: `batch` images x 32 heads, n positions; float32 and bf16. The
@@ -1604,6 +1719,7 @@ def phase_kernels(peaks: dict) -> list:
     rows += check_block_ops(peaks)
     rows += check_flash_opt(peaks)
     rows += check_bias_act_relu(peaks)
+    rows += check_layer_norm_flamingo(peaks)
     rows += check_strided_attention(peaks)
     return rows
 
@@ -3616,6 +3732,81 @@ def flamingo_prompt_lens() -> list:
     return lens
 
 
+@contextlib.contextmanager
+def flamingo_own_layer_norms(num_latents: int):
+    """OpenFlamingo's own LayerNorms counted for the duration, apart from the
+    vision tower's (CLIP's): MPT's `layer_norm` ("mpt") and Flamingo's `_ln`
+    in the cross-attention blocks ("xattn", (B, T, D) text) and in the
+    Perceiver over its media ("perceiver_media") or its `num_latents`
+    latents ("perceiver_latents"). seen["fwd"] counts the calls by case,
+    seen["bwd"] those whose output's gradient a backward computed, and
+    seen["launched"] the `layer_norm_fwd` launches the calls made."""
+    import collections
+
+    from robustvlm_tpu_torch.models.flamingo import model as PF
+    from robustvlm_tpu_torch.models.mpt import model as PM
+    from robustvlm_tpu_torch.ops.kernels import block_ops
+
+    seen = {"fwd": collections.Counter(), "bwd": collections.Counter(), "launched": 0}
+    real_mpt, real_ln = PM.layer_norm, PF._ln
+
+    def count(case, fn, x, *args):
+        before = block_ops.LAUNCHES["layer_norm_fwd"]
+        y = fn(x, *args)
+        seen["launched"] += block_ops.LAUNCHES["layer_norm_fwd"] - before
+        seen["fwd"][case] += 1
+        if y.requires_grad:
+            y.register_hook(lambda _: seen["bwd"].update([case]))
+        return y
+
+    def ln(x, g, b):
+        case = ("xattn" if x.dim() == 3 else
+                "perceiver_latents" if x.shape[-2] == num_latents else "perceiver_media")
+        return count(case, real_ln, x, g, b)
+
+    PM.layer_norm = lambda x, g, eps: count("mpt", real_mpt, x, g, eps)
+    PF._ln = ln
+    try:
+        yield seen
+    finally:
+        PM.layer_norm, PF._ln = real_mpt, real_ln
+
+
+def flamingo_layer_norm_step(adapter, x) -> tuple:
+    """One loss and pixel gradient of a Flamingo adapter at x (1, 3, H, W),
+    its own LayerNorms counted (`flamingo_own_layer_norms`). Returns the
+    checks that every call ran the kernels at the counts its configuration
+    implies (2 L + 1 MPT, 2 per cross-attention block, 3 per Perceiver layer
+    + 1; a gradient for each but the first block's attention LN, which reads
+    the token embeddings, and the first layer's latent LN, which reads the
+    frozen latents), one forward launch a call and one backward launch a
+    gradient (the tower's LayerNorms all lie on the pixels' path, so they
+    launch as many backward as forward), and the counts by case as launch
+    keys (`layer_norm_fwd[mpt]`, ...)."""
+    import torch
+
+    cfg = adapter.cfg
+    n_lm, n_x, n_r = cfg.mpt.n_layers, cfg.n_xattn, cfg.resampler_depth
+    want_fwd = {"mpt": 2 * n_lm + 1, "xattn": 2 * n_x, "perceiver_media": n_r, "perceiver_latents": 2 * n_r + 1}
+    want_bwd = {**want_fwd, "xattn": 2 * n_x - 1, "perceiver_latents": 2 * n_r}
+    xa = x.clone().requires_grad_(True)
+    with flamingo_own_layer_norms(cfg.num_latents) as seen:
+        before = _launches()
+        loss = adapter(xa)
+        mid = _launches()
+        torch.autograd.grad(loss.sum(), xa)
+        after = _launches()
+    torch.cuda.synchronize()
+    tower = mid["layer_norm_fwd"] - before["layer_norm_fwd"] - seen["launched"]
+    own_bwd = after["layer_norm_bwd"] - mid["layer_norm_bwd"] - tower
+    checks = {"own_layer_norm_calls": dict(seen["fwd"]) == want_fwd,
+              "own_layer_norm_gradients": dict(seen["bwd"]) == want_bwd,
+              "one_forward_launch_a_call": seen["launched"] == sum(want_fwd.values()),
+              "one_backward_launch_a_gradient": own_bwd == sum(want_bwd.values())}
+    keys = {f"layer_norm_{way}[{case}]": n for way in ("fwd", "bwd") for case, n in seen[way].items()}
+    return checks, {**keys, "tower_layer_norm_fwd": tower, "own_layer_norm_bwd_launches": own_bwd}
+
+
 # ------------------------------------------------------------------ phase 18
 FLAMINGO_ITERS = 25  # cut from 100 for the smoke's time (PR 12)
 
@@ -3672,6 +3863,8 @@ def phase_flamingo() -> dict:
                 "in_box": bool(x_adv.min() >= 0.0 and x_adv.max() <= 1.0),
                 "caption": state["best_outputs"][iid], "prompt_tokens": int(adapter._lang.shape[1]),
             })
+    # the last image's prompt is set: OpenFlamingo's own LayerNorms in one loss and gradient
+    ln_checks, ln_launches = flamingo_layer_norm_step(adapter, torch.from_numpy(x[None]).cuda())
     del adapter, seen
     gc.collect()
     torch.cuda.empty_cache()
@@ -3686,6 +3879,7 @@ def phase_flamingo() -> dict:
         # the ALiBi kernel rows were checked and timed at this length
         "prompt_tokens_as_kernel_rows": [r["prompt_tokens"] for r in per_image] == flamingo_prompt_lens(),
         "iterations": result["attack_iters"] == FLAMINGO_ITERS * len(per_image) == 2 * FLAMINGO_ITERS,
+        **ln_checks,
     }
     lens = [r["prompt_tokens"] for r in per_image]
     emit({"phase": "flamingo", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation.main",
@@ -3694,11 +3888,11 @@ def phase_flamingo() -> dict:
           "attack_iters": result["attack_iters"],
           "ms_per_apgd_iter": result["attack_s"] / result["attack_iters"] * 1e3,
           "peak_mem_gib": peak, "cider": result["cider"], "per_image": per_image,
-          "eps": FLAMINGO_EPS / 255.0, "launches": launches, "card": card_line(),
-          "checks": checks, "ok": all(checks.values())})
+          "eps": FLAMINGO_EPS / 255.0, "launches": launches, "layer_norm_step_launches": ln_launches,
+          "card": card_line(), "checks": checks, "ok": all(checks.values())})
     if not all(checks.values()):
         raise AssertionError(f"flamingo checks failed: {checks}")
-    return launches
+    return {**launches, **ln_launches}
 
 
 # ------------------------------------------------------------------ phase 19
@@ -3760,6 +3954,7 @@ def phase_flamingo_ensemble() -> dict:
         torch.autograd.grad(adapter(xa).sum(), xa)
 
     fp32_ms = time_ms(fp32_iteration, iters=3, warmup=1)
+    ln_checks, ln_launches = flamingo_layer_norm_step(adapter, x)
     del adapter, seen, models, built
     gc.collect()
     torch.cuda.empty_cache()
@@ -3777,6 +3972,7 @@ def phase_flamingo_ensemble() -> dict:
         "cider": isinstance(result["cider"], float) and math.isfinite(result["cider"]),
         "launched": _launched(total, FLAMINGO_KERNELS),
         "float32_stage_launched_alibi": _launched(full, FLAMINGO_KERNELS[3:]),
+        **{f"float32_{k}": v for k, v in ln_checks.items()},
     }
     emit({"phase": "flamingo_ensemble", "entry": "robustvlm_tpu_torch.vlm_eval.run_evaluation."
           "evaluate_captioning", "argv": argv, "threshold": "-inf", "model": "openflamingo-9b",
@@ -3784,7 +3980,8 @@ def phase_flamingo_ensemble() -> dict:
           "wall_s": wall, "attack_s": result["attack_s"], "attack_iters": result["attack_iters"],
           "float32_ms_per_loss_and_grad": fp32_ms, "weights_allocated_gib": allocated / 2**30,
           "held_tensor_gib": sum(held.values()) / 2**30, "peak_mem_gib": peak,
-          "launches": total, "launches_float32_stage": full, "linf": linf,
+          "launches": total, "launches_float32_stage": full,
+          "float32_layer_norm_step_launches": ln_launches, "linf": linf,
           "cider": result["cider"], "card": card_line(), "checks": checks,
           "ok": all(checks.values())})
     if not all(checks.values()):
@@ -5932,6 +6129,32 @@ def card_line() -> str:
     return line()
 
 
+def attach_launches(rows: list, runs: dict) -> None:
+    """Each kernel row takes the launches of the run of its path and dtype
+    (`runs`: the phases' launch counts by run name): the CLIP kernels from
+    the CLI's CLIP runs; flash in bf16 from the LLaVA eval, in float32 from
+    the ensemble's float32 stage (at head dim 64 from the float32 CLIP run's
+    text tower; at the robust tower's length from `llava_rob`; with ALiBi
+    from the OpenFlamingo runs or LLaVA-MPT's cut, named in the row);
+    q4_matmul from serving (a batch-1 step from `serve`, 4 rows from
+    `serve_continuous`, 8 from `serve_speculate`); the ViT kernels at head
+    dim 88 from the benchmark phases' ViT-g-14 runs and at the 336 px tower
+    from `serve_continuous`; OpenFlamingo's LayerNorms from the `flamingo`
+    run's counted loss and gradient (named in the row)."""
+    for r in rows:
+        kernel = r.pop("counter", r["name"].split("[")[0])
+        if "launches_from" in r:
+            src = r["launches_from"]
+        elif kernel.startswith("q4_matmul"):
+            src = "serve"
+        elif kernel.startswith("flash"):
+            src = "llava" if r["dtype"] == "bfloat16" else "llava_ensemble[float32 stage]"
+        else:
+            src = f"main[{r['dtype']}]"
+        r["launches"] = runs[src].get(kernel, 0)
+        r["launches_from"] = src
+
+
 def main() -> int:
     try:
         import torch
@@ -5996,27 +6219,7 @@ def main() -> int:
     runs["parallel"] = phase_parallel()
     runs["parallel_tp"] = phase_parallel_tp()
     phase_bench()
-    # Each row takes the launches of the run of its path and dtype: the CLIP
-    # kernels from the CLI's CLIP runs; flash in bf16 from the LLaVA eval,
-    # in float32 from the ensemble's float32 stage (at head dim 64 from the
-    # float32 CLIP run's text tower; at the robust tower's length from
-    # `llava_rob`; with ALiBi from the OpenFlamingo runs or LLaVA-MPT's cut,
-    # named in the row); q4_matmul from serving (a batch-1 step from `serve`,
-    # 4 rows from `serve_continuous`, 8 from `serve_speculate`); the ViT
-    # kernels at head dim 88 from the benchmark phases' ViT-g-14 runs and at
-    # the 336 px tower from `serve_continuous` (named in the row).
-    for r in rows:
-        kernel = r.pop("counter", r["name"].split("[")[0])
-        if "launches_from" in r:
-            src = r["launches_from"]
-        elif kernel.startswith("q4_matmul"):
-            src = "serve"
-        elif kernel.startswith("flash"):
-            src = "llava" if r["dtype"] == "bfloat16" else "llava_ensemble[float32 stage]"
-        else:
-            src = f"main[{r['dtype']}]"
-        r["launches"] = runs[src].get(kernel, 0)
-        r["launches_from"] = src
+    attach_launches(rows, runs)
     emit({"kernels": rows})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -18,10 +18,12 @@ Counterpart of `robustvlm_tpu/models/flamingo/model.py`:
 
 The Perceiver and cross-attention are plain matmuls and a float32 softmax,
 as in JAX (einsums outside any kernel there): the cross-attention mask is
-neither causal nor ALiBi, so no attention kernel encodes it. The Perceiver
-runs in float32 whatever the compute dtype (its input, the vision tower's
-tokens, is float32 and so are its weights, as in JAX); a model held in
-bfloat16 (`half_state`) keeps it and every 1-D parameter in float32.
+neither causal nor ALiBi, so no attention kernel encodes it. Their
+LayerNorms (`_ln`) are `block_ops.layer_norm`: one-pass kernels on a CUDA
+tensor. The Perceiver runs in float32 whatever the compute dtype (its
+input, the vision tower's tokens, is float32 and so are its weights, as in
+JAX); a model held in bfloat16 (`half_state`) keeps it and every 1-D
+parameter in float32.
 
 Split over the mesh's `model` axis (`parallel/mesh.shard_params`): the
 ViT-L/14 tower and the MPT blocks as their modules say; each Perceiver and
@@ -52,6 +54,7 @@ from robustvlm_tpu_torch.models.mpt.model import (
     mpt_forward,
 )
 from robustvlm_tpu_torch.ops.image import normalize_clip, resize_bicubic
+from robustvlm_tpu_torch.ops.kernels import block_ops
 from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, local, row_parallel
 
 
@@ -231,10 +234,8 @@ def half_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 # ------------------------------------------------------------------ functions
 def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + 1e-5) * g.float() + b.float()).to(x.dtype)
+    """LayerNorm with float32 statistics, cast back to x's dtype."""
+    return block_ops.layer_norm(x, g, b, 1e-5)
 
 
 def _col(h: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """MPT decoder (the OpenFlamingo-9B language model) as PyTorch modules.
 
 Counterpart of `robustvlm_tpu/models/mpt/model.py`: pre-LN blocks
-(LayerNorm with float32 statistics), fused Wqkv attention with an ALiBi
+(LayerNorm with float32 statistics and no bias: `block_ops.layer_norm`,
+one-pass kernels on a CUDA tensor), fused Wqkv attention with an ALiBi
 bias and no positional embeddings, a 4x exact-GELU MLP and the LM head tied
 to the token embedding, float32 logits. Bias-free throughout, as every MPT
 configuration here is (the JAX config's `no_bias=True`). Parameter
@@ -51,6 +52,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from robustvlm_tpu_torch.models.llama.model import _cache_write
+from robustvlm_tpu_torch.ops.kernels import block_ops
 from robustvlm_tpu_torch.ops.kernels.flash_attention import flash_attention_qkv
 from robustvlm_tpu_torch.ops.quant import qmatmul
 from robustvlm_tpu_torch.parallel.tensor_parallel import column_parallel, local, row_parallel
@@ -93,11 +95,8 @@ def alibi_slopes(n_heads: int, alibi_bias_max: float = 8.0) -> np.ndarray:
 
 
 def layer_norm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
-    """Bias-free LayerNorm with float32 statistics."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + eps) * g.float()).to(x.dtype)
+    """Bias-free LayerNorm with float32 statistics, cast back to x's dtype."""
+    return block_ops.layer_norm(x, g, None, eps)
 
 
 def _attn_masked(q, k, v, slopes: torch.Tensor, *, q_positions: torch.Tensor,

@@ -1,6 +1,7 @@
 """The transformer block's LayerNorm and bias + activation, forward and
 backward: one-pass CUDA kernels and their plain versions (the CLIP towers,
-BLIP-2's EVA tower and OPT).
+BLIP-2's EVA tower, its Q-Former and OPT; OpenFlamingo's MPT, Perceiver and
+cross-attention LayerNorms).
 
 No Pallas kernel is replaced: the JAX package leaves both chains to XLA,
 which fuses them. PyTorch runs them eagerly as chains of elementwise
@@ -9,7 +10,9 @@ kernels, each moving a float32 copy of the activation; the kernels in
 says how). What they compute:
 
 - `layer_norm(x, g, b, eps)`: LayerNorm over the last dim with float32
-  statistics (biased variance), the output in x's dtype. The backward reads
+  statistics (biased variance), the output in x's dtype; `b=None` is the
+  bias-free form (MPT's), which the kernels run with a zero bias (x_hat g +
+  0 is x_hat g in float32) and no bias gradient. The backward reads
   x, dy and g and the forward's per-row float32 mean and rstd, and writes
   dx = rstd (dy g - mean(dy g) - x_hat mean(dy g x_hat)); dg = sum dy x_hat
   and db = sum dy only when g or b requires grad, summed in a fixed order.
@@ -56,13 +59,15 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-def layer_norm_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm with float32 statistics regardless of activation dtype."""
+def layer_norm_plain(x: torch.Tensor, g: torch.Tensor, b: Optional[torch.Tensor],
+                     eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with float32 statistics regardless of activation dtype; no
+    bias added when b is None."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * g.float() + b.float()).to(x.dtype)
+    y = (xf - mu) * torch.rsqrt(var + eps) * g.float()
+    return (y if b is None else y + b.float()).to(x.dtype)
 
 
 def act_name(act) -> str:
@@ -192,7 +197,21 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(-1, w)
 
 
+# float32 zeros by (width, device): the bias a bias-free LayerNorm hands the
+# forward kernel
+_ZERO_BIAS = {}
+
+
+def _zero_bias(width: int, device: torch.device) -> torch.Tensor:
+    z = _ZERO_BIAS.get((width, device))
+    if z is None:
+        z = _ZERO_BIAS[(width, device)] = torch.zeros(width, dtype=torch.float32, device=device)
+    return z
+
+
 def layer_norm_fwd_cuda(x, g, b, eps: float):
+    if b is None:
+        b = _zero_bias(x.shape[-1], x.device)
     _check("layer_norm", x, (g, b))
     w = x.shape[-1]
     if w > MAX_WIDTH:
@@ -280,9 +299,9 @@ def _cast(grad: Optional[torch.Tensor], like: torch.Tensor) -> Optional[torch.Te
 
 
 class LayerNormFn(torch.autograd.Function):
-    """`layer_norm` differentiable in x, g and b; saves x, g and the per-row
-    float32 mean and rstd. The kernels for CUDA tensors, the plain versions
-    (analytic backward) otherwise."""
+    """`layer_norm` differentiable in x, g and b (b may be None: no bias);
+    saves x, g and the per-row float32 mean and rstd. The kernels for CUDA
+    tensors, the plain versions (analytic backward) otherwise."""
 
     @staticmethod
     def forward(ctx, x, g, b, eps):
@@ -326,9 +345,10 @@ def _route(name: str, t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def layer_norm(x: torch.Tensor, g: torch.Tensor, b: Optional[torch.Tensor],
+               eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last dim with float32 statistics regardless of the
-    activation dtype; the output in x's dtype."""
+    activation dtype; the output in x's dtype. b None: no bias."""
     if not _route("layer_norm", x):
         return layer_norm_plain(x, g, b, eps)
     return LayerNormFn.apply(x, g, b, eps)

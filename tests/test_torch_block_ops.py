@@ -1,6 +1,6 @@
 """The block kernels' LayerNorm and bias + activation
-(robustvlm_tpu_torch.ops.kernels.block_ops): the CLIP block's, and the ReLU
-form OPT's MLP takes.
+(robustvlm_tpu_torch.ops.kernels.block_ops): the CLIP block's, the ReLU
+form OPT's MLP takes, and the bias-free LayerNorm of OpenFlamingo's MPT.
 
 On the CPU: `layer_norm`, `bias_act` and `Block.forward` give, bit for bit,
 what the block computed before the kernels (frozen copies below), forward
@@ -271,6 +271,50 @@ def test_bias_act_fn_float32_matches_autograd(quick, with_bias):
         torch.testing.assert_close(a, r, atol=1e-5 * float(r.abs().max()), rtol=0)
 
 
+# OpenFlamingo's three LayerNorm calls: MPT's bias-free one and the
+# cross-attention's over the bf16 text at width 4096, and the Perceiver's in
+# float32 at width 1024
+FLAMINGO_CALLS = [(torch.bfloat16, 4096, False), (torch.bfloat16, 4096, True), (torch.float32, 1024, True)]
+FLAMINGO_IDS = ["bf16_4096_bias_free", "bf16_4096_bias", "fp32_1024_bias"]
+
+
+def _old_layer_norm_or_bias_free(x, g, b, eps=1e-5):
+    """`_old_layer_norm`, and with b None the same arithmetic without the
+    bias add."""
+    if b is not None:
+        return _old_layer_norm(x, g, b, eps)
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * g.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype,w,bias", FLAMINGO_CALLS, ids=FLAMINGO_IDS)
+def test_layer_norm_fn_bias_free_cpu(dtype, w, bias):
+    """On the CPU, `layer_norm` and `LayerNormFn` with b=None give the
+    bias-free arithmetic bit for bit (with b, the old one), and the
+    Function's analytic backward agrees with autograd through that
+    arithmetic: dx within BWD_TOL of x's dtype, dg and db (float32) within
+    1e-5 of their largest. No bias gradient is returned without a bias."""
+    x, g, b, dy = _inputs((3, 5, w), dtype, 14 + bias)
+    b = b if bias else None
+    kernels.reset_launches()
+    assert _bits_equal(B.layer_norm(x, g, b), _old_layer_norm_or_bias_free(x, g, b))
+    assert _bits_equal(B.LayerNormFn.apply(x, g, b, 1e-5), _old_layer_norm_or_bias_free(x, g, b))
+    outs = []
+    for fn in (lambda *a: B.LayerNormFn.apply(*a, 1e-5), _old_layer_norm_or_bias_free):
+        xf, gf = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+        bf = None if b is None else b.clone().requires_grad_(True)
+        y = fn(xf, gf, bf)
+        outs.append(torch.autograd.grad(y, [t for t in (xf, gf, bf) if t is not None], dy))
+    got, ref = outs
+    assert len(got) == len(ref) == 2 + bias
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype
+        assert _close(a, r, r.dtype), (a.dtype, float((a.float() - r.float()).abs().max()))
+    assert all(kernels.launches()[k] == 0 for k in B.LAUNCHES)
+
+
 # ------------------------------------------------------------------ the card
 LN_WIDTHS = (64, 100, 768, 1024, 1408, 4096, 8192)  # 100: one value at a time (no 16-byte words)
 ACT_WIDTHS = (256, 100, 3072, 4096, 6144)  # the blocks' hidden widths, and a ragged one
@@ -318,8 +362,55 @@ def _ln_terms(x, g, b, mean, rstd):
     return (xh * g).abs() + b.abs()
 
 
+def _ln_sum_terms(x, g, b, mean, rstd):
+    """(|x| + |mean|) rstd |g| + |b|: the float32 terms of each output with
+    x - mean's own. A bias-free output is a product of x - mean, so where x
+    sits near its row's mean the rounding of the mean (a few 2^-24 of it)
+    is many ulp of the small result, which `_ln_terms` covers only through
+    |b|."""
+    t = (x.float().abs() + mean.abs().unsqueeze(-1)) * rstd.unsqueeze(-1) * g.abs()
+    return t if b is None else t + b.abs()
+
+
 def _close(got, ref, dtype) -> bool:
     return bool((got.float() - ref.float()).abs().max() <= BWD_TOL[dtype] * ref.float().abs().max())
+
+
+def record_layer_norms(monkeypatch) -> list:
+    """Route `block_ops.layer_norm` through a recorder for the test: each
+    call's x (a detached copy), g, b and eps, in call order; the call itself
+    runs as before."""
+    calls, real = [], B.layer_norm
+
+    def rec(x, g, b, eps=1e-5):
+        calls.append((x.detach().clone(), g.detach(), None if b is None else b.detach(), eps))
+        return real(x, g, b, eps)
+
+    monkeypatch.setattr(B, "layer_norm", rec)
+    return calls
+
+
+def card_call_matches_cpu(call, cpu_fn, seed: int) -> bool:
+    """One recorded call, run on the card through `LayerNormFn` (the
+    kernels), against `cpu_fn(x, g, b, eps)`, the calling module's CPU
+    arithmetic, on the same inputs moved to the CPU: the forward within 2
+    bf16 ulp plus 2^-16 of `_ln_sum_terms` (`_forward_ok`; float32: 1e-5
+    of the largest), and dx for a random dy through autograd within
+    BWD_TOL."""
+    x, g, b, eps = call
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(seed)).to(x.dtype)
+    outs = []
+    for dev in (x.device, torch.device("cpu")):
+        xa = x.detach().to(dev).requires_grad_(True)
+        ga, ba = g.to(dev), None if b is None else b.to(dev)
+        y = B.LayerNormFn.apply(xa, ga, ba, eps) if dev.type == "cuda" else cpu_fn(xa, ga, ba, eps)
+        outs.append((y.detach().cpu(), torch.autograd.grad(y, xa, dy.to(dev))[0].cpu()))
+    (y, dx), (y_ref, dx_ref) = outs
+    xc, gc = x.cpu().float(), g.cpu()
+    mean = xc.mean(-1)
+    rstd = torch.rsqrt(xc.var(-1, unbiased=False) + eps)
+    terms = _ln_sum_terms(xc, gc, None if b is None else b.cpu(), mean, rstd)
+    return _forward_ok(y, y_ref, terms) and _close(dx, dx_ref, x.dtype)
 
 
 def _check_layer_norm(x, g, b, dy, dtype):
@@ -368,6 +459,32 @@ def test_cuda_layer_norm_matches_plain(dtype, w, rows):
     dx, dg, db = B.layer_norm_bwd_cuda(x, g, mean, rstd, dy, False)
     assert dg is None and db is None
     assert torch.equal(dx, B.layer_norm_bwd_cuda(x, g, mean, rstd, dy, True)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,w,bias", FLAMINGO_CALLS, ids=FLAMINGO_IDS)
+def test_cuda_layer_norm_flamingo_calls(dtype, w, bias):
+    """OpenFlamingo's three calls through `layer_norm` and autograd at their
+    row counts (64 images x 34 text tokens; 64 x 64 latents): one launch
+    each way; the forward within 2 bf16 ulp plus 2^-16 of `_ln_sum_terms`
+    (float32: 1e-5 of the largest) and dx within BWD_TOL of the plain
+    versions. Bias-free, the kernel gives, bit for bit, its launch with an
+    explicit zero bias; no bias gradient comes back."""
+    _cuda()
+    x, g, b, dy = _card_inputs(64 * 34 if w == 4096 else 64 * 64, w, dtype, w + bias)
+    b = b if bias else None
+    xg, gg = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    before = dict(B.LAUNCHES)
+    y = B.layer_norm(xg, gg, b)
+    grads = torch.autograd.grad(y, (xg, gg), dy)
+    assert B.LAUNCHES["layer_norm_fwd"] == before["layer_norm_fwd"] + 1
+    assert B.LAUNCHES["layer_norm_bwd"] == before["layer_norm_bwd"] + 1
+    y_ref, mean_ref, rstd_ref = B.layer_norm_fwd_plain(x, g, b, 1e-5)
+    assert _forward_ok(y, y_ref, _ln_sum_terms(x, g, b, mean_ref, rstd_ref))
+    dx_ref, dg_ref, _ = B.layer_norm_bwd_plain(x, g, mean_ref, rstd_ref, dy, True)
+    assert _close(grads[0], dx_ref, dtype) and _close(grads[1], dg_ref, torch.float32)
+    if b is None:
+        assert torch.equal(y, B.layer_norm_fwd_cuda(x, g, torch.zeros_like(g), 1e-5)[0])
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ from robustvlm_tpu_torch.models.clip.model import CLIP
 from robustvlm_tpu_torch.models.flamingo import convert as PC
 from robustvlm_tpu_torch.models.flamingo import import_torch as PI
 from robustvlm_tpu_torch.models.flamingo import model as PF
+from test_torch_mpt import _jnp, _torch_like, _within_rounding
 
 torch.set_num_threads(1)
 
@@ -251,6 +252,101 @@ def test_checkpoint_import_equals_jax(pair, layout):
         assert torch.equal(got[k], ref[k].reshape(got[k].shape)), k
     PF.Flamingo.from_state(PCFG, got)  # loads strictly
     assert torch.equal(got["mpt.tok_embedding"], of["lang_encoder.transformer.wte.weight"])
+
+
+# `_ln`'s calls: the cross-attention's over the bf16 text at MPT-7B's width,
+# the Perceiver's in float32 at ViT-L/14's, the float32 stage's text (rows
+# cut to 15)
+LN_CALLS = [(torch.bfloat16, 4096), (torch.float32, 1024), (torch.float32, 4096)]
+
+
+@pytest.mark.parametrize("dtype,w", LN_CALLS, ids=["bf16_4096", "fp32_1024", "fp32_4096"])
+def test_ln_cpu_matches_jax(dtype, w):
+    """On the CPU, `_ln` (`block_ops`' plain LayerNorm) is the JAX model's
+    `_ln` to float32 rounding: the forward and the gradients in x, g and
+    b."""
+    gen = torch.Generator().manual_seed(w)
+    x = (torch.randn(3, 5, w, generator=gen) * 2 + 0.5).to(dtype)
+    g = 1 + 0.1 * torch.randn(w, generator=gen)
+    b = 0.1 * torch.randn(w, generator=gen)
+    dy = torch.randn(3, 5, w, generator=gen).to(dtype)
+    xa, ga, ba = (t.clone().requires_grad_(True) for t in (x, g, b))
+    y = PF._ln(xa, ga, ba)
+    got = (y.detach(), *torch.autograd.grad(y, (xa, ga, ba), dy))
+    yj, vjp = jax.vjp(JF._ln, _jnp(x), _jnp(g), _jnp(b))
+    for a, r in zip(got, (yj, *vjp(_jnp(dy)))):
+        assert _within_rounding(a, _torch_like(r, a))
+
+
+# `test-tiny` at head dims the attention kernels build: MPT 2 heads of 64,
+# the vision tower 1 head of 64
+CARD_CFG = dataclasses.replace(
+    PCFG, mpt=dataclasses.replace(PCFG.mpt, d_model=128, n_heads=2),
+    vision=dataclasses.replace(PCFG.vision, vision=dataclasses.replace(PCFG.vision.vision, heads=1)))
+
+
+def _tiny_on_card(dev):
+    """CARD_CFG in bf16 (`half_state`) on the card: gates opened to 0.5 and
+    every 1-D parameter moved off its init, so the LayerNorms' gains and
+    biases count."""
+    state = PC.init_random_state(CARD_CFG, 0, device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for k, v in state.items():
+        if k.endswith("_gate"):
+            v.fill_(0.5)
+        elif v.dim() == 1:
+            v.add_(0.2 * torch.randn(v.shape, generator=gen, device=dev))
+    return PF.Flamingo.from_state(CARD_CFG, state)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_layer_norms_on_the_kernels(monkeypatch):
+    """`test-tiny` on the card (CARD_CFG), the per-sample loss and its pixel
+    gradient in bf16: every LayerNorm of MPT (2 L + 1, bias-free), the cross-attention
+    blocks (2 each, bf16) and the Perceiver (3 a layer + 1, float32) goes
+    through `block_ops.layer_norm`, one launch each forward and one each
+    backward but for the two that read no gradient (the first block's
+    attention LN reads the token embeddings, the first Perceiver layer's
+    latent LN the frozen latents); each call on its own inputs within the
+    kernels' limits of its module's CPU arithmetic."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from test_torch_block_ops import card_call_matches_cpu, record_layer_norms
+
+    from robustvlm_tpu_torch.models.mpt import model as PM
+    from robustvlm_tpu_torch.ops import kernels
+    from robustvlm_tpu_torch.ops.image import normalize_clip
+
+    dev = torch.device("cuda")
+    model = _tiny_on_card(dev)
+    vx = torch.from_numpy(_vision(7)).to(dev)
+    lang, mask = (torch.from_numpy(a).to(dev) for a in _lang())
+    kernels.reset_launches()
+    with torch.no_grad():  # the vision tower's own LayerNorms (CLIP's route)
+        model.vision(normalize_clip(vx.flatten(0, 2)), compute_dtype=torch.bfloat16, tokens=True)
+    tower = kernels.launches()["layer_norm_fwd"]
+    calls = record_layer_norms(monkeypatch)
+    tv = vx.clone().requires_grad_(True)
+    kernels.reset_launches()
+    loss = PF.flamingo_per_sample_loss(model, tv, lang, lang, mask, compute_dtype=torch.bfloat16)
+    fwd = kernels.launches()
+    (grad,) = torch.autograd.grad(loss.sum(), tv)
+    both = kernels.launches()
+    cfg = CARD_CFG
+    n = (2 * cfg.mpt.n_layers + 1) + 2 * cfg.n_xattn + (3 * cfg.resampler_depth + 1)
+    assert len(calls) == n and fwd["layer_norm_fwd"] == tower + n and fwd["layer_norm_bwd"] == 0
+    assert both["layer_norm_bwd"] == tower + n - 2
+    assert sum(b is None for _, _, b, _ in calls) == 2 * cfg.mpt.n_layers + 1
+    assert sum(x.dtype == torch.float32 for x, _, _, _ in calls) == 3 * cfg.resampler_depth + 1
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
+
+    monkeypatch.undo()  # stop recording: the CPU route calls `block_ops.layer_norm` too
+
+    def cpu_fn(x, g, b, eps):
+        return PM.layer_norm(x, g, eps) if b is None else PF._ln(x, g, b)
+
+    for i, call in enumerate(calls):
+        assert card_call_matches_cpu(call, cpu_fn, i), i
 
 
 def test_random_init_keeps_zero_gates_and_half_layout():

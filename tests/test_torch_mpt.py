@@ -8,6 +8,8 @@ attention on the CPU, the port's full-sequence path the plain version of
 its flash kernel with the ALiBi slopes, so the comparison holds the port's
 ALiBi function."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -130,6 +132,86 @@ def test_layer_hook_runs_before_each_block(pair):
     assert [i for i, _ in seen] == list(range(CFG.n_layers))
     torch.testing.assert_close(seen[0][1], model.tok_embedding[torch.from_numpy(toks)], rtol=0, atol=0)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+def _within_rounding(a: torch.Tensor, r: torch.Tensor) -> bool:
+    """a within float32 rounding of r: 1e-6 of r's largest magnitude, and
+    one ulp of each value more where both are bf16."""
+    rf = r.float()
+    tol = 1e-6 * rf.abs().max()
+    if a.dtype == torch.bfloat16:
+        tol = tol + torch.exp2(torch.floor(torch.log2(rf.abs().clamp_min(2.0 ** -126))) - 7)
+    return a.dtype == r.dtype and bool(((a.float() - rf).abs() <= tol).all())
+
+
+def _jnp(t: torch.Tensor):
+    return jnp.asarray(t.detach().float().numpy(), jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+
+
+def _torch_like(r, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(np.array(r, np.float32)).to(like.dtype)
+
+
+# MPT's LayerNorm calls: the bf16 attack at MPT-7B's width, the ensemble's
+# float32 stage, and float32 at width 1024 (rows cut to 15)
+LN_CALLS = [(torch.bfloat16, 4096), (torch.float32, 4096), (torch.float32, 1024)]
+
+
+@pytest.mark.parametrize("dtype,w", LN_CALLS, ids=["bf16_4096", "fp32_4096", "fp32_1024"])
+def test_layer_norm_cpu_matches_jax(dtype, w):
+    """On the CPU, `layer_norm` (`block_ops`' plain LayerNorm with no bias)
+    is the JAX model's bias-free LayerNorm to float32 rounding: the forward
+    and the gradients in x and g."""
+    gen = torch.Generator().manual_seed(w)
+    x = (torch.randn(3, 5, w, generator=gen) * 2 + 0.5).to(dtype)
+    g = 1 + 0.1 * torch.randn(w, generator=gen)
+    dy = torch.randn(3, 5, w, generator=gen).to(dtype)
+    xa, ga = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    y = PM.layer_norm(xa, ga, PCFG.norm_eps)
+    got = (y.detach(), *torch.autograd.grad(y, (xa, ga), dy))
+    yj, vjp = jax.vjp(lambda a, s: JM.layer_norm(a, s, None, PCFG.norm_eps), _jnp(x), _jnp(g))
+    for a, r in zip(got, (yj, *vjp(_jnp(dy)))):
+        assert _within_rounding(a, _torch_like(r, a))
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_layer_norms_on_the_kernels(monkeypatch):
+    """`test-tiny` in bf16 on the card at a head dim the flash kernels build
+    (2 heads of 64), forward and the gradient in the input embeddings:
+    2 L + 1 LayerNorm launches each way, through `block_ops.layer_norm` with
+    no bias, each within the kernels' limits of this module's CPU arithmetic
+    on its own inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from test_torch_block_ops import card_call_matches_cpu, record_layer_norms
+
+    from robustvlm_tpu_torch.models.mpt.convert import init_random_state
+    from robustvlm_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(PCFG, d_model=128, n_heads=2)
+    state = init_random_state(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for v in state.values():
+        if v.dim() == 1:  # gains off 1, so the checks see them
+            v.add_(0.2 * torch.randn(v.shape, generator=gen, device=dev))
+    model = PM.MPT.from_state(cfg, state)
+    calls = record_layer_norms(monkeypatch)
+    emb = (0.5 * torch.randn(2, 9, cfg.d_model, generator=gen, device=dev)).requires_grad_(True)
+    kernels.reset_launches()
+    logits = PM.mpt_forward(model, inputs_embeds=emb, compute_dtype=torch.bfloat16)
+    fwd = kernels.launches()
+    (grad,) = torch.autograd.grad((logits * torch.randn_like(logits)).sum(), emb)
+    both = kernels.launches()
+    n = 2 * cfg.n_layers + 1
+    assert len(calls) == fwd["layer_norm_fwd"] == n and fwd["layer_norm_bwd"] == 0
+    assert both["layer_norm_bwd"] == n
+    assert all(b is None and x.dtype == torch.bfloat16 for x, _, b, _ in calls)
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
+    monkeypatch.undo()  # stop recording: the CPU route calls `block_ops.layer_norm` too
+    for i, call in enumerate(calls):
+        assert card_call_matches_cpu(call, lambda x, g, b, eps: PM.layer_norm(x, g, eps), i), i
+    assert all(x.shape[-1] == cfg.d_model for x, _, _, _ in calls)
 
 
 def test_hf_importer_equals_jax_importer():
